@@ -1,0 +1,35 @@
+"""Absolute trajectory error (host numpy): a copy of rso/metrics/ate.py
+`ate_rmse`, which cannot be imported here because `rso` loads jax."""
+from __future__ import annotations
+
+import numpy as np
+
+
+def _umeyama_align(est: np.ndarray, gt: np.ndarray, with_scale: bool = False):
+    """SE(3) (optionally Sim(3)) alignment of est onto gt positions [N,3]."""
+    mu_e = est.mean(0)
+    mu_g = gt.mean(0)
+    ec = est - mu_e
+    gc = gt - mu_g
+    C = gc.T @ ec / len(est)
+    U, D, Vt = np.linalg.svd(C)
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    R = U @ S @ Vt
+    s = np.trace(np.diag(D) @ S) / ((ec ** 2).sum() / len(est)) if with_scale else 1.0
+    return s, R, mu_g - s * R @ mu_e
+
+
+def ate_rmse(est_poses: np.ndarray, gt_poses: np.ndarray,
+             align: bool = True, with_scale: bool = False) -> float:
+    """RMSE of aligned position error. Inputs are [N,4,4] camera-to-world."""
+    est = np.asarray(est_poses)[:, :3, 3]
+    gt = np.asarray(gt_poses)[:, :3, 3]
+    n = min(len(est), len(gt))
+    est, gt = est[:n], gt[:n]
+    if align:
+        s, R, t = _umeyama_align(est, gt, with_scale)
+        est = (s * (R @ est.T)).T + t
+    err = est - gt
+    return float(np.sqrt((err ** 2).sum(axis=1).mean()))
