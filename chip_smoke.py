@@ -6,21 +6,35 @@
 Phases, each of which raises (and so exits non-zero) on failure:
   1. device: CUDA must be available; prints the card's name and power limit;
   2. build: compiles rso_torch/csrc/*.cu with nvcc and loads the library;
-  3. kernels: each CUDA kernel against its plain PyTorch twin on the card, at
-     the main path's shapes, with the tolerance stated beside each check, and
-     the median time of kernel and twin (CUDA events);
-  4. engine: 30 frames of the bench scene (1241x376, 2000 points, speed 0.8,
-     fx 718.856, baseline 0.5371) through Engine(..., device="cuda"), with
-     every kernel's launch counter reset just before and read just after;
-     then the first 5 steps again on the CPU (the plain path) from the same
-     states, held to the GPU's counts, error codes and poses (the
-     tolerances are stated beside the constants below).
-The last two lines are a JSON object describing the kernels and the JSON
-result line {"ok": true, "device": {...}}.
+  3. kernels: each of the six CUDA kernels against its plain PyTorch twin on
+     the card, at the engine paths' shapes, with the tolerance stated beside
+     each check; the median time of kernel, twin and, where one PyTorch call
+     computes the same function, that call (CUDA events); and the kernel's
+     bound, the least time the card could take for the same work;
+  4. engine, default path: 30 frames of the bench scene (1241x376, 2000
+     points, speed 0.8, fx 718.856, baseline 0.5371) through
+     Engine(synthetic_config()) on the card, with every kernel's launch
+     counter reset just before and read just after; then the first 5 steps
+     again on the CPU (the plain path) from the same states, held to the
+     GPU's counts, error codes and poses;
+  5. engine, descriptor path: FAST_ORB + DESC_RBR + DESC_WIN with oriented
+     descriptors (3 octaves, K = 512/256/128), 30 bench frames; the valid
+     count and ATE held to bounds set from the reference's own CPU run; 3
+     steps again on the CPU;
+  6. engine, dense-SAD path: synthetic_config() with use_fused_match=False,
+     10 bench frames; 9 sad_matrix launches a frame, no fused ones, and every
+     StepResult equal to phase 4's for the same frames;
+  7. engine, the remaining modes: ORB + DESC_BF + DESC_BF (one octave) and
+     KLT + SAD + SAD, 5 bench frames each, then again on the CPU.
+Each engine phase resets the launch counters just before it and reads them
+just after.  The last three lines are a JSON object describing the kernels,
+the card's name and power limit, and the JSON result line
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -30,19 +44,49 @@ REPO = Path(__file__).resolve().parent
 H, W = 376, 1241
 N_FRAMES = 30
 N_CPU_FRAMES = 5
+N_DESC_CPU_FRAMES = 3
+N_DENSE_FRAMES = 10
+N_MODE_FRAMES = 5
 # The CPU plain path against the GPU, one step from the same state each.
-# Kernels 1-3 are bit-exact with their twins, so detected and matched
-# counts, error codes and validity must be equal.  Kernel 4 is another
-# algorithm than its twin (LDL^T vs Cholesky, the reference's own TPU/CPU
-# pairing) and the RANSAC gate is 1 px Sampson: a track on the gate may fall
-# either way, so the tracked counts may differ by TRACK_SLACK.  With the same
-# stage-5 set, poses differ by float32 rounding of the solve's sums only
-# (POSE_ATOL_SAME_SET); when one borderline track changed the set (~30
+# Kernels 1-3, 5 and 6 are bit-exact with their twins, so detected and
+# matched counts, error codes and validity must be equal.  Kernel 4 is
+# another algorithm than its twin (LDL^T vs Cholesky, the reference's own
+# TPU/CPU pairing), and RANSAC's f32 matmuls (normal equations, Sampson
+# scoring, refit) sum in another order on cuBLAS than on the CPU: among its
+# 256 hypotheses, near-ties in the inlier count can then pick another
+# winner, and the 1 px Sampson gate takes other tracks.  So the tracked
+# counts may differ by TRACK_SLACK or a share TRACK_SHARE of the GPU's
+# count, whichever is larger (measured: 55 vs 50 on the KLT path's frame 4,
+# 54 with kernel 4 swapped for its twin on the card, so not kernel 4
+# alone).  With the same stage-5 set, poses differ by float32 rounding of
+# the solve's sums only (POSE_ATOL_SAME_SET); when the set changed (~30-60
 # inliers on the bench scene), the solve moves by ~1 cm of the 0.8 m step
 # (POSE_ATOL_OTHER_SET, rotvec rad and translation m).
 TRACK_SLACK = 2
+TRACK_SHARE = 0.12
 POSE_ATOL_SAME_SET = 1e-4
 POSE_ATOL_OTHER_SET = 3e-2
+# Oriented descriptors: the orientation's moments are exact on both sides,
+# but atan2, cos and sin differ in the last ulp between the CPU and CUDA, so
+# a sample pair that nearly ties can flip a bit (measured against the
+# reference: 3 bits in 2048 descriptors).  A flipped bit may move one stereo
+# match: the CPU re-run allows DESC_MATCH_SLACK matches per octave, and the
+# descriptors of phase 3 a share DESC_BIT_SHARE of differing bits.
+DESC_MATCH_SLACK = 2
+DESC_BIT_SHARE = 1e-3
+# Phase 5's bounds, from the reference's own CPU run of the same 30 frames
+# and configuration (rso.engine.Engine, JAX on the CPU:
+# `JAX_PLATFORMS=cpu PYTHONPATH=. python tests/_torch_modes.py
+# fast_orb_rbr_win 30`): 28 valid frames, ATE 0.0835021 m.  The port may
+# lose up to 3 more frames and reach twice the ATE: free-running
+# trajectories part through ulp-level differences.
+DESC_REF_VALID = 28
+DESC_REF_ATE = 0.0835021
+# Peak rates of the H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
+# outside the tensor cores, counted for every scalar operation of the
+# kernels (integer ones included), and device memory.
+PEAK_OPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def _nvidia_smi() -> str:
@@ -70,6 +114,14 @@ def _median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return times[len(times) // 2]
 
 
+def _bound(ops: float, n_bytes: float):
+    """(bound_ms, bound_by): the larger of operations over the f32 peak and
+    bytes (each input read once, each output written once) over the memory
+    rate."""
+    t_ops, t_bytes = ops / PEAK_OPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def _bench_scene(n_frames: int):
     from rso_torch.geometry import StereoCamera
     from rso_torch.synthetic import make_sequence
@@ -80,8 +132,22 @@ def _bench_scene(n_frames: int):
                          speed=0.8)
 
 
+def _exact(name, a, b, what):
+    """Kernel and twin outputs must be equal bit for bit."""
+    import torch
+
+    for x, y in zip(a, b):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name} {what}: kernel != twin")
+    d = max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+    print(f"kernel {name} {what}: bit-exact (max|d| {d})", flush=True)
+    return d
+
+
 def check_kernels(seq, dev):
-    """Phase 3: every kernel against its twin at the main path's shapes."""
+    """Phase 3: every kernel against its twin at the engine paths' shapes.
+    Returns {name: dict(max_abs_err, ms, plain_ms, library_ms, bound_ms,
+    bound_by, ...)}."""
     import numpy as np
     import torch
 
@@ -90,11 +156,20 @@ def check_kernels(seq, dev):
     from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
     from rso_torch.frontend.stereo_match import match_left_right
     from rso_torch.frontend.track import _gather_right
-    from rso_torch.synthetic import synthetic_config
+    from rso_torch.kernels.stereo_fused import _best_second
+    from rso_torch.synthetic import mode_config, synthetic_config
 
     cfg = synthetic_config()
     rng = np.random.default_rng(0)
     report = {}
+
+    def entry(err, ms, plain, library, ops, n_bytes, shape, note=None):
+        bound_ms, bound_by = _bound(ops, n_bytes)
+        out = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=library,
+                   bound_ms=bound_ms, bound_by=bound_by, shape=shape)
+        if note:
+            out["library_note"] = note
+        return out
 
     # ---- kernel 1: all three octaves of a bench frame ------------------------
     pyr = build_pyramid(to_grayscale(torch.from_numpy(seq.frames[0][0]).to(dev)), 3)
@@ -118,23 +193,33 @@ def check_kernels(seq, dev):
         print(f"kernel corner_response {tuple(img.shape)}: corners "
               f"{int(fin.sum())}, max|d| {d}", flush=True)
         err = max(err, d)
-    ms = _median_ms(lambda: K.corner_response_cuda(pyr[0], th))
-    plain = _median_ms(lambda: K.corner_response_torch(pyr[0], th))
-    report["corner_response"] = (err, ms, plain)
+    n_px = pyr[0].numel()
+    # ~190 operations a pixel, counted from the twin's arithmetic: FAST's 32
+    # compares and 32 bit packs, ~50 for the two arc tests, 4 for the
+    # gradients, 3 products, 48 box-sum adds, 3 means and ~10 for the
+    # eigenvalue; one f32 image read, one written
+    report["corner_response"] = entry(
+        err, _median_ms(lambda: K.corner_response_cuda(pyr[0], th)),
+        _median_ms(lambda: K.corner_response_torch(pyr[0], th)), None,
+        190 * n_px, 8 * n_px, list(pyr[0].shape),
+        "no single PyTorch call computes FAST + Shi-Tomasi")
 
     # ---- kernels 2, 3: real features of bench frames 0 and 1 per octave -----
     Ks = octave_k_slots(cfg.detect.orb_nfeats, 3, cfg.tpu.max_kps_per_octave)
-    frames = []
+    desc_params = mode_config("fast_orb_rbr_win", upright=False).detect
+    frames, descs = [], []
     for f in (0, 1):
         pl_ = build_pyramid(to_grayscale(torch.from_numpy(seq.frames[f][0]).to(dev)), 3)
         pr_ = build_pyramid(to_grayscale(torch.from_numpy(seq.frames[f][1]).to(dev)), 3)
-        octs = []
+        octs, dsc = [], []
         for o in range(3):
             fl = detect_features(pl_[o], cfg.detect, Ks[o], th, False)
             fr = detect_features(pr_[o], cfg.detect, Ks[o], th, False)
             m = match_left_right(fl, fr, cfg.lr_match, W >> o, 0.0)
             octs.append((fl, fr, m))
+            dsc.append(detect_features(pl_[o], desc_params, Ks[o], th, True))
         frames.append(octs)
+        descs.append(dsc)
 
     def stereo_args(o):
         fl, fr, _ = frames[0][o]
@@ -170,45 +255,44 @@ def check_kernels(seq, dev):
         ok = lambda: t(r.random(k) > 0.1, torch.bool)  # noqa: E731
         return t(base), t(np.clip(pert, 0, 255)), t(xy), t(xy2), ok(), ok()
 
-    def exact(name, a, b, what):
-        for x, y in zip(a, b):
-            if not torch.equal(x, y):
-                raise AssertionError(f"{name} {what}: kernel != twin")
-        d = max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
-        print(f"kernel {name} {what}: bit-exact (max|d| {d})", flush=True)
-        return d
-
+    K0, P = Ks[0], 64
     err = 0.0
     for o in range(3):
         a = stereo_args(o)
-        err = max(err, exact("stereo_sad_fused", K.stereo_sad_fused_cuda(*a, **stereo_kw(o)),
-                             K.stereo_sad_fused_torch(*a, **stereo_kw(o)), f"K={Ks[o]}"))
+        err = max(err, _exact("stereo_sad_fused", K.stereo_sad_fused_cuda(*a, **stereo_kw(o)),
+                              K.stereo_sad_fused_torch(*a, **stereo_kw(o)), f"K={Ks[o]}"))
     pl, pr, xl, xr, okl, okr = odd_case(257, 1)
     kw = dict(max_y_diff=1.0, max_disp=100.0, max_distance=6000.0)
-    err = max(err, exact("stereo_sad_fused",
-                         K.stereo_sad_fused_cuda(pl, pr, xl, xr, okl, okr, **kw),
-                         K.stereo_sad_fused_torch(pl, pr, xl, xr, okl, okr, **kw),
-                         "K=257"))
+    err = max(err, _exact("stereo_sad_fused",
+                          K.stereo_sad_fused_cuda(pl, pr, xl, xr, okl, okr, **kw),
+                          K.stereo_sad_fused_torch(pl, pr, xl, xr, okl, okr, **kw),
+                          "K=257"))
     a0 = stereo_args(0)
-    ms = _median_ms(lambda: K.stereo_sad_fused_cuda(*a0, **stereo_kw(0)))
-    plain = _median_ms(lambda: K.stereo_sad_fused_torch(*a0, **stereo_kw(0)))
-    report["stereo_sad_fused"] = (err, ms, plain)
+    # per pair: 3 operations a patch value and ~8 for the masks and merge;
+    # patches, xy and masks read once, three [K] outputs written
+    report["stereo_sad_fused"] = entry(
+        err, _median_ms(lambda: K.stereo_sad_fused_cuda(*a0, **stereo_kw(0))),
+        _median_ms(lambda: K.stereo_sad_fused_torch(*a0, **stereo_kw(0))),
+        None, K0 * K0 * (3 * P + 8), 2 * K0 * (4 * P + 8 + 1) + 12 * K0,
+        [K0, K0, P], "no single PyTorch call computes the masked best/second")
 
     err = 0.0
     for o in range(3):
         a = track_args(o)
-        err = max(err, exact("track_sad_fused", K.track_sad_fused_cuda(*a, **track_kw),
-                             K.track_sad_fused_torch(*a, **track_kw), f"K={Ks[o]}"))
+        err = max(err, _exact("track_sad_fused", K.track_sad_fused_cuda(*a, **track_kw),
+                              K.track_sad_fused_torch(*a, **track_kw), f"K={Ks[o]}"))
     p1, c1, xy1, xy2, okp, okc = odd_case(131, 2)
     p2, c2, _, _, _, _ = odd_case(131, 3)
     a = (p1, c1, p2, c2, xy1, xy2, xy1[:, 0] - 5.0, xy2[:, 0] - 7.0, okp, okc)
     kw = dict(win_row=8.0, win_col=40.0, sad_max=8000.0)
-    err = max(err, exact("track_sad_fused", K.track_sad_fused_cuda(*a, **kw),
-                         K.track_sad_fused_torch(*a, **kw), "K=131"))
+    err = max(err, _exact("track_sad_fused", K.track_sad_fused_cuda(*a, **kw),
+                          K.track_sad_fused_torch(*a, **kw), "K=131"))
     a0 = track_args(0)
-    ms = _median_ms(lambda: K.track_sad_fused_cuda(*a0, **track_kw))
-    plain = _median_ms(lambda: K.track_sad_fused_torch(*a0, **track_kw))
-    report["track_sad_fused"] = (err, ms, plain)
+    report["track_sad_fused"] = entry(
+        err, _median_ms(lambda: K.track_sad_fused_cuda(*a0, **track_kw)),
+        _median_ms(lambda: K.track_sad_fused_torch(*a0, **track_kw)),
+        None, K0 * K0 * (6 * P + 10), 2 * K0 * (8 * P + 12 + 1) + 8 * K0,
+        [K0, K0, P], "no single PyTorch call computes the windowed argmin")
 
     # ---- kernel 4: 9x9 null vectors, B = 512 (2 eyes x 256) and B = 1 -------
     err = 0.0
@@ -238,27 +322,108 @@ def check_kernels(seq, dev):
     A = torch.tensor(rng.normal(0, 1, (512, 8, 9)), dtype=torch.float32,
                      device=dev)
     M = (A.transpose(1, 2) @ A).contiguous()
-    report["nullvec9"] = (err, _median_ms(lambda: K.nullvec9_cuda(M)),
-                          _median_ms(lambda: K.nullvec9_torch(M)))
+    # ~900 operations a matrix: LDL^T (~490), two inverse iterations
+    # (~380), the regularisation; 81 floats in, 9 out
+    report["nullvec9"] = entry(
+        err, _median_ms(lambda: K.nullvec9_cuda(M)),
+        _median_ms(lambda: K.nullvec9_torch(M)),
+        _median_ms(lambda: torch.linalg.eigh(M)), 512 * 900,
+        512 * (81 + 9) * 4, [512, 9, 9])
+
+    # ---- kernel 5: Hamming on FAST_ORB descriptors of frames 0 and 1 --------
+    err, n_bits, n_desc = 0.0, 0, 0
+    for o in range(3):
+        a, b = descs[0][o].desc, descs[1][o].desc
+        err = max(err, _exact("hamming_matrix", (K.hamming_matrix_cuda(a, b),),
+                              (K.hamming_matrix_torch(a, b),), f"K={Ks[o]}"))
+        # the same descriptors on the CPU plain path: oriented bits may flip
+        # where a sample pair nearly ties (DESC_BIT_SHARE)
+        img = build_pyramid(to_grayscale(torch.from_numpy(seq.frames[0][0])), 3)[o]
+        cpu = detect_features(img, desc_params, Ks[o], th.cpu(), True)
+        if not torch.equal(cpu.valid, descs[0][o].valid.cpu()):
+            raise AssertionError(f"FAST_ORB keypoints differ on the CPU, octave {o}")
+        x = torch.bitwise_xor(cpu.desc, a.cpu())[cpu.valid]
+        n_bits += int(K.hamming_matrix_torch(x, torch.zeros_like(x[:1])).sum())
+        n_desc += int(cpu.valid.sum())
+    print(f"descriptors cuda vs cpu: {n_bits} differing bits in {n_desc} "
+          f"descriptors", flush=True)
+    if n_bits > DESC_BIT_SHARE * 256 * n_desc:
+        raise AssertionError(f"descriptor bits differ: {n_bits}")
+    r = np.random.default_rng(5)
+    words = lambda k: torch.tensor(  # noqa: E731
+        r.integers(0, 2**32, (k, 8), dtype=np.uint64).astype(np.uint32)
+        .view(np.int32), device=dev)
+    wa, wb = words(257), words(131)
+    wb[:50] = wa[:50]
+    wb[50:100] = wa[:50] ^ torch.tensor(-2**31, dtype=torch.int32, device=dev)
+    err = max(err, _exact("hamming_matrix", (K.hamming_matrix_cuda(wa, wb),),
+                          (K.hamming_matrix_torch(wa, wb),), "257x131 full range"))
+    # crafted ties: the dense argmin takes the first index, as jnp.argmin
+    ta = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    tb = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    tb[:, 0] = torch.tensor([3, 1, 1, 1], dtype=torch.int32, device=dev)
+    best, d_best, second = _best_second(K.hamming_matrix_cuda(ta, tb))
+    if best.tolist() != [1, 1] or d_best.tolist() != second.tolist():
+        raise AssertionError(f"tie rule: best {best.tolist()}")
+    a, b = descs[0][0].desc, descs[1][0].desc
+    report["hamming_matrix"] = entry(
+        err, _median_ms(lambda: K.hamming_matrix_cuda(a, b)),
+        _median_ms(lambda: K.hamming_matrix_torch(a, b)), None,
+        K0 * K0 * 8 * 3, (2 * K0 * 8 + K0 * K0) * 4, [K0, K0, 8],
+        "PyTorch has no popcount call")
+
+    # ---- kernel 6: SAD matrix on bench patches and 1/16-multiples ------------
+    err = 0.0
+    for o in range(3):
+        a, b = frames[0][o][0].patch, frames[1][o][0].patch
+        err = max(err, _exact("sad_matrix", (K.sad_matrix_cuda(a, b),),
+                              (K.sad_matrix_torch(a, b),), f"K={Ks[o]}"))
+    sa, sb = odd_case(257, 6)[0], odd_case(131, 7)[0]
+    err = max(err, _exact("sad_matrix", (K.sad_matrix_cuda(sa, sb),),
+                          (K.sad_matrix_torch(sa, sb),), "257x131"))
+    a, b = frames[0][0][0].patch, frames[1][0][0].patch
+    report["sad_matrix"] = entry(
+        err, _median_ms(lambda: K.sad_matrix_cuda(a, b)),
+        _median_ms(lambda: K.sad_matrix_torch(a, b)),
+        _median_ms(lambda: torch.cdist(a, b, p=1)), K0 * K0 * P * 3,
+        (2 * K0 * P + K0 * K0) * 4, [K0, K0, P])
     return report
 
 
-def run_engine(seq, dev):
-    """Phase 4: the port's main path on the card, counters around it."""
+def _ate(results, gt):
+    """ATE of the chained per-frame poses, coasting over invalid frames with
+    the last valid motion (the reference's constant-velocity rule)."""
     import numpy as np
+
+    from rso_torch.geometry import pose_matrix
+    from rso_torch.metrics import ate_rmse
+
+    T = np.eye(4)
+    poses, last = [T.copy()], None
+    for r in results[1:]:
+        if bool(r.valid):
+            last = pose_matrix(r.pose.double().cpu()).numpy()
+        if last is not None:
+            T = T @ last
+        poses.append(T.copy())
+    return ate_rmse(np.stack(poses), gt[:len(results)])
+
+
+def drive(name, cfg, seq, dev, n_frames):
+    """One engine path on the card: warm-up, then n_frames from a fresh
+    state with the launch counters reset just before and read just after.
+    Returns (states, results, launches, ATE)."""
     import torch
 
-    from rso_torch.engine import Engine, _tree_map, init_state
-    from rso_torch.geometry import pose_matrix
+    from rso_torch.engine import Engine
     from rso_torch.kernels import LAUNCHES
-    from rso_torch.metrics import ate_rmse
-    from rso_torch.synthetic import synthetic_config
 
-    cfg = synthetic_config()
-    lefts = [torch.from_numpy(l).to(dev) for l, _ in seq.frames]
-    rights = [torch.from_numpy(r).to(dev) for _, r in seq.frames]
-    eng = Engine(cfg, seq.cam, device=dev)
-    for i in range(3):                          # warm-up (allocator, library)
+    lefts = [torch.from_numpy(l).to(dev) for l, _ in seq.frames[:n_frames]]
+    rights = [torch.from_numpy(r).to(dev) for _, r in seq.frames[:n_frames]]
+    eng = Engine(cfg, seq.cam)               # the default device: the card
+    if eng.device.type != "cuda":
+        raise AssertionError(f"Engine's default device is {eng.device}")
+    for i in range(3):                       # warm-up (allocator, library)
         eng.process_frame(lefts[i], rights[i])
     eng.reset()
     torch.cuda.synchronize()
@@ -266,7 +431,7 @@ def run_engine(seq, dev):
     LAUNCHES.clear()
     results, states, step_ms = [], [], []
     t0 = time.perf_counter()
-    for i in range(N_FRAMES):
+    for i in range(n_frames):
         states.append(eng.state)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -278,64 +443,149 @@ def run_engine(seq, dev):
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
 
-    for name in ("corner_response", "stereo_sad_fused", "track_sad_fused",
-                 "nullvec9"):
-        if launches.get(name, 0) <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the engine")
     for r in results:
-        for name, t in zip(r._fields, r):
+        for field, t in zip(r._fields, r):
             if t.device.type != "cuda":
-                raise AssertionError(f"StepResult.{name} on {t.device}")
-    step_ms = sorted(a.elapsed_time(b) for a, b in step_ms[1:])
-    med = step_ms[len(step_ms) // 2]
-
-    valid = [bool(r.valid) for r in results]
-    T = np.eye(4)
-    poses, last = [T.copy()], None
-    for r in results[1:]:
-        if bool(r.valid):
-            last = pose_matrix(r.pose.double().cpu()).numpy()
-        if last is not None:             # constant-velocity coast over gaps
-            T = T @ last
-        poses.append(T.copy())
-    ate = ate_rmse(np.stack(poses), seq.poses[:N_FRAMES])
-    for r in results:
+                raise AssertionError(f"{name}: StepResult.{field} on {t.device}")
         if not torch.isfinite(r.pose).all():
-            raise AssertionError("non-finite pose")
-    print(f"engine: {N_FRAMES} frames, valid {sum(valid)}/{N_FRAMES}, ATE "
-          f"{ate} m, median step {med} ms ({1e3 / med} frames/s), wall "
-          f"{N_FRAMES / wall} frames/s, launches {launches}", flush=True)
-    if sum(valid) < N_FRAMES - 3 or not ate < 1.0:
-        raise AssertionError(f"engine output wrong: valid {sum(valid)}, ATE {ate}")
+            raise AssertionError(f"{name}: non-finite pose")
+    times = sorted(a.elapsed_time(b) for a, b in step_ms[1:])
+    med = times[len(times) // 2]
+    ate = _ate(results, seq.poses)
+    n_valid = sum(bool(r.valid) for r in results)
+    print(f"engine {name}: {n_frames} frames, valid {n_valid}/{n_frames}, "
+          f"ATE {ate} m, median step {med} ms ({1e3 / med} frames/s), wall "
+          f"{n_frames / wall} frames/s, launches {launches}", flush=True)
+    return states, results, launches, ate
 
-    # the plain path on the CPU, one step from each of the same states
-    cpu = Engine(cfg, seq.cam, device="cpu")
-    step = cpu._get_step(H, W)
-    for i in range(N_CPU_FRAMES):
-        st = (init_state(cfg, (H, W)) if states[i] is None
+
+def expect_launches(name, launches, positive=(), zero=(), exact=None):
+    for k in positive:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"{name}: kernel {k} was not launched")
+    for k in zero:
+        if launches.get(k, 0) != 0:
+            raise AssertionError(f"{name}: kernel {k} launched {launches[k]}x")
+    for k, n in (exact or {}).items():
+        if launches.get(k, 0) != n:
+            raise AssertionError(f"{name}: kernel {k} launched "
+                                 f"{launches.get(k, 0)}x, expected {n}")
+
+
+def cpu_rerun(name, cfg, seq, states, results, n_frames, match_slack=0):
+    """The plain path on the CPU, one step from each of the same states,
+    held to the GPU's results (tolerances at the top of the file)."""
+    import torch
+
+    from rso_torch.engine import _tree_map, init_state, make_step
+
+    step = make_step(cfg, seq.cam.to(torch.device("cpu")), H, W)
+    for i in range(n_frames):
+        st = (init_state(cfg, (H, W), device="cpu") if states[i] is None
               else _tree_map(lambda t: t.cpu(), states[i]))
-        _, rc = step(st, lefts[i].cpu(), rights[i].cpu())
+        left, right = seq.frames[i]
+        _, rc = step(st, torch.from_numpy(left), torch.from_numpy(right))
         rg = _tree_map(lambda t: t.cpu(), results[i])
-        for name in ("detected_feats", "stereo_matches", "error_code",
-                     "valid", "tracked_feats_from_last_frame",
-                     "tracked_feats_from_last_KF"):
-            c, g = getattr(rc, name), getattr(rg, name)
-            slack = TRACK_SLACK if name.startswith("tracked") else 0
+        track_slack = max(TRACK_SLACK, math.ceil(
+            TRACK_SHARE * int(rg.tracked_feats_from_last_frame)))
+        for field, slack in (("detected_feats", 0),
+                             ("stereo_matches", match_slack),
+                             ("error_code", 0), ("valid", 0),
+                             ("tracked_feats_from_last_frame", track_slack),
+                             ("tracked_feats_from_last_KF", track_slack)):
+            c, g = getattr(rc, field), getattr(rg, field)
             if (c.long() - g.long()).abs().max().item() > slack:
-                raise AssertionError(f"frame {i} {name}: cpu {c.tolist()} vs "
-                                     f"cuda {g.tolist()}")
+                raise AssertionError(f"{name} frame {i} {field}: cpu "
+                                     f"{c.tolist()} vs cuda {g.tolist()}")
         dp = (rc.pose - rg.pose).abs().max().item()
         same_set = torch.equal(rc.track_mask, rg.track_mask)
-        print(f"cpu plain path frame {i}: tracked cpu "
+        print(f"cpu plain path {name} frame {i}: tracked cpu "
               f"{int(rc.tracked_feats_from_last_frame)} cuda "
               f"{int(rg.tracked_feats_from_last_frame)}, same stage-5 set "
               f"{same_set}, GN iterations cpu {int(rc.num_it)}+"
               f"{int(rc.num_it_final)} cuda {int(rg.num_it)}+"
               f"{int(rg.num_it_final)}, max|d pose| {dp}", flush=True)
         if dp > (POSE_ATOL_SAME_SET if same_set else POSE_ATOL_OTHER_SET):
-            raise AssertionError(f"frame {i} pose differs by {dp} (same "
-                                 f"stage-5 set: {same_set})")
-    return launches
+            raise AssertionError(f"{name} frame {i} pose differs by {dp} "
+                                 f"(same stage-5 set: {same_set})")
+
+
+def run_engines(seq, dev):
+    """Phases 4-7; returns {phase: launches}."""
+    import torch
+
+    from rso_torch.synthetic import mode_config, synthetic_config
+
+    out = {}
+    fused = ("stereo_sad_fused", "track_sad_fused")
+
+    # ---- phase 4: the default path ------------------------------------------
+    cfg = synthetic_config()
+    states, results, launches, ate = drive("default", cfg, seq, dev, N_FRAMES)
+    expect_launches("default", launches, positive=(
+        "corner_response", "nullvec9") + fused,
+        zero=("hamming_matrix", "sad_matrix"))
+    if sum(bool(r.valid) for r in results) < N_FRAMES - 3 or not ate < 1.0:
+        raise AssertionError(f"default path output wrong: ATE {ate}")
+    cpu_rerun("default", cfg, seq, states, results, N_CPU_FRAMES)
+    out["default"] = launches
+    default_results = results
+
+    # ---- phase 5: the descriptor path, oriented -----------------------------
+    cfg = mode_config("fast_orb_rbr_win", upright=False)
+    states, results, launches, ate = drive("fast_orb_rbr_win", cfg, seq, dev,
+                                           N_FRAMES)
+    expect_launches("fast_orb_rbr_win", launches, positive=(
+        "corner_response", "nullvec9"), zero=fused + ("sad_matrix",),
+        exact={"hamming_matrix": 6 * N_FRAMES})   # 3 octaves x (stereo + track)
+    n_valid = sum(bool(r.valid) for r in results)
+    if n_valid < DESC_REF_VALID - 3 or not ate <= 2 * DESC_REF_ATE:
+        raise AssertionError(f"descriptor path: valid {n_valid} (reference "
+                             f"{DESC_REF_VALID}), ATE {ate} (reference "
+                             f"{DESC_REF_ATE})")
+    cpu_rerun("fast_orb_rbr_win", cfg, seq, states, results,
+              N_DESC_CPU_FRAMES, match_slack=DESC_MATCH_SLACK)
+    out["fast_orb_rbr_win"] = launches
+
+    # ---- phase 6: the dense-SAD path ----------------------------------------
+    cfg = mode_config("sad_dense")
+    _, results, launches, _ = drive("sad_dense", cfg, seq, dev, N_DENSE_FRAMES)
+    expect_launches("sad_dense", launches, positive=("corner_response",),
+                    zero=fused + ("hamming_matrix",),
+                    exact={"sad_matrix": 9 * N_DENSE_FRAMES})
+    for i, (r, f) in enumerate(zip(results, default_results)):
+        for field, a, b in zip(r._fields, r, f):
+            if a.dtype.is_floating_point:
+                same = (a.shape == b.shape
+                        and torch.allclose(a, b, rtol=0, atol=1e-6))
+            else:
+                same = torch.equal(a, b)
+            if not same:
+                raise AssertionError(f"dense SAD frame {i} {field} differs "
+                                     "from the fused path")
+    print(f"engine sad_dense: {N_DENSE_FRAMES} StepResults equal the fused "
+          "path's", flush=True)
+    out["sad_dense"] = launches
+
+    # ---- phase 7: ORB + DESC_BF + DESC_BF, KLT + SAD + SAD -------------------
+    cfg = mode_config("orb_bf_bf")
+    states, results, launches, _ = drive("orb_bf_bf", cfg, seq, dev,
+                                         N_MODE_FRAMES)
+    expect_launches("orb_bf_bf", launches, positive=("nullvec9",),
+                    zero=fused + ("sad_matrix", "corner_response"),
+                    exact={"hamming_matrix": 3 * N_MODE_FRAMES})
+    cpu_rerun("orb_bf_bf", cfg, seq, states, results, N_MODE_FRAMES)
+    out["orb_bf_bf"] = launches
+
+    cfg = mode_config("klt_sad_sad")
+    states, results, launches, _ = drive("klt_sad_sad", cfg, seq, dev,
+                                         N_MODE_FRAMES)
+    expect_launches("klt_sad_sad", launches, positive=("nullvec9",),
+                    zero=("hamming_matrix", "sad_matrix", "corner_response"),
+                    exact={k: 3 * N_MODE_FRAMES for k in fused})
+    cpu_rerun("klt_sad_sad", cfg, seq, states, results, N_MODE_FRAMES)
+    out["klt_sad_sad"] = launches
+    return out
 
 
 def main() -> int:
@@ -362,20 +612,27 @@ def main() -> int:
     dev = torch.device("cuda")
     seq = _bench_scene(N_FRAMES)
     report = check_kernels(seq, dev)
-    launches = run_engine(seq, dev)
+    by_phase = run_engines(seq, dev)
 
-    replaces = {
-        "corner_response": ("fast_detect.cu", "rso/kernels/fast_detect.py:146"),
-        "stereo_sad_fused": ("stereo_fused.cu", "rso/kernels/stereo_fused.py:207"),
-        "track_sad_fused": ("stereo_fused.cu", "rso/kernels/stereo_fused.py:133"),
-        "nullvec9": ("smallchol.cu", "rso/kernels/smallchol.py:136"),
+    # the phase whose path each kernel's launches are read from
+    kernels = {
+        "corner_response": ("fast_detect.cu", "rso/kernels/fast_detect.py:146", "default"),
+        "stereo_sad_fused": ("stereo_fused.cu", "rso/kernels/stereo_fused.py:207", "default"),
+        "track_sad_fused": ("stereo_fused.cu", "rso/kernels/stereo_fused.py:133", "default"),
+        "nullvec9": ("smallchol.cu", "rso/kernels/smallchol.py:136", "default"),
+        "hamming_matrix": ("distance.cu", "rso/kernels/distance.py:157", "fast_orb_rbr_win"),
+        "sad_matrix": ("distance.cu", "rso/kernels/distance.py:123", "sad_dense"),
     }
-    kernels = [{"name": n, "route": "cuda", "source": f"rso_torch/csrc/{src}",
-                "replaces": rep, "launches": launches[n],
-                "max_abs_err": report[n][0], "ms": report[n][1],
-                "plain_ms": report[n][2]}
-               for n, (src, rep) in replaces.items()]
-    print(json.dumps({"kernels": kernels}))
+    line = []
+    for n, (src, rep, phase) in kernels.items():
+        r = report[n]
+        line.append({
+            "name": n, "route": "cuda", "source": f"rso_torch/csrc/{src}",
+            "replaces": rep, "launches": by_phase[phase][n],
+            "launches_phase": phase,
+            "launches_by_phase": {p: c.get(n, 0) for p, c in by_phase.items()},
+            **r})
+    print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

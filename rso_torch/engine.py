@@ -1,16 +1,20 @@
 """The odometry engine: EngineState + one per-frame step, on one device.
 
-Counterpart of rso/engine.py (`init_state`, `make_step`, `Engine`) for the
-default configuration: grayscale + 3-octave pyramid (stage 1), dmFASTER
-detection (stage 2), SAD stereo matching (stage 3), SAD inter-frame tracking,
-the flat two-eye fundamental-matrix RANSAC, match-ID propagation, the
-bad-tracking gate, stage-5 NMS, the two-phase robust pose solve, error codes
-and the bounded keep-prev recovery (`_tail`).
+Counterpart of rso/engine.py (`init_state`, `make_step`, `Engine`):
+grayscale + pyramid (stage 1), detection with every detector and adaptive
+NMS (stage 2), stereo matching by SAD or descriptors (stage 3), inter-frame
+tracking by SAD, DESC_WIN or DESC_BF, the flat two-eye fundamental-matrix
+RANSAC, match-ID propagation, the bad-tracking gate, stage-5 NMS, the
+two-phase robust pose solve, error codes and the bounded keep-prev recovery
+(`_tail`).  `tpu.use_fused_match` picks the fused SAD kernels (the default)
+or the dense SAD matrices for stages 3 and 4.
 
 The reference runs the step as one jitted XLA program; here it is eager
-PyTorch on the state's device, with the four CUDA kernels under it.  The
+PyTorch on the state's device, with the six CUDA kernels under it.  The
 state lives on the device between frames, and the step reads nothing back to
-the host except the pose solver's per-iteration stop flag.
+the host except the pose solver's per-iteration stop flag.  The entry points
+run on the GPU unless the caller passes device="cpu", and raise where CUDA
+is absent.
 
 Configurations outside this slice raise NotImplementedError naming the
 ROADMAP item that ports them.
@@ -27,7 +31,6 @@ from rso_torch import random as rrandom
 from rso_torch.config import (
     DetectMethod,
     IFMatchMethod,
-    NMSMethod,
     RSOConfig,
     StereoMatchMethod,
 )
@@ -150,26 +153,25 @@ def _check_slice(cfg: RSOConfig, rectify_maps=None, precomputed=None) -> None:
         todo("detect_every > 1 (LK propagation)", 14)
     if cfg.if_match.ifm_method == IFMatchMethod.OPTICAL_FLOW:
         todo("ifm_method OPTICAL_FLOW", 14)
-    if cfg.if_match.ifm_method != IFMatchMethod.SAD:
-        todo(f"ifm_method {cfg.if_match.ifm_method!r}", 13)
-    if cfg.detect.detect_method != DetectMethod.FASTER:
-        todo(f"detect_method {cfg.detect.detect_method!r}", 13)
-    if cfg.lr_match.match_method != StereoMatchMethod.SAD:
-        todo(f"match_method {cfg.lr_match.match_method!r}", 13)
-    if (cfg.detect.non_maximal_suppression
-            and cfg.detect.nmsMethod == NMSMethod.ADAPTIVE):
-        todo("adaptive NMS", 13)
     if cfg.tpu.subpixel_track_refine:
         todo("subpixel_track_refine", 11)
     if cfg.least_squares.solve_backend != "chol" or cfg.least_squares.use_lm:
         todo("the eigh solve backend and LM damping", 8)
 
 
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r}: CUDA is not available")
+    return dev
+
+
 def init_state(cfg: RSOConfig, img_hw: tuple | None = None,
-               device="cpu") -> EngineState:
+               device="cuda") -> EngineState:
     """The state before the first frame.  The FAST threshold starts at the
     config's initial_FAST_threshold for every octave."""
     _check_slice(cfg)
+    device = _device(device)
     O = cfg.n_octaves
     Ks = octave_k_slots(cfg.detect.orb_nfeats, O, cfg.tpu.max_kps_per_octave,
                         cfg.tpu.octave_slot_decay)
@@ -190,11 +192,13 @@ def init_state(cfg: RSOConfig, img_hw: tuple | None = None,
     )
 
 
-def state_from_numpy(tree, device="cpu") -> EngineState:
+def state_from_numpy(tree, device="cuda") -> EngineState:
     """The reference's EngineState, every leaf passed through np.asarray, as
     this package's EngineState on `device` — the bridge that lets a test
     start the port from exactly the state the reference reached.  The
     reference's uint32 descriptor words become int32 with the same bits."""
+    device = _device(device)
+
     def leaf(x):
         a = np.array(x, order="C")          # a writable copy, 0-d kept 0-d
         if a.dtype == np.uint32:
@@ -254,7 +258,18 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
     Ks = octave_k_slots(cfg.detect.orb_nfeats, O, cfg.tpu.max_kps_per_octave,
                         cfg.tpu.octave_slot_decay)
     offs = np.cumsum([0] + Ks).tolist()
-    min_response = 0.0  # reference stage3:188-193 for FAST detectors
+    need_desc = (
+        cfg.detect.detect_method in (DetectMethod.ORB, DetectMethod.FAST_ORB)
+        or cfg.lr_match.match_method != StereoMatchMethod.SAD
+        or cfg.if_match.ifm_method in (IFMatchMethod.DESC_BF,
+                                       IFMatchMethod.DESC_WIN))
+    if cfg.detect.detect_method == DetectMethod.KLT:
+        min_response = cfg.detect.minimum_KLT_response
+    elif cfg.detect.detect_method == DetectMethod.ORB:
+        min_response = cfg.detect.minimum_ORB_response
+    else:
+        min_response = 0.0  # reference stage3:188-193 for FAST detectors
+    use_fused = cfg.tpu.use_fused_match
     # the z-gate's octave-scaled fx*baseline, from the f32 camera entries
     fx_baseline = [float(cam.fx_l) * float(cam.baseline) / (2 ** o)
                    if cfg.lr_match.use_z_gate else None for o in range(O)]
@@ -267,9 +282,9 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
         octs, new_fast_th, detected = [], [], []
         for o in range(O):
             th = state.fast_th[o]
-            fl = detect_features(pyr_l[o], cfg.detect, Ks[o], th, False,
+            fl = detect_features(pyr_l[o], cfg.detect, Ks[o], th, need_desc,
                                  arc=cfg.tpu.fast_arc)
-            fr = detect_features(pyr_r[o], cfg.detect, Ks[o], th, False,
+            fr = detect_features(pyr_r[o], cfg.detect, Ks[o], th, need_desc,
                                  arc=cfg.tpu.fast_arc)
             # octave budget: keep only the strongest budget[o] slots
             slot_ok = torch.arange(Ks[o], device=th.device) < budgets[o]
@@ -290,7 +305,8 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
         for o in range(O):
             fl, fr = octs[o]
             m = match_left_right(fl, fr, cfg.lr_match, img_w >> o,
-                                 min_response, fx_baseline=fx_baseline[o])
+                                 min_response, fx_baseline=fx_baseline[o],
+                                 use_fused=use_fused)
             cur_octs.append(OctaveData(
                 left=fl, right=fr, matches=m,
                 match_ids=torch.full((Ks[o],), -1, dtype=torch.int32,
@@ -315,7 +331,8 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
             trk = track_interframe(p.left, p.right, p.matches, c.left,
                                    c.right, c.matches, ifm, key=None,
                                    ransac_iters=cfg.tpu.ransac_iters,
-                                   ransac_threshold=cfg.tpu.ransac_threshold)
+                                   ransac_threshold=cfg.tpu.ransac_threshold,
+                                   use_fused=use_fused)
             trk_valid = trk.valid & state.have_prev   # no prev -> no tracks
             trk_idx = torch.where(trk_valid, trk.cur_idx,
                                   torch.full_like(trk.cur_idx, -1))
@@ -461,14 +478,14 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
 class Engine:
     """Host-facing engine: owns config, camera, device and state.
 
-    `device="cuda"` runs every stage on the GPU through the CUDA kernels and
-    raises if CUDA is not available; nothing falls back to the CPU.
+    By default (`device="cuda"`) every stage runs on the GPU through the
+    CUDA kernels, and the constructor raises if CUDA is not available;
+    nothing falls back to the CPU.  `device="cpu"` runs the plain PyTorch
+    twins of the kernels.
     """
 
-    def __init__(self, cfg: RSOConfig, cam, rectify_maps=None, device="cpu"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Engine(device='cuda'): CUDA is not available")
+    def __init__(self, cfg: RSOConfig, cam, rectify_maps=None, device="cuda"):
+        self.device = _device(device)
         _check_slice(cfg, rectify_maps)
         if not isinstance(cam, StereoCamera):
             cam = StereoCamera.from_numpy(cam)

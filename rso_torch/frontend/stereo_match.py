@@ -1,11 +1,19 @@
-"""Stage 3: left<->right stereo matching (SAD method).
+"""Stage 3: left<->right stereo matching.
 
-Counterpart of rso/frontend/stereo_match.py `match_left_right`: the fused
-exact-SAD core (kernel 2, kernels/stereo_fused.py) gives each left slot its
-best and second-best admissible right slot; the ratio test, the z-gate and
-the one-to-one right arbitration follow as [K]-sized tensor ops.  Output is
-left-slot aligned: slot l holds the right index matched to left feature l,
-or -1.  The descriptor methods (DESC_BF, DESC_RBR) are ROADMAP Queue 1 #13.
+Counterpart of rso/frontend/stereo_match.py `match_left_right`.  Each left
+slot gets its best and second-best admissible right slot, from one of two
+cores with the same acceptance rules:
+
+  * SAD with `use_fused` (the default): the fused exact-SAD kernel 2
+    (kernels/stereo_fused.py), which applies the masks in-register;
+  * otherwise the dense [K,K] distance matrix — SAD (kernel 6) or, for the
+    descriptor methods DESC_BF and DESC_RBR, Hamming (kernel 5), both in
+    kernels/distance.py — masked by the admissibility planes of
+    `build_pair_ok`, then argmin (first index on ties) and the second-best.
+
+The ratio test (SAD only), the z-gate and the one-to-one right arbitration
+follow as [K]-sized tensor ops.  Output is left-slot aligned: slot l holds
+the right index matched to left feature l, or -1.
 """
 from __future__ import annotations
 
@@ -15,7 +23,13 @@ import torch
 
 from rso_torch.config import LeftRightMatchParams, StereoMatchMethod
 from rso_torch.frontend.detect import Features
-from rso_torch.kernels.stereo_fused import BIG, _f32, stereo_sad_fused_auto
+from rso_torch.kernels.distance import hamming_matrix_auto, sad_matrix_auto
+from rso_torch.kernels.stereo_fused import (
+    BIG,
+    _best_second,
+    _f32,
+    stereo_sad_fused_auto,
+)
 
 _INT_MAX = 2**31 - 1
 
@@ -50,32 +64,66 @@ def _arbitrate_right(cand_r: torch.Tensor, cand_d: torch.Tensor,
     return cand_ok & (key == best_key[safe_r])
 
 
+def build_pair_ok(left: Features, right: Features, min_response: float,
+                  max_y_diff: float, max_disp: float) -> torch.Tensor:
+    """[Kl,Kr] admissibility of the dense path: both slots valid and above
+    min_response, |round(yl) - round(yr)| <= max_y_diff (rounded rows keep
+    the reference's integer row buckets) and 1 <= xl - xr <= max_disp."""
+    min_r = _f32(min_response)
+    ok = (left.valid & (left.response >= min_r))[:, None] & (
+        right.valid & (right.response >= min_r))[None, :]
+    dy = torch.abs(torch.round(left.xy[:, 1])[:, None]
+                   - torch.round(right.xy[:, 1])[None, :])
+    disp = left.xy[:, 0][:, None] - right.xy[:, 0][None, :]
+    return (ok & (dy <= _f32(max(max_y_diff, 0.0)))
+            & (disp >= 1.0) & (disp <= _f32(max_disp)))
+
+
 def match_left_right(left: Features, right: Features,
                      params: LeftRightMatchParams, img_w: int,
                      min_response: float,
-                     fx_baseline: float | None = None) -> StereoMatches:
+                     fx_baseline: float | None = None,
+                     use_fused: bool = True) -> StereoMatches:
     """Stereo-match one octave's left/right feature sets.
 
     fx_baseline = fx * baseline (octave-scaled): when given, the winning
     match's disparity must lie inside the min_z/max_z depth window.
+    use_fused picks the fused kernel for SAD; the descriptor methods always
+    take the dense Hamming matrix.
     """
-    if params.match_method != StereoMatchMethod.SAD:
-        raise NotImplementedError(
-            f"match_method={params.match_method!r}: only SAD is ported "
-            "(descriptor matching is ROADMAP Queue 1 #13)")
+    method = params.match_method
     K = left.xy.shape[0]
     xl = left.xy[:, 0]
     xr = right.xy[:, 0]
-    ok_l = left.valid & (left.response >= _f32(min_response))
-    ok_r = right.valid & (right.response >= _f32(min_response))
-    best_r, best_d, second_d = stereo_sad_fused_auto(
-        left.patch, right.patch, left.xy, right.xy, ok_l, ok_r,
-        max_y_diff=float(max(params.max_y_diff, 0.0)),
-        max_disp=img_w * 0.7, max_distance=float(params.sad_max_distance))
+    max_disp = img_w * 0.7 if method in (
+        StereoMatchMethod.SAD, StereoMatchMethod.DESC_RBR) else float(img_w)
+    if method == StereoMatchMethod.SAD:
+        max_distance = float(params.sad_max_distance)
+    else:   # the reference applies no ratio test on the descriptor paths
+        max_distance = float(params.orb_max_distance)
+
+    if method == StereoMatchMethod.SAD and use_fused:
+        min_r = _f32(min_response)
+        ok_l = left.valid & (left.response >= min_r)
+        ok_r = right.valid & (right.response >= min_r)
+        best_r, best_d, second_d = stereo_sad_fused_auto(
+            left.patch, right.patch, left.xy, right.xy, ok_l, ok_r,
+            max_y_diff=float(max(params.max_y_diff, 0.0)),
+            max_disp=max_disp, max_distance=max_distance)
+    else:
+        if method == StereoMatchMethod.SAD:
+            D = sad_matrix_auto(left.patch, right.patch)
+        else:
+            D = hamming_matrix_auto(left.desc, right.desc)
+        ok = build_pair_ok(left, right, min_response, params.max_y_diff,
+                           max_disp) & (D <= _f32(max_distance))
+        best_r, best_d, second_d = _best_second(
+            torch.where(ok, D, torch.full_like(D, BIG)))
 
     cand_ok = best_d < BIG
-    ratio = best_d / torch.clamp(second_d, min=_f32(1e-6))
-    cand_ok &= (second_d >= BIG) | (ratio <= _f32(params.sad_max_ratio))
+    if method == StereoMatchMethod.SAD:
+        ratio = best_d / torch.clamp(second_d, min=_f32(1e-6))
+        cand_ok &= (second_d >= BIG) | (ratio <= _f32(params.sad_max_ratio))
 
     # z-gate as a post-filter on the winning match's disparity
     if fx_baseline is not None:

@@ -1,12 +1,20 @@
-"""Stage 4: inter-frame tracking of stereo matches (ifmSAD).
+"""Stage 4: inter-frame tracking of stereo matches.
 
-Counterpart of rso/frontend/track.py `track_interframe`: the fused both-eye
-exact-SAD core (kernel 3, kernels/stereo_fused.py) picks, per previous slot,
-the admissible current slot inside the search window; one-to-one
-arbitration keeps the best previous slot per current slot, and an optional
-fundamental-matrix RANSAC filter on both eyes follows.  Output is
-prev-slot aligned.  The descriptor and optical-flow methods are ROADMAP
-Queue 1 #13 and #14.
+Counterpart of rso/frontend/track.py `track_interframe`: a (prev-left-slot x
+cur-left-slot) cost with
+
+  ifmSAD     -> SAD(prevL, curL) + SAD(prevR, curR), each side gated by
+                sad_max_distance: the fused kernel 3 (kernels/stereo_fused.py)
+                with `use_fused`, else two dense SAD matrices (kernel 6)
+  ifmDescWin -> Hamming(prevL desc, curL desc) (kernel 5; the reference too
+                uses only the left descriptor)
+  ifmDescBF  -> Hamming L-L and R-R over the whole image; both sides must pick
+                the same current slot, each within orb_max_distance
+
+inside the search window (|dy| <= win_w, per-eye |dx| <= win_h) for SAD and
+DESC_WIN; one-to-one arbitration keeps the best previous slot per current
+slot, and an optional fundamental-matrix RANSAC filter on both eyes follows.
+Output is prev-slot aligned.  OPTICAL_FLOW is ROADMAP Queue 1 #14.
 """
 from __future__ import annotations
 
@@ -18,7 +26,8 @@ from rso_torch import random as rrandom
 from rso_torch.config import IFMatchMethod, InterFrameMatchParams
 from rso_torch.frontend.detect import Features
 from rso_torch.frontend.stereo_match import StereoMatches, _arbitrate_right
-from rso_torch.kernels.stereo_fused import BIG, track_sad_fused_auto
+from rso_torch.kernels.distance import hamming_matrix_auto, sad_matrix_auto
+from rso_torch.kernels.stereo_fused import BIG, _f32, track_sad_fused_auto
 from rso_torch.solver.ransac import ransac_fundamental
 
 
@@ -34,29 +43,76 @@ def _gather_right(feats_r: Features, ridx: torch.Tensor):
     return feats_r.xy[safe], feats_r.patch[safe], feats_r.desc[safe]
 
 
+def _argmin_rows(D: torch.Tensor, ok: torch.Tensor):
+    """Per row the first minimum of D where ok (1e9 elsewhere): the column
+    (int32) and its value."""
+    D = torch.where(ok, D, torch.full_like(D, BIG))
+    best = torch.argmin(D, dim=1)
+    return best.to(torch.int32), torch.gather(D, 1, best[:, None])[:, 0]
+
+
 def track_interframe(prev_left: Features, prev_right: Features,
                      prev_matches: StereoMatches, cur_left: Features,
                      cur_right: Features, cur_matches: StereoMatches,
                      params: InterFrameMatchParams, key: torch.Tensor,
                      ransac_iters: int = 64,
-                     ransac_threshold: float = 1.0) -> TrackResult:
-    if params.ifm_method != IFMatchMethod.SAD:
+                     ransac_threshold: float = 1.0,
+                     use_fused: bool = True) -> TrackResult:
+    method = params.ifm_method
+    if method not in (IFMatchMethod.SAD, IFMatchMethod.DESC_WIN,
+                      IFMatchMethod.DESC_BF):
         raise NotImplementedError(
-            f"ifm_method={params.ifm_method!r}: only SAD is ported (DESC_* "
-            "is ROADMAP Queue 1 #13, OPTICAL_FLOW Queue 1 #14)")
+            f"ifm_method={method!r} is not ported yet (OPTICAL_FLOW is "
+            "ROADMAP Queue 1 #14)")
     K = prev_matches.ridx.shape[0]
-    pR_xy, pR_patch, _ = _gather_right(prev_right, prev_matches.ridx)
-    cR_xy, cR_patch, _ = _gather_right(cur_right, cur_matches.ridx)
-    best_c, best_d = track_sad_fused_auto(
-        prev_left.patch, cur_left.patch, pR_patch, cR_patch,
-        prev_left.xy, cur_left.xy, pR_xy[:, 0].contiguous(),
-        cR_xy[:, 0].contiguous(), prev_matches.valid, cur_matches.valid,
-        win_row=float(params.ifm_win_w), win_col=float(params.ifm_win_h),
-        sad_max=float(params.sad_max_distance))
-    survive = _arbitrate_right(best_c, best_d, best_d < BIG, K,
-                               keep_best=True)
-    return _finish(prev_left, pR_xy, cur_left, cR_xy, best_c, survive,
-                   params, key, ransac_iters, ransac_threshold)
+    p_ok, c_ok = prev_matches.valid, cur_matches.valid
+    pR_xy, pR_patch, pR_desc = _gather_right(prev_right, prev_matches.ridx)
+    cR_xy, cR_patch, cR_desc = _gather_right(cur_right, cur_matches.ridx)
+
+    def finish(best_c, survive):
+        return _finish(prev_left, pR_xy, cur_left, cR_xy, best_c, survive,
+                       params, key, ransac_iters, ransac_threshold)
+
+    if method == IFMatchMethod.SAD and use_fused:
+        best_c, best_d = track_sad_fused_auto(
+            prev_left.patch, cur_left.patch, pR_patch, cR_patch,
+            prev_left.xy, cur_left.xy, pR_xy[:, 0].contiguous(),
+            cR_xy[:, 0].contiguous(), p_ok, c_ok,
+            win_row=float(params.ifm_win_w), win_col=float(params.ifm_win_h),
+            sad_max=float(params.sad_max_distance))
+        return finish(best_c, _arbitrate_right(best_c, best_d, best_d < BIG,
+                                               K, keep_best=True))
+
+    pair_ok = p_ok[:, None] & c_ok[None, :]
+    if method == IFMatchMethod.DESC_BF:
+        # both sides must independently pick the same cur slot, each within
+        # orb_max_distance (no window: brute force over the image)
+        best_l, d_l = _argmin_rows(
+            hamming_matrix_auto(prev_left.desc, cur_left.desc), pair_ok)
+        best_r, d_r = _argmin_rows(hamming_matrix_auto(pR_desc, cR_desc),
+                                   pair_ok)
+        max_d = _f32(params.orb_max_distance)
+        cand_ok = (best_l == best_r) & (d_l <= max_d) & (d_r <= max_d) & p_ok
+        return finish(best_l, _arbitrate_right(best_l, d_l + d_r, cand_ok, K,
+                                               keep_best=True))
+
+    if method == IFMatchMethod.SAD:
+        sad_l = sad_matrix_auto(prev_left.patch, cur_left.patch)
+        sad_r = sad_matrix_auto(pR_patch, cR_patch)
+        sad_max = _f32(params.sad_max_distance)
+        pair_ok &= (sad_l <= sad_max) & (sad_r <= sad_max)
+        cost = sad_l + sad_r
+    else:   # DESC_WIN
+        cost = hamming_matrix_auto(prev_left.desc, cur_left.desc)
+    # row window (WIN_W) on y and per-eye column windows (WIN_H) on x
+    win_row, win_col = _f32(params.ifm_win_w), _f32(params.ifm_win_h)
+    dy = torch.abs(prev_left.xy[:, 1][:, None] - cur_left.xy[:, 1][None, :])
+    dxl = torch.abs(prev_left.xy[:, 0][:, None] - cur_left.xy[:, 0][None, :])
+    dxr = torch.abs(pR_xy[:, 0][:, None] - cR_xy[:, 0][None, :])
+    pair_ok &= (dy <= win_row) & (dxl <= win_col) & (dxr <= win_col)
+    best_c, best_d = _argmin_rows(cost, pair_ok)
+    return finish(best_c, _arbitrate_right(best_c, best_d, best_d < BIG, K,
+                                           keep_best=True))
 
 
 def _finish(prev_left, pR_xy, cur_left, cR_xy, best_c, survive, params, key,

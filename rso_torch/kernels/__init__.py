@@ -5,6 +5,14 @@ Each module holds `<name>_torch` (the twin, used for CPU tensors),
 `LAUNCHES` counts kernel launches by name.
 """
 from rso_torch.kernels._lib import LAUNCHES
+from rso_torch.kernels.distance import (
+    hamming_matrix_auto,
+    hamming_matrix_cuda,
+    hamming_matrix_torch,
+    sad_matrix_auto,
+    sad_matrix_cuda,
+    sad_matrix_torch,
+)
 from rso_torch.kernels.fast_detect import (
     corner_response_auto,
     corner_response_cuda,
@@ -25,9 +33,15 @@ __all__ = [
     "corner_response_auto",
     "corner_response_cuda",
     "corner_response_torch",
+    "hamming_matrix_auto",
+    "hamming_matrix_cuda",
+    "hamming_matrix_torch",
     "nullvec9_auto",
     "nullvec9_cuda",
     "nullvec9_torch",
+    "sad_matrix_auto",
+    "sad_matrix_cuda",
+    "sad_matrix_torch",
     "stereo_sad_fused_auto",
     "stereo_sad_fused_cuda",
     "stereo_sad_fused_torch",

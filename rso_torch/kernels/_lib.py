@@ -1,10 +1,11 @@
 """Build, load and launch the package's CUDA kernels.
 
-All `csrc/*.cu` files compile in ONE `nvcc` call into a shared library with
-a plain C interface, loaded with ctypes (no PyTorch headers, so a build
-takes seconds).  The library goes to `build/rso_torch/<hash>/` under the
-repository root, keyed by a hash of the sources and flags, and is built at
-first use: importing this module builds nothing and needs no toolkit.
+Each `csrc/*.cu` file compiles in its own `nvcc` process, all started
+together, and one link makes a shared library with a plain C interface,
+loaded with ctypes (no PyTorch headers, so a build takes seconds).  The
+library goes to `build/rso_torch/<hash>/` under the repository root, keyed
+by a hash of the sources and flags, and is built at first use: importing
+this module builds nothing and needs no toolkit.
 
 Each C entry point launches one kernel on the stream it is given and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code and counts the
@@ -27,7 +28,7 @@ _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "rso_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 # launches per kernel name, incremented only where a kernel is launched
 LAUNCHES: collections.Counter = collections.Counter()
@@ -43,6 +44,8 @@ _SIGNATURES = {
     "rso_track_sad_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                             _I, _F, _F, _F, _P, _P, _P],
     "rso_nullvec9": [_P, _P, _I, _P],
+    "rso_hamming_matrix": [_P, _P, _I, _I, _I, _P, _P],
+    "rso_sad_matrix": [_P, _P, _I, _I, _I, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -68,19 +71,39 @@ def library_path() -> Path:
     return _BUILD_ROOT / h.hexdigest()[:16] / "librso_kernels.so"
 
 
+def _check(cmd: list, returncode: int, stdout: str, stderr: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n"
+                           f"{stdout}\n{stderr}")
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library (skipped when it exists)."""
+    """Compile csrc/*.cu into the shared library (skipped when it exists):
+    one nvcc per source, all running at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(_CSRC.glob("*.cu")))]
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    jobs = []
+    for src in sorted(_CSRC.glob("*.cu")):
+        obj = out.with_name(f"{src.stem}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    # every compile is waited for before the first failure is raised
+    done = []
+    for cmd, _, proc in jobs:
+        stdout, stderr = proc.communicate()
+        done.append((cmd, proc.returncode, stdout, stderr))
+    for result in done:
+        _check(*result)
+    tmp = out.with_name(f"{out.name}.{tag}")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    _check(cmd, proc.returncode, proc.stdout, proc.stderr)
+    for _, obj, _ in jobs:
+        obj.unlink()
     os.replace(tmp, out)   # atomic: a concurrent builder never sees half a file
     return out
 

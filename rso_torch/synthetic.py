@@ -6,6 +6,10 @@ seed, same numpy calls in the same order, so the same arguments give the same
 frames as the reference's generator.  The unrectified-rig options of the
 reference's `render_frame` (`dist`, `R_lr`) belong to the rectification path
 (ROADMAP Queue 1 #12) and are left out.
+
+`mode_config` adds the detector / matcher / tracker combinations that
+tests/test_modes.py runs on the blob scene, so that tests and chip_smoke.py
+drive the same configurations.
 """
 from __future__ import annotations
 
@@ -14,7 +18,12 @@ from typing import NamedTuple
 
 import numpy as np
 
-from rso_torch.config import RSOConfig
+from rso_torch.config import (
+    DetectMethod,
+    IFMatchMethod,
+    RSOConfig,
+    StereoMatchMethod,
+)
 from rso_torch.geometry.stereo_camera import StereoCamera
 
 
@@ -29,6 +38,43 @@ def synthetic_config() -> RSOConfig:
             use_z_gate=True, min_z=2.0, max_z=25.0),
         if_match=dataclasses.replace(cfg.if_match, sad_max_distance=4000),
     )
+
+
+MODES = ("fast_orb_rbr_win", "orb_bf_bf", "klt_sad_sad", "sad_dense")
+
+
+def mode_config(mode: str, upright: bool = True) -> RSOConfig:
+    """synthetic_config() switched to one of MODES, with the settings of
+    tests/test_modes.py `TestDetectorModes` (descriptor distance 64,
+    1.5 px rows, no z-gate):
+
+      fast_orb_rbr_win  FAST_ORB + stereo DESC_RBR + tracking DESC_WIN
+      orb_bf_bf         ORB (one octave, 8 internal levels) + DESC_BF + DESC_BF
+      klt_sad_sad       KLT (minimum response 5) + SAD + SAD
+      sad_dense         the default modes on the dense SAD matrices
+                        (use_fused_match=False)
+
+    `upright` sets orb_upright for the two descriptor modes."""
+    cfg = synthetic_config()
+    rep = dataclasses.replace
+    if mode in ("fast_orb_rbr_win", "orb_bf_bf"):
+        fast_orb = mode == "fast_orb_rbr_win"
+        return cfg.replace(
+            detect=rep(cfg.detect, orb_upright=upright, detect_method=(
+                DetectMethod.FAST_ORB if fast_orb else DetectMethod.ORB)),
+            lr_match=rep(cfg.lr_match, orb_max_distance=64.0, max_y_diff=1.5,
+                         use_z_gate=False, match_method=(
+                             StereoMatchMethod.DESC_RBR if fast_orb
+                             else StereoMatchMethod.DESC_BF)),
+            if_match=rep(cfg.if_match, orb_max_distance=64.0, ifm_method=(
+                IFMatchMethod.DESC_WIN if fast_orb else IFMatchMethod.DESC_BF)))
+    if mode == "klt_sad_sad":
+        return cfg.replace(detect=rep(cfg.detect,
+                                      detect_method=DetectMethod.KLT,
+                                      minimum_KLT_response=5.0))
+    if mode == "sad_dense":
+        return cfg.replace(tpu=rep(cfg.tpu, use_fused_match=False))
+    raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
 
 
 class SyntheticSequence(NamedTuple):

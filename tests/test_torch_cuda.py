@@ -9,15 +9,17 @@ Tolerances: FAST masks, SAD indices and distances bit-exact; the corner
 response bit-exact too (same operation order, round-to-nearest intrinsics,
 the same float32 reciprocal for the window mean), checked at 1e-6; null
 vectors up to sign (|cos| > 1 - 1e-3, unit norm to 1e-4): the kernel is
-LDL^T, the twin regularised Cholesky.
+LDL^T, the twin regularised Cholesky; Hamming and SAD matrices bit-exact
+(integer counts, and exact f32 sums of 1/16-multiples).
 """
 import numpy as np
 import pytest
 import torch
 
 from rso_torch import kernels as K
+from rso_torch.engine import Engine
 from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
-from rso_torch.synthetic import make_sequence
+from rso_torch.synthetic import MODES, make_sequence, mode_config
 
 
 @pytest.fixture
@@ -87,6 +89,34 @@ def test_cuda_nullvec9(cuda, B):
                                rtol=0, atol=1e-4)
 
 
+def _words(r, shape, dev):
+    """Full-range uint32 words as int32 with the same bits."""
+    w = r.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+    return torch.tensor(w.view(np.int32), device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ka,kb", [(512, 512), (257, 131), (1, 33)])
+def test_cuda_hamming_matrix(cuda, ka, kb):
+    r = np.random.default_rng(ka + kb)
+    a, b = _words(r, (ka, 8), cuda), _words(r, (kb, 8), cuda)
+    n = max(1, min(ka, kb) // 2)
+    b[:n] = a[:n]                                        # zero distances
+    out = K.hamming_matrix_cuda(a, b)
+    assert torch.equal(out, K.hamming_matrix_torch(a, b))
+    assert out.min().item() == 0.0 and out.max().item() > 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ka,kb", [(512, 512), (257, 131), (1, 33)])
+def test_cuda_sad_matrix(cuda, ka, kb):
+    r = np.random.default_rng(ka * kb)
+    f = lambda k: torch.tensor(r.integers(0, 255 * 16, (k, 64)) / 16.0,  # noqa: E731
+                               dtype=torch.float32, device=cuda)
+    a, b = f(ka), f(kb)
+    assert torch.equal(K.sad_matrix_cuda(a, b), K.sad_matrix_torch(a, b))
+
+
 @pytest.mark.gpu
 def test_cuda_wrappers_count_launches_and_check_operands(cuda):
     K.LAUNCHES.clear()
@@ -98,3 +128,35 @@ def test_cuda_wrappers_count_launches_and_check_operands(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         K.nullvec9_cuda(torch.zeros((9, 9, 4), device=cuda).permute(2, 0, 1))
     assert K.LAUNCHES["corner_response"] == 1 and K.LAUNCHES["nullvec9"] == 0
+    d = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    K.hamming_matrix_cuda(d, d)
+    with pytest.raises(ValueError, match="dtype"):
+        K.hamming_matrix_cuda(d.float(), d.float())
+    with pytest.raises(ValueError, match="row width"):
+        K.sad_matrix_cuda(torch.zeros((4, 200), device=cuda),
+                          torch.zeros((4, 200), device=cuda))
+    assert K.LAUNCHES["hamming_matrix"] == 1 and K.LAUNCHES["sad_matrix"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_engine_modes_match_the_cpu(cuda, mode):
+    """Each mode's engine on the card and on the CPU from the same frames:
+    detection and stereo matching depend only on the images and are exact;
+    tracked counts may differ by 2 (RANSAC's null vectors come from kernel 4
+    on the card and from its twin, another algorithm, on the CPU, and its
+    matmuls sum in another order: a track on the 1 px gate may fall either
+    way)."""
+    seq = make_sequence(n_frames=3, n_points=1800, H=160, W=240)
+    cfg = mode_config(mode)
+    gpu, cpu = Engine(cfg, seq.cam, device=cuda), Engine(cfg, seq.cam, device="cpu")
+    K.LAUNCHES.clear()
+    for left, right in seq.frames:
+        rg, rc = gpu.process_frame(left, right), cpu.process_frame(left, right)
+        assert torch.equal(rg.detected_feats.cpu(), rc.detected_feats)
+        assert torch.equal(rg.stereo_matches.cpu(), rc.stereo_matches)
+        assert abs(int(rg.tracked_feats_from_last_frame)
+                   - int(rc.tracked_feats_from_last_frame)) <= 2
+    kernel = {"sad_dense": "sad_matrix", "klt_sad_sad": "stereo_sad_fused"}.get(
+        mode, "hamming_matrix")
+    assert K.LAUNCHES[kernel] > 0 and K.LAUNCHES["nullvec9"] > 0

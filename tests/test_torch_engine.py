@@ -122,14 +122,14 @@ def test_same_frames_as_reference(reference_run):
 
 
 def test_init_state_matches_reference(reference_run):
-    _assert_trees_match(te.init_state(synthetic_config(), (H, W)),
+    _assert_trees_match(te.init_state(synthetic_config(), (H, W), device="cpu"),
                         reference_run[1][0], "init_state")
 
 
 @pytest.mark.parametrize("frame", range(N_FRAMES))
 def test_step_from_reference_state(reference_run, port_step, frame):
     seq, states, results = reference_run
-    state = te.state_from_numpy(states[frame])
+    state = te.state_from_numpy(states[frame], device="cpu")
     left, right = seq.frames[frame]
     new_state, result = port_step(state, torch.from_numpy(left),
                                   torch.from_numpy(right))
@@ -139,7 +139,7 @@ def test_step_from_reference_state(reference_run, port_step, frame):
 
 def test_four_frames_with_the_ports_own_state(reference_run):
     seq, _, results = reference_run
-    eng = te.Engine(synthetic_config(), seq.cam)
+    eng = te.Engine(synthetic_config(), seq.cam, device="cpu")
     ours = [eng.process_frame(l, r) for l, r in seq.frames]
     assert int(ours[0].error_code) == VOEC_FIRST_ITERATION
     assert all(bool(r.valid) for r in ours[1:])
@@ -151,8 +151,9 @@ def test_process_chunk_equals_frame_loop(reference_run):
     seq = reference_run[0]
     lefts = np.stack([l for l, _ in seq.frames[:3]])
     rights = np.stack([r for _, r in seq.frames[:3]])
-    chunk = te.Engine(synthetic_config(), seq.cam).process_chunk(lefts, rights)
-    eng = te.Engine(synthetic_config(), seq.cam)
+    chunk = te.Engine(synthetic_config(), seq.cam,
+                      device="cpu").process_chunk(lefts, rights)
+    eng = te.Engine(synthetic_config(), seq.cam, device="cpu")
     for i in range(3):
         one = eng.process_frame(lefts[i], rights[i])
         for name, a, b in zip(one._fields, one, chunk):
@@ -161,7 +162,7 @@ def test_process_chunk_equals_frame_loop(reference_run):
 
 def test_repeat_reruns_against_the_same_previous_frame(reference_run):
     seq = reference_run[0]
-    eng = te.Engine(synthetic_config(), seq.cam)
+    eng = te.Engine(synthetic_config(), seq.cam, device="cpu")
     eng.process_frame(*seq.frames[0])
     first = eng.process_frame(*seq.frames[1])
     again = eng.process_frame(*seq.frames[1], repeat=True)
@@ -170,8 +171,8 @@ def test_repeat_reruns_against_the_same_previous_frame(reference_run):
 
 
 def test_state_from_numpy_types(reference_run):
-    state = te.state_from_numpy(reference_run[1][2])
-    ref = te.init_state(synthetic_config(), (H, W))
+    state = te.state_from_numpy(reference_run[1][2], device="cpu")
+    ref = te.init_state(synthetic_config(), (H, W), device="cpu")
     a, b = _flat(state), _flat(ref)
     for path in a:
         assert a[path].dtype == b[path].dtype and a[path].shape == b[path].shape, path
@@ -186,11 +187,26 @@ def test_cuda_engine_raises_without_cuda():
         te.Engine(synthetic_config(), cam, device="cuda")
 
 
+def test_entry_points_default_to_the_gpu(reference_run):
+    """With no device the entry points ask for CUDA: here, where there is
+    none, each raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    cam = StereoCamera.make(fx_l=320.0, fy_l=320.0, cx_l=188.0, cy_l=120.0,
+                            baseline=0.4)
+    for call in (lambda: te.Engine(synthetic_config(), cam),
+                 lambda: te.init_state(synthetic_config(), (H, W)),
+                 lambda: te.state_from_numpy(reference_run[1][1])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
 @pytest.mark.parametrize("change,item", [
     (lambda c: c.replace(tpu=dataclasses.replace(c.tpu, detect_every=2)), "#14"),
     (lambda c: c.replace(tpu=dataclasses.replace(c.tpu, subpixel_track_refine=True)), "#11"),
-    (lambda c: c.replace(detect=dataclasses.replace(c.detect, detect_method=3)), "#13"),
-    (lambda c: c.replace(lr_match=dataclasses.replace(c.lr_match, match_method=0)), "#13"),
+    (lambda c: c.replace(least_squares=dataclasses.replace(c.least_squares, use_lm=True)), "#8"),
+    (lambda c: c.replace(detect=dataclasses.replace(c.detect, detect_method=1),
+                         if_match=dataclasses.replace(c.if_match, ifm_method=3)), "#14"),
     (lambda c: c.replace(if_match=dataclasses.replace(c.if_match, ifm_method=3)), "#14"),
     (lambda c: c.replace(least_squares=dataclasses.replace(c.least_squares, solve_backend="eigh")), "#8"),
 ])
@@ -198,7 +214,7 @@ def test_unported_configurations_raise(change, item):
     cam = StereoCamera.make(fx_l=320.0, fy_l=320.0, cx_l=188.0, cy_l=120.0,
                             baseline=0.4)
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        te.Engine(change(synthetic_config()), cam)
+        te.Engine(change(synthetic_config()), cam, device="cpu")
 
 
 def test_rectification_raises():
@@ -206,7 +222,22 @@ def test_rectification_raises():
                             baseline=0.4)
     maps = np.zeros((2, 2, H, W), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #12"):
-        te.Engine(synthetic_config(), cam, rectify_maps=maps)
+        te.Engine(synthetic_config(), cam, rectify_maps=maps, device="cpu")
+
+
+def test_no_module_loads_jax_or_rso():
+    """Every module of the package, imported in a fresh interpreter."""
+    code = ("import pkgutil, importlib, sys, rso_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(rso_torch.__path__, "
+            "'rso_torch.')]\n"
+            "for n in names: importlib.import_module(n)\n"
+            "assert len(names) > 20, names\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rso')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_engine_module_leaves_jax_unloaded():

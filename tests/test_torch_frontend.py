@@ -5,8 +5,12 @@ interpret mode (`interpret_pallas=True`); off the TPU its default would take
 the approximate MXU shortlist instead, which is not the fused kernels'
 semantics.  Inputs come from the seeded synthetic generator.
 
-Tolerances: FAST masks, NMS masks, top-K slots, validity, patches, match
-and track indices exact.  Corner responses rtol 1e-5 (XLA's CPU backend
+The dense paths (`use_fused=False`, and every descriptor method) run the
+reference with `use_pallas=True, interpret_pallas=True`, so its Hamming and
+SAD matrices go through the Pallas kernels in interpret mode.
+
+Tolerances: FAST masks, NMS masks, top-K slots, validity, patches,
+descriptors, match and track indices and distances exact.  Corner responses rtol 1e-5 (XLA's CPU backend
 contracts two multiply-adds into FMAs), and through the subpixel parabola
 keypoint xy atol 1e-3 px.  The optional per-octave RANSAC filter of the
 tracker (off in the engine) agrees on >= 90% of the tracks; see the test.
@@ -28,7 +32,12 @@ from rso.synthetic import synthetic_config as j_synth_cfg
 import rso_torch.frontend.detect as td
 import rso_torch.frontend.pyramid as tp
 from rso_torch import random as R
-from rso_torch.config import DetectMethod, DetectParams as TDP
+from rso_torch.config import (
+    DetectMethod,
+    DetectParams as TDP,
+    IFMatchMethod,
+    StereoMatchMethod,
+)
 from rso_torch.frontend.detect import Features
 from rso_torch.frontend.stereo_match import StereoMatches, match_left_right as t_match
 from rso_torch.frontend.track import track_interframe as t_track
@@ -234,9 +243,74 @@ def test_track_interframe(frames, filter_fund):
         assert (v_ref != v_out).sum() <= 0.1 * max(v_ref.sum(), 1)
 
 
+def _desc_frame(frame, k=256):
+    """Reference upright FAST_ORB features (with descriptors) of one frame,
+    and their DESC_RBR stereo matches."""
+    det = jax.jit(jd.detect_features, static_argnums=(1, 2, 4))
+    params = JDP(detect_method=DetectMethod.FAST_ORB, orb_upright=True)
+    fl = det(jnp.asarray(frame[0]), params, k, jnp.int32(20), True)
+    fr = det(jnp.asarray(frame[1]), params, k, jnp.int32(20), True)
+    lr = _desc_lr(StereoMatchMethod.DESC_RBR)
+    m = jax.jit(lambda a, b: j_match(a, b, lr, W, 0.0, use_fused=False))(fl, fr)
+    return fl, fr, m
+
+
+def _desc_lr(method):
+    return dataclasses.replace(j_synth_cfg().lr_match, match_method=method,
+                               orb_max_distance=64.0, max_y_diff=1.5)
+
+
+def _dense_reference(fn, *args, **kw):
+    """The reference's dense path, its distance matrices in Pallas
+    interpret mode."""
+    return fn(*args, use_pallas=True, interpret_pallas=True, use_fused=False,
+              use_mxu=False, **kw)
+
+
+@pytest.mark.parametrize("method", [StereoMatchMethod.DESC_BF,
+                                    StereoMatchMethod.DESC_RBR,
+                                    StereoMatchMethod.SAD])
+def test_match_left_right_dense(frames, method):
+    if method == StereoMatchMethod.SAD:
+        fl, fr, _, fxb = _matched_frame(frames[0])
+        lr = j_synth_cfg().lr_match
+    else:
+        fl, fr, _ = _desc_frame(frames[0])
+        fxb, lr = None, _desc_lr(method)
+    ref = jax.jit(lambda a, b: _dense_reference(
+        j_match, a, b, lr, W, 0.0, fx_baseline=fxb))(fl, fr)
+    out = t_match(_feats_t(fl), _feats_t(fr), lr, W, 0.0, fx_baseline=fxb,
+                  use_fused=False)
+    for name in StereoMatches._fields:
+        np.testing.assert_array_equal(getattr(out, name).numpy(),
+                                      np.asarray(getattr(ref, name)), err_msg=name)
+    assert out.valid.sum() > 40
+
+
+@pytest.mark.parametrize("method", [IFMatchMethod.DESC_WIN,
+                                    IFMatchMethod.DESC_BF,
+                                    IFMatchMethod.SAD])
+def test_track_interframe_dense(frames, method):
+    if method == IFMatchMethod.SAD:
+        prev, cur = (_matched_frame(f)[:3] for f in frames)
+    else:
+        prev, cur = (_desc_frame(f) for f in frames)
+    ifm = dataclasses.replace(j_synth_cfg().if_match, ifm_method=method,
+                              orb_max_distance=64.0, filter_fund_matrix=False)
+    ref = _dense_reference(j_track, *prev, *cur, ifm, None)
+    conv = lambda fl, fr, m: (_feats_t(fl), _feats_t(fr),  # noqa: E731
+                              StereoMatches(*(_t(v) for v in m)))
+    out = t_track(*conv(*prev), *conv(*cur), ifm, None, use_fused=False)
+    for name in ("cur_idx", "valid", "n_tracked"):
+        np.testing.assert_array_equal(getattr(out, name).numpy(),
+                                      np.asarray(getattr(ref, name)), err_msg=name)
+    assert int(out.n_tracked) > 20
+
+
 def test_unported_methods_raise(frames):
-    img = _t(frames[0][0])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #13"):
-        td.detect_features(img, TDP(detect_method=DetectMethod.KLT), 128, 20, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #13"):
-        td.detect_features(img, TDP(), 128, 20, True)
+    fl, fr, m = (_feats_t(f) if i < 2 else StereoMatches(*(_t(v) for v in f))
+                 for i, f in enumerate(_desc_frame(frames[0])))
+    ifm = dataclasses.replace(synthetic_config().if_match,
+                              ifm_method=IFMatchMethod.OPTICAL_FLOW)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #14"):
+        t_track(fl, fr, m, fl, fr, m, ifm, None)

@@ -4,8 +4,9 @@ dispatch rule (CPU tensor -> twin, anything else -> kernel or raise).  The
 CUDA kernels are held against the twins in tests/test_torch_cuda.py.
 
 Tolerances:
-  * FAST mask, SAD indices and distances: exact (every SAD partial sum is an
-    exact f32 multiple of 1/16 below 2^24 units);
+  * FAST mask, SAD indices and distances, SAD and Hamming matrices: exact
+    (every SAD partial sum is an exact f32 multiple of 1/16 below 2^24
+    units; Hamming distances are integer counts);
   * corner response vs the reference's jitted XLA composition: XLA's CPU
     backend contracts two multiply-adds into FMAs, so values differ in the
     last bits; rtol 1e-5 (with atol 1e-3 for responses near zero);
@@ -19,6 +20,11 @@ import numpy as np
 import pytest
 import torch
 
+from rso.kernels.distance import (
+    hamming_matrix_jnp,
+    hamming_matrix_pallas,
+    sad_matrix_pallas,
+)
 from rso.kernels.fast_detect import corner_response_jnp
 from rso.kernels.smallchol import nullvec9_jnp, nullvec9_pallas
 from rso.kernels.stereo_fused import stereo_sad_fused, track_sad_fused
@@ -72,6 +78,11 @@ def _track_case(K_, seed):
     c_rx = (c_xy[:, 0] - r.uniform(2, 30, K_)).astype(np.float32)
     return (base[0], cur[0], base[1], cur[1], p_xy, c_xy, p_rx, c_rx,
             r.random(K_) > 0.15, r.random(K_) > 0.15)
+
+
+def _words(r, k):
+    """[k,8] full-range uint32 descriptor words (about half >= 2^31)."""
+    return r.integers(0, 2**32, (k, 8), dtype=np.uint64).astype(np.uint32)
 
 
 def _rank8(rng, B):
@@ -130,6 +141,53 @@ def test_stereo_ties_keep_first_and_second_equals_best():
     assert best_d.tolist() == second.tolist() == [0.0, 0.0]
 
 
+@pytest.mark.parametrize("ka,kb", [(131, 257), (200, 64)])
+def test_hamming_twin_vs_pallas_and_jnp(ka, kb):
+    r = np.random.default_rng(ka)
+    a, b = _words(r, ka), _words(r, kb)
+    b[:40] = a[:40]                                  # distance 0
+    b[40:60] = a[:20] ^ np.uint32(2**31)     # each word differs in its top bit
+    assert (a >= 2**31).mean() > 0.4
+    ref = np.asarray(hamming_matrix_pallas(jnp.asarray(a), jnp.asarray(b),
+                                           interpret=True))
+    np.testing.assert_array_equal(
+        np.asarray(hamming_matrix_jnp(jnp.asarray(a), jnp.asarray(b))), ref)
+    out = K.hamming_matrix_torch(torch.from_numpy(a.view(np.int32)),
+                                 torch.from_numpy(b.view(np.int32)))
+    assert out.dtype == torch.float32 and out.shape == (ka, kb)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert (ref[np.arange(20), 40 + np.arange(20)] == 8).all()
+
+
+@pytest.mark.parametrize("ka,kb", [(131, 257), (257, 200)])
+def test_sad_matrix_twin_vs_pallas(ka, kb):
+    r = np.random.default_rng(kb)
+    a = (r.integers(0, 255 * 16, (ka, 64)) / 16.0).astype(np.float32)
+    b = (r.integers(0, 255 * 16, (kb, 64)) / 16.0).astype(np.float32)
+    ref = np.asarray(sad_matrix_pallas(jnp.asarray(a), jnp.asarray(b),
+                                       interpret=True))
+    out = K.sad_matrix_torch(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_dense_ties_take_the_first_index():
+    """Crafted ties in a Hamming matrix: the dense stereo path's argmin takes
+    the lowest right index, and the second-best equals the best."""
+    from rso_torch.kernels.stereo_fused import _best_second
+
+    a = np.zeros((3, 8), np.uint32)
+    a[1, 0] = 0xFFFF0000
+    b = np.zeros((5, 8), np.uint32)
+    b[:, 0] = [1, 0xFFFF0001, 2, 0xFFFF0001, 4]     # rows 0, 2 tie for a[0]
+    D = K.hamming_matrix_torch(torch.from_numpy(a.view(np.int32)),
+                               torch.from_numpy(b.view(np.int32)))
+    best, d, second = _best_second(D)
+    ref = np.asarray(jnp.argmin(hamming_matrix_jnp(jnp.asarray(a),
+                                                   jnp.asarray(b)), axis=1))
+    assert best.tolist() == ref.tolist() == [0, 1, 0]
+    assert d.tolist() == second.tolist() == [1.0, 1.0, 1.0]
+
+
 def test_nullvec_twin_vs_jnp(rng):
     M = _rank8(rng, 96)
     ref = np.asarray(nullvec9_jnp(jnp.asarray(M)))
@@ -166,6 +224,10 @@ def test_auto_takes_the_twin_for_cpu_tensors(image, rng):
                        K.corner_response_torch(img, 20))
     M = torch.from_numpy(_rank8(rng, 4))
     assert torch.equal(K.nullvec9_auto(M), K.nullvec9_torch(M))
+    d = torch.from_numpy(_words(rng, 9).view(np.int32))
+    assert torch.equal(K.hamming_matrix_auto(d, d), K.hamming_matrix_torch(d, d))
+    p = torch.from_numpy(rng.integers(0, 255, (9, 64)).astype(np.float32))
+    assert torch.equal(K.sad_matrix_auto(p, p), K.sad_matrix_torch(p, p))
     assert dict(_lib.LAUNCHES) == before                  # no kernel launched
 
 
@@ -192,6 +254,11 @@ def test_non_cpu_tensor_never_falls_back(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         K.track_sad_fused_auto(p, p, p, p, xy, xy, x, x, ok, ok, win_row=1.0,
                                win_col=1.0, sad_max=1.0)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.sad_matrix_auto(p, p)
+    d = torch.empty((8, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.hamming_matrix_auto(d, d)
 
 
 def test_missing_toolkit_raises(monkeypatch, tmp_path):
@@ -210,4 +277,4 @@ def test_library_key_covers_every_source():
     assert path.name == "librso_kernels.so"
     assert path.parent.parent.name == "rso_torch"
     assert {p.name for p in _lib._CSRC.glob("*.cu")} == {
-        "fast_detect.cu", "stereo_fused.cu", "smallchol.cu"}
+        "fast_detect.cu", "stereo_fused.cu", "smallchol.cu", "distance.cu"}
