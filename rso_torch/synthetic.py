@@ -21,6 +21,7 @@ import numpy as np
 from rso_torch.config import (
     DetectMethod,
     IFMatchMethod,
+    NMSMethod,
     RSOConfig,
     StereoMatchMethod,
 )
@@ -40,7 +41,8 @@ def synthetic_config() -> RSOConfig:
     )
 
 
-MODES = ("fast_orb_rbr_win", "orb_bf_bf", "klt_sad_sad", "sad_dense")
+MODES = ("fast_orb_rbr_win", "orb_bf_bf", "klt_sad_sad", "sad_dense",
+         "adaptive_nms")
 
 
 def mode_config(mode: str, upright: bool = True) -> RSOConfig:
@@ -53,6 +55,7 @@ def mode_config(mode: str, upright: bool = True) -> RSOConfig:
       klt_sad_sad       KLT (minimum response 5) + SAD + SAD
       sad_dense         the default modes on the dense SAD matrices
                         (use_fused_match=False)
+      adaptive_nms      the default modes with adaptive NMS
 
     `upright` sets orb_upright for the two descriptor modes."""
     cfg = synthetic_config()
@@ -74,6 +77,8 @@ def mode_config(mode: str, upright: bool = True) -> RSOConfig:
                                       minimum_KLT_response=5.0))
     if mode == "sad_dense":
         return cfg.replace(tpu=rep(cfg.tpu, use_fused_match=False))
+    if mode == "adaptive_nms":
+        return cfg.replace(detect=rep(cfg.detect, nmsMethod=NMSMethod.ADAPTIVE))
     raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
 
 

@@ -19,8 +19,9 @@ Two runs per mode:
     validity and error code stay exact, the tracked counts may differ by
     TRACK_SLACK,
     and the pose by POSE_ATOL_OTHER_SET (rotvec rad and translation m of a
-    0.25 m step).  Measured: one such frame in 4 for FAST_ORB and KLT
-    (tracked 59 vs 60 and 34 vs 35), none for ORB and the dense SAD path.
+    0.25 m step).  Measured: one such frame in 4 for FAST_ORB, KLT and
+    adaptive NMS (tracked 59 vs 60, 34 vs 35 and 42 vs 44), none for ORB and
+    the dense SAD path.
 """
 import dataclasses
 
@@ -37,7 +38,7 @@ from test_torch_engine import _assert_trees_match, _flat
 
 H, W = 160, 240
 N_FRAMES = 4
-TRACK_SLACK = 1
+TRACK_SLACK = 2
 POSE_ATOL_OTHER_SET = 3e-2
 _RUNS = {}
 

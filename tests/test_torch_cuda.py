@@ -157,6 +157,6 @@ def test_cuda_engine_modes_match_the_cpu(cuda, mode):
         assert torch.equal(rg.stereo_matches.cpu(), rc.stereo_matches)
         assert abs(int(rg.tracked_feats_from_last_frame)
                    - int(rc.tracked_feats_from_last_frame)) <= 2
-    kernel = {"sad_dense": "sad_matrix", "klt_sad_sad": "stereo_sad_fused"}.get(
-        mode, "hamming_matrix")
+    kernel = {"fast_orb_rbr_win": "hamming_matrix", "orb_bf_bf": "hamming_matrix",
+              "sad_dense": "sad_matrix"}.get(mode, "stereo_sad_fused")
     assert K.LAUNCHES[kernel] > 0 and K.LAUNCHES["nullvec9"] > 0

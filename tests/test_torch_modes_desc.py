@@ -1,8 +1,9 @@
-"""Engine parity of the descriptor modes (FAST_ORB + DESC_RBR + DESC_WIN, ORB + DESC_BF + DESC_BF, upright) against rso, on the CPU.
+"""Engine parity of the descriptor modes (FAST_ORB + DESC_RBR + DESC_WIN,
+ORB + DESC_BF + DESC_BF, upright) against rso, on the CPU.
 
-See tests/_torch_modes.py for the runs and the tolerances.  The two modes of
-this file run on one test worker; the other two are in a file of their own,
-so that the suite's workers share the four reference runs.
+See tests/_torch_modes.py for the runs and the tolerances.  The modes of
+this file run on one test worker; the SAD modes are in a file of their own,
+so that the suite's workers share the reference runs.
 """
 import pytest
 import torch

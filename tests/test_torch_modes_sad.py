@@ -1,15 +1,17 @@
-"""Engine parity of the SAD modes (KLT + SAD + SAD, and the default modes on the dense SAD matrices) against rso, on the CPU.
+"""Engine parity of the SAD modes (KLT + SAD + SAD, the default modes on the
+dense SAD matrices, and the default modes with adaptive NMS) against rso, on
+the CPU.
 
-See tests/_torch_modes.py for the runs and the tolerances.  The two modes of
-this file run on one test worker; the other two are in a file of their own,
-so that the suite's workers share the four reference runs.
+See tests/_torch_modes.py for the runs and the tolerances.  The modes of
+this file run on one test worker; the descriptor modes are in a file of
+their own, so that the suite's workers share the reference runs.
 """
 import pytest
 import torch
 
 import _torch_modes as M
 
-MODES = ("klt_sad_sad", "sad_dense")
+MODES = ("klt_sad_sad", "sad_dense", "adaptive_nms")
 
 
 @pytest.fixture(autouse=True, scope="module")
