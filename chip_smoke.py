@@ -27,14 +27,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
   7. engine, the remaining modes: ORB + DESC_BF + DESC_BF (one octave) and
      KLT + SAD + SAD, 5 bench frames each, then again on the CPU.
 Each engine phase resets the launch counters just before it and reads them
-just after.  The last three lines are a JSON object describing the kernels,
+just after, and holds its first 3 steps equal to its warm-up's (the card is
+deterministic).  The last three lines are a JSON object describing the kernels,
 the card's name and power limit, and the JSON result line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
-import math
 import subprocess
 import sys
 import time
@@ -48,22 +48,27 @@ N_DESC_CPU_FRAMES = 3
 N_DENSE_FRAMES = 10
 N_MODE_FRAMES = 5
 # The CPU plain path against the GPU, one step from the same state each.
-# Kernels 1-3, 5 and 6 are bit-exact with their twins, so detected and
-# matched counts, error codes and validity must be equal.  Kernel 4 is
-# another algorithm than its twin (LDL^T vs Cholesky, the reference's own
-# TPU/CPU pairing), and RANSAC's f32 matmuls (normal equations, Sampson
-# scoring, refit) sum in another order on cuBLAS than on the CPU: among its
-# 256 hypotheses, near-ties in the inlier count can then pick another
-# winner, and the 1 px Sampson gate takes other tracks.  So the tracked
-# counts may differ by TRACK_SLACK or a share TRACK_SHARE of the GPU's
-# count, whichever is larger (measured: 55 vs 50 on the KLT path's frame 4,
-# 54 with kernel 4 swapped for its twin on the card, so not kernel 4
-# alone).  With the same stage-5 set, poses differ by float32 rounding of
-# the solve's sums only (POSE_ATOL_SAME_SET); when the set changed (~30-60
-# inliers on the bench scene), the solve moves by ~1 cm of the 0.8 m step
-# (POSE_ATOL_OTHER_SET, rotvec rad and translation m).
+# Kernels 1-3, 5 and 6 are bit-exact with their twins, on the card and on
+# the CPU, so detected and matched counts, error codes and validity must be
+# equal.  The flat RANSAC filter is not: kernel 4 is another algorithm than
+# its twin (LDL^T vs Cholesky, the reference's own TPU/CPU pairing), and the
+# filter's float32 normal equations and scoring sum in another order on the
+# card than on the CPU.  That moves a hypothesis's inlier count by a track
+# now and then; where hypotheses tie at the top, another one wins, and its
+# refit keeps other tracks (tests/_torch_ransac_devices.py).  The tracked
+# counts may differ by TRACK_SLACK (measured on these frames: at most 1 on
+# the default, descriptor and ORB phases).  KLT_TRACK_SLACK holds for the
+# KLT phase only: on its frame 4 the CPU's left-eye hypotheses 5 and 242
+# tie at 61 inliers and the first wins; the card counts 60 for hypothesis 5
+# and takes 242, whose refit keeps 66 inliers: 55 tracked on the card, 50
+# on the CPU (its other frames: equal).  With the filter's arithmetic in
+# float64 both devices take 242 and track 54.  With the same stage-5 set,
+# poses differ by float32 rounding of the solve's sums only
+# (POSE_ATOL_SAME_SET); when the set changed (~30-60 inliers on the bench
+# scene), the solve moves by ~1 cm of the 0.8 m step (POSE_ATOL_OTHER_SET,
+# rotvec rad and translation m).
 TRACK_SLACK = 2
-TRACK_SHARE = 0.12
+KLT_TRACK_SLACK = 5
 POSE_ATOL_SAME_SET = 1e-4
 POSE_ATOL_OTHER_SET = 3e-2
 # Oriented descriptors: the orientation's moments are exact on both sides,
@@ -190,8 +195,12 @@ def check_kernels(seq, dev):
         tol = 1e-6 * max(1.0, ref[fin].abs().max().item())
         if d > tol:
             raise AssertionError(f"corner response differs by {d} > {tol}")
+        # the twin on the CPU, as the CPU re-runs take it: bit-exact
+        if not torch.equal(out.cpu(), K.corner_response_torch(img.cpu(), th.cpu())):
+            raise AssertionError(f"corner response at {tuple(img.shape)}: "
+                                 "kernel != twin on the CPU")
         print(f"kernel corner_response {tuple(img.shape)}: corners "
-              f"{int(fin.sum())}, max|d| {d}", flush=True)
+              f"{int(fin.sum())}, max|d| {d}, equal to the CPU twin", flush=True)
         err = max(err, d)
     n_px = pyr[0].numel()
     # ~190 operations a pixel, counted from the twin's arithmetic: FAST's 32
@@ -423,8 +432,8 @@ def drive(name, cfg, seq, dev, n_frames):
     eng = Engine(cfg, seq.cam)               # the default device: the card
     if eng.device.type != "cuda":
         raise AssertionError(f"Engine's default device is {eng.device}")
-    for i in range(3):                       # warm-up (allocator, library)
-        eng.process_frame(lefts[i], rights[i])
+    # warm-up (allocator, library)
+    warm = [eng.process_frame(lefts[i], rights[i]) for i in range(3)]
     eng.reset()
     torch.cuda.synchronize()
 
@@ -443,6 +452,13 @@ def drive(name, cfg, seq, dev, n_frames):
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
 
+    # the card is deterministic: the warm-up's steps ran the same frames
+    # from the same states
+    for i, w in enumerate(warm):
+        for field, a, b in zip(w._fields, w, results[i]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: frame {i} {field} differs "
+                                     "between two runs on the card")
     for r in results:
         for field, t in zip(r._fields, r):
             if t.device.type != "cuda":
@@ -472,7 +488,8 @@ def expect_launches(name, launches, positive=(), zero=(), exact=None):
                                  f"{launches.get(k, 0)}x, expected {n}")
 
 
-def cpu_rerun(name, cfg, seq, states, results, n_frames, match_slack=0):
+def cpu_rerun(name, cfg, seq, states, results, n_frames, match_slack=0,
+              track_slack=TRACK_SLACK):
     """The plain path on the CPU, one step from each of the same states,
     held to the GPU's results (tolerances at the top of the file)."""
     import torch
@@ -486,8 +503,6 @@ def cpu_rerun(name, cfg, seq, states, results, n_frames, match_slack=0):
         left, right = seq.frames[i]
         _, rc = step(st, torch.from_numpy(left), torch.from_numpy(right))
         rg = _tree_map(lambda t: t.cpu(), results[i])
-        track_slack = max(TRACK_SLACK, math.ceil(
-            TRACK_SHARE * int(rg.tracked_feats_from_last_frame)))
         for field, slack in (("detected_feats", 0),
                              ("stereo_matches", match_slack),
                              ("error_code", 0), ("valid", 0),
@@ -499,12 +514,15 @@ def cpu_rerun(name, cfg, seq, states, results, n_frames, match_slack=0):
                                      f"{c.tolist()} vs cuda {g.tolist()}")
         dp = (rc.pose - rg.pose).abs().max().item()
         same_set = torch.equal(rc.track_mask, rg.track_mask)
+        differ = [f for f, c, g in zip(rc._fields, rc, rg)
+                  if not torch.equal(c, g)]
         print(f"cpu plain path {name} frame {i}: tracked cpu "
               f"{int(rc.tracked_feats_from_last_frame)} cuda "
               f"{int(rg.tracked_feats_from_last_frame)}, same stage-5 set "
               f"{same_set}, GN iterations cpu {int(rc.num_it)}+"
               f"{int(rc.num_it_final)} cuda {int(rg.num_it)}+"
-              f"{int(rg.num_it_final)}, max|d pose| {dp}", flush=True)
+              f"{int(rg.num_it_final)}, max|d pose| {dp}, fields that "
+              f"differ {differ}", flush=True)
         if dp > (POSE_ATOL_SAME_SET if same_set else POSE_ATOL_OTHER_SET):
             raise AssertionError(f"{name} frame {i} pose differs by {dp} "
                                  f"(same stage-5 set: {same_set})")
@@ -583,7 +601,8 @@ def run_engines(seq, dev):
     expect_launches("klt_sad_sad", launches, positive=("nullvec9",),
                     zero=("hamming_matrix", "sad_matrix", "corner_response"),
                     exact={k: 3 * N_MODE_FRAMES for k in fused})
-    cpu_rerun("klt_sad_sad", cfg, seq, states, results, N_MODE_FRAMES)
+    cpu_rerun("klt_sad_sad", cfg, seq, states, results, N_MODE_FRAMES,
+              track_slack=KLT_TRACK_SLACK)
     out["klt_sad_sad"] = launches
     return out
 

@@ -127,8 +127,16 @@ def shi_tomasi_response(img: torch.Tensor, win: int) -> torch.Tensor:
     gxy = _box_sum(gx * gy, win) * inv_n
     tr_half = 0.5 * (gxx + gyy)
     d = gxx - gyy
-    det_term = torch.sqrt(torch.clamp(0.25 * (d * d) + gxy * gxy, min=0.0))
+    det_term = _sqrt_rn(torch.clamp(0.25 * (d * d) + gxy * gxy, min=0.0))
     return tr_half - det_term
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root on every device, as kernel
+    1's __fsqrt_rn and PyTorch's CUDA sqrt compute it.  PyTorch's vectorised
+    CPU sqrt is not correctly rounded: it is an ulp off in ~0.6% of values.
+    The float64 root of a float32 value, rounded once to float32, is."""
+    return torch.sqrt(x.double()).to(torch.float32)
 
 
 def harris_response(img: torch.Tensor, win: int = 3,

@@ -27,7 +27,8 @@ from rso_torch.config import IFMatchMethod, InterFrameMatchParams
 from rso_torch.frontend.detect import Features
 from rso_torch.frontend.stereo_match import StereoMatches, _arbitrate_right
 from rso_torch.kernels.distance import hamming_matrix_auto, sad_matrix_auto
-from rso_torch.kernels.stereo_fused import BIG, _f32, track_sad_fused_auto
+from rso_torch.kernels.stereo_fused import (BIG, _best_second, _f32,
+                                           track_sad_fused_auto)
 from rso_torch.solver.ransac import ransac_fundamental
 
 
@@ -41,14 +42,6 @@ def _gather_right(feats_r: Features, ridx: torch.Tensor):
     """Right-feature data aligned to left slots via the match index."""
     safe = torch.clamp(ridx.to(torch.int64), min=0)
     return feats_r.xy[safe], feats_r.patch[safe], feats_r.desc[safe]
-
-
-def _argmin_rows(D: torch.Tensor, ok: torch.Tensor):
-    """Per row the first minimum of D where ok (1e9 elsewhere): the column
-    (int32) and its value."""
-    D = torch.where(ok, D, torch.full_like(D, BIG))
-    best = torch.argmin(D, dim=1)
-    return best.to(torch.int32), torch.gather(D, 1, best[:, None])[:, 0]
 
 
 def track_interframe(prev_left: Features, prev_right: Features,
@@ -87,10 +80,11 @@ def track_interframe(prev_left: Features, prev_right: Features,
     if method == IFMatchMethod.DESC_BF:
         # both sides must independently pick the same cur slot, each within
         # orb_max_distance (no window: brute force over the image)
-        best_l, d_l = _argmin_rows(
-            hamming_matrix_auto(prev_left.desc, cur_left.desc), pair_ok)
-        best_r, d_r = _argmin_rows(hamming_matrix_auto(pR_desc, cR_desc),
-                                   pair_ok)
+        big = torch.full((K, K), BIG, device=p_ok.device)
+        best_l, d_l, _ = _best_second(torch.where(
+            pair_ok, hamming_matrix_auto(prev_left.desc, cur_left.desc), big))
+        best_r, d_r, _ = _best_second(torch.where(
+            pair_ok, hamming_matrix_auto(pR_desc, cR_desc), big))
         max_d = _f32(params.orb_max_distance)
         cand_ok = (best_l == best_r) & (d_l <= max_d) & (d_r <= max_d) & p_ok
         return finish(best_l, _arbitrate_right(best_l, d_l + d_r, cand_ok, K,
@@ -110,7 +104,8 @@ def track_interframe(prev_left: Features, prev_right: Features,
     dxl = torch.abs(prev_left.xy[:, 0][:, None] - cur_left.xy[:, 0][None, :])
     dxr = torch.abs(pR_xy[:, 0][:, None] - cR_xy[:, 0][None, :])
     pair_ok &= (dy <= win_row) & (dxl <= win_col) & (dxr <= win_col)
-    best_c, best_d = _argmin_rows(cost, pair_ok)
+    best_c, best_d, _ = _best_second(
+        torch.where(pair_ok, cost, torch.full_like(cost, BIG)))
     return finish(best_c, _arbitrate_right(best_c, best_d, best_d < BIG, K,
                                            keep_best=True))
 

@@ -9,6 +9,15 @@ model on its inliers, and the >= 8 / >= 25% acceptance with pass-through.
 Both eyes run in one call: points carry a leading eye axis [E,N,2] with one
 key per eye [E,2] and one shared mask [N], so the hypothesis solve is one
 [E*H,9,9] batch, as the reference's vmap over eyes makes it.
+
+The filter's own arithmetic (normalisation, normal equations,
+de-normalisation, Sampson scoring) runs in `PREC`; kernel 4 takes and
+returns float32.  `PREC` is float32, as in the reference, whose results the
+port reproduces on the CPU.  In float32 the sums run in another order on
+cuBLAS than on the CPU, which moves a hypothesis's inlier count by a track
+now and then; where hypotheses tie at the top, the devices pick other
+winners.  tests/_torch_ransac_devices.py measures this on the card, with
+`PREC` float32 and float64.
 """
 from __future__ import annotations
 
@@ -19,6 +28,8 @@ import torch
 
 from rso_torch import random as rrandom
 from rso_torch.kernels.smallchol import nullvec9_auto
+
+PREC = torch.float32
 
 
 class RansacResult(NamedTuple):
@@ -56,9 +67,14 @@ def _solve_eight_point(p1n: torch.Tensor, p2n: torch.Tensor) -> torch.Tensor:
     """F (normalised coords) from [..., 8, 2] samples: the null vector of
     M = A^T A through one flat [B,9,9] batch."""
     A = _design_rows(p1n, p2n)                                 # [...,8,9]
-    M = A.transpose(-1, -2) @ A                                # [...,9,9]
-    x = nullvec9_auto(M.reshape(-1, 9, 9).contiguous())
-    return x.reshape(*M.shape[:-2], 3, 3)
+    return _null_vector(A.transpose(-1, -2) @ A)
+
+
+def _null_vector(M: torch.Tensor) -> torch.Tensor:
+    """The null vector of [...,9,9] M as [...,3,3]: kernel 4 on M rounded to
+    float32, returned in M's dtype."""
+    x = nullvec9_auto(M.reshape(-1, 9, 9).to(torch.float32).contiguous())
+    return x.to(M.dtype).reshape(*M.shape[:-2], 3, 3)
 
 
 def _sampson_sq(F: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor):
@@ -87,8 +103,8 @@ def ransac_fundamental(p1: torch.Tensor, p2: torch.Tensor, mask: torch.Tensor,
         p1, p2, key = p1[None], p2[None], key[None]
         draws = None if draws is None else draws[None]
     N = p1.shape[-2]
-    p1 = p1.to(torch.float32)
-    p2 = p2.to(torch.float32)
+    p1 = p1.to(torch.float32).to(PREC)
+    p2 = p2.to(torch.float32).to(PREC)
     thr2 = threshold * threshold
     p1n, T1 = _normalize_pts(p1, mask)
     p2n, T2 = _normalize_pts(p2, mask)
@@ -117,9 +133,8 @@ def ransac_fundamental(p1: torch.Tensor, p2: torch.Tensor, mask: torch.Tensor,
     e = torch.arange(E, device=p1.device)
 
     # least-squares refit of the best model on all its inliers
-    Arows = _design_rows(p1n, p2n) * inlh[e, best].to(torch.float32)[..., None]
-    Mr = Arows.transpose(-1, -2) @ Arows                        # [E,9,9]
-    Fr = nullvec9_auto(Mr.contiguous()).reshape(E, 3, 3)
+    Arows = _design_rows(p1n, p2n) * inlh[e, best].to(PREC)[..., None]
+    Fr = _null_vector(Arows.transpose(-1, -2) @ Arows)          # [E,3,3]
     Fr = T2.transpose(-1, -2) @ Fr @ T1
     d2r = _sampson_sq(Fr, p1, p2)                               # [E,N]
     score_r = (mask & (d2r <= thr2)).sum(-1, dtype=torch.int32)
@@ -132,7 +147,8 @@ def ransac_fundamental(p1: torch.Tensor, p2: torch.Tensor, mask: torch.Tensor,
     ok = (n_inl >= 8) & (n_inl.to(torch.float32)
                          >= 0.25 * c[-1].to(torch.float32))
     inliers = torch.where(ok[:, None], inliers, mask.expand_as(inliers))
-    res = RansacResult(inliers=inliers, F=Fbest, n_inliers=n_inl, ok=ok)
+    res = RansacResult(inliers=inliers, F=Fbest.to(torch.float32),
+                       n_inliers=n_inl, ok=ok)
     if single:
         res = RansacResult(*(t[0] for t in res))
     return res

@@ -7,7 +7,8 @@ imports neither jax nor rso, so it also runs on a GPU host without jax:
 
 Tolerances: FAST masks, SAD indices and distances bit-exact; the corner
 response bit-exact too (same operation order, round-to-nearest intrinsics,
-the same float32 reciprocal for the window mean), checked at 1e-6; null
+the same float32 reciprocal for the window mean), checked at 1e-6 against
+the twin on the card and exactly against the twin on the CPU; null
 vectors up to sign (|cos| > 1 - 1e-3, unit norm to 1e-4): the kernel is
 LDL^T, the twin regularised Cholesky; Hamming and SAD matrices bit-exact
 (integer counts, and exact f32 sums of 1/16-multiples).
@@ -52,6 +53,17 @@ def test_cuda_corner_response(cuda, th):
         assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
         fin = torch.isfinite(ref)
         torch.testing.assert_close(out[fin], ref[fin], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("th", [10, 20, 25])
+def test_cuda_corner_response_equals_the_cpu_twin(cuda, th):
+    """Kernel 1 on the card and its twin on the CPU agree bit for bit (both
+    take the correctly rounded sqrt): the engine's CPU re-runs rest on it."""
+    seq = make_sequence(n_frames=1, n_points=2000, H=376, W=1241)
+    for octave in build_pyramid(to_grayscale(torch.from_numpy(seq.frames[0][0])), 3):
+        out = K.corner_response_cuda(octave.to(cuda), th)
+        assert torch.equal(out.cpu(), K.corner_response_torch(octave, th))
 
 
 @pytest.mark.gpu

@@ -99,6 +99,15 @@ def test_pack_bits_sets_the_top_bit():
     assert out.dtype == np.int32 and out[0, 0] == -2**31 and out[1, 1] == -1
 
 
+def test_shi_tomasi_sqrt_is_correctly_rounded(rng):
+    """The Shi-Tomasi root is numpy's correctly rounded float32 sqrt, as
+    kernel 1's __fsqrt_rn and CUDA compute it; PyTorch's vectorised CPU sqrt
+    is not, and would part the CPU twin from the kernel by an ulp."""
+    x = np.concatenate([rng.uniform(0, 1e4, 200_000),
+                        [0.0, 1.0, 2.0, 1e-30, 3e38]]).astype(np.float32)
+    np.testing.assert_array_equal(td._sqrt_rn(_t(x)).numpy(), np.sqrt(x))
+
+
 def test_extract_patches_wide_exact(frames, rng):
     img = frames[0][0]
     xy = np.stack([rng.uniform(-5, W + 5, 40), rng.uniform(-5, H + 5, 40)],

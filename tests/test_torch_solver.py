@@ -19,6 +19,7 @@ from rso.solver import ransac_fundamental as j_ransac, solve_pose as j_solve
 from rso_torch import random as R
 from rso_torch.config import LeastSquaresParams as TLS
 from rso_torch.geometry import StereoCamera as TCam
+from rso_torch.solver import ransac as t_ransac_module
 from rso_torch.solver import ransac_fundamental as t_ransac, solve_pose as t_solve
 
 CAM_ARGS = dict(fx_l=718.856, fy_l=718.856, cx_l=607.19, cy_l=185.21,
@@ -159,6 +160,21 @@ def test_ransac_same_inliers_for_same_key(seed, n_valid):
     assert int(out.n_inliers) == int(ref.n_inliers)
     assert bool(out.ok) == bool(ref.ok)
     assert bool(out.ok) and int(out.n_inliers) >= 8
+
+
+@pytest.mark.parametrize("seed,n_valid", [(0, None), (1, 120), (2, 30)])
+def test_ransac_float64_arithmetic_keeps_the_inliers(monkeypatch, seed, n_valid):
+    """`PREC` float64 (the arithmetic tests/_torch_ransac_devices.py compares
+    with the port's float32) runs through kernel 4's float32 interface and,
+    on these well-conditioned cases, keeps the same inliers."""
+    p1, p2, mask = (torch.from_numpy(a) for a in _ransac_case(seed, n_valid=n_valid))
+    key = R.fold_in(R.PRNGKey(7), seed)
+    f32 = t_ransac(p1, p2, mask, key, n_iters=256)
+    monkeypatch.setattr(t_ransac_module, "PREC", torch.float64)
+    f64 = t_ransac(p1, p2, mask, key, n_iters=256)
+    assert f64.F.dtype == torch.float32
+    assert torch.equal(f64.inliers, f32.inliers)
+    assert int(f64.n_inliers) == int(f32.n_inliers)
 
 
 def test_ransac_degenerate_passes_through():
