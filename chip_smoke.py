@@ -8,9 +8,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
   2. build: compiles rso_torch/csrc/*.cu with nvcc and loads the library;
   3. kernels: each of the six CUDA kernels against its plain PyTorch twin on
      the card, at the engine paths' shapes, with the tolerance stated beside
-     each check; the median time of kernel, twin and, where one PyTorch call
-     computes the same function, that call (CUDA events); and the kernel's
-     bound, the least time the card could take for the same work;
+     each check; per kernel, over 50 calls after 5 of warm-up: `ms`, the
+     median call time (CUDA events around the Python wrapper, so it includes
+     the host's work before the launch is queued: library lookup, operand
+     checks, output allocation, the ctypes call); `device_us`, the median of
+     the kernel's own duration on the card (torch.profiler's CUDA activity);
+     the same call times of the twin and, where one PyTorch call computes the
+     same function, of that call (all timed in phase 8); and the kernel's
+     bound, the least time the card could take for the same work.  The
+     tracking kernel's bound counts the SAD only on the pairs its window
+     admits (their share is printed, and the all-pairs bound beside it), and
+     the kernel is also checked and timed with the window open (1e4: every
+     valid pair admitted);
   4. engine, default path: 30 frames of the bench scene (1241x376, 2000
      points, speed 0.8, fx 718.856, baseline 0.5371) through
      Engine(synthetic_config()) on the card, with every kernel's launch
@@ -25,7 +34,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      10 bench frames; 9 sad_matrix launches a frame, no fused ones, and every
      StepResult equal to phase 4's for the same frames;
   7. engine, the remaining modes: ORB + DESC_BF + DESC_BF (one octave) and
-     KLT + SAD + SAD, 5 bench frames each, then again on the CPU.
+     KLT + SAD + SAD, 5 bench frames each, then again on the CPU;
+  8. timing: phase 3's call times, then its device times in one profiler
+     session, last, since a profiler session slows the process after it.
 Each engine phase resets the launch counters just before it and reads them
 just after, and holds its first 3 steps equal to its warm-up's (the card is
 deterministic).  The last three lines are a JSON object describing the kernels,
@@ -119,6 +130,52 @@ def _median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return times[len(times) // 2]
 
 
+def device_times(jobs, reps: int = 50, warmup: int = 5) -> list:
+    """Median device duration, in us, of each job's kernel over `reps` calls
+    of its function.  jobs: [(kernel, fn)].  Every job runs in ONE
+    torch.profiler session (CUDA activity, CUPTI): on an H100, a sixth
+    session in one process once recorded no device event at all.
+    The kernels are launched through ctypes, so they are found by their own
+    symbol, demangled (`::name(`, `::name<`) or mangled (`<len>nameE`/`I`);
+    launches on one stream run in issue order, so the n-th batch of `reps`
+    launches of a kernel belongs to the n-th job that names it."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _, fn in jobs:
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _, fn in jobs:
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_kernel = {}
+    for kernel in {k for k, _ in jobs}:
+        pat = re.compile(rf"(?:::|\d){kernel}(?:[(<EI]|$)")
+        by_kernel[kernel] = sorted((e for e in events if pat.search(e.name)),
+                                   key=lambda e: e.time_range.start)
+        n_jobs = sum(k == kernel for k, _ in jobs)
+        if len(by_kernel[kernel]) != n_jobs * reps:
+            names = sorted({e.name for e in events})
+            raise AssertionError(
+                f"profiler saw {len(by_kernel[kernel])} launches of {kernel}, "
+                f"expected {n_jobs * reps}; device events: {names[:8]}")
+    out, taken = [], {}
+    for kernel, _ in jobs:
+        k = taken.get(kernel, 0)
+        taken[kernel] = k + 1
+        t = sorted(e.time_range.elapsed_us()
+                   for e in by_kernel[kernel][k * reps:(k + 1) * reps])
+        out.append(t[len(t) // 2])
+    return out
+
+
 def _bound(ops: float, n_bytes: float):
     """(bound_ms, bound_by): the larger of operations over the f32 peak and
     bytes (each input read once, each output written once) over the memory
@@ -149,37 +206,126 @@ def _exact(name, a, b, what):
     return d
 
 
+class BenchInputs:
+    """The kernels' inputs on the bench scene, as the engine paths give them:
+    the 3-octave pyramid of frame 0's left image, and per octave the
+    FASTER features (left, right, stereo matches) of frames 0 and 1 and the
+    FAST_ORB descriptors of both frames' left images."""
+
+    def __init__(self, seq, dev):
+        import torch
+
+        from rso_torch.frontend.detect import detect_features, octave_k_slots
+        from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
+        from rso_torch.frontend.stereo_match import match_left_right
+        from rso_torch.synthetic import mode_config, synthetic_config
+
+        self.cfg = cfg = synthetic_config()
+        pyramid = lambda f, eye: build_pyramid(  # noqa: E731
+            to_grayscale(torch.from_numpy(seq.frames[f][eye]).to(dev)), 3)
+        self.pyr = pyramid(0, 0)
+        self.th = torch.tensor(cfg.detect.initial_FAST_threshold,
+                               dtype=torch.int32, device=dev)
+        self.Ks = octave_k_slots(cfg.detect.orb_nfeats, 3,
+                                 cfg.tpu.max_kps_per_octave)
+        self.desc_params = mode_config("fast_orb_rbr_win", upright=False).detect
+        self.frames, self.descs = [], []
+        for f in (0, 1):
+            pl_, pr_ = pyramid(f, 0), pyramid(f, 1)
+            octs, dsc = [], []
+            for o in range(3):
+                fl = detect_features(pl_[o], cfg.detect, self.Ks[o], self.th, False)
+                fr = detect_features(pr_[o], cfg.detect, self.Ks[o], self.th, False)
+                octs.append((fl, fr, match_left_right(fl, fr, cfg.lr_match,
+                                                      W >> o, 0.0)))
+                dsc.append(detect_features(pl_[o], self.desc_params, self.Ks[o],
+                                           self.th, True))
+            self.frames.append(octs)
+            self.descs.append(dsc)
+        self.track_kw = dict(win_row=float(cfg.if_match.ifm_win_w),
+                             win_col=float(cfg.if_match.ifm_win_h),
+                             sad_max=float(cfg.if_match.sad_max_distance))
+
+    def stereo_args(self, o):
+        fl, fr, _ = self.frames[0][o]
+        return (fl.patch, fr.patch, fl.xy, fr.xy, fl.valid, fr.valid)
+
+    def stereo_kw(self, o):
+        return dict(max_y_diff=self.cfg.lr_match.max_y_diff,
+                    max_disp=(W >> o) * 0.7,
+                    max_distance=float(self.cfg.lr_match.sad_max_distance))
+
+    def track_args(self, o):
+        """Tracking's operands at octave o, frame 0 -> 1 (as track.py
+        gathers them)."""
+        from rso_torch.frontend.track import _gather_right
+
+        pl, pr, pm = self.frames[0][o]
+        cl, cr, cm = self.frames[1][o]
+        pR_xy, pR_patch, _ = _gather_right(pr, pm.ridx)
+        cR_xy, cR_patch, _ = _gather_right(cr, cm.ridx)
+        return (pl.patch, cl.patch, pR_patch, cR_patch, pl.xy, cl.xy,
+                pR_xy[:, 0].contiguous(), cR_xy[:, 0].contiguous(),
+                pm.valid, cm.valid)
+
+
+def track_window_pairs(args, kw) -> int:
+    """How many (prev, cur) pairs the tracking window and validity admit:
+    the twin's mask before its SAD gates, the pairs whose SAD kernel 3
+    forms."""
+    _, _, _, _, pxy, cxy, prx, crx, okp, okc = args
+    d = lambda a, b: (a[:, None] - b[None, :]).abs()  # noqa: E731
+    ok = (okp[:, None] & okc[None, :]
+          & (d(pxy[:, 1], cxy[:, 1]) <= kw["win_row"])
+          & (d(pxy[:, 0], cxy[:, 0]) <= kw["win_col"])
+          & (d(prx, crx) <= kw["win_col"]))
+    return int(ok.sum())
+
+
+def track_bound(args, kw):
+    """(ops, bytes, admitted pairs) of the tracking function on these
+    inputs: the mask on every pair (~10 operations), the SAD only on the
+    admitted ones (6 operations a patch value, both eyes); each operand read
+    once, two [Kp] outputs written."""
+    Kp, P = args[0].shape
+    Kc = args[1].shape[0]
+    n = track_window_pairs(args, kw)
+    return (Kp * Kc * 10 + n * P * 6, 4 * (Kp + Kc) * (2 * P + 3) + Kp + Kc
+            + 8 * Kp, n)
+
+
 def check_kernels(seq, dev):
     """Phase 3: every kernel against its twin at the engine paths' shapes.
-    Returns {name: dict(max_abs_err, ms, plain_ms, library_ms, bound_ms,
-    bound_by, ...)}."""
+    Returns ({name: dict(max_abs_err, bound_ms, bound_by, ...)}, the calls
+    to time), the times being taken by time_kernels after the engines."""
     import numpy as np
     import torch
 
     from rso_torch import kernels as K
-    from rso_torch.frontend.detect import detect_features, octave_k_slots
+    from rso_torch.frontend.detect import detect_features
     from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
-    from rso_torch.frontend.stereo_match import match_left_right
-    from rso_torch.frontend.track import _gather_right
     from rso_torch.kernels.stereo_fused import _best_second
-    from rso_torch.synthetic import mode_config, synthetic_config
 
-    cfg = synthetic_config()
+    bi = BenchInputs(seq, dev)
+    pyr, th, Ks = bi.pyr, bi.th, bi.Ks
     rng = np.random.default_rng(0)
     report = {}
 
-    def entry(err, ms, plain, library, ops, n_bytes, shape, note=None):
+    # (report entry, kernel, kernel call, twin call, library call); each
+    # call binds its operands now, since it runs after every check
+    timed = []
+
+    def entry(err, fn, kernel, plain, library, ops, n_bytes, shape, note=None):
+        """The kernel's report; its times are taken after every check."""
         bound_ms, bound_by = _bound(ops, n_bytes)
-        out = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=library,
-                   bound_ms=bound_ms, bound_by=bound_by, shape=shape)
+        out = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                   shape=shape)
         if note:
             out["library_note"] = note
+        timed.append((out, kernel, fn, plain, library))
         return out
 
     # ---- kernel 1: all three octaves of a bench frame ------------------------
-    pyr = build_pyramid(to_grayscale(torch.from_numpy(seq.frames[0][0]).to(dev)), 3)
-    th = torch.tensor(cfg.detect.initial_FAST_threshold, dtype=torch.int32,
-                      device=dev)
     err = 0.0
     for img in pyr:
         out = K.corner_response_cuda(img, th)
@@ -199,8 +345,14 @@ def check_kernels(seq, dev):
         if not torch.equal(out.cpu(), K.corner_response_torch(img.cpu(), th.cpu())):
             raise AssertionError(f"corner response at {tuple(img.shape)}: "
                                  "kernel != twin on the CPU")
+        # the work a thread-per-pixel design divides unevenly: the corners'
+        # share of pixels, and of 32-pixel row segments (warps) holding one
+        rows = torch.nn.functional.pad(fin, (0, -img.shape[1] % 32))
+        warps = rows.view(img.shape[0], -1, 32).any(-1)
         print(f"kernel corner_response {tuple(img.shape)}: corners "
-              f"{int(fin.sum())}, max|d| {d}, equal to the CPU twin", flush=True)
+              f"{int(fin.sum())} ({fin.float().mean().item()} of the pixels, "
+              f"in {warps.float().mean().item()} of the 32-pixel warps), "
+              f"max|d| {d}, equal to the CPU twin", flush=True)
         err = max(err, d)
     n_px = pyr[0].numel()
     # ~190 operations a pixel, counted from the twin's arithmetic: FAST's 32
@@ -208,49 +360,13 @@ def check_kernels(seq, dev):
     # gradients, 3 products, 48 box-sum adds, 3 means and ~10 for the
     # eigenvalue; one f32 image read, one written
     report["corner_response"] = entry(
-        err, _median_ms(lambda: K.corner_response_cuda(pyr[0], th)),
-        _median_ms(lambda: K.corner_response_torch(pyr[0], th)), None,
+        err, lambda img=pyr[0]: K.corner_response_cuda(img, th),
+        "corner_response_kernel",
+        lambda img=pyr[0]: K.corner_response_torch(img, th), None,
         190 * n_px, 8 * n_px, list(pyr[0].shape),
         "no single PyTorch call computes FAST + Shi-Tomasi")
 
     # ---- kernels 2, 3: real features of bench frames 0 and 1 per octave -----
-    Ks = octave_k_slots(cfg.detect.orb_nfeats, 3, cfg.tpu.max_kps_per_octave)
-    desc_params = mode_config("fast_orb_rbr_win", upright=False).detect
-    frames, descs = [], []
-    for f in (0, 1):
-        pl_ = build_pyramid(to_grayscale(torch.from_numpy(seq.frames[f][0]).to(dev)), 3)
-        pr_ = build_pyramid(to_grayscale(torch.from_numpy(seq.frames[f][1]).to(dev)), 3)
-        octs, dsc = [], []
-        for o in range(3):
-            fl = detect_features(pl_[o], cfg.detect, Ks[o], th, False)
-            fr = detect_features(pr_[o], cfg.detect, Ks[o], th, False)
-            m = match_left_right(fl, fr, cfg.lr_match, W >> o, 0.0)
-            octs.append((fl, fr, m))
-            dsc.append(detect_features(pl_[o], desc_params, Ks[o], th, True))
-        frames.append(octs)
-        descs.append(dsc)
-
-    def stereo_args(o):
-        fl, fr, _ = frames[0][o]
-        return (fl.patch, fr.patch, fl.xy, fr.xy, fl.valid, fr.valid)
-
-    stereo_kw = lambda o: dict(max_y_diff=cfg.lr_match.max_y_diff,  # noqa: E731
-                               max_disp=(W >> o) * 0.7,
-                               max_distance=float(cfg.lr_match.sad_max_distance))
-
-    def track_args(o):
-        pl, pr, pm = frames[0][o]
-        cl, cr, cm = frames[1][o]
-        pR_xy, pR_patch, _ = _gather_right(pr, pm.ridx)
-        cR_xy, cR_patch, _ = _gather_right(cr, cm.ridx)
-        return (pl.patch, cl.patch, pR_patch, cR_patch, pl.xy, cl.xy,
-                pR_xy[:, 0].contiguous(), cR_xy[:, 0].contiguous(),
-                pm.valid, cm.valid)
-
-    track_kw = dict(win_row=float(cfg.if_match.ifm_win_w),
-                    win_col=float(cfg.if_match.ifm_win_h),
-                    sad_max=float(cfg.if_match.sad_max_distance))
-
     def odd_case(k, seed):
         r = np.random.default_rng(seed)
         # slot j of the second set is a noisy copy of slot perm[j] of the
@@ -267,41 +383,64 @@ def check_kernels(seq, dev):
     K0, P = Ks[0], 64
     err = 0.0
     for o in range(3):
-        a = stereo_args(o)
-        err = max(err, _exact("stereo_sad_fused", K.stereo_sad_fused_cuda(*a, **stereo_kw(o)),
-                              K.stereo_sad_fused_torch(*a, **stereo_kw(o)), f"K={Ks[o]}"))
+        a = bi.stereo_args(o)
+        err = max(err, _exact("stereo_sad_fused", K.stereo_sad_fused_cuda(*a, **bi.stereo_kw(o)),
+                              K.stereo_sad_fused_torch(*a, **bi.stereo_kw(o)), f"K={Ks[o]}"))
     pl, pr, xl, xr, okl, okr = odd_case(257, 1)
     kw = dict(max_y_diff=1.0, max_disp=100.0, max_distance=6000.0)
     err = max(err, _exact("stereo_sad_fused",
                           K.stereo_sad_fused_cuda(pl, pr, xl, xr, okl, okr, **kw),
                           K.stereo_sad_fused_torch(pl, pr, xl, xr, okl, okr, **kw),
                           "K=257"))
-    a0 = stereo_args(0)
+    a0, kw0 = bi.stereo_args(0), bi.stereo_kw(0)
     # per pair: 3 operations a patch value and ~8 for the masks and merge;
     # patches, xy and masks read once, three [K] outputs written
     report["stereo_sad_fused"] = entry(
-        err, _median_ms(lambda: K.stereo_sad_fused_cuda(*a0, **stereo_kw(0))),
-        _median_ms(lambda: K.stereo_sad_fused_torch(*a0, **stereo_kw(0))),
+        err, lambda a=a0, kw=kw0: K.stereo_sad_fused_cuda(*a, **kw),
+        "stereo_sad_kernel",
+        lambda a=a0, kw=kw0: K.stereo_sad_fused_torch(*a, **kw),
         None, K0 * K0 * (3 * P + 8), 2 * K0 * (4 * P + 8 + 1) + 12 * K0,
         [K0, K0, P], "no single PyTorch call computes the masked best/second")
 
+    track_kw = bi.track_kw
+    dense_kw = dict(track_kw, win_row=1e4, win_col=1e4)
     err = 0.0
     for o in range(3):
-        a = track_args(o)
-        err = max(err, _exact("track_sad_fused", K.track_sad_fused_cuda(*a, **track_kw),
-                              K.track_sad_fused_torch(*a, **track_kw), f"K={Ks[o]}"))
+        a = bi.track_args(o)
+        for what, kw in (("", track_kw), (" open window", dense_kw)):
+            err = max(err, _exact("track_sad_fused", K.track_sad_fused_cuda(*a, **kw),
+                                  K.track_sad_fused_torch(*a, **kw),
+                                  f"K={Ks[o]}{what}"))
+        n_pairs = Ks[o] * Ks[o]
+        print(f"kernel track_sad_fused K={Ks[o]}: the window admits "
+              f"{track_window_pairs(a, track_kw)} of {n_pairs} pairs "
+              f"({track_window_pairs(a, track_kw) / n_pairs}), the open window "
+              f"{track_window_pairs(a, dense_kw) / n_pairs}", flush=True)
     p1, c1, xy1, xy2, okp, okc = odd_case(131, 2)
     p2, c2, _, _, _, _ = odd_case(131, 3)
     a = (p1, c1, p2, c2, xy1, xy2, xy1[:, 0] - 5.0, xy2[:, 0] - 7.0, okp, okc)
     kw = dict(win_row=8.0, win_col=40.0, sad_max=8000.0)
     err = max(err, _exact("track_sad_fused", K.track_sad_fused_cuda(*a, **kw),
                           K.track_sad_fused_torch(*a, **kw), "K=131"))
-    a0 = track_args(0)
+    a0 = bi.track_args(0)
+    ops, n_bytes, n_adm = track_bound(a0, track_kw)
     report["track_sad_fused"] = entry(
-        err, _median_ms(lambda: K.track_sad_fused_cuda(*a0, **track_kw)),
-        _median_ms(lambda: K.track_sad_fused_torch(*a0, **track_kw)),
-        None, K0 * K0 * (6 * P + 10), 2 * K0 * (8 * P + 12 + 1) + 8 * K0,
+        err, lambda a=a0: K.track_sad_fused_cuda(*a, **track_kw),
+        "track_sad_kernel",
+        lambda a=a0: K.track_sad_fused_torch(*a, **track_kw), None, ops, n_bytes,
         [K0, K0, P], "no single PyTorch call computes the windowed argmin")
+    # the bound counts the SAD of the admitted pairs only; the all-pairs
+    # count (K^2 (6P + 10) operations) is kept beside it for comparison with
+    # ratios taken against it
+    all_pairs_ms, _ = _bound(K0 * K0 * (6 * P + 10), n_bytes)
+    ops_d, _, n_dense = track_bound(a0, dense_kw)
+    open_window = dict(win=1e4, admissible_share=n_dense / (K0 * K0),
+                       bound_ms=_bound(ops_d, n_bytes)[0])
+    report["track_sad_fused"].update(
+        admissible_share=n_adm / (K0 * K0), bound_all_pairs_ms=all_pairs_ms,
+        open_window=open_window)
+    timed.append((open_window, "track_sad_kernel",
+                  lambda a=a0: K.track_sad_fused_cuda(*a, **dense_kw), None, None))
 
     # ---- kernel 4: 9x9 null vectors, B = 512 (2 eyes x 256) and B = 1 -------
     err = 0.0
@@ -334,22 +473,22 @@ def check_kernels(seq, dev):
     # ~900 operations a matrix: LDL^T (~490), two inverse iterations
     # (~380), the regularisation; 81 floats in, 9 out
     report["nullvec9"] = entry(
-        err, _median_ms(lambda: K.nullvec9_cuda(M)),
-        _median_ms(lambda: K.nullvec9_torch(M)),
-        _median_ms(lambda: torch.linalg.eigh(M)), 512 * 900,
+        err, lambda M=M: K.nullvec9_cuda(M), "nullvec9_kernel",
+        lambda M=M: K.nullvec9_torch(M), lambda M=M: torch.linalg.eigh(M),
+        512 * 900,
         512 * (81 + 9) * 4, [512, 9, 9])
 
     # ---- kernel 5: Hamming on FAST_ORB descriptors of frames 0 and 1 --------
     err, n_bits, n_desc = 0.0, 0, 0
     for o in range(3):
-        a, b = descs[0][o].desc, descs[1][o].desc
+        a, b = bi.descs[0][o].desc, bi.descs[1][o].desc
         err = max(err, _exact("hamming_matrix", (K.hamming_matrix_cuda(a, b),),
                               (K.hamming_matrix_torch(a, b),), f"K={Ks[o]}"))
         # the same descriptors on the CPU plain path: oriented bits may flip
         # where a sample pair nearly ties (DESC_BIT_SHARE)
         img = build_pyramid(to_grayscale(torch.from_numpy(seq.frames[0][0])), 3)[o]
-        cpu = detect_features(img, desc_params, Ks[o], th.cpu(), True)
-        if not torch.equal(cpu.valid, descs[0][o].valid.cpu()):
+        cpu = detect_features(img, bi.desc_params, Ks[o], th.cpu(), True)
+        if not torch.equal(cpu.valid, bi.descs[0][o].valid.cpu()):
             raise AssertionError(f"FAST_ORB keypoints differ on the CPU, octave {o}")
         x = torch.bitwise_xor(cpu.desc, a.cpu())[cpu.valid]
         n_bits += int(K.hamming_matrix_torch(x, torch.zeros_like(x[:1])).sum())
@@ -374,29 +513,47 @@ def check_kernels(seq, dev):
     best, d_best, second = _best_second(K.hamming_matrix_cuda(ta, tb))
     if best.tolist() != [1, 1] or d_best.tolist() != second.tolist():
         raise AssertionError(f"tie rule: best {best.tolist()}")
-    a, b = descs[0][0].desc, descs[1][0].desc
+    a, b = bi.descs[0][0].desc, bi.descs[1][0].desc
     report["hamming_matrix"] = entry(
-        err, _median_ms(lambda: K.hamming_matrix_cuda(a, b)),
-        _median_ms(lambda: K.hamming_matrix_torch(a, b)), None,
+        err, lambda a=a, b=b: K.hamming_matrix_cuda(a, b), "hamming_kernel",
+        lambda a=a, b=b: K.hamming_matrix_torch(a, b), None,
         K0 * K0 * 8 * 3, (2 * K0 * 8 + K0 * K0) * 4, [K0, K0, 8],
         "PyTorch has no popcount call")
 
     # ---- kernel 6: SAD matrix on bench patches and 1/16-multiples ------------
     err = 0.0
     for o in range(3):
-        a, b = frames[0][o][0].patch, frames[1][o][0].patch
+        a, b = bi.frames[0][o][0].patch, bi.frames[1][o][0].patch
         err = max(err, _exact("sad_matrix", (K.sad_matrix_cuda(a, b),),
                               (K.sad_matrix_torch(a, b),), f"K={Ks[o]}"))
     sa, sb = odd_case(257, 6)[0], odd_case(131, 7)[0]
     err = max(err, _exact("sad_matrix", (K.sad_matrix_cuda(sa, sb),),
                           (K.sad_matrix_torch(sa, sb),), "257x131"))
-    a, b = frames[0][0][0].patch, frames[1][0][0].patch
+    a, b = bi.frames[0][0][0].patch, bi.frames[1][0][0].patch
     report["sad_matrix"] = entry(
-        err, _median_ms(lambda: K.sad_matrix_cuda(a, b)),
-        _median_ms(lambda: K.sad_matrix_torch(a, b)),
-        _median_ms(lambda: torch.cdist(a, b, p=1)), K0 * K0 * P * 3,
+        err, lambda a=a, b=b: K.sad_matrix_cuda(a, b), "sad_kernel",
+        lambda a=a, b=b: K.sad_matrix_torch(a, b),
+        lambda a=a, b=b: torch.cdist(a, b, p=1), K0 * K0 * P * 3,
         (2 * K0 * P + K0 * K0) * 4, [K0, K0, P])
-    return report
+
+    return report, timed
+
+
+def time_kernels(timed) -> None:
+    """Phase 8: the call times (CUDA events) of every kernel, twin and
+    library call, then the kernels' own device times, all in one profiler
+    session.  It runs last: after a torch.profiler session the same process
+    steps the engine ~25% slower (measured on an H100: 52.1 and 47.7 ms a
+    default step before one, 60.9 and 67.0 ms after), and call times, which
+    include the host's work, would read high too."""
+    for out, _, fn, plain, library in timed:
+        out["ms"] = _median_ms(fn)
+        if plain is not None:
+            out.update(plain_ms=_median_ms(plain),
+                       library_ms=_median_ms(library) if library else None)
+    us = device_times([(kernel, fn) for _, kernel, fn, _, _ in timed])
+    for (out, *_), u in zip(timed, us):
+        out["device_us"] = u
 
 
 def _ate(results, gt):
@@ -630,8 +787,9 @@ def main() -> int:
 
     dev = torch.device("cuda")
     seq = _bench_scene(N_FRAMES)
-    report = check_kernels(seq, dev)
+    report, timed = check_kernels(seq, dev)
     by_phase = run_engines(seq, dev)
+    time_kernels(timed)
 
     # the phase whose path each kernel's launches are read from
     kernels = {

@@ -10,110 +10,213 @@
 //
 // Output: response where the pixel is a FAST corner, -inf elsewhere.
 //
-// What bounds it on the H100: memory.  At 1241x376 it reads the image and
-// writes the response once (~1.9 MB per octave-0 image) and the arithmetic
-// is a few hundred flops per corner pixel, far below the card's compute.
-// Design: one thread per output pixel, 32x8 blocks so a warp reads one row
-// segment; the 16 circle reads and the 9x9 gradient window are re-read
-// through L1/L2 instead of staged, which is the simple form.  Non-corner
-// pixels (most of them) skip the structure tensor entirely.
+// The first design (one thread per pixel, everything read through L1/L2)
+// ran the structure tensor only at corner pixels: a serial 9x9 loop that
+// recomputed both gradients at each of the 81 taps (324 image reads), with
+// a branch per tap at the border.  Only 2.8% of the octave-0 pixels of the
+// bench frame are corners, but 31% of its 32-pixel warps hold one (68% at
+// octave 2; chip_smoke.py prints both), and each such warp paid the whole
+// loop while its other lanes idled.
 //
-// Rounding: the box sums run in the reference's order (rows dy = 0..8, then
-// columns dx = 0..8) with explicit round-to-nearest intrinsics, so no
-// multiply-add is contracted into an FMA and the response is bit-equal to
-// the PyTorch twin `corner_response_torch`.
+// This design: one block of 256 threads per 32x16 output tile (the width is
+// RSO_CORNER_TILE_W, 32 unless the build defines it).  The block loads the
+// image tile and its halo (win + 1 px, at least FAST's 3) once into shared
+// memory with row-coalesced reads, taking coordinates modulo H and W, as the
+// roll does; computes the gradients and the three products once for each
+// position of the tile and a win-px ring (0 outside the image: the box sums'
+// zero padding); sums them in two separable passes, the 2*win + 1 rows of
+// each column in order dy = 0..2*win, then the 2*win + 1 column sums in
+// order dx = 0..2*win, which is the twin's order; and gives every pixel its
+// response, with no divergence, before the FAST test (16 taps from shared
+// memory) selects it.  `win` is a template parameter, dispatched over 1..4.
+//
+// Measured (tests/_torch_kernel_ab.py, bench frame 0, NVIDIA H100 80GB HBM3
+// at 700 W): 14.7 us on the device at 376x1241, against 40.6 us for the
+// first design; 5.7 and 4.5 us at the two smaller octaves (21.4, 10.9).
+// 64-wide tiles measured 3% faster at octave 0 and 19-49% slower at the
+// smaller ones.  The image and halo loads all go out before the first
+// store to shared memory (one latency, not five).
+//
+// What bounds it: the bound is ~190 operations a pixel (1.3 us at the f32
+// rate; the image read once and the response written once, ~1.9 MB, take
+// 0.6 us).  The kernel issues several times that: the index arithmetic of
+// four shared-memory phases, and the FAST test's 32 compares a pixel.  The
+// time grows with the blocks per SM (~1.5 us each), so it is instruction
+// issue; cutting the vertical and horizontal passes' shared-memory reads by
+// holding a column in registers gained 1.6%, and was not kept.  Tensor
+// cores and TMA do not apply: the arithmetic is elementwise and sums in a
+// fixed order, and a tile with its halo is ~4 KB that the block's own
+// coalesced loads bring in.
+//
+// Rounding: explicit round-to-nearest intrinsics, so no multiply-add is
+// contracted into an FMA, and the window mean as a multiply by the rounded
+// reciprocal of its area: the response is bit-equal to the PyTorch twin
+// `corner_response_torch`.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#ifndef RSO_CORNER_TILE_W
+#define RSO_CORNER_TILE_W 32
+#endif
+
 namespace {
 
-__constant__ int kDX[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
-__constant__ int kDY[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
+constexpr int kTileW = RSO_CORNER_TILE_W;
+constexpr int kTileH = 16;
+constexpr int kThreads = 256;
+
+// The 16 circle taps' offsets, +3, in 3 bits each: compile-time constants
+// once the tap loop is unrolled.
+constexpr unsigned long long kCircleDX = 0x440053976D63ull;  // 3,4,5,6,6,6,5,4,3,2,1,0,0,0,1,2
+constexpr unsigned long long kCircleDY = 0x53976D63440ull;   // 0,0,1,2,3,4,5,6,6,6,5,4,3,2,1,0
+
+__device__ __forceinline__ constexpr int circle_dx(int k) {
+  return (int)((kCircleDX >> (3 * k)) & 7u) - 3;
+}
+
+__device__ __forceinline__ constexpr int circle_dy(int k) {
+  return (int)((kCircleDY >> (3 * k)) & 7u) - 3;
+}
 
 // Any circular run of >= arc set bits in a 16-bit word (arc in 1..16): the
-// same predicate as the reference's run-length doubling.
+// reference's run-length doubling.  Bit s of `run` marks len set bits from
+// bit s of the word doubled to 32 bits; `acc` chains the runs the binary
+// digits of arc name.
 __device__ __forceinline__ bool has_arc(unsigned b, int arc) {
-  const unsigned w = b | (b << 16);
-  const unsigned need = (1u << arc) - 1u;
+  unsigned run = b | (b << 16);
+  unsigned acc = 0xffffffffu;
+  int done = 0;
 #pragma unroll
-  for (int s = 0; s < 16; ++s) {
-    if (((w >> s) & need) == need) return true;
-  }
-  return false;
-}
-
-__device__ __forceinline__ float grad_x(const float* __restrict__ img, int W,
-                                        int y, int x) {
-  const int xp = (x + 1 == W) ? 0 : x + 1;
-  const int xm = (x == 0) ? W - 1 : x - 1;
-  return __fmul_rn(__fsub_rn(img[y * W + xp], img[y * W + xm]), 0.5f);
-}
-
-__device__ __forceinline__ float grad_y(const float* __restrict__ img, int H,
-                                        int W, int y, int x) {
-  const int yp = (y + 1 == H) ? 0 : y + 1;
-  const int ym = (y == 0) ? H - 1 : y - 1;
-  return __fmul_rn(__fsub_rn(img[yp * W + x], img[ym * W + x]), 0.5f);
-}
-
-__device__ float shi_tomasi(const float* __restrict__ img, int H, int W,
-                            int y, int x, int win) {
-  const int n = 2 * win + 1;
-  float sxx = 0.f, syy = 0.f, sxy = 0.f;
-  for (int dx = 0; dx < n; ++dx) {
-    const int xx = x + dx - win;
-    if (xx < 0 || xx >= W) continue;          // zero-padded column
-    float rxx = 0.f, ryy = 0.f, rxy = 0.f;
-    for (int dy = 0; dy < n; ++dy) {
-      const int yy = y + dy - win;
-      if (yy < 0 || yy >= H) continue;        // zero-padded row
-      const float gx = grad_x(img, W, yy, xx);
-      const float gy = grad_y(img, H, W, yy, xx);
-      rxx = __fadd_rn(rxx, __fmul_rn(gx, gx));
-      ryy = __fadd_rn(ryy, __fmul_rn(gy, gy));
-      rxy = __fadd_rn(rxy, __fmul_rn(gx, gy));
+  for (int len = 1; len <= 16; len <<= 1) {
+    if (arc & len) {
+      acc &= run >> done;
+      done += len;
     }
-    sxx = __fadd_rn(sxx, rxx);
-    syy = __fadd_rn(syy, ryy);
-    sxy = __fadd_rn(sxy, rxy);
+    run &= run >> len;
   }
-  // the window mean as a multiply by the rounded reciprocal, like the twin
-  const float inv_area = __fdiv_rn(1.0f, (float)(n * n));
-  const float gxx = __fmul_rn(sxx, inv_area);
-  const float gyy = __fmul_rn(syy, inv_area);
-  const float gxy = __fmul_rn(sxy, inv_area);
-  const float tr_half = __fmul_rn(0.5f, __fadd_rn(gxx, gyy));
-  const float d = __fsub_rn(gxx, gyy);
-  const float inner = __fadd_rn(__fmul_rn(0.25f, __fmul_rn(d, d)),
-                                __fmul_rn(gxy, gxy));
-  return __fsub_rn(tr_half, __fsqrt_rn(fmaxf(inner, 0.f)));
+  return (acc & 0xffffu) != 0u;
 }
 
-__global__ void corner_response_kernel(const float* __restrict__ img,
-                                       const int* __restrict__ threshold,
-                                       float* __restrict__ out, int H, int W,
-                                       int arc, int win) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= W || y >= H) return;
-  float result = -INFINITY;
-  if (x >= 3 && x < W - 3 && y >= 3 && y < H - 3) {
-    const float c = img[y * W + x];
-    const float t = (float)threshold[0];
-    const float hi = __fadd_rn(c, t);
-    const float lo = __fsub_rn(c, t);
-    unsigned bright = 0u, dark = 0u;
+// v modulo n for the halo's coordinates, which lie within about a tile of
+// the image (a loop: the tile may be larger than the image).
+__device__ __forceinline__ int wrap(int v, int n) {
+  while (v < 0) v += n;
+  while (v >= n) v -= n;
+  return v;
+}
+
+template <int WIN>
+__global__ void __launch_bounds__(kThreads) corner_response_kernel(
+    const float* __restrict__ img, const int* __restrict__ threshold,
+    float* __restrict__ out, int H, int W, int arc) {
+  constexpr int HALO = WIN + 1 > 3 ? WIN + 1 : 3;
+  constexpr int IW = kTileW + 2 * HALO, IH = kTileH + 2 * HALO;  // image
+  constexpr int PW = kTileW + 2 * WIN, PH = kTileH + 2 * WIN;    // products
+  constexpr int N = 2 * WIN + 1;
+  __shared__ float s_img[IH][IW];
+  __shared__ float s_prod[3][PH][PW];   // gx*gx, gy*gy, gx*gy
+  __shared__ float s_col[3][kTileH][PW];   // their column sums
+  constexpr int kLoads = (IH * IW + kThreads - 1) / kThreads;
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
+  const float t = (float)threshold[0];
+
+  // Every load of the tile goes out before the first store to shared
+  // memory: one memory latency, not kLoads.  Positions past the tile's end
+  // read some pixel of the image and are not stored.
+  float vals[kLoads];
 #pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const float v = img[(y + kDY[k]) * W + (x + kDX[k])];
-      if (v > hi) bright |= 1u << k;
-      if (v < lo) dark |= 1u << k;
-    }
-    if (has_arc(bright, arc) || has_arc(dark, arc)) {
-      result = shi_tomasi(img, H, W, y, x, win);
-    }
+  for (int k = 0; k < kLoads; ++k) {
+    const int i = tid + k * kThreads;
+    const int r = i / IW, c = i - r * IW;
+    vals[k] = img[wrap(y0 - HALO + r, H) * W + wrap(x0 - HALO + c, W)];
   }
-  out[y * W + x] = result;
+#pragma unroll
+  for (int k = 0; k < kLoads; ++k) {
+    const int i = tid + k * kThreads;
+    if (i < IH * IW) (&s_img[0][0])[i] = vals[k];
+  }
+  __syncthreads();
+
+  for (int i = tid; i < PH * PW; i += kThreads) {
+    const int r = i / PW, c = i - r * PW;
+    const int y = y0 - WIN + r, x = x0 - WIN + c;
+    float gxx = 0.f, gyy = 0.f, gxy = 0.f;
+    if (y >= 0 && y < H && x >= 0 && x < W) {
+      const int ir = r + HALO - WIN, ic = c + HALO - WIN;
+      const float gx = __fmul_rn(__fsub_rn(s_img[ir][ic + 1], s_img[ir][ic - 1]), 0.5f);
+      const float gy = __fmul_rn(__fsub_rn(s_img[ir + 1][ic], s_img[ir - 1][ic]), 0.5f);
+      gxx = __fmul_rn(gx, gx);
+      gyy = __fmul_rn(gy, gy);
+      gxy = __fmul_rn(gx, gy);
+    }
+    s_prod[0][r][c] = gxx;
+    s_prod[1][r][c] = gyy;
+    s_prod[2][r][c] = gxy;
+  }
+  __syncthreads();
+
+  for (int i = tid; i < kTileH * PW; i += kThreads) {
+    const int r = i / PW, c = i - r * PW;
+    float a = 0.f, b = 0.f, d = 0.f;
+#pragma unroll
+    for (int dy = 0; dy < N; ++dy) {
+      a = __fadd_rn(a, s_prod[0][r + dy][c]);
+      b = __fadd_rn(b, s_prod[1][r + dy][c]);
+      d = __fadd_rn(d, s_prod[2][r + dy][c]);
+    }
+    s_col[0][r][c] = a;
+    s_col[1][r][c] = b;
+    s_col[2][r][c] = d;
+  }
+  __syncthreads();
+
+  const float inv_area = __fdiv_rn(1.0f, (float)(N * N));
+  for (int i = tid; i < kTileH * kTileW; i += kThreads) {
+    const int r = i / kTileW, c = i - r * kTileW;
+    const int y = y0 + r, x = x0 + c;
+    if (y >= H || x >= W) continue;
+    float sxx = 0.f, syy = 0.f, sxy = 0.f;
+#pragma unroll
+    for (int dx = 0; dx < N; ++dx) {
+      sxx = __fadd_rn(sxx, s_col[0][r][c + dx]);
+      syy = __fadd_rn(syy, s_col[1][r][c + dx]);
+      sxy = __fadd_rn(sxy, s_col[2][r][c + dx]);
+    }
+    const float gxx = __fmul_rn(sxx, inv_area);
+    const float gyy = __fmul_rn(syy, inv_area);
+    const float gxy = __fmul_rn(sxy, inv_area);
+    const float tr_half = __fmul_rn(0.5f, __fadd_rn(gxx, gyy));
+    const float dd = __fsub_rn(gxx, gyy);
+    const float inner = __fadd_rn(__fmul_rn(0.25f, __fmul_rn(dd, dd)),
+                                  __fmul_rn(gxy, gxy));
+    const float resp = __fsub_rn(tr_half, __fsqrt_rn(fmaxf(inner, 0.f)));
+
+    bool corner = false;
+    if (x >= 3 && x < W - 3 && y >= 3 && y < H - 3) {
+      const int ir = r + HALO, ic = c + HALO;
+      const float cen = s_img[ir][ic];
+      const float hi = __fadd_rn(cen, t);
+      const float lo = __fsub_rn(cen, t);
+      unsigned bright = 0u, dark = 0u;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const float v = s_img[ir + circle_dy(k)][ic + circle_dx(k)];
+        if (v > hi) bright |= 1u << k;
+        if (v < lo) dark |= 1u << k;
+      }
+      corner = has_arc(bright, arc) || has_arc(dark, arc);
+    }
+    out[y * W + x] = corner ? resp : -INFINITY;
+  }
+}
+
+template <int WIN>
+void launch(const float* img, const int* threshold, float* out, int H, int W,
+            int arc, cudaStream_t stream) {
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH);
+  corner_response_kernel<WIN><<<grid, kThreads, 0, stream>>>(
+      img, threshold, out, H, W, arc);
 }
 
 }  // namespace
@@ -121,9 +224,13 @@ __global__ void corner_response_kernel(const float* __restrict__ img,
 extern "C" int rso_corner_response(const float* img, const int* threshold,
                                    float* out, int H, int W, int arc, int win,
                                    void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
-  corner_response_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      img, threshold, out, H, W, arc, win);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (win) {
+    case 1: launch<1>(img, threshold, out, H, W, arc, s); break;
+    case 2: launch<2>(img, threshold, out, H, W, arc, s); break;
+    case 3: launch<3>(img, threshold, out, H, W, arc, s); break;
+    case 4: launch<4>(img, threshold, out, H, W, arc, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

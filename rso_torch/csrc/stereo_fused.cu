@@ -7,19 +7,53 @@
 // SAD <= max_distance; per row the best distance, its index (first on ties)
 // and the second-best distance (the minimum over every other position, so a
 // tie gives second == best), with 1e9 for "no admissible pair".
+// What bounds it on the H100: its full scan.  Design: one block per left
+// row, the row's patch staged in shared memory, threads striding over the
+// right slots (lane j walks row j: uncoalesced), then a shared-memory tree
+// merge of (best, index, second).  It forms every pair's SAD before the
+// mask, as the tracking kernel's first design did: 69.6 us on the device at
+// K = 512 against a bound of 0.78 us (chip_smoke.py, NVIDIA H100 80GB HBM3
+// at 700 W), the next kernel to redesign (ROADMAP, rule 2).
 //
 // rso_track_sad_fused replaces `track_sad_fused` (`_track_kernel`): the sum of
 // both eyes' exact SADs (prev-left vs cur-left, prev-right vs cur-right,
 // match-aligned), masked by validity, |dy| <= win_row, |dx_left| and
 // |dx_right| <= win_col and each eye's SAD <= sad_max; per prev row the
-// argmin (first on ties) and its distance.
-//
-// What bounds them on the H100: launch latency.  At K = 512, P = 64 a call
-// is ~16.8 M abs-adds and ~0.3 MB of operands, microseconds of work for the
-// card.  Design: one block per left (prev) row, the row's patch staged in
-// shared memory, threads striding over the other side's slots, then a
-// shared-memory tree merge of (best, index, second).  No padding is needed
-// for odd K: every row is its own block.
+// argmin (first on ties) and its distance, (index 0, 1e9) where no pair is
+// admissible.
+//   The first design (one block per prev row, one thread per candidate, the
+// full 64-value SAD of both eyes for every pair, then the mask) spent more
+// than 97% of its work on pairs the mask throws away: on bench frames 0 -> 1
+// the window admits 0.56% of the 512 x 512 pairs at octave 0, 0.86% of the
+// 256 x 256 at octave 1 and 2.2% of the 128 x 128 at octave 2.
+// Its loads were uncoalesced too: lane j walked candidate row j, so each
+// load instruction touched 32 rows 256 B apart, and every block re-read all
+// candidate patches.
+//   This design does no SAD work for a rejected pair.  One block of 8 warps
+// per prev row, the row's two patches in shared memory; warp w takes the
+// 32-candidate chunks w, w + 8, ...  Pass 1: each lane tests one candidate's
+// validity and window (the twin's predicate, ~10 operations) and
+// __ballot_sync gives the chunk's admitted set.  Pass 2: for the admitted
+// candidates in ascending order, 4 at a time, the whole warp reads each
+// candidate's two patch rows coalesced (lane l takes values l, l + 32), and
+// a transposed butterfly (10 shuffles) reduces the 8 sums; each eye is gated
+// by sad_max and (value, index) merged lexicographically, then across lanes
+// and the block's warps.  A row whose ok_p is false writes (0, 1e9) and
+// stops.  With the window open (win 1e4) every warp walks all its chunks.
+//   Measured (tests/_torch_kernel_ab.py, the bench features, NVIDIA H100
+// 80GB HBM3 at 700 W): K = 512 with the engine's window (0.56% of pairs
+// admitted) 4.1 us on the device, against 138.1 us for the first design;
+// K = 256 and 128 3.9 and 3.8 us (37.0 and 12.1); the open window 18.6 us
+// at K = 512 (32% of the pairs valid).  8 warps of groups of 4 measured
+// faster than 4 warps, or groups of 8 (RSO_TRACK_WARPS, RSO_TRACK_GROUP).
+//   What bounds it now: at ~4 us a call it is near the card's floor for a
+// small launch (2.5-3.9 us for the Hamming and null-vector kernels); its
+// bound is the operands read once (bytes, 0.16 us at K = 512), the mask
+// over all pairs and the SAD of the admitted ones being ~3.2 M operations.
+// Tensor cores do not apply: an absolute difference is not a product, and
+// after the mask the work is too small for wgmma (ROADMAP lists the TPU's
+// MXU shortlist as not to port); nor does TMA: each admitted row is 256 B
+// that a warp's one coalesced load brings in.
 //
 // Exactness: patch values are multiples of 1/16 below 256, so every partial
 // SAD is exact in f32 whatever the summation order.
@@ -106,7 +140,57 @@ __global__ void stereo_sad_kernel(
   }
 }
 
-__global__ void track_sad_kernel(
+// ---- tracking: mask first, then SAD only where the mask admits a pair ----
+
+// Build-time tuning constants: tests/_torch_kernel_ab.py builds other values
+// beside these, which measured fastest on the engine's shapes.
+#ifndef RSO_TRACK_WARPS
+#define RSO_TRACK_WARPS 8
+#endif
+#ifndef RSO_TRACK_GROUP
+#define RSO_TRACK_GROUP 4
+#endif
+constexpr int kTrackWarps = RSO_TRACK_WARPS;   // warps per block, one prev row
+constexpr int kGroup = RSO_TRACK_GROUP;   // candidates whose SADs are formed together
+constexpr int kQuant = 2 * kGroup;   // their left and right SADs
+constexpr unsigned kFull = 0xffffffffu;
+// after warp_sum, lane l holds quantity (l >> kQShift) & (kQuant - 1)
+constexpr int kQShift = kQuant == 16 ? 1 : kQuant == 8 ? 2 : kQuant == 4 ? 3 : 4;
+static_assert(kQuant >= 2 && kQuant <= 16 && (kQuant & (kQuant - 1)) == 0,
+              "kGroup must be 1, 2, 4 or 8");
+
+// v[0..kQuant) are this lane's partial sums of kQuant quantities; afterwards
+// every lane holds the warp-wide total of quantity (lane >> kQShift) &
+// (kQuant - 1).  A transposed butterfly: each step keeps half of the
+// quantities and sends the other half to the partner lane; for the 8
+// quantities of 4 candidates, 4 + 2 + 1 shuffles and then 2 plain steps, 9
+// shuffles where 8 separate reductions take 40.
+__device__ __forceinline__ float warp_sum(float (&v)[kQuant], int lane) {
+  int off = 16;
+#pragma unroll
+  for (int n = kQuant; n > 1; n >>= 1, off >>= 1) {
+    const bool hi = lane & off;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float send = hi ? v[i] : v[i + n / 2];
+      v[i] = (hi ? v[i + n / 2] : v[i]) + __shfl_xor_sync(kFull, send, off);
+    }
+  }
+  float s = v[0];
+#pragma unroll
+  for (; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
+  return s;
+}
+
+// Lexicographic (value, index) minimum.
+__device__ __forceinline__ void take_min(float& best, int& idx, float v, int j) {
+  if (v < best || (v == best && j < idx)) {
+    best = v;
+    idx = j;
+  }
+}
+
+__global__ void __launch_bounds__(kTrackWarps * 32) track_sad_kernel(
     const float* __restrict__ p_left, const float* __restrict__ c_left,
     const float* __restrict__ p_right, const float* __restrict__ c_right,
     const float* __restrict__ p_xy, const float* __restrict__ c_xy,
@@ -116,7 +200,18 @@ __global__ void track_sad_kernel(
     float win_col, float sad_max, int* __restrict__ best_c,
     float* __restrict__ best_d) {
   extern __shared__ float s_patch[];   // [2P]: prev-left, prev-right
+  __shared__ float s_best[kTrackWarps];
+  __shared__ int s_idx[kTrackWarps];
   const int row = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (ok_p[row] == 0) {
+    // the twin's argmin over a row of 1e9: index 0
+    if (threadIdx.x == 0) {
+      best_c[row] = 0;
+      best_d[row] = kBig;
+    }
+    return;
+  }
   for (int d = threadIdx.x; d < P; d += blockDim.x) {
     s_patch[d] = p_left[(size_t)row * P + d];
     s_patch[P + d] = p_right[(size_t)row * P + d];
@@ -125,28 +220,89 @@ __global__ void track_sad_kernel(
   const float px = p_xy[2 * row];
   const float py = p_xy[2 * row + 1];
   const float prx = p_rx[row];
-  const bool okp = ok_p[row] != 0;
 
-  Top2 t{INFINITY, INT_MAX, INFINITY};
-  for (int j = threadIdx.x; j < Kc; j += blockDim.x) {
-    const float* ql = c_left + (size_t)j * P;
-    const float* qr = c_right + (size_t)j * P;
-    float acc_l = 0.f, acc_r = 0.f;
-    for (int d = 0; d < P; ++d) {
-      acc_l += fabsf(s_patch[d] - ql[d]);
-      acc_r += fabsf(s_patch[P + d] - qr[d]);
+  // Warp w takes the 32-candidate chunks w, w + kTrackWarps, ...  A round is
+  // up to 32 of them: pass 1 keeps chunk i's admitted set in lane i's
+  // `mask`, pass 2 forms the SADs of the admitted candidates in ascending
+  // order.
+  float best = kBig;   // no admissible pair: (1e9, 0), as the twin
+  int idx = 0;
+  const int n_chunks = (Kc + 31) >> 5;
+  for (int r0 = warp; r0 < n_chunks; r0 += kTrackWarps * 32) {
+    const int n_round = min(32, (n_chunks - r0 + kTrackWarps - 1) / kTrackWarps);
+    unsigned mask = 0u;
+#pragma unroll 4
+    for (int i = 0; i < n_round; ++i) {
+      const int j = ((r0 + i * kTrackWarps) << 5) + lane;
+      bool ok = false;
+      if (j < Kc) {
+        ok = (ok_c[j] != 0) & (fabsf(py - c_xy[2 * j + 1]) <= win_row) &
+             (fabsf(px - c_xy[2 * j]) <= win_col) &
+             (fabsf(prx - c_rx[j]) <= win_col);
+      }
+      const unsigned admitted = __ballot_sync(kFull, ok);
+      if (lane == i) mask = admitted;
     }
-    const bool ok = okp && ok_c[j] != 0 &&
-                    fabsf(py - c_xy[2 * j + 1]) <= win_row &&
-                    fabsf(px - c_xy[2 * j]) <= win_col &&
-                    fabsf(prx - c_rx[j]) <= win_col && acc_l <= sad_max &&
-                    acc_r <= sad_max;
-    t = merge(t, Top2{ok ? acc_l + acc_r : kBig, j, INFINITY});
+
+    int ci = 0;
+    unsigned m = __shfl_sync(kFull, mask, 0);
+    while (true) {
+      int js[kGroup];   // the next admitted candidates, -1 past the last
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        while (m == 0u && ++ci < n_round) m = __shfl_sync(kFull, mask, ci);
+        if (m != 0u) {
+          js[k] = ((r0 + ci * kTrackWarps) << 5) + __ffs(m) - 1;
+          m &= m - 1u;
+        } else {
+          js[k] = -1;
+        }
+      }
+      if (js[0] < 0) break;
+      // lane l sums patch values l, l + 32, ...: coalesced row reads
+      float v[kQuant];
+#pragma unroll
+      for (int k = 0; k < kQuant; ++k) v[k] = 0.f;
+#pragma unroll 2
+      for (int d = lane; d < P; d += 32) {
+        const float a = s_patch[d], b = s_patch[P + d];
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {
+          if (js[k] >= 0) {
+            v[2 * k] += fabsf(a - c_left[(size_t)js[k] * P + d]);
+            v[2 * k + 1] += fabsf(b - c_right[(size_t)js[k] * P + d]);
+          }
+        }
+      }
+      // quantity 2k + e is candidate k's SAD in eye e (0 left, 1 right)
+      const float own = warp_sum(v, lane);
+      const float other = __shfl_xor_sync(kFull, own, 1 << kQShift);
+      const bool right_eye = (lane >> kQShift) & 1;
+      const float acc_l = right_eye ? other : own;
+      const float acc_r = right_eye ? own : other;
+      const int k = (lane >> (kQShift + 1)) & (kGroup - 1);
+      int j = -1;
+#pragma unroll
+      for (int q = 0; q < kGroup; ++q) j = k == q ? js[q] : j;
+      if (j >= 0 && acc_l <= sad_max && acc_r <= sad_max) {
+        take_min(best, idx, acc_l + acc_r, j);
+      }
+    }
   }
-  const Top2 r = block_merge(t);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    take_min(best, idx, __shfl_xor_sync(kFull, best, off),
+             __shfl_xor_sync(kFull, idx, off));
+  }
+  if (lane == 0) {
+    s_best[warp] = best;
+    s_idx[warp] = idx;
+  }
+  __syncthreads();
   if (threadIdx.x == 0) {
-    best_c[row] = r.idx;
-    best_d[row] = r.best;
+    for (int w = 1; w < kTrackWarps; ++w) take_min(best, idx, s_best[w], s_idx[w]);
+    best_c[row] = idx;
+    best_d[row] = best;
   }
 }
 
@@ -169,7 +325,7 @@ extern "C" int rso_track_sad_fused(
     const float* p_rx, const float* c_rx, const unsigned char* ok_p,
     const unsigned char* ok_c, int Kp, int Kc, int P, float win_row,
     float win_col, float sad_max, int* best_c, float* best_d, void* stream) {
-  track_sad_kernel<<<Kp, kThreads, 2 * P * sizeof(float),
+  track_sad_kernel<<<Kp, kTrackWarps * 32, 2 * P * sizeof(float),
                      (cudaStream_t)stream>>>(
       p_left, c_left, p_right, c_right, p_xy, c_xy, p_rx, c_rx, ok_p, ok_c, Kc,
       P, win_row, win_col, sad_max, best_c, best_d);

@@ -2,17 +2,22 @@
 
 Replaces rso/kernels/fast_detect.py `corner_response_pallas` (see the header
 of csrc/fast_detect.cu for the border semantics, the H100 bound and the
-design).  `corner_response_torch` is the plain PyTorch twin: the
-`fast_corner_mask` + `shi_tomasi_response` composition of the reference's
-`corner_response_jnp`.  The CUDA kernel equals the twin bit for bit, mask
-and response: the same summation order, no FMA contraction, and the window
-mean as a multiply by the same float32 reciprocal.
+design: a shared-memory tile per block, the gradients and products computed
+once per position, separable box sums).  `corner_response_torch` is the
+plain PyTorch twin: the `fast_corner_mask` + `shi_tomasi_response`
+composition of the reference's `corner_response_jnp`.  The CUDA kernel
+equals the twin bit for bit, mask and response: the same summation order
+(each column's rows, then the column sums), no FMA contraction, and the
+window mean as a multiply by the same float32 reciprocal.
 """
 from __future__ import annotations
 
 import torch
 
 from rso_torch.kernels import _lib
+
+# the structure-tensor half-widths the kernel is built for (configs use 4)
+KERNEL_WINS = (1, 2, 3, 4)
 
 
 def corner_response_torch(img: torch.Tensor, threshold, arc: int = 12,
@@ -30,11 +35,13 @@ def corner_response_cuda(img: torch.Tensor, threshold, arc: int = 12,
                          win: int = 4) -> torch.Tensor:
     """The CUDA kernel; `threshold` is an int scalar or a 0-d/1-element int32
     tensor on the image's device (read on the device, no host sync)."""
+    if not 1 <= arc <= 16:
+        raise ValueError(f"arc must be in 1..16, got {arc}")
+    if win not in KERNEL_WINS:
+        raise ValueError(f"win must be one of {KERNEL_WINS}, got {win}")
     _lib.load()
     if not img.is_cuda:
         raise ValueError(f"corner_response_cuda: image on {img.device}")
-    if not 1 <= arc <= 16:
-        raise ValueError(f"arc must be in 1..16, got {arc}")
     H, W = img.shape
     th = torch.as_tensor(threshold, dtype=torch.int32, device=img.device)
     th = th.reshape(1).contiguous()

@@ -5,7 +5,8 @@ imports neither jax nor rso, so it also runs on a GPU host without jax:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
-Tolerances: FAST masks, SAD indices and distances bit-exact; the corner
+Tolerances: FAST masks, SAD indices and distances bit-exact (the tracking
+kernel also on the cases of tests/_torch_track_cases.py); the corner
 response bit-exact too (same operation order, round-to-nearest intrinsics,
 the same float32 reciprocal for the window mean), checked at 1e-6 against
 the twin on the card and exactly against the twin on the CPU; null
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_track_cases as TC
 from rso_torch import kernels as K
 from rso_torch.engine import Engine
 from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
@@ -67,6 +69,23 @@ def test_cuda_corner_response_equals_the_cpu_twin(cuda, th):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arc", [9, 12])
+@pytest.mark.parametrize("win", [2, 4])
+@pytest.mark.parametrize("hw", [(17, 23), (94, 310), (377, 1243)])
+def test_cuda_corner_response_noise(cuda, hw, win, arc):
+    """Uniform noise of odd sizes, corners up to the 3-px ring on every edge
+    (partial tiles, wrapped halos): bit-exact with the twin on the card and
+    on the CPU."""
+    img = np.random.default_rng(hw[0] * hw[1]).uniform(0, 255, hw).astype(np.float32)
+    cpu = torch.from_numpy(img)
+    out = K.corner_response_cuda(cpu.to(cuda), 20, arc, win)
+    ref = K.corner_response_torch(cpu.to(cuda), 20, arc, win)
+    assert torch.isfinite(ref[3:6]).any() and torch.isfinite(ref[:, -6:-3]).any()
+    assert torch.equal(out, ref)
+    assert torch.equal(out.cpu(), K.corner_response_torch(cpu, 20, arc, win))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("k", [512, 257, 128, 1])
 def test_cuda_stereo_sad_fused(cuda, k):
     args = _stereo_case(k, k, cuda)
@@ -85,6 +104,21 @@ def test_cuda_track_sad_fused(cuda, k):
     kw = dict(win_row=8.0, win_col=40.0, sad_max=1200.0)
     for o, r in zip(K.track_sad_fused_cuda(*args, **kw),
                     K.track_sad_fused_torch(*args, **kw)):
+        assert torch.equal(o, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TC.CASES)
+def test_cuda_track_sad_fused_cases(cuda, case):
+    """The mask-first kernel on the cases of tests/_torch_track_cases.py:
+    the engine's sparse window, rows with nothing admissible or ok_p false
+    (index 0, 1e9), one eye over sad_max, equal SADs, Kp != Kc, K = 1 and
+    the open window.  Bit-exact with the twin."""
+    args, kw, rows, cols = TC.track_case(case)
+    a = tuple(torch.from_numpy(x).to(cuda) for x in args)
+    out = K.track_sad_fused_cuda(*a, **kw)
+    ref = K.track_sad_fused_torch(*a, **kw)
+    for o, r in zip(out, ref):
         assert torch.equal(o, r)
 
 
@@ -148,6 +182,9 @@ def test_cuda_wrappers_count_launches_and_check_operands(cuda):
         K.sad_matrix_cuda(torch.zeros((4, 200), device=cuda),
                           torch.zeros((4, 200), device=cuda))
     assert K.LAUNCHES["hamming_matrix"] == 1 and K.LAUNCHES["sad_matrix"] == 0
+    with pytest.raises(ValueError, match="win must be one of"):
+        K.corner_response_cuda(img, 20, win=5)
+    assert K.LAUNCHES["corner_response"] == 1
 
 
 @pytest.mark.gpu

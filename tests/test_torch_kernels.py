@@ -20,6 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_track_cases as TC
+import chip_smoke as CS
+
 from rso.kernels.distance import (
     hamming_matrix_jnp,
     hamming_matrix_pallas,
@@ -101,6 +104,24 @@ def test_corner_twin_vs_reference(image, th):
     np.testing.assert_allclose(out[fin], ref[fin], rtol=1e-5, atol=1e-3)
 
 
+@pytest.mark.parametrize("arc", [9, 12])
+@pytest.mark.parametrize("win", [2, 4])
+@pytest.mark.parametrize("hw", [(17, 23), (94, 310), (377, 1243)])
+def test_corner_twin_vs_reference_noise(hw, win, arc):
+    """Uniform noise of odd sizes: corners up to the 3-px ring on every edge,
+    where the wrapped gradients and zero-padded box sums matter.  The
+    reference's FMAs as in test_corner_twin_vs_reference (same tolerance)."""
+    img = np.random.default_rng(hw[0] * hw[1]).uniform(0, 255, hw).astype(np.float32)
+    ref = np.asarray(jax.jit(corner_response_jnp, static_argnums=(2, 3))(
+        jnp.asarray(img), 20, arc, win))
+    out = K.corner_response_torch(torch.from_numpy(img),
+                                  torch.tensor(20, dtype=torch.int32), arc, win).numpy()
+    np.testing.assert_array_equal(np.isneginf(out), np.isneginf(ref))
+    fin = np.isfinite(ref)
+    assert fin[3:6].any() and fin[-6:-3].any() and fin[:, 3:6].any() and fin[:, -6:-3].any()
+    np.testing.assert_allclose(out[fin], ref[fin], rtol=1e-5, atol=1e-3)
+
+
 @pytest.mark.parametrize("K_", [128, 257])
 def test_stereo_twin_vs_pallas(K_):
     pl, pr, xy_l, xy_r, ok_l, ok_r = _stereo_case(K_, K_)
@@ -123,6 +144,40 @@ def test_track_twin_vs_pallas(K_):
     assert (np.asarray(ref[1]) < 1e9).sum() > K_ // 4
     for r, o in zip(ref, out):
         np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+
+
+def _track_pallas(args, kw):
+    """The Pallas track_sad_fused in interpret mode.  It takes as many cur
+    slots as prev slots, so the shorter side is padded with invalid slots
+    (never admissible, and past every real index) and the outputs cut back."""
+    kp, kc = args[0].shape[0], args[1].shape[0]
+    k = max(kp, kc)
+    pad = lambda a: np.concatenate(  # noqa: E731
+        [a, np.zeros((k - a.shape[0],) + a.shape[1:], a.dtype)])
+    best_c, best_d = track_sad_fused(*(jnp.asarray(pad(a)) for a in args),
+                                     interpret=True, **kw)
+    return np.asarray(best_c)[:kp], np.asarray(best_d)[:kp]
+
+
+@pytest.mark.parametrize("case", TC.CASES)
+def test_track_twin_vs_pallas_cases(case):
+    """The cases a kernel that masks before it forms any SAD must reproduce
+    (tests/_torch_track_cases.py), twin against the reference's kernel."""
+    args, kw, rows, cols = TC.track_case(case)
+    ref = _track_pallas(args, kw)
+    out = K.track_sad_fused_torch(*(torch.from_numpy(a) for a in args), **kw)
+    for r, o in zip(ref, out):
+        np.testing.assert_array_equal(o.numpy(), r)
+    best_c, best_d = ref
+    share = CS.track_window_pairs(tuple(torch.from_numpy(a) for a in args),
+                                  kw) / (len(args[0]) * len(args[1]))
+    assert share < 0.02 if case == "sparse" else True
+    assert share > 0.9 if case == "dense" else True
+    if case in ("no_admissible_rows", "ok_p_false", "one_eye_over_sad_max"):
+        # nothing admissible is left: the argmin over a row of 1e9
+        assert (best_c[rows] == 0).all() and (best_d[rows] == 1e9).all()
+    else:
+        assert (best_c[rows] == cols).all() and (best_d[rows] < 1e9).all()
 
 
 def test_stereo_ties_keep_first_and_second_equals_best():
@@ -259,6 +314,16 @@ def test_non_cpu_tensor_never_falls_back(monkeypatch):
     d = torch.empty((8, 8), dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         K.hamming_matrix_auto(d, d)
+
+
+def test_corner_kernel_takes_only_its_windows(monkeypatch):
+    """A window the kernel is not built for raises in the wrapper, before
+    any launch, and the dispatcher does not fall back to the twin."""
+    monkeypatch.setattr(_lib, "load", lambda: None)
+    meta = torch.empty((64, 64), device="meta")
+    for win in (0, 5):
+        with pytest.raises(ValueError, match="win must be one of"):
+            K.corner_response_auto(meta, 20, win=win)
 
 
 def test_missing_toolkit_raises(monkeypatch, tmp_path):
