@@ -45,6 +45,7 @@ the card's name and power limit, and the JSON result line
 """
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -130,15 +131,19 @@ def _median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return times[len(times) // 2]
 
 
-def device_times(jobs, reps: int = 50, warmup: int = 5) -> list:
+def device_times(jobs, reps: int = 50, warmup: int = 5,
+                 attempts: int = 3) -> list:
     """Median device duration, in us, of each job's kernel over `reps` calls
     of its function.  jobs: [(kernel, fn)].  Every job runs in ONE
     torch.profiler session (CUDA activity, CUPTI): on an H100, a sixth
-    session in one process once recorded no device event at all.
-    The kernels are launched through ctypes, so they are found by their own
+    session in one process once recorded no device event at all.  The
+    kernels are launched through ctypes, so they are found by their own
     symbol, demangled (`::name(`, `::name<`) or mangled (`<len>nameE`/`I`);
     launches on one stream run in issue order, so the n-th batch of `reps`
-    launches of a kernel belongs to the n-th job that names it."""
+    launches of a kernel belongs to the n-th job that names it.  A session
+    can also drop an event (one in 100 launches once, in
+    tests/_torch_profiler_cost.py), which would shift those batches: a
+    session whose counts fall short is run again, up to `attempts` times."""
     import re
 
     import torch
@@ -149,27 +154,34 @@ def device_times(jobs, reps: int = 50, warmup: int = 5) -> list:
         for _ in range(warmup):
             fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _, fn in jobs:
-            for _ in range(reps):
-                fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_kernel = {}
-    for kernel in {k for k, _ in jobs}:
-        pat = re.compile(rf"(?:::|\d){kernel}(?:[(<EI]|$)")
-        by_kernel[kernel] = sorted((e for e in events if pat.search(e.name)),
-                                   key=lambda e: e.time_range.start)
-        n_jobs = sum(k == kernel for k, _ in jobs)
-        if len(by_kernel[kernel]) != n_jobs * reps:
-            names = sorted({e.name for e in events})
-            raise AssertionError(
-                f"profiler saw {len(by_kernel[kernel])} launches of {kernel}, "
-                f"expected {n_jobs * reps}; device events: {names[:8]}")
-    out, taken = [], {}
+    n_jobs = collections.Counter(k for k, _ in jobs)
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _, fn in jobs:
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        by_kernel, short = {}, []
+        for kernel, n in n_jobs.items():
+            pat = re.compile(rf"(?:::|\d){kernel}(?:[(<EI]|$)")
+            by_kernel[kernel] = sorted(
+                (e for e in events if pat.search(e.name)),
+                key=lambda e: e.time_range.start)
+            if len(by_kernel[kernel]) != n * reps:
+                short.append(f"{len(by_kernel[kernel])} launches of {kernel}, "
+                             f"expected {n * reps}")
+        if not short:
+            break
+        names = sorted({e.name for e in events})
+        print(f"profiler session {attempt + 1} of {attempts} saw "
+              f"{'; '.join(short)}; device events: {names[:8]}", flush=True)
+    else:
+        raise AssertionError(f"no profiler session saw every launch: {short}")
+    out, taken = [], collections.Counter()
     for kernel, _ in jobs:
-        k = taken.get(kernel, 0)
-        taken[kernel] = k + 1
+        k = taken[kernel]
+        taken[kernel] += 1
         t = sorted(e.time_range.elapsed_us()
                    for e in by_kernel[kernel][k * reps:(k + 1) * reps])
         out.append(t[len(t) // 2])
