@@ -451,6 +451,12 @@ def check_kernels(seq, dev):
     report["track_sad_fused"].update(
         admissible_share=n_adm / (K0 * K0), bound_all_pairs_ms=all_pairs_ms,
         open_window=open_window)
+    t = report["track_sad_fused"]
+    print(f"kernel track_sad_fused K={K0}: bound {t['bound_ms']} ms "
+          f"({t['bound_by']}), the SAD counted on the {n_adm} admitted pairs "
+          f"({n_adm / (K0 * K0)}); the earlier count, the SAD on all pairs: "
+          f"{all_pairs_ms} ms; open window: bound {open_window['bound_ms']} "
+          f"ms, {n_dense} pairs admitted", flush=True)
     timed.append((open_window, "track_sad_kernel",
                   lambda a=a0: K.track_sad_fused_cuda(*a, **dense_kw), None, None))
 
@@ -564,8 +570,11 @@ def time_kernels(timed) -> None:
             out.update(plain_ms=_median_ms(plain),
                        library_ms=_median_ms(library) if library else None)
     us = device_times([(kernel, fn) for _, kernel, fn, _, _ in timed])
-    for (out, *_), u in zip(timed, us):
+    for (out, kernel, *_), u in zip(timed, us):
         out["device_us"] = u
+        print(f"time {kernel}{' open window' if 'win' in out else ''}: device "
+              f"{u} us, call {out['ms']} ms, bound {out['bound_ms']} ms",
+              flush=True)
 
 
 def _ate(results, gt):
