@@ -36,7 +36,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
   7. engine, the remaining modes: ORB + DESC_BF + DESC_BF (one octave) and
      KLT + SAD + SAD, 5 bench frames each, then again on the CPU;
   8. timing: phase 3's call times, then its device times in one profiler
-     session, last, since a profiler session slows the process after it.
+     session, last, since a profiler session slows the process after it;
+     each octave-shaped kernel is also timed at the other octaves' shapes
+     (`octaves`), and `over_bound_us_per_frame` sums device time less bound
+     over a frame's launches (the order of the redesigns).
 Each engine phase resets the launch counters just before it and reads them
 just after, and holds its first 3 steps equal to its warm-up's (the card is
 deterministic).  The last three lines are a JSON object describing the kernels,
@@ -104,6 +107,9 @@ DESC_REF_ATE = 0.0835021
 # kernels (integer ones included), and device memory.
 PEAK_OPS = 67e12
 PEAK_BYTES = 3.35e12
+# profiler sessions device_times may take before it gives up (one session
+# in ten once dropped one launch of 100 on an H100)
+PROFILE_ATTEMPTS = 3
 
 
 def _nvidia_smi() -> str:
@@ -131,8 +137,7 @@ def _median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return times[len(times) // 2]
 
 
-def device_times(jobs, reps: int = 50, warmup: int = 5,
-                 attempts: int = 3) -> list:
+def device_times(jobs, reps: int = 50, warmup: int = 5) -> list:
     """Median device duration, in us, of each job's kernel over `reps` calls
     of its function.  jobs: [(kernel, fn)].  Every job runs in ONE
     torch.profiler session (CUDA activity, CUPTI): on an H100, a sixth
@@ -141,9 +146,8 @@ def device_times(jobs, reps: int = 50, warmup: int = 5,
     symbol, demangled (`::name(`, `::name<`) or mangled (`<len>nameE`/`I`);
     launches on one stream run in issue order, so the n-th batch of `reps`
     launches of a kernel belongs to the n-th job that names it.  A session
-    can also drop an event (one in 100 launches once, in
-    tests/_torch_profiler_cost.py), which would shift those batches: a
-    session whose counts fall short is run again, up to `attempts` times."""
+    can also drop an event, which would shift those batches: a session whose
+    counts fall short is run again, up to PROFILE_ATTEMPTS times."""
     import re
 
     import torch
@@ -155,7 +159,7 @@ def device_times(jobs, reps: int = 50, warmup: int = 5,
             fn()
     torch.cuda.synchronize()
     n_jobs = collections.Counter(k for k, _ in jobs)
-    for attempt in range(attempts):
+    for attempt in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _, fn in jobs:
                 for _ in range(reps):
@@ -174,7 +178,7 @@ def device_times(jobs, reps: int = 50, warmup: int = 5,
         if not short:
             break
         names = sorted({e.name for e in events})
-        print(f"profiler session {attempt + 1} of {attempts} saw "
+        print(f"profiler session {attempt + 1} of {PROFILE_ATTEMPTS} saw "
               f"{'; '.join(short)}; device events: {names[:8]}", flush=True)
     else:
         raise AssertionError(f"no profiler session saw every launch: {short}")
@@ -337,6 +341,14 @@ def check_kernels(seq, dev):
         timed.append((out, kernel, fn, plain, library))
         return out
 
+    def octave(out, kernel, fn, ops, n_bytes, shape):
+        """The kernel at another octave's shape, timed beside its main one:
+        `octaves` in its report, for the device time per frame."""
+        bound_ms, bound_by = _bound(ops, n_bytes)
+        d = dict(shape=shape, bound_ms=bound_ms, bound_by=bound_by)
+        out.setdefault("octaves", []).append(d)
+        timed.append((d, kernel, fn, None, None))
+
     # ---- kernel 1: all three octaves of a bench frame ------------------------
     err = 0.0
     for img in pyr:
@@ -377,6 +389,10 @@ def check_kernels(seq, dev):
         lambda img=pyr[0]: K.corner_response_torch(img, th), None,
         190 * n_px, 8 * n_px, list(pyr[0].shape),
         "no single PyTorch call computes FAST + Shi-Tomasi")
+    for img in pyr[1:]:
+        octave(report["corner_response"], "corner_response_kernel",
+               lambda img=img: K.corner_response_cuda(img, th),
+               190 * img.numel(), 8 * img.numel(), list(img.shape))
 
     # ---- kernels 2, 3: real features of bench frames 0 and 1 per octave -----
     def odd_case(k, seed):
@@ -413,6 +429,12 @@ def check_kernels(seq, dev):
         lambda a=a0, kw=kw0: K.stereo_sad_fused_torch(*a, **kw),
         None, K0 * K0 * (3 * P + 8), 2 * K0 * (4 * P + 8 + 1) + 12 * K0,
         [K0, K0, P], "no single PyTorch call computes the masked best/second")
+    for o in (1, 2):
+        k = Ks[o]
+        octave(report["stereo_sad_fused"], "stereo_sad_kernel",
+               lambda a=bi.stereo_args(o), kw=bi.stereo_kw(o):
+               K.stereo_sad_fused_cuda(*a, **kw),
+               k * k * (3 * P + 8), 2 * k * (4 * P + 8 + 1) + 12 * k, [k, k, P])
 
     track_kw = bi.track_kw
     dense_kw = dict(track_kw, win_row=1e4, win_col=1e4)
@@ -459,6 +481,12 @@ def check_kernels(seq, dev):
           f"ms, {n_dense} pairs admitted", flush=True)
     timed.append((open_window, "track_sad_kernel",
                   lambda a=a0: K.track_sad_fused_cuda(*a, **dense_kw), None, None))
+    for o in (1, 2):
+        a = bi.track_args(o)
+        ops_o, bytes_o, _ = track_bound(a, track_kw)
+        octave(report["track_sad_fused"], "track_sad_kernel",
+               lambda a=a: K.track_sad_fused_cuda(*a, **track_kw), ops_o, bytes_o,
+               [Ks[o], Ks[o], P])
 
     # ---- kernel 4: 9x9 null vectors, B = 512 (2 eyes x 256) and B = 1 -------
     err = 0.0
@@ -537,6 +565,11 @@ def check_kernels(seq, dev):
         lambda a=a, b=b: K.hamming_matrix_torch(a, b), None,
         K0 * K0 * 8 * 3, (2 * K0 * 8 + K0 * K0) * 4, [K0, K0, 8],
         "PyTorch has no popcount call")
+    for o in (1, 2):
+        a, b, k = bi.descs[0][o].desc, bi.descs[1][o].desc, Ks[o]
+        octave(report["hamming_matrix"], "hamming_kernel",
+               lambda a=a, b=b: K.hamming_matrix_cuda(a, b),
+               k * k * 8 * 3, (2 * k * 8 + k * k) * 4, [k, k, 8])
 
     # ---- kernel 6: SAD matrix on bench patches and 1/16-multiples ------------
     err = 0.0
@@ -553,6 +586,11 @@ def check_kernels(seq, dev):
         lambda a=a, b=b: K.sad_matrix_torch(a, b),
         lambda a=a, b=b: torch.cdist(a, b, p=1), K0 * K0 * P * 3,
         (2 * K0 * P + K0 * K0) * 4, [K0, K0, P])
+    for o in (1, 2):
+        a, b, k = bi.frames[0][o][0].patch, bi.frames[1][o][0].patch, Ks[o]
+        octave(report["sad_matrix"], "sad_kernel",
+               lambda a=a, b=b: K.sad_matrix_cuda(a, b), k * k * P * 3,
+               (2 * k * P + k * k) * 4, [k, k, P])
 
     return report, timed
 
@@ -572,9 +610,9 @@ def time_kernels(timed) -> None:
     us = device_times([(kernel, fn) for _, kernel, fn, _, _ in timed])
     for (out, kernel, *_), u in zip(timed, us):
         out["device_us"] = u
-        print(f"time {kernel}{' open window' if 'win' in out else ''}: device "
-              f"{u} us, call {out['ms']} ms, bound {out['bound_ms']} ms",
-              flush=True)
+        what = "open window" if "win" in out else out["shape"]
+        print(f"time {kernel} {what}: device {u} us, call {out['ms']} ms, "
+              f"bound {out['bound_ms']} ms", flush=True)
 
 
 def _ate(results, gt):
@@ -821,15 +859,25 @@ def main() -> int:
         "hamming_matrix": ("distance.cu", "rso/kernels/distance.py:157", "fast_orb_rbr_win"),
         "sad_matrix": ("distance.cu", "rso/kernels/distance.py:123", "sad_dense"),
     }
+    frames = {"default": N_FRAMES, "fast_orb_rbr_win": N_FRAMES,
+              "sad_dense": N_DENSE_FRAMES}
     line = []
     for n, (src, rep, phase) in kernels.items():
         r = report[n]
+        # the order of the redesigns: device time over the bound per frame of
+        # the phase's path, which launches the kernel equally at each octave
+        # (nullvec9 has one shape)
+        shapes = [r] + r.get("octaves", [])
+        over_us = (by_phase[phase][n] / frames[phase] / len(shapes)
+                   * sum(x["device_us"] - 1e3 * x["bound_ms"] for x in shapes))
+        print(f"rank {n}: {over_us} us a frame over its bound on the {phase} "
+              "path", flush=True)
         line.append({
             "name": n, "route": "cuda", "source": f"rso_torch/csrc/{src}",
             "replaces": rep, "launches": by_phase[phase][n],
             "launches_phase": phase,
             "launches_by_phase": {p: c.get(n, 0) for p, c in by_phase.items()},
-            **r})
+            "over_bound_us_per_frame": over_us, **r})
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

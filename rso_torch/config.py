@@ -55,6 +55,8 @@ class RectifyParams:
 class DetectParams:
     detect_method: DetectMethod = DetectMethod.FASTER
     target_feats_per_pixel: float = 10.0 / 1000.0
+    # 1..45 on the card (kernels/fast_detect.py MAX_WIN); 4 is compiled as
+    # a constant, other values take the slower run-time path
     KLT_win: int = 4
     minimum_KLT_response: float = 10.0
     non_maximal_suppression: bool = True

@@ -18,32 +18,36 @@
 // octave 2; chip_smoke.py prints both), and each such warp paid the whole
 // loop while its other lanes idled.
 //
-// This design: one block of 256 threads per 32x16 output tile (the width is
-// RSO_CORNER_TILE_W, 32 unless the build defines it).  The block loads the
-// image tile and its halo (win + 1 px, at least FAST's 3) once into shared
-// memory with row-coalesced reads, taking coordinates modulo H and W, as the
-// roll does; computes the gradients and the three products once for each
-// position of the tile and a win-px ring (0 outside the image: the box sums'
-// zero padding); sums them in two separable passes, the 2*win + 1 rows of
-// each column in order dy = 0..2*win, then the 2*win + 1 column sums in
-// order dx = 0..2*win, which is the twin's order; and gives every pixel its
-// response, with no divergence, before the FAST test (16 taps from shared
-// memory) selects it.  `win` is a template parameter, dispatched over 1..4.
+// This design: one block of 256 threads per 32x16 output tile.  The block
+// loads the image tile and its halo (win + 1 px, at least FAST's 3) once
+// into shared memory with row-coalesced reads, taking coordinates modulo H
+// and W, as the roll does; computes the gradients and the three products
+// once for each position of the tile and a win-px ring (0 outside the
+// image: the box sums' zero padding); sums them in two separable passes,
+// the 2*win + 1 rows of each column in order dy = 0..2*win, then the
+// 2*win + 1 column sums in order dx = 0..2*win, which is the twin's order;
+// and gives every pixel its response, with no divergence, before the FAST
+// test (16 taps from shared memory) selects it.  The window is a template
+// parameter for the configs' win 4, so the tile's sizes and the loops' trip
+// counts are constants; any other win takes the same kernel with the window
+// at run time.  The launch sizes the tile's shared memory from win (23.6 KB
+// at win 4) and from win 13, past 48 KB, opts in to more, up to the H100's
+// 227 KB a block, so win <= 45 (kernels/fast_detect.py MAX_WIN).
 //
-// Measured (tests/_torch_kernel_ab.py, bench frame 0, NVIDIA H100 80GB HBM3
-// at 700 W): 14.7 us on the device at 376x1241, against 40.6 us for the
-// first design; 5.7 and 4.5 us at the two smaller octaves (21.4, 10.9).
-// 64-wide tiles measured 3% faster at octave 0 and 19-49% slower at the
-// smaller ones.  The image and halo loads all go out before the first
-// store to shared memory (one latency, not five).
+// Measured (tests/_torch_kernel_ab.py on the bench frame, NVIDIA H100 80GB
+// HBM3 at 700 W; the A/B of record in PERF.md, section 6): 14.779 us on the
+// device at 376x1241, against 40.158 us for the first design; 5.752 and
+// 4.450 us at the two smaller octaves (21.327, 10.838).  In one call, win 4
+// through the run-time path took 22.508, 7.709 and 6.021 us against 15.037,
+// 5.830 and 4.476 compiled as a constant.  64-wide tiles were 3% faster at
+// octave 0 and 18% and 51% slower at the smaller octaves (PERF.md).
 //
 // What bounds it: the bound is ~190 operations a pixel (1.3 us at the f32
 // rate; the image read once and the response written once, ~1.9 MB, take
-// 0.6 us).  The kernel issues several times that: the index arithmetic of
-// four shared-memory phases, and the FAST test's 32 compares a pixel.  The
-// time grows with the blocks per SM (~1.5 us each), so it is instruction
-// issue; cutting the vertical and horizontal passes' shared-memory reads by
-// holding a column in registers gained 1.6%, and was not kept.  Tensor
+// 0.6 us).  By count the kernel issues several times that: the index
+// arithmetic of four shared-memory phases, and the FAST test's 32 compares
+// a pixel.  Holding a column in registers to cut the box passes'
+// shared-memory reads gained 1.6% (PERF.md) and was not kept.  Tensor
 // cores and TMA do not apply: the arithmetic is elementwise and sums in a
 // fixed order, and a tile with its halo is ~4 KB that the block's own
 // coalesced loads bring in.
@@ -55,15 +59,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#ifndef RSO_CORNER_TILE_W
-#define RSO_CORNER_TILE_W 32
-#endif
-
 namespace {
 
-constexpr int kTileW = RSO_CORNER_TILE_W;
+constexpr int kTileW = 32;
 constexpr int kTileH = 16;
 constexpr int kThreads = 256;
+constexpr int kBatch = 8;   // image loads in flight per thread
+constexpr int kSmemDefault = 48 * 1024;   // dynamic shared memory without opt-in
 
 // The 16 circle taps' offsets, +3, in 3 bits each: compile-time constants
 // once the tap loop is unrolled.
@@ -105,83 +107,129 @@ __device__ __forceinline__ int wrap(int v, int n) {
   return v;
 }
 
+// (row, column) of index i = tid, tid + kThreads, ... in a row-major array
+// `cols` wide, stepped without a division.
+struct Walk {
+  int r, c, dr, dc, cols;
+  __device__ Walk(int tid, int cols_)
+      : r(tid / cols_), c(tid % cols_), dr(kThreads / cols_),
+        dc(kThreads % cols_), cols(cols_) {}
+  __device__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+};
+
+// The tile's shared-memory layout for window half-width win: the image and
+// its halo, the three products over the tile and a win-px ring, and their
+// column sums over the tile's rows.
+struct Tile {
+  int halo, iw, ih, pw, ph;
+  __host__ __device__ constexpr explicit Tile(int win)
+      : halo(win + 1 > 3 ? win + 1 : 3), iw(kTileW + 2 * halo),
+        ih(kTileH + 2 * halo), pw(kTileW + 2 * win), ph(kTileH + 2 * win) {}
+  __host__ __device__ constexpr size_t floats() const {
+    return (size_t)ih * iw + 3 * (size_t)ph * pw + 3 * (size_t)kTileH * pw;
+  }
+};
+
+// WIN > 0: the window fixed at compile time (the configs' 4), so the tile's
+// sizes and the loops' trip counts are constants; WIN == 0: `win` at run
+// time, for any other window.
 template <int WIN>
 __global__ void __launch_bounds__(kThreads) corner_response_kernel(
     const float* __restrict__ img, const int* __restrict__ threshold,
-    float* __restrict__ out, int H, int W, int arc) {
-  constexpr int HALO = WIN + 1 > 3 ? WIN + 1 : 3;
-  constexpr int IW = kTileW + 2 * HALO, IH = kTileH + 2 * HALO;  // image
-  constexpr int PW = kTileW + 2 * WIN, PH = kTileH + 2 * WIN;    // products
-  constexpr int N = 2 * WIN + 1;
-  __shared__ float s_img[IH][IW];
-  __shared__ float s_prod[3][PH][PW];   // gx*gx, gy*gy, gx*gy
-  __shared__ float s_col[3][kTileH][PW];   // their column sums
-  constexpr int kLoads = (IH * IW + kThreads - 1) / kThreads;
+    float* __restrict__ out, int H, int W, int arc, int win_arg) {
+  extern __shared__ float smem[];
+  const int win = WIN > 0 ? WIN : win_arg;
+  const Tile T(win);
+  const int N = 2 * win + 1;
+  float* s_img = smem;                          // [ih][iw]
+  float* s_prod = s_img + T.ih * T.iw;          // [3][ph][pw]: gx*gx, gy*gy, gx*gy
+  float* s_col = s_prod + 3 * T.ph * T.pw;      // [3][kTileH][pw]: their column sums
+  const int plane = T.ph * T.pw, col_plane = kTileH * T.pw;
   const int tid = threadIdx.x;
   const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
   const float t = (float)threshold[0];
 
-  // Every load of the tile goes out before the first store to shared
-  // memory: one memory latency, not kLoads.  Positions past the tile's end
-  // read some pixel of the image and are not stored.
-  float vals[kLoads];
+  // kBatch loads of the tile go out before their stores to shared memory:
+  // one memory latency a batch.  An index past the end re-reads the last
+  // element and is not stored.
+  const int n_img = T.ih * T.iw;
+  // loads a thread makes in a batch: all it has, up to kBatch
+  const int n_loads = min(kBatch, (n_img + kThreads - 1) / kThreads);
+  Walk w(tid, T.iw);
+  for (int base = 0; base < n_img; base += n_loads * kThreads) {
+    float vals[kBatch];
+    Walk v = w;
 #pragma unroll
-  for (int k = 0; k < kLoads; ++k) {
-    const int i = tid + k * kThreads;
-    const int r = i / IW, c = i - r * IW;
-    vals[k] = img[wrap(y0 - HALO + r, H) * W + wrap(x0 - HALO + c, W)];
-  }
+    for (int k = 0; k < kBatch; ++k) {
+      if (k < n_loads) {
+        const int r = min(v.r, T.ih - 1), c = v.r < T.ih ? v.c : T.iw - 1;
+        vals[k] = img[wrap(y0 - T.halo + r, H) * W + wrap(x0 - T.halo + c, W)];
+        v.next();
+      }
+    }
 #pragma unroll
-  for (int k = 0; k < kLoads; ++k) {
-    const int i = tid + k * kThreads;
-    if (i < IH * IW) (&s_img[0][0])[i] = vals[k];
+    for (int k = 0; k < kBatch; ++k) {
+      if (k < n_loads) {
+        if (base + tid + k * kThreads < n_img) s_img[w.r * T.iw + w.c] = vals[k];
+        w.next();
+      }
+    }
   }
   __syncthreads();
 
-  for (int i = tid; i < PH * PW; i += kThreads) {
-    const int r = i / PW, c = i - r * PW;
-    const int y = y0 - WIN + r, x = x0 - WIN + c;
+  for (Walk p(tid, T.pw); p.r < T.ph; p.next()) {
+    const int y = y0 - win + p.r, x = x0 - win + p.c;
     float gxx = 0.f, gyy = 0.f, gxy = 0.f;
     if (y >= 0 && y < H && x >= 0 && x < W) {
-      const int ir = r + HALO - WIN, ic = c + HALO - WIN;
-      const float gx = __fmul_rn(__fsub_rn(s_img[ir][ic + 1], s_img[ir][ic - 1]), 0.5f);
-      const float gy = __fmul_rn(__fsub_rn(s_img[ir + 1][ic], s_img[ir - 1][ic]), 0.5f);
+      const float* q = s_img + (p.r + T.halo - win) * T.iw + p.c + T.halo - win;
+      const float gx = __fmul_rn(__fsub_rn(q[1], q[-1]), 0.5f);
+      const float gy = __fmul_rn(__fsub_rn(q[T.iw], q[-T.iw]), 0.5f);
       gxx = __fmul_rn(gx, gx);
       gyy = __fmul_rn(gy, gy);
       gxy = __fmul_rn(gx, gy);
     }
-    s_prod[0][r][c] = gxx;
-    s_prod[1][r][c] = gyy;
-    s_prod[2][r][c] = gxy;
+    const int i = p.r * T.pw + p.c;
+    s_prod[i] = gxx;
+    s_prod[plane + i] = gyy;
+    s_prod[2 * plane + i] = gxy;
   }
   __syncthreads();
 
-  for (int i = tid; i < kTileH * PW; i += kThreads) {
-    const int r = i / PW, c = i - r * PW;
+  for (Walk p(tid, T.pw); p.r < kTileH; p.next()) {
+    const float* q = s_prod + p.r * T.pw + p.c;
     float a = 0.f, b = 0.f, d = 0.f;
 #pragma unroll
-    for (int dy = 0; dy < N; ++dy) {
-      a = __fadd_rn(a, s_prod[0][r + dy][c]);
-      b = __fadd_rn(b, s_prod[1][r + dy][c]);
-      d = __fadd_rn(d, s_prod[2][r + dy][c]);
+    for (int dy = 0; dy < N; ++dy, q += T.pw) {
+      a = __fadd_rn(a, q[0]);
+      b = __fadd_rn(b, q[plane]);
+      d = __fadd_rn(d, q[2 * plane]);
     }
-    s_col[0][r][c] = a;
-    s_col[1][r][c] = b;
-    s_col[2][r][c] = d;
+    const int i = p.r * T.pw + p.c;
+    s_col[i] = a;
+    s_col[col_plane + i] = b;
+    s_col[2 * col_plane + i] = d;
   }
   __syncthreads();
 
   const float inv_area = __fdiv_rn(1.0f, (float)(N * N));
   for (int i = tid; i < kTileH * kTileW; i += kThreads) {
-    const int r = i / kTileW, c = i - r * kTileW;
+    const int r = i / kTileW, c = i % kTileW;
     const int y = y0 + r, x = x0 + c;
     if (y >= H || x >= W) continue;
+    const float* q = s_col + r * T.pw + c;
     float sxx = 0.f, syy = 0.f, sxy = 0.f;
 #pragma unroll
     for (int dx = 0; dx < N; ++dx) {
-      sxx = __fadd_rn(sxx, s_col[0][r][c + dx]);
-      syy = __fadd_rn(syy, s_col[1][r][c + dx]);
-      sxy = __fadd_rn(sxy, s_col[2][r][c + dx]);
+      sxx = __fadd_rn(sxx, q[dx]);
+      syy = __fadd_rn(syy, q[col_plane + dx]);
+      sxy = __fadd_rn(sxy, q[2 * col_plane + dx]);
     }
     const float gxx = __fmul_rn(sxx, inv_area);
     const float gyy = __fmul_rn(syy, inv_area);
@@ -194,14 +242,13 @@ __global__ void __launch_bounds__(kThreads) corner_response_kernel(
 
     bool corner = false;
     if (x >= 3 && x < W - 3 && y >= 3 && y < H - 3) {
-      const int ir = r + HALO, ic = c + HALO;
-      const float cen = s_img[ir][ic];
-      const float hi = __fadd_rn(cen, t);
-      const float lo = __fsub_rn(cen, t);
+      const float* cen = s_img + (r + T.halo) * T.iw + c + T.halo;
+      const float hi = __fadd_rn(cen[0], t);
+      const float lo = __fsub_rn(cen[0], t);
       unsigned bright = 0u, dark = 0u;
 #pragma unroll
       for (int k = 0; k < 16; ++k) {
-        const float v = s_img[ir + circle_dy(k)][ic + circle_dx(k)];
+        const float v = cen[circle_dy(k) * T.iw + circle_dx(k)];
         if (v > hi) bright |= 1u << k;
         if (v < lo) dark |= 1u << k;
       }
@@ -211,26 +258,24 @@ __global__ void __launch_bounds__(kThreads) corner_response_kernel(
   }
 }
 
-template <int WIN>
-void launch(const float* img, const int* threshold, float* out, int H, int W,
-            int arc, cudaStream_t stream) {
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH);
-  corner_response_kernel<WIN><<<grid, kThreads, 0, stream>>>(
-      img, threshold, out, H, W, arc);
-}
-
 }  // namespace
 
 extern "C" int rso_corner_response(const float* img, const int* threshold,
                                    float* out, int H, int W, int arc, int win,
                                    void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (win) {
-    case 1: launch<1>(img, threshold, out, H, W, arc, s); break;
-    case 2: launch<2>(img, threshold, out, H, W, arc, s); break;
-    case 3: launch<3>(img, threshold, out, H, W, arc, s); break;
-    case 4: launch<4>(img, threshold, out, H, W, arc, s); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (win < 1) return (int)cudaErrorInvalidValue;
+  const auto kernel = win == 4 ? corner_response_kernel<4>
+                               : corner_response_kernel<0>;
+  const size_t smem = Tile(win).floats() * sizeof(float);
+  if (smem > (size_t)kSmemDefault) {
+    // win >= 13: opt in to the larger shared memory (227 KB a block on the
+    // H100, so win <= 45); fails where the tile does not fit
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH);
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(img, threshold, out,
+                                                         H, W, arc, win);
   return (int)cudaGetLastError();
 }

@@ -40,16 +40,18 @@
 // by sad_max and (value, index) merged lexicographically, then across lanes
 // and the block's warps.  A row whose ok_p is false writes (0, 1e9) and
 // stops.  With the window open (win 1e4) every warp walks all its chunks.
-//   Measured (tests/_torch_kernel_ab.py, the bench features, NVIDIA H100
-// 80GB HBM3 at 700 W): K = 512 with the engine's window (0.56% of pairs
-// admitted) 4.1 us on the device, against 138.1 us for the first design;
-// K = 256 and 128 3.9 and 3.8 us (37.0 and 12.1); the open window 18.6 us
-// at K = 512 (32% of the pairs valid).  8 warps of groups of 4 measured
-// faster than 4 warps, or groups of 8 (RSO_TRACK_WARPS, RSO_TRACK_GROUP).
+//   Measured (tests/_torch_kernel_ab.py on the bench features, NVIDIA H100
+// 80GB HBM3 at 700 W; the A/B of record in PERF.md, section 6): K = 512 with
+// the engine's window (0.56% of pairs admitted) 4.163 us on the device,
+// against 137.143 us for the first design; K = 256 and 128 3.878 and 3.782
+// us (36.725, 12.014); the open window 18.498 us at K = 512 (32% of the
+// pairs valid; 137.318).  8 warps of groups of 4 measured faster than 4
+// warps, or groups of 8 (PERF.md).
 //   What bounds it now: at ~4 us a call it is near the card's floor for a
-// small launch (2.5-3.9 us for the Hamming and null-vector kernels); its
-// bound is the operands read once (bytes, 0.16 us at K = 512), the mask
-// over all pairs and the SAD of the admitted ones being ~3.2 M operations.
+// small launch (2.2-3.8 us for the Hamming and null-vector kernels in
+// chip_smoke.py); its bound is the operands read once (bytes, 0.16 us at
+// K = 512), the mask over all pairs and the SAD of the admitted ones being
+// ~3.2 M operations.
 // Tensor cores do not apply: an absolute difference is not a product, and
 // after the mask the work is too small for wgmma (ROADMAP lists the TPU's
 // MXU shortlist as not to port); nor does TMA: each admitted row is 256 B
@@ -142,29 +144,18 @@ __global__ void stereo_sad_kernel(
 
 // ---- tracking: mask first, then SAD only where the mask admits a pair ----
 
-// Build-time tuning constants: tests/_torch_kernel_ab.py builds other values
-// beside these, which measured fastest on the engine's shapes.
-#ifndef RSO_TRACK_WARPS
-#define RSO_TRACK_WARPS 8
-#endif
-#ifndef RSO_TRACK_GROUP
-#define RSO_TRACK_GROUP 4
-#endif
-constexpr int kTrackWarps = RSO_TRACK_WARPS;   // warps per block, one prev row
-constexpr int kGroup = RSO_TRACK_GROUP;   // candidates whose SADs are formed together
+constexpr int kTrackWarps = 8;   // warps per block, one prev row
+constexpr int kGroup = 4;   // candidates whose SADs are formed together
 constexpr int kQuant = 2 * kGroup;   // their left and right SADs
 constexpr unsigned kFull = 0xffffffffu;
-// after warp_sum, lane l holds quantity (l >> kQShift) & (kQuant - 1)
-constexpr int kQShift = kQuant == 16 ? 1 : kQuant == 8 ? 2 : kQuant == 4 ? 3 : 4;
-static_assert(kQuant >= 2 && kQuant <= 16 && (kQuant & (kQuant - 1)) == 0,
-              "kGroup must be 1, 2, 4 or 8");
+// after warp_sum, lane l holds quantity (l >> kQShift) & 7
+constexpr int kQShift = 2;
 
-// v[0..kQuant) are this lane's partial sums of kQuant quantities; afterwards
-// every lane holds the warp-wide total of quantity (lane >> kQShift) &
-// (kQuant - 1).  A transposed butterfly: each step keeps half of the
-// quantities and sends the other half to the partner lane; for the 8
-// quantities of 4 candidates, 4 + 2 + 1 shuffles and then 2 plain steps, 9
-// shuffles where 8 separate reductions take 40.
+// v[0..8) are this lane's partial sums of 8 quantities; afterwards every
+// lane holds the warp-wide total of quantity (lane >> kQShift) & 7.  A
+// transposed butterfly: each step keeps half of the quantities and sends
+// the other half to the partner lane, 4 + 2 + 1 shuffles, then 2 plain
+// steps: 9 shuffles where 8 separate reductions take 40.
 __device__ __forceinline__ float warp_sum(float (&v)[kQuant], int lane) {
   int off = 16;
 #pragma unroll

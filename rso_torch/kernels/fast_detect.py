@@ -2,8 +2,8 @@
 
 Replaces rso/kernels/fast_detect.py `corner_response_pallas` (see the header
 of csrc/fast_detect.cu for the border semantics, the H100 bound and the
-design: a shared-memory tile per block, the gradients and products computed
-once per position, separable box sums).  `corner_response_torch` is the
+design: a shared-memory tile per block, sized from `win` at launch, the
+gradients and products computed once per position, separable box sums).  `corner_response_torch` is the
 plain PyTorch twin: the `fast_corner_mask` + `shi_tomasi_response`
 composition of the reference's `corner_response_jnp`.  The CUDA kernel
 equals the twin bit for bit, mask and response: the same summation order
@@ -16,8 +16,9 @@ import torch
 
 from rso_torch.kernels import _lib
 
-# the structure-tensor half-widths the kernel is built for (configs use 4)
-KERNEL_WINS = (1, 2, 3, 4)
+# the largest structure-tensor half-width whose tile fits the H100's 227 KB
+# of shared memory a block (csrc/fast_detect.cu; configs use 4)
+MAX_WIN = 45
 
 
 def corner_response_torch(img: torch.Tensor, threshold, arc: int = 12,
@@ -37,8 +38,8 @@ def corner_response_cuda(img: torch.Tensor, threshold, arc: int = 12,
     tensor on the image's device (read on the device, no host sync)."""
     if not 1 <= arc <= 16:
         raise ValueError(f"arc must be in 1..16, got {arc}")
-    if win not in KERNEL_WINS:
-        raise ValueError(f"win must be one of {KERNEL_WINS}, got {win}")
+    if not 1 <= win <= MAX_WIN:
+        raise ValueError(f"win must be in 1..{MAX_WIN}, got {win}")
     _lib.load()
     if not img.is_cuda:
         raise ValueError(f"corner_response_cuda: image on {img.device}")

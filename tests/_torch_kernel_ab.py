@@ -1,15 +1,12 @@
 """Device time of two designs of kernels 3 and 1, on one card in one run.
 
     python3 tests/_torch_kernel_ab.py (--parent REV | --parent-src DIR)
-                                      [--rounds 2] [--out FILE]
+                                      [--out FILE]
 
 Builds an earlier design of `csrc/stereo_fused.cu` and `csrc/fast_detect.cu`
 into a scratch library under the git-ignored `build/rso_torch_ab/`: from
 `git show REV:rso_torch/csrc/<file>`, or from the two files in DIR where
-there is no git checkout.  Builds the checkout's own sources again with
-other tuning constants (VARIANTS: 64-wide tiles for kernel 1, other warp
-and group counts for kernel 3), all builds at once.
-Then, on the bench scene's inputs as chip_smoke.py's phase 3 makes them:
+there is no git checkout.  Then, on the bench scene's inputs as chip_smoke.py's phase 3 makes them:
 
   * kernel 3 (`track_sad_fused`) at K = 512/256/128, with the engine's
     window (40 px) and with the open window (1e4: every pair admitted);
@@ -19,8 +16,9 @@ it checks each design bit for bit against the twin and times it: the median
 of the kernel's own duration over 50 launches (torch.profiler's CUDA
 activity, all in one session: chip_smoke.device_times) and the median call
 time (CUDA events around the wrapper).  The designs run in turns, earlier,
-new, new, earlier in each round.  Both designs go through the same Python wrappers: the
-wrapper's library handle is swapped for the earlier library.
+new, new, earlier in each of ROUNDS rounds.  Both designs go through the
+same Python wrappers: the wrappers' library handle is swapped for the
+earlier library.
 
 Needs a CUDA device and imports neither jax nor rso.  Prints one line per
 measurement and the card's name and power limit; writes the JSON to --out.
@@ -28,7 +26,6 @@ measurement and the card's name and power limit; writes the JSON to --out.
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
 import contextlib
 import ctypes
 import hashlib
@@ -40,17 +37,12 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 SOURCES = ("stereo_fused.cu", "fast_detect.cu")
-TRACK, CORNER = "rso_track_sad_fused", "rso_corner_response"
-# the checkout's own sources built with other tuning constants:
-# name -> (source, defines, entry point)
-VARIANTS = {
-    "new_tile64": ("fast_detect.cu", ("-DRSO_CORNER_TILE_W=64",), CORNER),
-    "new_w4g4": ("stereo_fused.cu", ("-DRSO_TRACK_WARPS=4", "-DRSO_TRACK_GROUP=4"), TRACK),
-    "new_w8g8": ("stereo_fused.cu", ("-DRSO_TRACK_WARPS=8", "-DRSO_TRACK_GROUP=8"), TRACK),
-}
+ENTRIES = ("rso_track_sad_fused", "rso_corner_response")
+DESIGNS = ("earlier", "new")
+ROUNDS = 2
 
 
-def _compile(srcs, out: Path, defines=()) -> Path:
+def _compile(srcs, out: Path) -> Path:
     """nvcc the sources (the package's flags) into one shared library."""
     from rso_torch.kernels import _lib
 
@@ -58,8 +50,7 @@ def _compile(srcs, out: Path, defines=()) -> Path:
     objs = []
     for src in srcs:
         obj = out.with_name(f"{Path(src).stem}.o")
-        cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, *defines, "-c", "-o", str(obj),
-               str(src)]
+        cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         _lib._check(cmd, proc.returncode, proc.stdout, proc.stderr)
         objs.append(str(obj))
@@ -69,11 +60,11 @@ def _compile(srcs, out: Path, defines=()) -> Path:
     return out
 
 
-def _load(path: Path, names) -> ctypes.CDLL:
+def _load(path: Path) -> ctypes.CDLL:
     from rso_torch.kernels import _lib
 
     lib = ctypes.CDLL(str(path))
-    for name in names:
+    for name in ENTRIES:
         fn = getattr(lib, name)
         fn.argtypes = _lib._SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -117,7 +108,6 @@ def main() -> int:
     src.add_argument("--parent", help="git revision of the earlier design")
     src.add_argument("--parent-src", help="directory holding the earlier "
                      "design's stereo_fused.cu and fast_detect.cu")
-    ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--out", default="chiprun_out/kernel_ab.json")
     args = ap.parse_args()
 
@@ -133,41 +123,25 @@ def main() -> int:
 
     smi = CS._nvidia_smi()
     print(f"device: {torch.cuda.get_device_name(0)} | {smi}", flush=True)
-    designs = {"new": _lib.load()}
     srcs = earlier_sources(None if args.parent_src else args.parent,
                            args.parent_src)
-    builds = {"earlier": (srcs, srcs[0].parent / "libearlier.so", (),
-                          (CORNER, TRACK))}
-    for name, (src, defines, entry) in VARIANTS.items():
-        builds[name] = ([_lib._CSRC / src],
-                        _lib.library_path().parent / name / "lib.so", defines,
-                        (entry,))
-    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
-        done = {name: pool.submit(_compile, b[0], b[1], b[2])
-                for name, b in builds.items()}
-        for name, fut in done.items():
-            designs[name] = _load(fut.result(), builds[name][3])
-    track_designs = ("earlier", "new") + tuple(
-        n for n, v in VARIANTS.items() if v[2] == TRACK)
-    corner_designs = ("earlier", "new") + tuple(
-        n for n, v in VARIANTS.items() if v[2] == CORNER)
+    designs = {"earlier": _load(_compile(srcs, srcs[0].parent / "libearlier.so")),
+               "new": _lib.load()}
 
     dev = torch.device("cuda")
     bi = CS.BenchInputs(CS._bench_scene(CS.N_FRAMES), dev)
     dense_kw = dict(bi.track_kw, win_row=1e4, win_col=1e4)
-    cases = []   # (kernel, label, call, twin, designs)
+    cases = []   # (kernel, label, call, twin)
     for o in range(3):
         a = bi.track_args(o)
         for label, kw in (("window 40", bi.track_kw), ("window 1e4", dense_kw)):
             cases.append(("track_sad_kernel", f"K={bi.Ks[o]} {label}",
                           lambda a=a, kw=kw: K.track_sad_fused_cuda(*a, **kw),
-                          lambda a=a, kw=kw: K.track_sad_fused_torch(*a, **kw),
-                          track_designs))
+                          lambda a=a, kw=kw: K.track_sad_fused_torch(*a, **kw)))
     for img in bi.pyr:
         cases.append(("corner_response_kernel", "x".join(map(str, img.shape)),
                       lambda img=img: K.corner_response_cuda(img, bi.th),
-                      lambda img=img: K.corner_response_torch(img, bi.th),
-                      corner_designs))
+                      lambda img=img: K.corner_response_torch(img, bi.th)))
 
     def through(lib, call):
         def run():
@@ -179,35 +153,34 @@ def main() -> int:
     # profiler session (chip_smoke.device_times), all in the same turns; the
     # profiler goes last, as the process runs slower after it
     runs = []   # (case index, design, kernel, fn)
-    for c, (kernel, label, call, twin, names) in enumerate(cases):
+    for c, (kernel, label, call, twin) in enumerate(cases):
         ref = twin()
-        for name in names:
+        for name in DESIGNS:
             out = through(designs[name], call)()
             for x, y in zip(out if isinstance(out, tuple) else (out,),
                             ref if isinstance(ref, tuple) else (ref,)):
                 if not torch.equal(x, y):
                     raise AssertionError(f"{name} {kernel} {label}: != twin")
-        # in turns: earlier, new(s), new(s) reversed, earlier
-        order = list(names) + list(reversed(names))
+        # in turns: earlier, new, new, earlier
         runs += [(c, name, kernel, through(designs[name], call))
-                 for _ in range(args.rounds) for name in order]
+                 for _ in range(ROUNDS) for name in DESIGNS + DESIGNS[::-1]]
     ms = [CS._median_ms(fn) for _, _, _, fn in runs]
     us = CS.device_times([(kernel, fn) for _, _, kernel, fn in runs])
 
     results = []
-    for c, (kernel, label, _, _, names) in enumerate(cases):
+    for c, (kernel, label, _, _) in enumerate(cases):
         mine = [(name, u, m) for (ci, name, _, _), u, m in zip(runs, us, ms)
                 if ci == c]
-        dev_us = {n: [u for name, u, _ in mine if name == n] for n in names}
-        call_ms = {n: [m for name, _, m in mine if name == n] for n in names}
+        dev_us = {n: [u for name, u, _ in mine if name == n] for n in DESIGNS}
+        call_ms = {n: [m for name, _, m in mine if name == n] for n in DESIGNS}
         row = dict(kernel=kernel, shape=label, device_us=dev_us, call_ms=call_ms,
                    median_device_us={n: statistics.median(v) for n, v in dev_us.items()},
                    median_call_ms={n: statistics.median(v) for n, v in call_ms.items()})
         results.append(row)
         print(f"{kernel} {label}: device us " + ", ".join(
-            f"{n} {row['median_device_us'][n]:.3f} {dev_us[n]}" for n in names)
+            f"{n} {row['median_device_us'][n]:.3f} {dev_us[n]}" for n in DESIGNS)
             + "; call ms " + ", ".join(
-            f"{n} {row['median_call_ms'][n]:.4f}" for n in names), flush=True)
+            f"{n} {row['median_call_ms'][n]:.4f}" for n in DESIGNS), flush=True)
 
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

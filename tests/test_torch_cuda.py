@@ -70,12 +70,13 @@ def test_cuda_corner_response_equals_the_cpu_twin(cuda, th):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arc", [9, 12])
-@pytest.mark.parametrize("win", [2, 4])
+@pytest.mark.parametrize("win", [2, 4, 13, 45])
 @pytest.mark.parametrize("hw", [(17, 23), (94, 310), (377, 1243)])
 def test_cuda_corner_response_noise(cuda, hw, win, arc):
     """Uniform noise of odd sizes, corners up to the 3-px ring on every edge
     (partial tiles, wrapped halos): bit-exact with the twin on the card and
-    on the CPU."""
+    on the CPU.  Win 13 and 45 take more than 48 KB of shared memory a
+    block (the launch opts in), 45 the most the kernel takes."""
     img = np.random.default_rng(hw[0] * hw[1]).uniform(0, 255, hw).astype(np.float32)
     cpu = torch.from_numpy(img)
     out = K.corner_response_cuda(cpu.to(cuda), 20, arc, win)
@@ -182,8 +183,8 @@ def test_cuda_wrappers_count_launches_and_check_operands(cuda):
         K.sad_matrix_cuda(torch.zeros((4, 200), device=cuda),
                           torch.zeros((4, 200), device=cuda))
     assert K.LAUNCHES["hamming_matrix"] == 1 and K.LAUNCHES["sad_matrix"] == 0
-    with pytest.raises(ValueError, match="win must be one of"):
-        K.corner_response_cuda(img, 20, win=5)
+    with pytest.raises(ValueError, match="win must be in 1.."):
+        K.corner_response_cuda(img, 20, win=K.fast_detect.MAX_WIN + 1)
     assert K.LAUNCHES["corner_response"] == 1
 
 

@@ -122,6 +122,21 @@ def test_corner_twin_vs_reference_noise(hw, win, arc):
     np.testing.assert_allclose(out[fin], ref[fin], rtol=1e-5, atol=1e-3)
 
 
+@pytest.mark.parametrize("win", [7, 13])
+def test_corner_twin_vs_reference_wide_window(win):
+    """Windows wider than the configs' 4 (the kernel takes any win up to
+    MAX_WIN), on uniform noise of an odd size; tolerance as above."""
+    img = np.random.default_rng(win).uniform(0, 255, (94, 310)).astype(np.float32)
+    ref = np.asarray(jax.jit(corner_response_jnp, static_argnums=(2, 3))(
+        jnp.asarray(img), 20, 12, win))
+    out = K.corner_response_torch(torch.from_numpy(img),
+                                  torch.tensor(20, dtype=torch.int32), 12, win).numpy()
+    np.testing.assert_array_equal(np.isneginf(out), np.isneginf(ref))
+    fin = np.isfinite(ref)
+    assert fin.any()
+    np.testing.assert_allclose(out[fin], ref[fin], rtol=1e-5, atol=1e-3)
+
+
 @pytest.mark.parametrize("K_", [128, 257])
 def test_stereo_twin_vs_pallas(K_):
     pl, pr, xy_l, xy_r, ok_l, ok_r = _stereo_case(K_, K_)
@@ -317,12 +332,13 @@ def test_non_cpu_tensor_never_falls_back(monkeypatch):
 
 
 def test_corner_kernel_takes_only_its_windows(monkeypatch):
-    """A window the kernel is not built for raises in the wrapper, before
-    any launch, and the dispatcher does not fall back to the twin."""
+    """A window whose tile does not fit the kernel's shared memory (or no
+    window at all) raises in the wrapper, before any launch, and the
+    dispatcher does not fall back to the twin."""
     monkeypatch.setattr(_lib, "load", lambda: None)
     meta = torch.empty((64, 64), device="meta")
-    for win in (0, 5):
-        with pytest.raises(ValueError, match="win must be one of"):
+    for win in (0, -1, K.fast_detect.MAX_WIN + 1):
+        with pytest.raises(ValueError, match="win must be in 1.."):
             K.corner_response_auto(meta, 20, win=win)
 
 
