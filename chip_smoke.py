@@ -16,10 +16,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the same call times of the twin and, where one PyTorch call computes the
      same function, of that call (all timed in phase 8); and the kernel's
      bound, the least time the card could take for the same work.  The
-     tracking kernel's bound counts the SAD only on the pairs its window
-     admits (their share is printed, and the all-pairs bound beside it), and
-     the kernel is also checked and timed with the window open (1e4: every
-     valid pair admitted);
+     stereo and tracking kernels' bounds count the SAD only on the pairs
+     their masks admit (their share is printed, and the all-pairs bound
+     beside it); both kernels are also checked and timed with the mask open
+     (1e4: every valid pair admitted, for stereo every one with a disparity
+     >= 1), and checked on the cases of tests/_torch_stereo_cases.py and
+     tests/_torch_track_cases.py; the SAD matrix also at ragged shapes and
+     widths;
   4. engine, default path: 30 frames of the bench scene (1241x376, 2000
      points, speed 0.8, fx 718.856, baseline 0.5371) through
      Engine(synthetic_config()) on the card, with every kernel's launch
@@ -298,6 +301,29 @@ def track_window_pairs(args, kw) -> int:
     return int(ok.sum())
 
 
+def stereo_mask_pairs(args, kw) -> int:
+    """How many (left, right) pairs the stereo mask and validity admit: the
+    twin's mask before its SAD gate, the pairs whose SAD kernel 2 forms."""
+    _, _, xyl, xyr, okl, okr = args
+    dy = (xyl[:, 1].round()[:, None] - xyr[:, 1].round()[None, :]).abs()
+    disp = xyl[:, 0][:, None] - xyr[:, 0][None, :]
+    ok = (okl[:, None] & okr[None, :] & (dy <= kw["max_y_diff"])
+          & (disp >= 1.0) & (disp <= kw["max_disp"]))
+    return int(ok.sum())
+
+
+def stereo_bound(args, kw):
+    """(ops, bytes, admitted pairs) of the stereo function on these inputs:
+    the mask on every pair (~10 operations), the SAD only on the admitted
+    ones (3 operations a patch value) and its gate and merge (~4); each
+    operand read once, three [Kl] outputs written."""
+    Kl, P = args[0].shape
+    Kr = args[1].shape[0]
+    n = stereo_mask_pairs(args, kw)
+    return (Kl * Kr * 10 + n * (3 * P + 4),
+            4 * (Kl + Kr) * (P + 2) + Kl + Kr + 12 * Kl, n)
+
+
 def track_bound(args, kw):
     """(ops, bytes, admitted pairs) of the tracking function on these
     inputs: the mask on every pair (~10 operations), the SAD only on the
@@ -321,6 +347,10 @@ def check_kernels(seq, dev):
     from rso_torch.frontend.detect import detect_features
     from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
     from rso_torch.kernels.stereo_fused import _best_second
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import _torch_stereo_cases as SC
+    import _torch_track_cases as TC
 
     bi = BenchInputs(seq, dev)
     pyr, th, Ks = bi.pyr, bi.th, bi.Ks
@@ -411,30 +441,63 @@ def check_kernels(seq, dev):
     K0, P = Ks[0], 64
     err = 0.0
     for o in range(3):
-        a = bi.stereo_args(o)
-        err = max(err, _exact("stereo_sad_fused", K.stereo_sad_fused_cuda(*a, **bi.stereo_kw(o)),
-                              K.stereo_sad_fused_torch(*a, **bi.stereo_kw(o)), f"K={Ks[o]}"))
+        a, kw = bi.stereo_args(o), bi.stereo_kw(o)
+        open_kw = dict(kw, max_y_diff=1e4, max_disp=1e4)
+        for what, k in (("", kw), (" open mask", open_kw)):
+            err = max(err, _exact("stereo_sad_fused", K.stereo_sad_fused_cuda(*a, **k),
+                                  K.stereo_sad_fused_torch(*a, **k),
+                                  f"K={Ks[o]}{what}"))
+        n_pairs = Ks[o] * Ks[o]
+        print(f"kernel stereo_sad_fused K={Ks[o]}: the mask admits "
+              f"{stereo_mask_pairs(a, kw)} of {n_pairs} pairs "
+              f"({stereo_mask_pairs(a, kw) / n_pairs}), the open mask "
+              f"{stereo_mask_pairs(a, open_kw) / n_pairs}", flush=True)
     pl, pr, xl, xr, okl, okr = odd_case(257, 1)
     kw = dict(max_y_diff=1.0, max_disp=100.0, max_distance=6000.0)
     err = max(err, _exact("stereo_sad_fused",
                           K.stereo_sad_fused_cuda(pl, pr, xl, xr, okl, okr, **kw),
                           K.stereo_sad_fused_torch(pl, pr, xl, xr, okl, okr, **kw),
                           "K=257"))
+    for case in SC.CASES:
+        args, kw, *_ = SC.stereo_case(case)
+        a = tuple(torch.from_numpy(x).to(dev) for x in args)
+        err = max(err, _exact("stereo_sad_fused", K.stereo_sad_fused_cuda(*a, **kw),
+                              K.stereo_sad_fused_torch(*a, **kw), f"case {case}"))
     a0, kw0 = bi.stereo_args(0), bi.stereo_kw(0)
-    # per pair: 3 operations a patch value and ~8 for the masks and merge;
-    # patches, xy and masks read once, three [K] outputs written
+    ops, n_bytes, n_adm = stereo_bound(a0, kw0)
     report["stereo_sad_fused"] = entry(
         err, lambda a=a0, kw=kw0: K.stereo_sad_fused_cuda(*a, **kw),
         "stereo_sad_kernel",
         lambda a=a0, kw=kw0: K.stereo_sad_fused_torch(*a, **kw),
-        None, K0 * K0 * (3 * P + 8), 2 * K0 * (4 * P + 8 + 1) + 12 * K0,
-        [K0, K0, P], "no single PyTorch call computes the masked best/second")
+        None, ops, n_bytes, [K0, K0, P],
+        "no single PyTorch call computes the masked best/second")
+    # the bound counts the SAD of the admitted pairs only; the all-pairs
+    # count (K^2 (3P + 8) operations) is kept beside it for comparison with
+    # ratios taken against it
+    all_pairs_ms, _ = _bound(K0 * K0 * (3 * P + 8), n_bytes)
+    open_kw0 = dict(kw0, max_y_diff=1e4, max_disp=1e4)
+    ops_o, _, n_open = stereo_bound(a0, open_kw0)
+    open_mask = dict(label="open mask", max_y_diff=1e4, max_disp=1e4,
+                     admissible_share=n_open / (K0 * K0),
+                     bound_ms=_bound(ops_o, n_bytes)[0])
+    report["stereo_sad_fused"].update(
+        admissible_share=n_adm / (K0 * K0),
+        bound_all_pairs_ms=all_pairs_ms, open_mask=open_mask)
+    t = report["stereo_sad_fused"]
+    print(f"kernel stereo_sad_fused K={K0}: bound {t['bound_ms']} ms "
+          f"({t['bound_by']}), the SAD counted on the {n_adm} admitted pairs "
+          f"({n_adm / (K0 * K0)}); the earlier count, the SAD on all pairs: "
+          f"{t['bound_all_pairs_ms']} ms; open mask: bound "
+          f"{open_mask['bound_ms']} ms, {n_open} pairs admitted", flush=True)
+    timed.append((open_mask, "stereo_sad_kernel",
+                  lambda a=a0, kw=open_kw0: K.stereo_sad_fused_cuda(*a, **kw),
+                  None, None))
     for o in (1, 2):
-        k = Ks[o]
+        a, kw = bi.stereo_args(o), bi.stereo_kw(o)
+        ops_o, bytes_o, _ = stereo_bound(a, kw)
         octave(report["stereo_sad_fused"], "stereo_sad_kernel",
-               lambda a=bi.stereo_args(o), kw=bi.stereo_kw(o):
-               K.stereo_sad_fused_cuda(*a, **kw),
-               k * k * (3 * P + 8), 2 * k * (4 * P + 8 + 1) + 12 * k, [k, k, P])
+               lambda a=a, kw=kw: K.stereo_sad_fused_cuda(*a, **kw),
+               ops_o, bytes_o, [Ks[o], Ks[o], P])
 
     track_kw = bi.track_kw
     dense_kw = dict(track_kw, win_row=1e4, win_col=1e4)
@@ -450,6 +513,11 @@ def check_kernels(seq, dev):
               f"{track_window_pairs(a, track_kw)} of {n_pairs} pairs "
               f"({track_window_pairs(a, track_kw) / n_pairs}), the open window "
               f"{track_window_pairs(a, dense_kw) / n_pairs}", flush=True)
+    for case in TC.CASES:
+        args, kw, *_ = TC.track_case(case)
+        a = tuple(torch.from_numpy(x).to(dev) for x in args)
+        err = max(err, _exact("track_sad_fused", K.track_sad_fused_cuda(*a, **kw),
+                              K.track_sad_fused_torch(*a, **kw), f"case {case}"))
     p1, c1, xy1, xy2, okp, okc = odd_case(131, 2)
     p2, c2, _, _, _, _ = odd_case(131, 3)
     a = (p1, c1, p2, c2, xy1, xy2, xy1[:, 0] - 5.0, xy2[:, 0] - 7.0, okp, okc)
@@ -468,7 +536,8 @@ def check_kernels(seq, dev):
     # ratios taken against it
     all_pairs_ms, _ = _bound(K0 * K0 * (6 * P + 10), n_bytes)
     ops_d, _, n_dense = track_bound(a0, dense_kw)
-    open_window = dict(win=1e4, admissible_share=n_dense / (K0 * K0),
+    open_window = dict(label="open window", win=1e4,
+                       admissible_share=n_dense / (K0 * K0),
                        bound_ms=_bound(ops_d, n_bytes)[0])
     report["track_sad_fused"].update(
         admissible_share=n_adm / (K0 * K0), bound_all_pairs_ms=all_pairs_ms,
@@ -580,6 +649,14 @@ def check_kernels(seq, dev):
     sa, sb = odd_case(257, 6)[0], odd_case(131, 7)[0]
     err = max(err, _exact("sad_matrix", (K.sad_matrix_cuda(sa, sb),),
                           (K.sad_matrix_torch(sa, sb),), "257x131"))
+    # ragged tiles, and widths that are not a multiple of 4
+    r = np.random.default_rng(8)
+    for ka, kb, w in ((1, 1, 64), (1, 257, 64), (257, 1, 64), (131, 257, 64),
+                      (131, 257, 63), (131, 257, 65), (40, 33, 128)):
+        sa, sb = (torch.tensor(r.integers(0, 255 * 16, (k, w)) / 16.0,
+                               dtype=torch.float32, device=dev) for k in (ka, kb))
+        err = max(err, _exact("sad_matrix", (K.sad_matrix_cuda(sa, sb),),
+                              (K.sad_matrix_torch(sa, sb),), f"{ka}x{kb}, P={w}"))
     a, b = bi.frames[0][0][0].patch, bi.frames[1][0][0].patch
     report["sad_matrix"] = entry(
         err, lambda a=a, b=b: K.sad_matrix_cuda(a, b), "sad_kernel",
@@ -610,7 +687,7 @@ def time_kernels(timed) -> None:
     us = device_times([(kernel, fn) for _, kernel, fn, _, _ in timed])
     for (out, kernel, *_), u in zip(timed, us):
         out["device_us"] = u
-        what = "open window" if "win" in out else out["shape"]
+        what = out["label"] if "label" in out else out["shape"]
         print(f"time {kernel} {what}: device {u} us, call {out['ms']} ms, "
               f"bound {out['bound_ms']} ms", flush=True)
 

@@ -8,23 +8,48 @@
 // counts like any other.
 //
 // rso_sad_matrix replaces `sad_matrix_pallas` (`_sad_kernel`): the [Ka,Kb]
-// sum of absolute differences of P-float patches, accumulated over d in
-// ascending order as the TPU kernel does.  Patch values are multiples of
-// 1/16 below 256, so every partial sum is exact in f32 and the result equals
-// the PyTorch twin's bit for bit whatever order that one sums in.
+// sum of absolute differences of P-float patches.  Patch values are
+// multiples of 1/16 below 256, so every partial sum is exact in f32 and the
+// result equals the PyTorch twin's bit for bit whatever order either sums
+// in: this kernel splits each sum over four lanes and four accumulations.
 //
 // What bounds them on the H100.  At Ka = Kb = 512 the Hamming matrix reads
 // 32 KB and writes 1 MB: ~0.3 us at 3.35 TB/s, against ~6.3 M integer
-// operations (~0.1 us at 67 T/s), so its bound is the output's bytes.  The
-// SAD matrix does ~50 M f32 operations (sub, abs, add per term: ~0.75 us at
-// 67 TFLOP/s) on 256 KB in and 1 MB out (~0.4 us), so operations bound it.
-// Either way the bound is a microsecond, below a launch's own latency.
-// Design: a block computes a 32x32 output tile with 32x8 threads, four
-// outputs a thread (rows ty, ty+8, ty+16, ty+24; column tx).  The tile's
-// 32 A rows and 32 B rows are staged in shared memory once; a warp reads
-// one A row (a broadcast) and 32 different B rows, which are padded by one
-// word (W+1, P+1) so those 32 reads hit 32 banks.  Stores are coalesced
-// along Kb.  Ragged edges load zeros and skip their stores.
+// operations (~0.1 us at 67 T/s), so its bound is the output's bytes.
+// Hamming design: a block computes a 32x32 output tile with 32x8 threads,
+// four outputs a thread (rows ty, ty+8, ty+16, ty+24; column tx); the
+// tile's A and B rows are staged in shared memory once, B padded by one
+// word so a warp's 32 reads hit 32 banks; stores coalesced along Kb.
+//   The SAD matrix is 512^2 x 64 = 16.8 M terms, every one needed (no mask):
+// on the card a term is two f32 instructions, FADD a, -b and an FADD that
+// takes |x| as an operand modifier (SASS: the abs folds into the FADD), so
+// ~1.0 us of issue at 132 SMs x 128 lanes x ~1.98 GHz (chip_smoke.py counts
+// 3 operations a term: 0.75 us at 67 TFLOP/s); 256 KB in and 1 MB out take
+// ~0.4 us.  FP32 issue bounds it.  The first design (32x8 threads, 4
+// outputs each, one float per d) spent 5 shared-memory loads per 4 terms,
+// so shared-load issue set its pace: 5.495 us on the device at K = 512.
+//   Design: a block computes a 32x32 output tile with 256 threads.  The
+// tile's 32 A rows and 32 B rows are staged in shared memory with d
+// contiguous, zero-padded to P4 = P rounded up to 4 (|0 - 0| adds nothing,
+// so any P takes the same loop), each row S = P4 + ((16 - P4) mod 32) words
+// apart; a lane issues all its staging loads of a step before its first
+// store.  A thread owns a 4x4 micro-tile (rows ty + 8i, columns tx + 8j) and
+// a quarter of d: lane bits 0-1 pick the float4s q, q + 4, ... of d.  Per
+// float4 it loads 4 A and 4 B float4s (8 LDS.128) for 64 terms (128 FP32
+// instructions), so the FP32 pipes, not shared-memory loads, set the pace.
+// The 8 lanes of one LDS.128 phase read B rows tx = 0, 1 at the four
+// quarters' offsets: with S = 16 (mod 32) words they fall in 8 distinct
+// 16-byte bank groups, and their A reads are four broadcasts.  Two shuffles
+// add the quarters (exact), and each quarter stores one column of the
+// micro-tile: a warp's store is a 128-byte row segment.  At K = 512 the
+// grid is 16 x 16 = 256 blocks of 8 warps, all resident at once (~2 a SM);
+// ragged edges load zeros and skip stores.
+//   Measured (tests/_torch_kernel_ab.py on the bench patches, NVIDIA H100
+// 80GB HBM3 at 700 W, against the first design in the same call; PERF.md
+// section 6): 3.801, 2.651 and 2.588 us on the device at K = 512/256/128
+// (first design: 5.495, 3.769, 3.737).  Measured and dropped: d split over
+// 2 lanes (128 threads) 4.256 us at K = 512; staging by cp.async, with or
+// without a second stage overlapping the sums, 5.8-7.2 us.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -61,37 +86,106 @@ __global__ void hamming_kernel(const unsigned* __restrict__ a,
   }
 }
 
-__global__ void sad_kernel(const float* __restrict__ a,
-                           const float* __restrict__ b, int Ka, int Kb, int P,
-                           float* __restrict__ out) {
-  extern __shared__ float s_vals[];
-  float* s_a = s_vals;                     // [kTile][P]
-  float* s_b = s_vals + kTile * P;         // [kTile][P + 1]
+constexpr int kMicro = 4;           // micro-tile rows and columns
+constexpr int kSpan = kTile / kMicro;   // 8: row (column) step in a micro-tile
+constexpr int kSplit = 4;           // lanes that share a micro-tile, by d
+constexpr int kSadThreads = kSpan * kSpan * kSplit;
+constexpr int kSadWarps = kSadThreads / 32;
+constexpr int kStageRows = kTile / kSadWarps;   // A (and B) rows a warp stages
+
+// words between staged rows: at least P4, and 4 kSplit (mod 32), so the 8
+// lanes of an LDS.128 phase (8 / kSplit columns tx x kSplit parts of d)
+// hit 8 distinct 16-byte bank groups
+__host__ __device__ __forceinline__ int sad_stride(int P4) {
+  return P4 + ((4 * kSplit - P4) & 31);
+}
+
+__global__ void __launch_bounds__(kSadThreads) sad_kernel(
+    const float* __restrict__ a, const float* __restrict__ b, int Ka, int Kb,
+    int P, float* __restrict__ out) {
+  extern __shared__ float4 s_vec[];        // 16-byte aligned
+  const int P4 = (P + 3) & ~3;
+  const int S = sad_stride(P4);
+  float* s_a = reinterpret_cast<float*>(s_vec);   // [kTile][S]
+  float* s_b = s_a + kTile * S;                   // [kTile][S]
   const int row0 = blockIdx.y * kTile;
   const int col0 = blockIdx.x * kTile;
-  const int tid = threadIdx.y * kTile + threadIdx.x;
-  for (int i = tid; i < kTile * P; i += kTile * kThreadsY) {
-    const int r = i / P, d = i % P;
-    s_a[r * P + d] = row0 + r < Ka ? a[(size_t)(row0 + r) * P + d] : 0.f;
-    s_b[r * (P + 1) + d] = col0 + r < Kb ? b[(size_t)(col0 + r) * P + d] : 0.f;
-  }
-  __syncthreads();
-  const int col = col0 + threadIdx.x;
-  const float* q = s_b + threadIdx.x * (P + 1);
-  float acc[kRowsPerThread];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // warp w stages tile rows w, w + kSadWarps, ... of A and of B, coalesced
+  // along d; a lane issues all its loads of a step before its first store.
+  // Zeros past the edges and in d = P..P4.
+#pragma unroll 2
+  for (int d = lane; d < P4; d += 32) {
+    float v[2 * kStageRows];
 #pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) acc[k] = 0.f;
-  for (int d = 0; d < P; ++d) {            // d ascending, as _sad_kernel
-    const float qd = q[d];
+    for (int k = 0; k < 2 * kStageRows; ++k) {
+      const bool is_b = k >= kStageRows;
+      const int g = (is_b ? col0 : row0) + warp + kSadWarps * (k % kStageRows);
+      v[k] = g < (is_b ? Kb : Ka) && d < P ? (is_b ? b : a)[(size_t)g * P + d]
+                                           : 0.f;
+    }
 #pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k) {
-      acc[k] += fabsf(s_a[(threadIdx.y + k * kThreadsY) * P + d] - qd);
+    for (int k = 0; k < 2 * kStageRows; ++k) {
+      const int rr = warp + kSadWarps * (k % kStageRows);
+      (k >= kStageRows ? s_b : s_a)[rr * S + d] = v[k];
     }
   }
+  __syncthreads();
+
+  const int h = lane & (kSplit - 1);      // d's float4s h, h + kSplit, ...
+  const int tx = (lane / kSplit) & (kSpan - 1);   // columns tx + 8j
+  const int ty = (threadIdx.x / kSplit) / kSpan;  // rows ty + 8i
+  float acc[kMicro][kMicro];
 #pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const int r = row0 + threadIdx.y + k * kThreadsY;
-    if (r < Ka && col < Kb) out[(size_t)r * Kb + col] = acc[k];
+  for (int i = 0; i < kMicro; ++i) {
+#pragma unroll
+    for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.f;
+  }
+  for (int d = 4 * h; d < P4; d += 4 * kSplit) {
+    float4 va[kMicro], vb[kMicro];
+#pragma unroll
+    for (int i = 0; i < kMicro; ++i) {
+      va[i] = *reinterpret_cast<const float4*>(s_a + (ty + kSpan * i) * S + d);
+      vb[i] = *reinterpret_cast<const float4*>(s_b + (tx + kSpan * i) * S + d);
+    }
+#pragma unroll
+    for (int i = 0; i < kMicro; ++i) {
+#pragma unroll
+      for (int j = 0; j < kMicro; ++j) {
+        acc[i][j] += fabsf(va[i].x - vb[j].x);
+        acc[i][j] += fabsf(va[i].y - vb[j].y);
+        acc[i][j] += fabsf(va[i].z - vb[j].z);
+        acc[i][j] += fabsf(va[i].w - vb[j].w);
+      }
+    }
+  }
+  // the kSplit parts of each sum (exact), then part h stores its share of
+  // the columns: j = h kMicro / kSplit, ...
+#pragma unroll
+  for (int off = 1; off < kSplit; off <<= 1) {
+#pragma unroll
+    for (int i = 0; i < kMicro; ++i) {
+#pragma unroll
+      for (int j = 0; j < kMicro; ++j) {
+        acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], off);
+      }
+    }
+  }
+  constexpr int kCols = kMicro / kSplit;   // columns each part stores
+#pragma unroll
+  for (int i = 0; i < kMicro; ++i) {
+    const int r = row0 + ty + kSpan * i;
+#pragma unroll
+    for (int jj = 0; jj < kCols; ++jj) {
+      const int j = h * kCols + jj;
+      float v = acc[i][jj];
+#pragma unroll
+      for (int q = kCols + jj; q < kMicro; q += kCols) {
+        v = j == q ? acc[i][q] : v;
+      }
+      const int c = col0 + tx + kSpan * j;
+      if (r < Ka && c < Kb) out[(size_t)r * Kb + c] = v;
+    }
   }
 }
 
@@ -111,8 +205,9 @@ extern "C" int rso_hamming_matrix(const unsigned* a, const unsigned* b, int Ka,
 
 extern "C" int rso_sad_matrix(const float* a, const float* b, int Ka, int Kb,
                               int P, float* out, void* stream) {
-  const size_t smem = (size_t)kTile * (2 * P + 1) * sizeof(float);
-  sad_kernel<<<tiles(Ka, Kb), dim3(kTile, kThreadsY), smem,
-               (cudaStream_t)stream>>>(a, b, Ka, Kb, P, out);
+  const size_t smem =
+      (size_t)2 * kTile * sad_stride((P + 3) & ~3) * sizeof(float);
+  sad_kernel<<<tiles(Ka, Kb), kSadThreads, smem, (cudaStream_t)stream>>>(
+      a, b, Ka, Kb, P, out);
   return (int)cudaGetLastError();
 }

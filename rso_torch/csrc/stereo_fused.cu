@@ -7,13 +7,6 @@
 // SAD <= max_distance; per row the best distance, its index (first on ties)
 // and the second-best distance (the minimum over every other position, so a
 // tie gives second == best), with 1e9 for "no admissible pair".
-// What bounds it on the H100: its full scan.  Design: one block per left
-// row, the row's patch staged in shared memory, threads striding over the
-// right slots (lane j walks row j: uncoalesced), then a shared-memory tree
-// merge of (best, index, second).  It forms every pair's SAD before the
-// mask, as the tracking kernel's first design did: 69.6 us on the device at
-// K = 512 against a bound of 0.78 us (chip_smoke.py, NVIDIA H100 80GB HBM3
-// at 700 W), the next kernel to redesign (ROADMAP, rule 2).
 //
 // rso_track_sad_fused replaces `track_sad_fused` (`_track_kernel`): the sum of
 // both eyes' exact SADs (prev-left vs cur-left, prev-right vs cur-right,
@@ -21,145 +14,88 @@
 // |dx_right| <= win_col and each eye's SAD <= sad_max; per prev row the
 // argmin (first on ties) and its distance, (index 0, 1e9) where no pair is
 // admissible.
-//   The first design (one block per prev row, one thread per candidate, the
-// full 64-value SAD of both eyes for every pair, then the mask) spent more
-// than 97% of its work on pairs the mask throws away: on bench frames 0 -> 1
-// the window admits 0.56% of the 512 x 512 pairs at octave 0, 0.86% of the
-// 256 x 256 at octave 1 and 2.2% of the 128 x 128 at octave 2.
-// Its loads were uncoalesced too: lane j walked candidate row j, so each
-// load instruction touched 32 rows 256 B apart, and every block re-read all
-// candidate patches.
-//   This design does no SAD work for a rejected pair.  One block of 8 warps
-// per prev row, the row's two patches in shared memory; warp w takes the
-// 32-candidate chunks w, w + 8, ...  Pass 1: each lane tests one candidate's
-// validity and window (the twin's predicate, ~10 operations) and
-// __ballot_sync gives the chunk's admitted set.  Pass 2: for the admitted
-// candidates in ascending order, 4 at a time, the whole warp reads each
-// candidate's two patch rows coalesced (lane l takes values l, l + 32), and
-// a transposed butterfly (10 shuffles) reduces the 8 sums; each eye is gated
-// by sad_max and (value, index) merged lexicographically, then across lanes
-// and the block's warps.  A row whose ok_p is false writes (0, 1e9) and
-// stops.  With the window open (win 1e4) every warp walks all its chunks.
+//
+// What bounds them on the H100: their masks admit few pairs.  On the bench
+// features (chip_smoke.py) the stereo mask admits 0.66%, 1.21% and 2.37% of
+// the 512^2, 256^2 and 128^2 pairs at octaves 0-2, the tracking window
+// 0.56%, 0.86% and 2.2%.  A design that forms every pair's SAD and then
+// masks (both kernels' first design: lane j walked right row j, so each
+// load touched 32 rows 256 B apart, and every block re-read all right
+// patches) spends more than 97% of its work on pairs it throws away.
+// Counted on the admitted pairs, the work is the mask over all pairs plus
+// ~0.1 M abs-adds at K = 512: the bound is the operands read once (bytes),
+// ~0.08 us (stereo) and ~0.16 us (tracking) at K = 512.
+//
+// Design (`for_admitted`, shared by both kernels): a block of 8 warps per
+// left (prev) row; warp w takes the chunks w, w + 8, ... of kChunk slots.
+// Pass 1: each lane tests one slot with the twin's geometric predicate (~10
+// operations) and __ballot_sync gives the chunk's admitted set.  Pass 2:
+// the admitted slots in ascending order, kGroup at a time (8 candidates of
+// one eye, or 4 of two: 8 sums), the whole warp reading each candidate's
+// patch row coalesced (lane l takes values l, l + 32) and a transposed
+// butterfly (9 shuffles) reducing the 8 sums.  The SAD gate and the (value,
+// index) merge follow on one lane per candidate, then across lanes and the
+// block's warps.  No SAD is formed for a pair the geometric mask rejects.  A
+// row with ok false writes (index 0, 1e9[, 1e9]) itself: the twin's argmin
+// over a row of 1e9.  Stereo takes 16-slot chunks, so that at K = 128 all 8
+// warps hold a chunk, and reads its left patch from global memory (L1
+// after the first group); tracking takes 32-slot chunks and stages its two
+// patches in shared memory, as measured best for each.  With the mask open
+// (1e4) every warp walks all its chunks: the design is then a coalesced
+// all-pairs SAD over the valid pairs.
 //   Measured (tests/_torch_kernel_ab.py on the bench features, NVIDIA H100
-// 80GB HBM3 at 700 W; the A/B of record in PERF.md, section 6): K = 512 with
-// the engine's window (0.56% of pairs admitted) 4.163 us on the device,
-// against 137.143 us for the first design; K = 256 and 128 3.878 and 3.782
-// us (36.725, 12.014); the open window 18.498 us at K = 512 (32% of the
-// pairs valid; 137.318).  8 warps of groups of 4 measured faster than 4
-// warps, or groups of 8 (PERF.md).
-//   What bounds it now: at ~4 us a call it is near the card's floor for a
-// small launch (2.2-3.8 us for the Hamming and null-vector kernels in
-// chip_smoke.py); its bound is the operands read once (bytes, 0.16 us at
-// K = 512), the mask over all pairs and the SAD of the admitted ones being
-// ~3.2 M operations.
+// 80GB HBM3 at 700 W, against the all-pairs-then-mask design in the same
+// call; PERF.md section 6): stereo with the engine's mask 5.111, 3.993 and
+// 3.642 us on the device at K = 512/256/128 (all pairs: 69.511, 19.502,
+// 6.932); with the mask open 18.112, 8.721 and 5.367 (69.511, 19.486,
+// 6.948).  Tracking 4.185, 3.913 and 3.833 us (window open: 18.687 at
+// K = 512).  Measured and dropped, stereo at K = 512 unless named: 32-slot
+// chunks 4.944 us, but 8.064 with the mask open at K = 128 (4 chunks for 8
+// warps); 4 warps a row 4.910, open 24.903; groups of 16 10.704; the patch
+// in shared memory 5.216; predicated rather than branched candidate loads:
+// tracking 5-13% slower.
+//   What bounds them now: at ~3.6-5.1 us a call they are near the card's
+// floor for a small launch (2.2-3.8 us for the Hamming and null-vector
+// kernels in chip_smoke.py), far above their byte bounds.
 // Tensor cores do not apply: an absolute difference is not a product, and
-// after the mask the work is too small for wgmma (ROADMAP lists the TPU's
-// MXU shortlist as not to port); nor does TMA: each admitted row is 256 B
-// that a warp's one coalesced load brings in.
+// after the mask the work (~0.1 M abs-adds at K = 512) is too small for
+// wgmma (ROADMAP lists the TPU's MXU shortlist as not to port); nor does
+// TMA: each admitted row is 256 B that a warp's one coalesced load brings
+// in.
 //
 // Exactness: patch values are multiples of 1/16 below 256, so every partial
 // SAD is exact in f32 whatever the summation order.
 #include <cuda_runtime.h>
 #include <math.h>
-#include <limits.h>
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr float kBig = 1e9f;
-
-struct Top2 {
-  float best;
-  int idx;
-  float second;
-};
-
-// Lexicographic (value, index) minimum; `second` is the minimum over every
-// position except the winner's.
-__device__ __forceinline__ Top2 merge(const Top2& a, const Top2& b) {
-  if (b.best < a.best || (b.best == a.best && b.idx < a.idx)) {
-    return Top2{b.best, b.idx, fminf(a.best, b.second)};
-  }
-  return Top2{a.best, a.idx, fminf(a.second, b.best)};
-}
-
-__device__ Top2 block_merge(Top2 t) {
-  __shared__ float s_best[kThreads];
-  __shared__ int s_idx[kThreads];
-  __shared__ float s_second[kThreads];
-  const int tid = threadIdx.x;
-  s_best[tid] = t.best;
-  s_idx[tid] = t.idx;
-  s_second[tid] = t.second;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      const Top2 m = merge(Top2{s_best[tid], s_idx[tid], s_second[tid]},
-                           Top2{s_best[tid + s], s_idx[tid + s],
-                                s_second[tid + s]});
-      s_best[tid] = m.best;
-      s_idx[tid] = m.idx;
-      s_second[tid] = m.second;
-    }
-    __syncthreads();
-  }
-  return Top2{s_best[0], s_idx[0], s_second[0]};
-}
-
-__global__ void stereo_sad_kernel(
-    const float* __restrict__ pl, const float* __restrict__ pr,
-    const float* __restrict__ xyl, const float* __restrict__ xyr,
-    const unsigned char* __restrict__ okl, const unsigned char* __restrict__ okr,
-    int Kr, int P, float max_y_diff, float max_disp, float max_distance,
-    int* __restrict__ best_r, float* __restrict__ best_d,
-    float* __restrict__ second_d) {
-  extern __shared__ float s_patch[];
-  const int row = blockIdx.x;
-  for (int d = threadIdx.x; d < P; d += blockDim.x) {
-    s_patch[d] = pl[(size_t)row * P + d];
-  }
-  __syncthreads();
-  const float xl = xyl[2 * row];
-  const float ryl = rintf(xyl[2 * row + 1]);   // round half to even
-  const bool ok_l = okl[row] != 0;
-
-  Top2 t{INFINITY, INT_MAX, INFINITY};
-  for (int j = threadIdx.x; j < Kr; j += blockDim.x) {
-    const float* q = pr + (size_t)j * P;
-    float acc = 0.f;
-    for (int d = 0; d < P; ++d) acc += fabsf(s_patch[d] - q[d]);
-    const float dy = fabsf(ryl - rintf(xyr[2 * j + 1]));
-    const float disp = xl - xyr[2 * j];
-    const bool ok = ok_l && okr[j] != 0 && dy <= max_y_diff && disp >= 1.f &&
-                    disp <= max_disp && acc <= max_distance;
-    t = merge(t, Top2{ok ? acc : kBig, j, INFINITY});
-  }
-  const Top2 r = block_merge(t);
-  if (threadIdx.x == 0) {
-    best_r[row] = r.idx;
-    best_d[row] = r.best;
-    second_d[row] = fminf(r.second, kBig);   // K == 1: nothing else -> 1e9
-  }
-}
-
-// ---- tracking: mask first, then SAD only where the mask admits a pair ----
-
-constexpr int kTrackWarps = 8;   // warps per block, one prev row
-constexpr int kGroup = 4;   // candidates whose SADs are formed together
-constexpr int kQuant = 2 * kGroup;   // their left and right SADs
 constexpr unsigned kFull = 0xffffffffu;
-// after warp_sum, lane l holds quantity (l >> kQShift) & 7
-constexpr int kQShift = 2;
+constexpr int kStereoWarps = 8;   // warps per left row
+constexpr int kTrackWarps = 8;    // warps per prev row
+// candidates whose SADs are formed together: kGroup x eyes quantities
+constexpr int kStereoGroup = 8;
+constexpr int kTrackGroup = 4;
+// slots a warp's ballot covers (its lanes 0 .. kChunk - 1)
+constexpr int kStereoChunk = 16;
+constexpr int kTrackChunk = 32;
 
-// v[0..8) are this lane's partial sums of 8 quantities; afterwards every
-// lane holds the warp-wide total of quantity (lane >> kQShift) & 7.  A
-// transposed butterfly: each step keeps half of the quantities and sends
-// the other half to the partner lane, 4 + 2 + 1 shuffles, then 2 plain
-// steps: 9 shuffles where 8 separate reductions take 40.
-__device__ __forceinline__ float warp_sum(float (&v)[kQuant], int lane) {
+__host__ __device__ constexpr int log2i(int n) {
+  return n > 1 ? 1 + log2i(n / 2) : 0;
+}
+
+// v[0..N) are this lane's partial sums of N quantities (N a power of two up
+// to 32); afterwards every lane holds the warp-wide total of quantity
+// lane >> (5 - log2 N).  A transposed butterfly: each step keeps half of
+// the quantities and sends the other half to the partner lane (N/2 + ... + 1
+// shuffles), then 5 - log2 N plain steps: for N = 8, 9 shuffles where 8
+// separate reductions take 40.
+template <int N>
+__device__ __forceinline__ float warp_sum(float (&v)[N], int lane) {
   int off = 16;
 #pragma unroll
-  for (int n = kQuant; n > 1; n >>= 1, off >>= 1) {
+  for (int n = N; n > 1; n >>= 1, off >>= 1) {
     const bool hi = lane & off;
 #pragma unroll
     for (int i = 0; i < n / 2; ++i) {
@@ -172,6 +108,169 @@ __device__ __forceinline__ float warp_sum(float (&v)[kQuant], int lane) {
   for (; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
   return s;
 }
+
+// The warp's share of one row: admit(j) on each slot j < K of its
+// kChunk-slot chunks (warp w of kRowWarps takes chunks w, w + kRowWarps,
+// ...), then, for the admitted slots in ascending order, kGroup at a time,
+// the SADs of the row's patch patch[e][0 .. P) in each eye e against
+// cand[e][j * P ..].  visit(j, acc) runs on every lane after each group:
+// acc[e] is eye e's SAD of candidate j on the first lane that holds it, and
+// j is -1 on every other lane.
+template <int kEyes, int kGroup, int kChunk, int kRowWarps, class Admit,
+          class Visit>
+__device__ __forceinline__ void for_admitted(
+    int K, int P, int warp, int lane, const float* const (&patch)[kEyes],
+    const float* const (&cand)[kEyes], Admit admit, Visit visit) {
+  constexpr int kQuant = kGroup * kEyes;
+  // after warp_sum, lane l holds quantity l >> kQShift
+  constexpr int kQShift = 5 - log2i(kQuant);
+  const int n_chunks = (K + kChunk - 1) / kChunk;
+  // a round is up to 32 of the warp's chunks: pass 1 keeps chunk i's
+  // admitted set in lane i's `mask`
+  for (int r0 = warp; r0 < n_chunks; r0 += kRowWarps * 32) {
+    const int n_round = min(32, (n_chunks - r0 + kRowWarps - 1) / kRowWarps);
+    unsigned mask = 0u;
+#pragma unroll 4
+    for (int i = 0; i < n_round; ++i) {
+      const int j = (r0 + i * kRowWarps) * kChunk + lane;
+      const unsigned admitted =
+          __ballot_sync(kFull, lane < kChunk && j < K && admit(j));
+      if (lane == i) mask = admitted;
+    }
+
+    int ci = 0;
+    unsigned m = __shfl_sync(kFull, mask, 0);
+    while (true) {
+      int js[kGroup];   // the next admitted candidates, -1 past the last
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        while (m == 0u && ++ci < n_round) m = __shfl_sync(kFull, mask, ci);
+        if (m != 0u) {
+          js[k] = (r0 + ci * kRowWarps) * kChunk + __ffs(m) - 1;
+          m &= m - 1u;
+        } else {
+          js[k] = -1;
+        }
+      }
+      if (js[0] < 0) break;
+      // lane l sums patch values l, l + 32, ...: coalesced row reads;
+      // quantity kEyes * k + e is candidate k's SAD in eye e
+      float v[kQuant];
+#pragma unroll
+      for (int q = 0; q < kQuant; ++q) v[q] = 0.f;
+#pragma unroll 2
+      for (int d = lane; d < P; d += 32) {
+        float a[kEyes];
+#pragma unroll
+        for (int e = 0; e < kEyes; ++e) a[e] = patch[e][d];
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {
+          if (js[k] >= 0) {
+#pragma unroll
+            for (int e = 0; e < kEyes; ++e) {
+              v[kEyes * k + e] += fabsf(a[e] - cand[e][(size_t)js[k] * P + d]);
+            }
+          }
+        }
+      }
+      const float own = warp_sum(v, lane);
+      float acc[kEyes];
+      if constexpr (kEyes == 1) {
+        acc[0] = own;
+      } else {
+        const float other = __shfl_xor_sync(kFull, own, 1 << kQShift);
+        const bool right_eye = (lane >> kQShift) & 1;
+        acc[0] = right_eye ? other : own;
+        acc[1] = right_eye ? own : other;
+      }
+      // candidate k's quantities sit on the kEyes << kQShift lanes from
+      // (k kEyes) << kQShift
+      const int k = (lane >> kQShift) / kEyes;
+      int j = -1;
+      if ((lane & ((kEyes << kQShift) - 1)) == 0) {
+#pragma unroll
+        for (int q = 0; q < kGroup; ++q) j = k == q ? js[q] : j;
+      }
+      visit(j, acc);
+    }
+  }
+}
+
+// ---- stereo: (best, index, second) ---------------------------------------
+
+struct Top2 {
+  float best;
+  int idx;
+  float second;
+};
+
+// Lexicographic (value, index) minimum of two disjoint sets of positions;
+// `second` is the minimum over every position except the winner's.
+__device__ __forceinline__ Top2 merge(const Top2& a, const Top2& b) {
+  if (b.best < a.best || (b.best == a.best && b.idx < a.idx)) {
+    return Top2{b.best, b.idx, fminf(a.best, b.second)};
+  }
+  return Top2{a.best, a.idx, fminf(a.second, b.best)};
+}
+
+__global__ void __launch_bounds__(kStereoWarps * 32) stereo_sad_kernel(
+    const float* __restrict__ pl, const float* __restrict__ pr,
+    const float* __restrict__ xyl, const float* __restrict__ xyr,
+    const unsigned char* __restrict__ okl, const unsigned char* __restrict__ okr,
+    int Kr, int P, float max_y_diff, float max_disp, float max_distance,
+    int* __restrict__ best_r, float* __restrict__ best_d,
+    float* __restrict__ second_d) {
+  __shared__ Top2 s_top[kStereoWarps];
+  const int row = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float xl = xyl[2 * row];
+  const float ryl = rintf(xyl[2 * row + 1]);   // round half to even
+  if (okl[row] == 0) {
+    // the twin's row of 1e9: argmin 0, second 1e9
+    if (threadIdx.x == 0) {
+      best_r[row] = 0;
+      best_d[row] = kBig;
+      second_d[row] = kBig;
+    }
+    return;
+  }
+
+  // every position the mask rejects is a 1e9 at index >= 0 in the twin's
+  // row: starting from (1e9, 0, 1e9) gives its argmin where nothing is
+  // admitted, and second = 1e9 where one pair is (also for Kr = 1)
+  Top2 t{kBig, 0, kBig};
+  const float* const patch[1] = {pl + (size_t)row * P};
+  const float* const cand[1] = {pr};
+  for_admitted<1, kStereoGroup, kStereoChunk, kStereoWarps>(
+      Kr, P, warp, lane, patch, cand,
+      [&](int j) {
+        const float disp = xl - xyr[2 * j];
+        return (okr[j] != 0) &
+               (fabsf(ryl - rintf(xyr[2 * j + 1])) <= max_y_diff) &
+               (disp >= 1.f) & (disp <= max_disp);
+      },
+      [&](int j, const float (&acc)[1]) {
+        if (j >= 0 && acc[0] <= max_distance) {
+          t = merge(t, Top2{acc[0], j, kBig});
+        }
+      });
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    t = merge(t, Top2{__shfl_xor_sync(kFull, t.best, off),
+                      __shfl_xor_sync(kFull, t.idx, off),
+                      __shfl_xor_sync(kFull, t.second, off)});
+  }
+  if (lane == 0) s_top[warp] = t;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kStereoWarps; ++w) t = merge(t, s_top[w]);
+    best_r[row] = t.idx;
+    best_d[row] = t.best;
+    second_d[row] = t.second;
+  }
+}
+
+// ---- tracking: argmin of the two eyes' summed SADs -----------------------
 
 // Lexicographic (value, index) minimum.
 __device__ __forceinline__ void take_min(float& best, int& idx, float v, int j) {
@@ -212,74 +311,22 @@ __global__ void __launch_bounds__(kTrackWarps * 32) track_sad_kernel(
   const float py = p_xy[2 * row + 1];
   const float prx = p_rx[row];
 
-  // Warp w takes the 32-candidate chunks w, w + kTrackWarps, ...  A round is
-  // up to 32 of them: pass 1 keeps chunk i's admitted set in lane i's
-  // `mask`, pass 2 forms the SADs of the admitted candidates in ascending
-  // order.
   float best = kBig;   // no admissible pair: (1e9, 0), as the twin
   int idx = 0;
-  const int n_chunks = (Kc + 31) >> 5;
-  for (int r0 = warp; r0 < n_chunks; r0 += kTrackWarps * 32) {
-    const int n_round = min(32, (n_chunks - r0 + kTrackWarps - 1) / kTrackWarps);
-    unsigned mask = 0u;
-#pragma unroll 4
-    for (int i = 0; i < n_round; ++i) {
-      const int j = ((r0 + i * kTrackWarps) << 5) + lane;
-      bool ok = false;
-      if (j < Kc) {
-        ok = (ok_c[j] != 0) & (fabsf(py - c_xy[2 * j + 1]) <= win_row) &
-             (fabsf(px - c_xy[2 * j]) <= win_col) &
-             (fabsf(prx - c_rx[j]) <= win_col);
-      }
-      const unsigned admitted = __ballot_sync(kFull, ok);
-      if (lane == i) mask = admitted;
-    }
-
-    int ci = 0;
-    unsigned m = __shfl_sync(kFull, mask, 0);
-    while (true) {
-      int js[kGroup];   // the next admitted candidates, -1 past the last
-#pragma unroll
-      for (int k = 0; k < kGroup; ++k) {
-        while (m == 0u && ++ci < n_round) m = __shfl_sync(kFull, mask, ci);
-        if (m != 0u) {
-          js[k] = ((r0 + ci * kTrackWarps) << 5) + __ffs(m) - 1;
-          m &= m - 1u;
-        } else {
-          js[k] = -1;
+  const float* const patch[2] = {s_patch, s_patch + P};
+  const float* const cand[2] = {c_left, c_right};
+  for_admitted<2, kTrackGroup, kTrackChunk, kTrackWarps>(
+      Kc, P, warp, lane, patch, cand,
+      [&](int j) {
+        return (ok_c[j] != 0) & (fabsf(py - c_xy[2 * j + 1]) <= win_row) &
+               (fabsf(px - c_xy[2 * j]) <= win_col) &
+               (fabsf(prx - c_rx[j]) <= win_col);
+      },
+      [&](int j, const float (&acc)[2]) {
+        if (j >= 0 && acc[0] <= sad_max && acc[1] <= sad_max) {
+          take_min(best, idx, acc[0] + acc[1], j);
         }
-      }
-      if (js[0] < 0) break;
-      // lane l sums patch values l, l + 32, ...: coalesced row reads
-      float v[kQuant];
-#pragma unroll
-      for (int k = 0; k < kQuant; ++k) v[k] = 0.f;
-#pragma unroll 2
-      for (int d = lane; d < P; d += 32) {
-        const float a = s_patch[d], b = s_patch[P + d];
-#pragma unroll
-        for (int k = 0; k < kGroup; ++k) {
-          if (js[k] >= 0) {
-            v[2 * k] += fabsf(a - c_left[(size_t)js[k] * P + d]);
-            v[2 * k + 1] += fabsf(b - c_right[(size_t)js[k] * P + d]);
-          }
-        }
-      }
-      // quantity 2k + e is candidate k's SAD in eye e (0 left, 1 right)
-      const float own = warp_sum(v, lane);
-      const float other = __shfl_xor_sync(kFull, own, 1 << kQShift);
-      const bool right_eye = (lane >> kQShift) & 1;
-      const float acc_l = right_eye ? other : own;
-      const float acc_r = right_eye ? own : other;
-      const int k = (lane >> (kQShift + 1)) & (kGroup - 1);
-      int j = -1;
-#pragma unroll
-      for (int q = 0; q < kGroup; ++q) j = k == q ? js[q] : j;
-      if (j >= 0 && acc_l <= sad_max && acc_r <= sad_max) {
-        take_min(best, idx, acc_l + acc_r, j);
-      }
-    }
-  }
+      });
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     take_min(best, idx, __shfl_xor_sync(kFull, best, off),
@@ -304,7 +351,7 @@ extern "C" int rso_stereo_sad_fused(
     const unsigned char* okl, const unsigned char* okr, int Kl, int Kr, int P,
     float max_y_diff, float max_disp, float max_distance, int* best_r,
     float* best_d, float* second_d, void* stream) {
-  stereo_sad_kernel<<<Kl, kThreads, P * sizeof(float), (cudaStream_t)stream>>>(
+  stereo_sad_kernel<<<Kl, kStereoWarps * 32, 0, (cudaStream_t)stream>>>(
       pl, pr, xyl, xyr, okl, okr, Kr, P, max_y_diff, max_disp, max_distance,
       best_r, best_d, second_d);
   return (int)cudaGetLastError();

@@ -15,7 +15,7 @@ import torch
 from rso_torch.kernels import _lib
 from rso_torch.kernels.stereo_fused import _sad
 
-_MAX_P = 128   # 32 x (2P + 1) floats of shared memory stay under 48 KB
+_MAX_P = 128   # both kernels' staged tiles stay under 48 KB of shared memory
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:

@@ -3,11 +3,10 @@
 Replace rso/kernels/stereo_fused.py `stereo_sad_fused` and `track_sad_fused`
 (see the header of csrc/stereo_fused.cu for the H100 bound and the design).
 The `*_torch` twins compute the same masked all-pairs SAD as dense [K,K]
-planes.  The stereo kernel forms every pair's SAD, then masks; the tracking
-kernel evaluates the window and validity mask first and forms the SAD only
-of the pairs it admits (a row with none gives index 0 and 1e9, as the
-twin's argmin over a row of 1e9).  Every SAD is an exact f32 sum, so
-kernel and twin agree bit for bit.
+planes.  Both kernels evaluate the geometric and validity mask first and
+form the SAD only of the pairs it admits (a row with none gives index 0 and
+1e9, as the twin's argmin over a row of 1e9).  Every SAD is an exact f32
+sum, so kernel and twin agree bit for bit.
 """
 from __future__ import annotations
 

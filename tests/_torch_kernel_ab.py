@@ -1,16 +1,22 @@
-"""Device time of two designs of kernels 3 and 1, on one card in one run.
+"""Device time of two designs of kernels 2, 3, 1 and 6, on one card in one run.
 
     python3 tests/_torch_kernel_ab.py (--parent REV | --parent-src DIR)
                                       [--out FILE]
 
-Builds an earlier design of `csrc/stereo_fused.cu` and `csrc/fast_detect.cu`
-into a scratch library under the git-ignored `build/rso_torch_ab/`: from
-`git show REV:rso_torch/csrc/<file>`, or from the two files in DIR where
-there is no git checkout.  Then, on the bench scene's inputs as chip_smoke.py's phase 3 makes them:
+Builds an earlier design of `csrc/stereo_fused.cu`, `csrc/fast_detect.cu`
+and `csrc/distance.cu` into a scratch library under the git-ignored
+`build/rso_torch_ab/`: from `git show REV:rso_torch/csrc/<file>`, or from
+the three files in DIR where there is no git checkout.  Then, on the bench
+scene's inputs as chip_smoke.py's phase 3 makes them:
 
+  * kernel 2 (`stereo_sad_fused`) at K = 512/256/128, with the engine's
+    mask (|dy| <= 1, 1 <= disparity <= 0.7 W) and with the open mask (1e4:
+    every valid pair with a disparity >= 1 admitted);
   * kernel 3 (`track_sad_fused`) at K = 512/256/128, with the engine's
     window (40 px) and with the open window (1e4: every pair admitted);
   * kernel 1 (`corner_response`) at the three octaves of 1241x376;
+  * kernel 6 (`sad_matrix`) at K = 512/256/128 on the bench patches of
+    frames 0 and 1;
 
 it checks each design bit for bit against the twin and times it: the median
 of the kernel's own duration over 50 launches (torch.profiler's CUDA
@@ -36,8 +42,9 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-SOURCES = ("stereo_fused.cu", "fast_detect.cu")
-ENTRIES = ("rso_track_sad_fused", "rso_corner_response")
+SOURCES = ("stereo_fused.cu", "fast_detect.cu", "distance.cu")
+ENTRIES = ("rso_stereo_sad_fused", "rso_track_sad_fused", "rso_corner_response",
+           "rso_sad_matrix")
 DESIGNS = ("earlier", "new")
 ROUNDS = 2
 
@@ -72,7 +79,7 @@ def _load(path: Path) -> ctypes.CDLL:
 
 
 def earlier_sources(rev: str | None, src_dir: str | None) -> list[Path]:
-    """The earlier design's two sources, copied under build/rso_torch_ab/."""
+    """The earlier design's sources, copied under build/rso_torch_ab/."""
     texts = {}
     for name in SOURCES:
         if src_dir:
@@ -107,7 +114,8 @@ def main() -> int:
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument("--parent", help="git revision of the earlier design")
     src.add_argument("--parent-src", help="directory holding the earlier "
-                     "design's stereo_fused.cu and fast_detect.cu")
+                     "design's stereo_fused.cu, fast_detect.cu and "
+                     "distance.cu")
     ap.add_argument("--out", default="chiprun_out/kernel_ab.json")
     args = ap.parse_args()
 
@@ -133,6 +141,13 @@ def main() -> int:
     dense_kw = dict(bi.track_kw, win_row=1e4, win_col=1e4)
     cases = []   # (kernel, label, call, twin)
     for o in range(3):
+        a, kw = bi.stereo_args(o), bi.stereo_kw(o)
+        open_kw = dict(kw, max_y_diff=1e4, max_disp=1e4)
+        for label, k in (("engine mask", kw), ("mask 1e4", open_kw)):
+            cases.append(("stereo_sad_kernel", f"K={bi.Ks[o]} {label}",
+                          lambda a=a, k=k: K.stereo_sad_fused_cuda(*a, **k),
+                          lambda a=a, k=k: K.stereo_sad_fused_torch(*a, **k)))
+    for o in range(3):
         a = bi.track_args(o)
         for label, kw in (("window 40", bi.track_kw), ("window 1e4", dense_kw)):
             cases.append(("track_sad_kernel", f"K={bi.Ks[o]} {label}",
@@ -142,6 +157,11 @@ def main() -> int:
         cases.append(("corner_response_kernel", "x".join(map(str, img.shape)),
                       lambda img=img: K.corner_response_cuda(img, bi.th),
                       lambda img=img: K.corner_response_torch(img, bi.th)))
+    for o in range(3):
+        a, b = bi.frames[0][o][0].patch, bi.frames[1][o][0].patch
+        cases.append(("sad_kernel", f"K={bi.Ks[o]}",
+                      lambda a=a, b=b: K.sad_matrix_cuda(a, b),
+                      lambda a=a, b=b: K.sad_matrix_torch(a, b)))
 
     def through(lib, call):
         def run():

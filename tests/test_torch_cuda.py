@@ -5,8 +5,10 @@ imports neither jax nor rso, so it also runs on a GPU host without jax:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
-Tolerances: FAST masks, SAD indices and distances bit-exact (the tracking
-kernel also on the cases of tests/_torch_track_cases.py); the corner
+Tolerances: FAST masks, SAD indices and distances bit-exact (the stereo
+and tracking kernels also on the cases of tests/_torch_stereo_cases.py and
+tests/_torch_track_cases.py, the SAD matrix also at ragged shapes and
+widths that are not a multiple of 4); the corner
 response bit-exact too (same operation order, round-to-nearest intrinsics,
 the same float32 reciprocal for the window mean), checked at 1e-6 against
 the twin on the card and exactly against the twin on the CPU; null
@@ -18,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_stereo_cases as SC
 import _torch_track_cases as TC
 from rso_torch import kernels as K
 from rso_torch.engine import Engine
@@ -97,6 +100,23 @@ def test_cuda_stereo_sad_fused(cuda, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", SC.CASES)
+def test_cuda_stereo_sad_fused_cases(cuda, case):
+    """The mask-first kernel on the cases of tests/_torch_stereo_cases.py:
+    the engine's sparse mask, rows with nothing admissible or ok_l false
+    (index 0, 1e9, 1e9), y on a .5 boundary, disparity exactly 1 and
+    max_disp, a pair over max_distance, one admitted pair (second 1e9),
+    equal SADs, Kl != Kr, K = 1 and the open mask.  Bit-exact with the
+    twin."""
+    args, kw, *_ = SC.stereo_case(case)
+    a = tuple(torch.from_numpy(x).to(cuda) for x in args)
+    out = K.stereo_sad_fused_cuda(*a, **kw)
+    ref = K.stereo_sad_fused_torch(*a, **kw)
+    for o, r in zip(out, ref):
+        assert torch.equal(o, r)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("k", [512, 131, 128])
 def test_cuda_track_sad_fused(cuda, k):
     p1, c1, xy1, xy2, okp, okc = _stereo_case(k, k, cuda)
@@ -159,6 +179,20 @@ def test_cuda_hamming_matrix(cuda, ka, kb):
 def test_cuda_sad_matrix(cuda, ka, kb):
     r = np.random.default_rng(ka * kb)
     f = lambda k: torch.tensor(r.integers(0, 255 * 16, (k, 64)) / 16.0,  # noqa: E731
+                               dtype=torch.float32, device=cuda)
+    a, b = f(ka), f(kb)
+    assert torch.equal(K.sad_matrix_cuda(a, b), K.sad_matrix_torch(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ka,kb,p", [(1, 1, 64), (1, 257, 64), (257, 1, 64),
+                                     (131, 257, 64), (131, 257, 63),
+                                     (131, 257, 65)])
+def test_cuda_sad_matrix_ragged(cuda, ka, kb, p):
+    """Partial 32x32 tiles on every edge, and widths that are not a multiple
+    of the kernel's float4 steps: bit-exact with the twin."""
+    r = np.random.default_rng(ka * kb + p)
+    f = lambda k: torch.tensor(r.integers(0, 255 * 16, (k, p)) / 16.0,  # noqa: E731
                                dtype=torch.float32, device=cuda)
     a, b = f(ka), f(kb)
     assert torch.equal(K.sad_matrix_cuda(a, b), K.sad_matrix_torch(a, b))

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_stereo_cases as SC
 import _torch_track_cases as TC
 import chip_smoke as CS
 
@@ -193,6 +194,49 @@ def test_track_twin_vs_pallas_cases(case):
         assert (best_c[rows] == 0).all() and (best_d[rows] == 1e9).all()
     else:
         assert (best_c[rows] == cols).all() and (best_d[rows] < 1e9).all()
+
+
+def _stereo_pallas(args, kw):
+    """The Pallas stereo_sad_fused in interpret mode.  It takes as many right
+    slots as left slots, so the shorter side is padded with invalid slots
+    (never admissible, and past every real index) and the outputs cut back."""
+    kl, kr = args[0].shape[0], args[1].shape[0]
+    k = max(kl, kr)
+    pad = lambda a: np.concatenate(  # noqa: E731
+        [a, np.zeros((k - a.shape[0],) + a.shape[1:], a.dtype)])
+    out = stereo_sad_fused(*(jnp.asarray(pad(a)) for a in args),
+                           interpret=True, **kw)
+    return tuple(np.asarray(x)[:kl] for x in out)
+
+
+@pytest.mark.parametrize("case", SC.CASES)
+def test_stereo_twin_vs_pallas_cases(case):
+    """The cases a kernel that masks before it forms any SAD must reproduce
+    (tests/_torch_stereo_cases.py), twin against the reference's kernel."""
+    args, kw, rows, cols, wins = SC.stereo_case(case)
+    ref = _stereo_pallas(args, kw)
+    out = K.stereo_sad_fused_torch(*(torch.from_numpy(a) for a in args), **kw)
+    for r, o in zip(ref, out):
+        np.testing.assert_array_equal(o.numpy(), r)
+    best_r, best_d, second = ref
+    share = CS.stereo_mask_pairs(tuple(torch.from_numpy(a) for a in args),
+                                 kw) / (len(args[0]) * len(args[1]))
+    assert share < 0.02 if case == "sparse" else True
+    assert share > 0.4 if case == "open" else True
+    assert (best_r[rows[wins]] == cols[wins]).all()
+    assert (best_d[rows[wins]] < 1e9).all()
+    lose = rows[~wins]   # the planted slot is not the match ((0, 1e9): none)
+    assert ((best_r[lose] != cols[~wins]) | (best_d[lose] == 1e9)).all()
+    if case in ("no_admissible_rows", "ok_l_false"):
+        # nothing admissible: the argmin over a row of 1e9
+        assert (best_r[rows] == 0).all() and (best_d[rows] == 1e9).all()
+        assert (second[rows] == 1e9).all()
+    if case == "one_admitted":
+        assert (second[rows] == 1e9).all()
+    if case == "equal_sads":
+        assert (second[rows] == best_d[rows]).all()
+    if case not in ("k1", "kl1_kr64", "kl64_kr1"):
+        assert ((second < 1e9) & (second > best_d)).any()   # real seconds
 
 
 def test_stereo_ties_keep_first_and_second_equals_best():
