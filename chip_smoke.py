@@ -22,7 +22,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      (1e4: every valid pair admitted, for stereo every one with a disparity
      >= 1), and checked on the cases of tests/_torch_stereo_cases.py and
      tests/_torch_track_cases.py; the SAD matrix also at ragged shapes and
-     widths;
+     widths; the Hamming matrix's library call is torch.cdist(p=0) on the
+     descriptors unpacked to 0/1 floats (checked equal once); two floors
+     are timed beside the kernels: `floor_us`, PyTorch's fill of one
+     element, and the Hamming matrix's `write_us`, the fill of its [K,K]
+     output;
   4. engine, default path: 30 frames of the bench scene (1241x376, 2000
      points, speed 0.8, fx 718.856, baseline 0.5371) through
      Engine(synthetic_config()) on the card, with every kernel's launch
@@ -41,8 +45,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
   8. timing: phase 3's call times, then its device times in one profiler
      session, last, since a profiler session slows the process after it;
      each octave-shaped kernel is also timed at the other octaves' shapes
-     (`octaves`), and `over_bound_us_per_frame` sums device time less bound
-     over a frame's launches (the order of the redesigns).
+     (`octaves`; the null vectors at the refit's B = 2 beside B = 512), and
+     `over_bound_us_per_frame` sums device time less bound over a frame's
+     launches (the order of the redesigns).
 Each engine phase resets the launch counters just before it and reads them
 just after, and holds its first 3 steps equal to its warm-up's (the card is
 deterministic).  The last three lines are a JSON object describing the kernels,
@@ -113,6 +118,11 @@ PEAK_BYTES = 3.35e12
 # profiler sessions device_times may take before it gives up (one session
 # in ten once dropped one launch of 100 on an H100)
 PROFILE_ATTEMPTS = 3
+# The floors beside the kernels' times: PyTorch's fill kernel, found by its
+# functor's symbol (`at::native::FillFunctor<float>`), timed on one element
+# (`floor_us`, the least a launch takes) and on kernel 5's [K,K] output
+# (`write_us`, the least a kernel that writes that output takes).
+FILL_KERNEL = "FillFunctor"
 
 
 def _nvidia_smi() -> str:
@@ -211,6 +221,16 @@ def _bench_scene(n_frames: int):
                             cy_l=H / 2.0, baseline=0.5371)
     return make_sequence(n_frames=n_frames, n_points=2000, H=H, W=W, cam=cam,
                          speed=0.8)
+
+
+def rank8_matrices(rng, B: int, dev):
+    """[B,9,9] f32 A^T A of 8x9 normal A: PSD of rank 8, as RANSAC's
+    8-point normal equations are."""
+    import torch
+
+    A = torch.tensor(rng.normal(0, 1, (B, 8, 9)), dtype=torch.float32,
+                     device=dev)
+    return (A.transpose(1, 2) @ A).contiguous()
 
 
 def _exact(name, a, b, what):
@@ -560,9 +580,7 @@ def check_kernels(seq, dev):
     # ---- kernel 4: 9x9 null vectors, B = 512 (2 eyes x 256) and B = 1 -------
     err = 0.0
     for B in (512, 1):
-        A = torch.tensor(rng.normal(0, 1, (B, 8, 9)), dtype=torch.float32,
-                         device=dev)
-        M = (A.transpose(1, 2) @ A).contiguous()
+        M = rank8_matrices(rng, B, dev)
         out = K.nullvec9_cuda(M)
         ref = K.nullvec9_torch(M)
         # the twin is another algorithm (regularised Cholesky vs LDL^T):
@@ -582,16 +600,18 @@ def check_kernels(seq, dev):
         print(f"kernel nullvec9 B={B}: min|cos| {cos.min().item()}, max resid "
               f"{resid.max().item()}, max|d| up to sign {d}", flush=True)
         err = max(err, d)
-    A = torch.tensor(rng.normal(0, 1, (512, 8, 9)), dtype=torch.float32,
-                     device=dev)
-    M = (A.transpose(1, 2) @ A).contiguous()
     # ~900 operations a matrix: LDL^T (~490), two inverse iterations
-    # (~380), the regularisation; 81 floats in, 9 out
+    # (~380), the regularisation; 81 floats in, 9 out.  RANSAC launches it
+    # once at B = 512 (2 eyes x 256 hypotheses) and once at B = 2 (the
+    # refit of each eye's best): the second shape
+    M = rank8_matrices(rng, 512, dev)
     report["nullvec9"] = entry(
         err, lambda M=M: K.nullvec9_cuda(M), "nullvec9_kernel",
         lambda M=M: K.nullvec9_torch(M), lambda M=M: torch.linalg.eigh(M),
-        512 * 900,
-        512 * (81 + 9) * 4, [512, 9, 9])
+        512 * 900, 512 * (81 + 9) * 4, [512, 9, 9])
+    M = rank8_matrices(rng, 2, dev)
+    octave(report["nullvec9"], "nullvec9_kernel", lambda M=M: K.nullvec9_cuda(M),
+           2 * 900, 2 * (81 + 9) * 4, [2, 9, 9])
 
     # ---- kernel 5: Hamming on FAST_ORB descriptors of frames 0 and 1 --------
     err, n_bits, n_desc = 0.0, 0, 0
@@ -628,17 +648,35 @@ def check_kernels(seq, dev):
     best, d_best, second = _best_second(K.hamming_matrix_cuda(ta, tb))
     if best.tolist() != [1, 1] or d_best.tolist() != second.tolist():
         raise AssertionError(f"tie rule: best {best.tolist()}")
+    # the library call: torch.cdist with p = 0 counts the differing entries
+    # of the descriptors unpacked to 256 0/1 floats (unpacked before it is
+    # timed); equal to the kernel on these descriptors
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    unpack = lambda d: ((d[:, :, None] >> shifts) & 1).reshape(  # noqa: E731
+        d.shape[0], -1).float()
     a, b = bi.descs[0][0].desc, bi.descs[1][0].desc
+    bits_a, bits_b = unpack(a), unpack(b)
+    if not torch.equal(torch.cdist(bits_a, bits_b, p=0), K.hamming_matrix_cuda(a, b)):
+        raise AssertionError("torch.cdist(p=0) of the unpacked bits != kernel 5")
+    # the fill of the same [K,K] output: write_us
+    fills = {k: torch.empty((k, k), device=dev) for k in Ks}
     report["hamming_matrix"] = entry(
         err, lambda a=a, b=b: K.hamming_matrix_cuda(a, b), "hamming_kernel",
-        lambda a=a, b=b: K.hamming_matrix_torch(a, b), None,
-        K0 * K0 * 8 * 3, (2 * K0 * 8 + K0 * K0) * 4, [K0, K0, 8],
-        "PyTorch has no popcount call")
+        lambda a=a, b=b: K.hamming_matrix_torch(a, b),
+        lambda x=bits_a, y=bits_b: torch.cdist(x, y, p=0),
+        K0 * K0 * 8 * 3, (2 * K0 * 8 + K0 * K0) * 4, [K0, K0, 8])
     for o in (1, 2):
         a, b, k = bi.descs[0][o].desc, bi.descs[1][o].desc, Ks[o]
         octave(report["hamming_matrix"], "hamming_kernel",
                lambda a=a, b=b: K.hamming_matrix_cuda(a, b),
                k * k * 8 * 3, (2 * k * 8 + k * k) * 4, [k, k, 8])
+    for x, k in zip([report["hamming_matrix"]] + report["hamming_matrix"]["octaves"],
+                    Ks):
+        x["write"] = dict(label=f"fill {k}x{k}")
+        timed.append((x["write"], FILL_KERNEL, fills[k].zero_, None, None))
+    report["floor"] = dict(label="fill 1")
+    timed.append((report["floor"], FILL_KERNEL, torch.zeros(1, device=dev).zero_,
+                  None, None))
 
     # ---- kernel 6: SAD matrix on bench patches and 1/16-multiples ------------
     err = 0.0
@@ -689,7 +727,7 @@ def time_kernels(timed) -> None:
         out["device_us"] = u
         what = out["label"] if "label" in out else out["shape"]
         print(f"time {kernel} {what}: device {u} us, call {out['ms']} ms, "
-              f"bound {out['bound_ms']} ms", flush=True)
+              f"bound {out.get('bound_ms')} ms", flush=True)
 
 
 def _ate(results, gt):
@@ -938,12 +976,16 @@ def main() -> int:
     }
     frames = {"default": N_FRAMES, "fast_orb_rbr_win": N_FRAMES,
               "sad_dense": N_DENSE_FRAMES}
+    floor_us = report["floor"]["device_us"]
+    for x in [report["hamming_matrix"]] + report["hamming_matrix"]["octaves"]:
+        x["write_us"] = x.pop("write")["device_us"]
+    print(f"floor: fill of one element {floor_us} us on the device", flush=True)
     line = []
     for n, (src, rep, phase) in kernels.items():
         r = report[n]
         # the order of the redesigns: device time over the bound per frame of
-        # the phase's path, which launches the kernel equally at each octave
-        # (nullvec9 has one shape)
+        # the phase's path, which launches the kernel equally at each of its
+        # shapes (an octave's, or nullvec9's B = 512 and B = 2)
         shapes = [r] + r.get("octaves", [])
         over_us = (by_phase[phase][n] / frames[phase] / len(shapes)
                    * sum(x["device_us"] - 1e3 * x["bound_ms"] for x in shapes))
@@ -954,7 +996,7 @@ def main() -> int:
             "replaces": rep, "launches": by_phase[phase][n],
             "launches_phase": phase,
             "launches_by_phase": {p: c.get(n, 0) for p, c in by_phase.items()},
-            "over_bound_us_per_frame": over_us, **r})
+            "over_bound_us_per_frame": over_us, "floor_us": floor_us, **r})
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -15,11 +15,27 @@
 //
 // What bounds them on the H100.  At Ka = Kb = 512 the Hamming matrix reads
 // 32 KB and writes 1 MB: ~0.3 us at 3.35 TB/s, against ~6.3 M integer
-// operations (~0.1 us at 67 T/s), so its bound is the output's bytes.
-// Hamming design: a block computes a 32x32 output tile with 32x8 threads,
-// four outputs a thread (rows ty, ty+8, ty+16, ty+24; column tx); the
-// tile's A and B rows are staged in shared memory once, B padded by one
-// word so a warp's 32 reads hit 32 banks; stores coalesced along Kb.
+// operations (~0.1 us at 67 T/s), so its bound is the output's bytes.  On
+// the CUDA cores its 2.1 M population counts issue at 16 a clock per SM,
+// ~0.5 us over 128 SMs: more than the bytes take.  Every launch also pays
+// ~1 us on the device (PyTorch's fill of one element takes 0.99 us, of the
+// same 1 MB output 1.12 us; tests/_torch_kernel_ab.py).  The first design
+// (32x32 tiles staged in shared memory, W and the popcount loop at run
+// time) took 2.560, 2.256 and 2.208 us at K = 512/256/128.
+//   Hamming design for W = 8 (any other W, 1..64, or descriptors not 16-byte
+// aligned, take the first design): the tensor cores count the bits.
+// mma.m16n8k256 on 1-bit operands sums popc(a AND b) over a 16x8 tile, and
+// popc(a XOR b) = popc(a AND NOT b) + popc(NOT a AND b): two products into
+// one accumulator, no POPC at all.  A block is one warp of 16 rows x 8 tiles
+// of 8 columns where that still gives 256 warps (K = 512), else x 2 tiles;
+// each operand is one 8-byte load a row, and two shuffles a tile let each
+// thread store a float4.  Measured (tests/_torch_kernel_ab.py on the bench
+// descriptors, NVIDIA H100 80GB HBM3 at 700 W, against the first design in
+// the same call; PERF.md section 6): 1.696, 1.376 and 1.280 us at K =
+// 512/256/128.  Measured and dropped: the CUDA cores (a warp's A rows in
+// registers, __popc, float4 stores), 2.657 / 2.017 / 1.792 us; 4 tiles a
+// warp at every K, 1.664 / 1.408 / 1.345; four warps a block, 1.920 /
+// 1.888 / 1.840.
 //   The SAD matrix is 512^2 x 64 = 16.8 M terms, every one needed (no mask):
 // on the card a term is two f32 instructions, FADD a, -b and an FADD that
 // takes |x| as an operand modifier (SASS: the abs folds into the FADD), so
@@ -56,6 +72,9 @@
 namespace {
 
 constexpr int kTile = 32;   // output rows and columns per block
+
+// Hamming, any width W (1..64): a block computes a 32x32 output tile with
+// 32x8 threads, four outputs a thread; A and B rows staged in shared memory.
 constexpr int kRowsPerThread = 4;
 constexpr int kThreadsY = kTile / kRowsPerThread;
 
@@ -84,6 +103,102 @@ __global__ void hamming_kernel(const unsigned* __restrict__ a,
     for (int w = 0; w < W; ++w) acc += __popc(p[w] ^ q[w]);
     if (row0 + r < Ka && col < Kb) out[(size_t)(row0 + r) * Kb + col] = (float)acc;
   }
+}
+
+// Hamming, W = 8 (256-bit rBRIEF, the engine's only width), on the tensor
+// cores: mma.m16n8k256 on 1-bit operands sums popc(a AND b) over the 256
+// bits of a 16x8 output tile, and popc(a XOR b) = popc(a AND NOT b) +
+// popc(NOT a AND b), two such products into one accumulator.  A block is
+// one warp; it takes 16 rows x kTiles tiles of 8 columns.
+constexpr int kWords = 8;
+constexpr int kMmaRows = 16;
+constexpr int kMmaCols = 8;
+// warps a launch should have to fill the card (two a SM): the most tiles a
+// warp, 8 or 2, that still gives them
+constexpr long kHamMinWarps = 256;
+
+// d += the 16x8 tile of popc(a AND b) over k = 256 bits.  Fragments (thread
+// lane = 4 g + t): a[0], a[2] row g, a[1], a[3] row g + 8, b[0], b[1] column
+// g; a[0], a[1], b[0] hold bits 32t..32t+31 of k, a[2], a[3], b[1] bits
+// 128 + 32t..; d[0], d[1] row g, columns 2t, 2t + 1, d[2], d[3] row g + 8.
+__device__ __forceinline__ void mma_and_popc(int (&d)[4], const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a, b: the descriptors as 8-byte pairs of words (4 a descriptor).  Which
+// word fills which bits of k does not matter as long as A and B agree:
+// thread t puts words 2t and 2t + 1 where the fragments take k-parts t and
+// 4 + t, so each operand is one 8-byte load a row.
+template <int kTiles>
+__global__ void __launch_bounds__(32) hamming_kernel(
+    const uint2* __restrict__ a, const uint2* __restrict__ b, int Ka, int Kb,
+    bool vec_out, float* __restrict__ out) {
+  const int g = threadIdx.x >> 2, t = threadIdx.x & 3;
+  const int r0 = blockIdx.y * kMmaRows;
+  const int c0 = blockIdx.x * kMmaCols * kTiles;
+  // every load first, rows and columns clamped at a ragged edge (those
+  // outputs are not stored)
+  const uint2 lo = a[(size_t)min(r0 + g, Ka - 1) * 4 + t];
+  const uint2 hi = a[(size_t)min(r0 + g + 8, Ka - 1) * 4 + t];
+  uint2 col[kTiles];
+#pragma unroll
+  for (int n = 0; n < kTiles; ++n) {
+    col[n] = b[(size_t)min(c0 + n * kMmaCols + g, Kb - 1) * 4 + t];
+  }
+  const unsigned fa[4] = {lo.x, hi.x, lo.y, hi.y};
+  const unsigned fn[4] = {~lo.x, ~hi.x, ~lo.y, ~hi.y};
+  // every product and exchange before the first store: mma.sync and the
+  // shuffles need the whole warp, and the stores branch at ragged edges
+  const bool even = (t & 1) == 0;
+  float v[kTiles][4];
+#pragma unroll
+  for (int n = 0; n < kTiles; ++n) {
+    int d[4] = {0, 0, 0, 0};
+    mma_and_popc(d, fa, ~col[n].x, ~col[n].y);
+    mma_and_popc(d, fn, col[n].x, col[n].y);
+    // thread pairs (t, t ^ 1) swap halves: the even one then holds row g,
+    // columns 2t..2t + 3, the odd one row g + 8, columns 2t - 2..2t + 1
+    const int s0 = __shfl_xor_sync(0xffffffffu, even ? d[2] : d[0], 1);
+    const int s1 = __shfl_xor_sync(0xffffffffu, even ? d[3] : d[1], 1);
+    v[n][0] = (float)(even ? d[0] : s0);
+    v[n][1] = (float)(even ? d[1] : s1);
+    v[n][2] = (float)(even ? s0 : d[2]);
+    v[n][3] = (float)(even ? s1 : d[3]);
+  }
+  const int row = r0 + g + (even ? 0 : 8);
+  if (row >= Ka) return;
+#pragma unroll
+  for (int n = 0; n < kTiles; ++n) {
+    const int c = c0 + n * kMmaCols + 2 * (t & ~1);
+    float* dst = out + (size_t)row * Kb + c;
+    if (vec_out && c + 4 <= Kb) {
+      *reinterpret_cast<float4*>(dst) = make_float4(v[n][0], v[n][1], v[n][2], v[n][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c + j < Kb) dst[j] = v[n][j];
+      }
+    }
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+template <int kTiles>
+void launch_hamming_w8(const unsigned* a, const unsigned* b, int Ka, int Kb,
+                       float* out, cudaStream_t stream) {
+  const dim3 grid((Kb + kMmaCols * kTiles - 1) / (kMmaCols * kTiles),
+                  (Ka + kMmaRows - 1) / kMmaRows);
+  hamming_kernel<kTiles><<<grid, 32, 0, stream>>>(
+      reinterpret_cast<const uint2*>(a), reinterpret_cast<const uint2*>(b), Ka,
+      Kb, Kb % 4 == 0 && aligned16(out), out);
 }
 
 constexpr int kMicro = 4;           // micro-tile rows and columns
@@ -197,9 +312,19 @@ dim3 tiles(int Ka, int Kb) {
 
 extern "C" int rso_hamming_matrix(const unsigned* a, const unsigned* b, int Ka,
                                   int Kb, int W, float* out, void* stream) {
-  const size_t smem = (size_t)kTile * (2 * W + 1) * sizeof(unsigned);
-  hamming_kernel<<<tiles(Ka, Kb), dim3(kTile, kThreadsY), smem,
-                   (cudaStream_t)stream>>>(a, b, Ka, Kb, W, out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (W == kWords && aligned16(a) && aligned16(b)) {
+    const long rows = (Ka + kMmaRows - 1) / kMmaRows;
+    if (rows * ((Kb + 8 * kMmaCols - 1) / (8 * kMmaCols)) >= kHamMinWarps) {
+      launch_hamming_w8<8>(a, b, Ka, Kb, out, s);
+    } else {
+      launch_hamming_w8<2>(a, b, Ka, Kb, out, s);
+    }
+  } else {
+    const size_t smem = (size_t)kTile * (2 * W + 1) * sizeof(unsigned);
+    hamming_kernel<<<tiles(Ka, Kb), dim3(kTile, kThreadsY), smem, s>>>(
+        a, b, Ka, Kb, W, out);
+  }
   return (int)cudaGetLastError();
 }
 

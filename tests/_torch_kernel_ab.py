@@ -1,13 +1,13 @@
-"""Device time of two designs of kernels 2, 3, 1 and 6, on one card in one run.
+"""Device time of two designs of all six kernels, on one card in one run.
 
     python3 tests/_torch_kernel_ab.py (--parent REV | --parent-src DIR)
-                                      [--out FILE]
+                                      [--out FILE] [--kernels K1,K2,...]
 
-Builds an earlier design of `csrc/stereo_fused.cu`, `csrc/fast_detect.cu`
-and `csrc/distance.cu` into a scratch library under the git-ignored
-`build/rso_torch_ab/`: from `git show REV:rso_torch/csrc/<file>`, or from
-the three files in DIR where there is no git checkout.  Then, on the bench
-scene's inputs as chip_smoke.py's phase 3 makes them:
+Builds an earlier design of the four `csrc/*.cu` sources (SOURCES) into a
+scratch library under the git-ignored `build/rso_torch_ab/`: from
+`git show REV:rso_torch/csrc/<file>`, or from the four files in DIR where
+there is no git checkout.  Then, on the bench scene's inputs as
+chip_smoke.py's phase 3 makes them:
 
   * kernel 2 (`stereo_sad_fused`) at K = 512/256/128, with the engine's
     mask (|dy| <= 1, 1 <= disparity <= 0.7 W) and with the open mask (1e4:
@@ -17,14 +17,23 @@ scene's inputs as chip_smoke.py's phase 3 makes them:
   * kernel 1 (`corner_response`) at the three octaves of 1241x376;
   * kernel 6 (`sad_matrix`) at K = 512/256/128 on the bench patches of
     frames 0 and 1;
+  * kernel 5 (`hamming_matrix`) at K = 512/256/128 on the bench FAST_ORB
+    descriptors of frames 0 and 1;
+  * kernel 4 (`nullvec9`) at B = 512 (RANSAC's 2 eyes x 256 hypotheses) and
+    B = 2 (the refit), random rank-8 matrices as chip_smoke.py makes them;
+  * two floors, in the same turns: `fill 1` (torch.zeros(1)'s kernel, the
+    least a launch takes) and `fill KxK` (zero_() of a [K,K] f32 tensor,
+    the least a kernel that writes kernel 5's output takes).
 
-it checks each design bit for bit against the twin and times it: the median
-of the kernel's own duration over 50 launches (torch.profiler's CUDA
+It checks each design bit for bit against the twin, kernel 4's against the
+earlier design (its twin is another algorithm), also at B = 1, 31, 32, 33
+and 129, on rank-4 and all-zero matrices and on matrices scaled by 1e-30 to
+1e30 (quotients outside the division's fast range); then times it: the
+median of the kernel's own duration over 50 launches (torch.profiler's CUDA
 activity, all in one session: chip_smoke.device_times) and the median call
 time (CUDA events around the wrapper).  The designs run in turns, earlier,
-new, new, earlier in each of ROUNDS rounds.  Both designs go through the
-same Python wrappers: the wrappers' library handle is swapped for the
-earlier library.
+new, new, earlier in each of ROUNDS rounds.  Both designs go through the same Python
+wrappers: the wrappers' library handle is swapped for the earlier library.
 
 Needs a CUDA device and imports neither jax nor rso.  Prints one line per
 measurement and the card's name and power limit; writes the JSON to --out.
@@ -41,10 +50,12 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+
 REPO = Path(__file__).resolve().parents[1]
-SOURCES = ("stereo_fused.cu", "fast_detect.cu", "distance.cu")
+SOURCES = ("stereo_fused.cu", "fast_detect.cu", "distance.cu", "smallchol.cu")
 ENTRIES = ("rso_stereo_sad_fused", "rso_track_sad_fused", "rso_corner_response",
-           "rso_sad_matrix")
+           "rso_sad_matrix", "rso_hamming_matrix", "rso_nullvec9")
 DESIGNS = ("earlier", "new")
 ROUNDS = 2
 
@@ -114,9 +125,10 @@ def main() -> int:
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument("--parent", help="git revision of the earlier design")
     src.add_argument("--parent-src", help="directory holding the earlier "
-                     "design's stereo_fused.cu, fast_detect.cu and "
-                     "distance.cu")
+                     "design's " + ", ".join(SOURCES))
     ap.add_argument("--out", default="chiprun_out/kernel_ab.json")
+    ap.add_argument("--kernels", help="time only these kernel symbols "
+                    "(comma-separated, e.g. hamming_kernel,FillFunctor)")
     args = ap.parse_args()
 
     import torch
@@ -139,7 +151,7 @@ def main() -> int:
     dev = torch.device("cuda")
     bi = CS.BenchInputs(CS._bench_scene(CS.N_FRAMES), dev)
     dense_kw = dict(bi.track_kw, win_row=1e4, win_col=1e4)
-    cases = []   # (kernel, label, call, twin)
+    cases = []   # (kernel, label, call, twin: None to hold new to earlier)
     for o in range(3):
         a, kw = bi.stereo_args(o), bi.stereo_kw(o)
         open_kw = dict(kw, max_y_diff=1e4, max_disp=1e4)
@@ -162,6 +174,42 @@ def main() -> int:
         cases.append(("sad_kernel", f"K={bi.Ks[o]}",
                       lambda a=a, b=b: K.sad_matrix_cuda(a, b),
                       lambda a=a, b=b: K.sad_matrix_torch(a, b)))
+    for o in range(3):
+        a, b = bi.descs[0][o].desc, bi.descs[1][o].desc
+        cases.append(("hamming_kernel", f"K={bi.Ks[o]}",
+                      lambda a=a, b=b: K.hamming_matrix_cuda(a, b),
+                      lambda a=a, b=b: K.hamming_matrix_torch(a, b)))
+    rng = np.random.default_rng(0)
+    for B in (512, 2):
+        M = CS.rank8_matrices(rng, B, dev)
+        cases.append(("nullvec9_kernel", f"B={B}",
+                      lambda M=M: K.nullvec9_cuda(M), None))
+    # the floors: design-free, timed in the same turns
+    one = torch.zeros(1, device=dev)
+    cases.append((CS.FILL_KERNEL, "fill 1", one.zero_, None))
+    for k in bi.Ks:
+        out = torch.empty((k, k), device=dev)
+        cases.append((CS.FILL_KERNEL, f"fill {k}x{k}", out.zero_, None))
+    # kernel 4 bit for bit against the earlier design, untimed
+    checked = [CS.rank8_matrices(rng, B, dev) for B in (1, 31, 32, 33, 129)]
+    A = torch.tensor(rng.normal(0, 1, (16, 4, 9)), dtype=torch.float32,
+                     device=dev)
+    checked += [(A.transpose(1, 2) @ A).contiguous(),
+                torch.zeros((4, 9, 9), device=dev)]
+    # quotients outside the division's fast range, and at its edges
+    checked += [CS.rank8_matrices(rng, 64, dev) * s
+                for s in (1e-30, 1e-20, 1e-12, 1e12, 1e20, 1e30)]
+    for M in checked:
+        new = K.nullvec9_cuda(M)
+        with using(designs["earlier"]):
+            if not torch.equal(K.nullvec9_cuda(M), new):
+                raise AssertionError(f"nullvec9 B={M.shape[0]}: new != earlier")
+    print(f"nullvec9: new == earlier at B = {[M.shape[0] for M in checked]} "
+          "(B = 16 rank 4, B = 4 zero, B = 64 scaled by 1e-30 .. 1e30)",
+          flush=True)
+    if args.kernels:
+        keep = set(args.kernels.split(","))
+        cases = [c for c in cases if c[0] in keep]
 
     def through(lib, call):
         def run():
@@ -174,13 +222,14 @@ def main() -> int:
     # profiler goes last, as the process runs slower after it
     runs = []   # (case index, design, kernel, fn)
     for c, (kernel, label, call, twin) in enumerate(cases):
-        ref = twin()
+        ref = twin() if twin else through(designs["earlier"], call)()
         for name in DESIGNS:
             out = through(designs[name], call)()
             for x, y in zip(out if isinstance(out, tuple) else (out,),
                             ref if isinstance(ref, tuple) else (ref,)):
                 if not torch.equal(x, y):
-                    raise AssertionError(f"{name} {kernel} {label}: != twin")
+                    raise AssertionError(f"{name} {kernel} {label}: != "
+                                         f"{'twin' if twin else 'earlier'}")
         # in turns: earlier, new, new, earlier
         runs += [(c, name, kernel, through(designs[name], call))
                  for _ in range(ROUNDS) for name in DESIGNS + DESIGNS[::-1]]

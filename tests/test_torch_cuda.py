@@ -13,8 +13,9 @@ response bit-exact too (same operation order, round-to-nearest intrinsics,
 the same float32 reciprocal for the window mean), checked at 1e-6 against
 the twin on the card and exactly against the twin on the CPU; null
 vectors up to sign (|cos| > 1 - 1e-3, unit norm to 1e-4): the kernel is
-LDL^T, the twin regularised Cholesky; Hamming and SAD matrices bit-exact
-(integer counts, and exact f32 sums of 1/16-multiples).
+LDL^T, the twin regularised Cholesky (bit for bit against the kernel's
+earlier design: tests/_torch_kernel_ab.py); Hamming and SAD matrices
+bit-exact (integer counts, and exact f32 sums of 1/16-multiples).
 """
 import numpy as np
 import pytest
@@ -144,8 +145,10 @@ def test_cuda_track_sad_fused_cases(cuda, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [512, 2, 1])
+@pytest.mark.parametrize("B", [512, 2, 1, 31, 32, 33, 129])
 def test_cuda_nullvec9(cuda, B):
+    """Full and partial blocks of 32 hypotheses: the twin's direction up to
+    sign, unit norm."""
     A = torch.tensor(np.random.default_rng(B).normal(0, 1, (B, 8, 9)),
                      dtype=torch.float32, device=cuda)
     M = (A.transpose(1, 2) @ A).contiguous()
@@ -154,6 +157,38 @@ def test_cuda_nullvec9(cuda, B):
     assert (out * ref).sum(1).abs().min().item() > 1.0 - 1e-3
     torch.testing.assert_close(out.norm(dim=1), torch.ones(B, device=cuda),
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["rank 4", "zero", "scaled 1e-30", "scaled 1e30"])
+def test_cuda_nullvec9_degenerate(cuda, case):
+    """Pivots at the floor (rank 4, all zero) and matrices whose quotients
+    leave the division's fast range (scaled): finite unit vectors."""
+    r = np.random.default_rng(4)
+    rank, scale = {"rank 4": (4, 1.0), "zero": (0, 1.0),
+                   "scaled 1e-30": (8, 1e-30), "scaled 1e30": (8, 1e30)}[case]
+    A = r.normal(0, 1, (33, 8, 9))
+    A[:, rank:] = 0.0
+    M = torch.tensor(np.einsum("bki,bkj->bij", A, A) * scale,
+                     dtype=torch.float32, device=cuda)
+    out = K.nullvec9_cuda(M)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.norm(dim=1), torch.ones(33, device=cuda),
+                               rtol=0, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_cuda_nullvec9_unaligned_equals_aligned(cuda):
+    """Operands 4 bytes off a 16-byte boundary take the word-by-word copies:
+    the same bits as the aligned call."""
+    A = torch.tensor(np.random.default_rng(7).normal(0, 1, (70, 8, 9)),
+                     dtype=torch.float32, device=cuda)
+    M = (A.transpose(1, 2) @ A).contiguous()
+    buf = torch.empty(M.numel() + 1, device=cuda)
+    off = buf[1:].view(M.shape)
+    off.copy_(M)
+    assert off.data_ptr() % 16 != 0
+    assert torch.equal(K.nullvec9_cuda(off), K.nullvec9_cuda(M))
 
 
 def _words(r, shape, dev):
@@ -172,6 +207,31 @@ def test_cuda_hamming_matrix(cuda, ka, kb):
     out = K.hamming_matrix_cuda(a, b)
     assert torch.equal(out, K.hamming_matrix_torch(a, b))
     assert out.min().item() == 0.0 and out.max().item() > 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kb", [1, 33, 131, 512])
+@pytest.mark.parametrize("w", [1, 7, 8, 64])
+def test_cuda_hamming_matrix_widths(cuda, w, kb):
+    """W = 8 (the compiled width, with float4 stores where Kb % 4 == 0 and a
+    scalar edge otherwise) and the run-time widths: bit-exact."""
+    r = np.random.default_rng(w * kb)
+    a, b = _words(r, (67, w), cuda), _words(r, (kb, w), cuda)
+    n = min(67, kb) // 2
+    b[:n] = a[:n]
+    assert torch.equal(K.hamming_matrix_cuda(a, b), K.hamming_matrix_torch(a, b))
+
+
+@pytest.mark.gpu
+def test_cuda_hamming_matrix_unaligned(cuda):
+    """Descriptors 4 bytes off a 16-byte boundary take the run-time path."""
+    r = np.random.default_rng(9)
+    a, b = _words(r, (131, 8), cuda), _words(r, (64, 8), cuda)
+    buf = torch.empty(a.numel() + 1, dtype=torch.int32, device=cuda)
+    off = buf[1:].view(a.shape)
+    off.copy_(a)
+    assert off.data_ptr() % 16 != 0
+    assert torch.equal(K.hamming_matrix_cuda(off, b), K.hamming_matrix_torch(a, b))
 
 
 @pytest.mark.gpu

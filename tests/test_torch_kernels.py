@@ -273,6 +273,22 @@ def test_hamming_twin_vs_pallas_and_jnp(ka, kb):
     assert (ref[np.arange(20), 40 + np.arange(20)] == 8).all()
 
 
+@pytest.mark.parametrize("w", [1, 7, 64])
+def test_hamming_twin_vs_pallas_widths(w):
+    """Widths other than the engine's 8 words (the CUDA kernel's run-time
+    path): the twin equals the Pallas kernel."""
+    r = np.random.default_rng(w)
+    a = r.integers(0, 2**32, (67, w), dtype=np.uint64).astype(np.uint32)
+    b = r.integers(0, 2**32, (131, w), dtype=np.uint64).astype(np.uint32)
+    b[:30] = a[:30]
+    ref = np.asarray(hamming_matrix_pallas(jnp.asarray(a), jnp.asarray(b),
+                                           interpret=True))
+    out = K.hamming_matrix_torch(torch.from_numpy(a.view(np.int32)),
+                                 torch.from_numpy(b.view(np.int32)))
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert (ref[np.arange(30), np.arange(30)] == 0).all() and ref.max() > w * 16
+
+
 @pytest.mark.parametrize("ka,kb", [(131, 257), (257, 200)])
 def test_sad_matrix_twin_vs_pallas(ka, kb):
     r = np.random.default_rng(kb)
@@ -319,6 +335,18 @@ def test_nullvec_twin_vs_pallas_up_to_sign(rng):
     resid = (np.linalg.norm(np.einsum("bij,bj->bi", M, out), axis=1)
              / np.trace(M, axis1=1, axis2=2))
     assert resid.max() < 1e-3
+
+
+@pytest.mark.parametrize("B", [1, 2, 129])
+def test_nullvec_twin_vs_pallas_batch_sizes(B):
+    """RANSAC's refit shape (B = 2), one matrix, and one past the Pallas
+    kernel's 128-lane padding: the same direction up to sign."""
+    M = _rank8(np.random.default_rng(B), B)
+    ref = np.asarray(nullvec9_pallas(jnp.asarray(M), interpret=True))
+    out = K.nullvec9_torch(torch.from_numpy(M)).numpy()
+    assert ref.shape == out.shape == (B, 9)
+    np.testing.assert_allclose(np.linalg.norm(out, axis=1), 1.0, atol=1e-4)
+    assert np.abs(np.sum(ref * out, axis=1)).min() > 1.0 - 1e-3
 
 
 def test_nullvec_twin_degenerate_inputs_finite(rng):
