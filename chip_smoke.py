@@ -577,10 +577,11 @@ def check_kernels(seq, dev):
                lambda a=a: K.track_sad_fused_cuda(*a, **track_kw), ops_o, bytes_o,
                [Ks[o], Ks[o], P])
 
-    # ---- kernel 4: 9x9 null vectors, B = 512 (2 eyes x 256) and B = 1 -------
+    # ---- kernel 4: 9x9 null vectors, B = 512 (2 eyes x 256), 2 (the refit;
+    # below 32 a thread reads its own matrix) and 1 --------------------------
     err = 0.0
-    for B in (512, 1):
-        M = rank8_matrices(rng, B, dev)
+    Ms = {B: rank8_matrices(rng, B, dev) for B in (512, 2, 1)}
+    for B, M in Ms.items():
         out = K.nullvec9_cuda(M)
         ref = K.nullvec9_torch(M)
         # the twin is another algorithm (regularised Cholesky vs LDL^T):
@@ -603,13 +604,14 @@ def check_kernels(seq, dev):
     # ~900 operations a matrix: LDL^T (~490), two inverse iterations
     # (~380), the regularisation; 81 floats in, 9 out.  RANSAC launches it
     # once at B = 512 (2 eyes x 256 hypotheses) and once at B = 2 (the
-    # refit of each eye's best): the second shape
-    M = rank8_matrices(rng, 512, dev)
+    # refit of each eye's best): the second shape.  Both are timed on the
+    # matrices checked above.
+    M = Ms[512]
     report["nullvec9"] = entry(
         err, lambda M=M: K.nullvec9_cuda(M), "nullvec9_kernel",
         lambda M=M: K.nullvec9_torch(M), lambda M=M: torch.linalg.eigh(M),
         512 * 900, 512 * (81 + 9) * 4, [512, 9, 9])
-    M = rank8_matrices(rng, 2, dev)
+    M = Ms[2]
     octave(report["nullvec9"], "nullvec9_kernel", lambda M=M: K.nullvec9_cuda(M),
            2 * 900, 2 * (81 + 9) * 4, [2, 9, 9])
 
@@ -641,6 +643,12 @@ def check_kernels(seq, dev):
     wb[50:100] = wa[:50] ^ torch.tensor(-2**31, dtype=torch.int32, device=dev)
     err = max(err, _exact("hamming_matrix", (K.hamming_matrix_cuda(wa, wb),),
                           (K.hamming_matrix_torch(wa, wb),), "257x131 full range"))
+    # 8 tiles a warp with ragged edges: a partial last row block, float4 and
+    # scalar stores, a partial last column tile
+    for ka, kb in ((600, 600), (512, 501)):
+        wa, wb = words(ka), words(kb)
+        err = max(err, _exact("hamming_matrix", (K.hamming_matrix_cuda(wa, wb),),
+                              (K.hamming_matrix_torch(wa, wb),), f"{ka}x{kb}"))
     # crafted ties: the dense argmin takes the first index, as jnp.argmin
     ta = torch.zeros((2, 8), dtype=torch.int32, device=dev)
     tb = torch.zeros((4, 8), dtype=torch.int32, device=dev)

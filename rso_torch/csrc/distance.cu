@@ -21,7 +21,8 @@
 // ~1 us on the device (PyTorch's fill of one element takes 0.99 us, of the
 // same 1 MB output 1.12 us; tests/_torch_kernel_ab.py).  The first design
 // (32x32 tiles staged in shared memory, W and the popcount loop at run
-// time) took 2.560, 2.256 and 2.208 us at K = 512/256/128.
+// time) took 2.560, 2.240 and 2.209 us at K = 512/256/128 (chip run 7 of
+// PERF.md section 6).
 //   Hamming design for W = 8 (any other W, 1..64, or descriptors not 16-byte
 // aligned, take the first design): the tensor cores count the bits.
 // mma.m16n8k256 on 1-bit operands sums popc(a AND b) over a 16x8 tile, and
@@ -31,7 +32,7 @@
 // each operand is one 8-byte load a row, and two shuffles a tile let each
 // thread store a float4.  Measured (tests/_torch_kernel_ab.py on the bench
 // descriptors, NVIDIA H100 80GB HBM3 at 700 W, against the first design in
-// the same call; PERF.md section 6): 1.696, 1.376 and 1.280 us at K =
+// the same call, chip run 7 of PERF.md section 6): 1.696, 1.376 and 1.280 us at K =
 // 512/256/128.  Measured and dropped: the CUDA cores (a warp's A rows in
 // registers, __popc, float4 stores), 2.657 / 2.017 / 1.792 us; 4 tiles a
 // warp at every K, 1.664 / 1.408 / 1.345; four warps a block, 1.920 /

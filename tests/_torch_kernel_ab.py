@@ -1,7 +1,7 @@
 """Device time of two designs of all six kernels, on one card in one run.
 
     python3 tests/_torch_kernel_ab.py (--parent REV | --parent-src DIR)
-                                      [--out FILE] [--kernels K1,K2,...]
+                                      [--out FILE]
 
 Builds an earlier design of the four `csrc/*.cu` sources (SOURCES) into a
 scratch library under the git-ignored `build/rso_torch_ab/`: from
@@ -127,8 +127,6 @@ def main() -> int:
     src.add_argument("--parent-src", help="directory holding the earlier "
                      "design's " + ", ".join(SOURCES))
     ap.add_argument("--out", default="chiprun_out/kernel_ab.json")
-    ap.add_argument("--kernels", help="time only these kernel symbols "
-                    "(comma-separated, e.g. hamming_kernel,FillFunctor)")
     args = ap.parse_args()
 
     import torch
@@ -207,9 +205,6 @@ def main() -> int:
     print(f"nullvec9: new == earlier at B = {[M.shape[0] for M in checked]} "
           "(B = 16 rank 4, B = 4 zero, B = 64 scaled by 1e-30 .. 1e30)",
           flush=True)
-    if args.kernels:
-        keep = set(args.kernels.split(","))
-        cases = [c for c in cases if c[0] in keep]
 
     def through(lib, call):
         def run():

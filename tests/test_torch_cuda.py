@@ -198,7 +198,9 @@ def _words(r, shape, dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("ka,kb", [(512, 512), (257, 131), (1, 33)])
+@pytest.mark.parametrize("ka,kb", [(512, 512), (257, 131), (1, 33),
+                                   # 8 tiles a warp with ragged edges
+                                   (600, 600), (512, 501), (499, 1030)])
 def test_cuda_hamming_matrix(cuda, ka, kb):
     r = np.random.default_rng(ka + kb)
     a, b = _words(r, (ka, 8), cuda), _words(r, (kb, 8), cuda)
