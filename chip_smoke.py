@@ -42,7 +42,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
      StepResult equal to phase 4's for the same frames;
   7. engine, the remaining modes: ORB + DESC_BF + DESC_BF (one octave) and
      KLT + SAD + SAD, 5 bench frames each, then again on the CPU;
-  8. timing: phase 3's call times, then its device times in one profiler
+  8. engine, the paths of the preset and the seams, each with its launches
+     held to the counts its states imply, its valid count and ATE held to
+     bounds from the reference's own CPU run of the same frames
+     (`tests/_torch_paths.py`), 3 steps again on the CPU, and the ms a
+     frame of its new plain stages (remap, refine, LK levels, LK seed) from
+     CUDA events around their calls over 5 more frames:
+       kitti         configs/kitti.ini (subpixel refine on), 20 bench frames;
+       rectified     configs/euroc.ini through compute_rectify_maps on the
+                     distorted rig of make_unrectified_sequence at EuRoC's
+                     752x480, 20 frames;
+       flow          OPTICAL_FLOW tracking, 20 bench frames (kernel 3 never,
+                     kernel 4 on flow's per-octave RANSAC);
+       detect_every  detect_every=3, 21 bench frames (kernels 1 and 2 on the
+                     detect frames only);
+       eigh_lm       the eigh solve with LM damping, 10 bench frames;
+     then the seams: precomputed features and matches against the full step
+     (3 frames, equal results), a checkpoint round trip on the card,
+     reset_ids, and a repeat after a chunk;
+  9. timing: phase 3's call times, then its device times in one profiler
      session, last, since a profiler session slows the process after it;
      each octave-shaped kernel is also timed at the other octaves' shapes
      (`octaves`; the null vectors at the refit's B = 2 beside B = 512), and
@@ -110,6 +128,24 @@ DESC_BIT_SHARE = 1e-3
 # trajectories part through ulp-level differences.
 DESC_REF_VALID = 28
 DESC_REF_ATE = 0.0835021
+# Phase 8: frames per path, and the bounds of each from the reference's own
+# CPU run of the same frames and configuration (rso.engine.Engine, JAX on
+# the CPU: `JAX_PLATFORMS=cpu PYTHONPATH=. python tests/_torch_paths.py
+# PATH N_FRAMES`): (valid frames, ATE m).  As for phase 5, the port may lose
+# up to 3 more frames and reach twice the ATE.
+N_PATH_FRAMES = 20
+N_EVERY_FRAMES = 21
+N_SOLVE_FRAMES = 10
+N_PATH_CPU_FRAMES = 3
+N_STAGE_FRAMES = 5
+EUROC_H, EUROC_W = 480, 752
+PATH_REF = {
+    "kitti": (19, 0.02546289078672319),
+    "rectified": (19, 0.009820299915523386),
+    "flow": (19, 0.029196550111255402),
+    "detect_every": (15, 0.5721879200835153),
+    "eigh_lm": (9, 0.014722613025692274),
+}
 # Peak rates of the H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
 # outside the tensor cores, counted for every scalar operation of the
 # kernels (integer ones included), and device memory.
@@ -719,7 +755,7 @@ def check_kernels(seq, dev):
 
 
 def time_kernels(timed) -> None:
-    """Phase 8: the call times (CUDA events) of every kernel, twin and
+    """Phase 9: the call times (CUDA events) of every kernel, twin and
     library call, then the kernels' own device times, all in one profiler
     session.  It runs last: after a torch.profiler session the same process
     steps the engine ~25% slower (measured on an H100: 52.1 and 47.7 ms a
@@ -757,10 +793,11 @@ def _ate(results, gt):
     return ate_rmse(np.stack(poses), gt[:len(results)])
 
 
-def drive(name, cfg, seq, dev, n_frames):
+def drive(name, cfg, seq, dev, n_frames, maps=None):
     """One engine path on the card: warm-up, then n_frames from a fresh
     state with the launch counters reset just before and read just after.
-    Returns (states, results, launches, ATE)."""
+    `maps`: the rectification maps.  Returns (states, results, launches,
+    ATE)."""
     import torch
 
     from rso_torch.engine import Engine
@@ -768,7 +805,7 @@ def drive(name, cfg, seq, dev, n_frames):
 
     lefts = [torch.from_numpy(l).to(dev) for l, _ in seq.frames[:n_frames]]
     rights = [torch.from_numpy(r).to(dev) for _, r in seq.frames[:n_frames]]
-    eng = Engine(cfg, seq.cam)               # the default device: the card
+    eng = Engine(cfg, seq.cam, rectify_maps=maps)   # the default device: the card
     if eng.device.type != "cuda":
         raise AssertionError(f"Engine's default device is {eng.device}")
     # warm-up (allocator, library)
@@ -828,16 +865,19 @@ def expect_launches(name, launches, positive=(), zero=(), exact=None):
 
 
 def cpu_rerun(name, cfg, seq, states, results, n_frames, match_slack=0,
-              track_slack=TRACK_SLACK):
+              track_slack=TRACK_SLACK, maps=None, hw=None):
     """The plain path on the CPU, one step from each of the same states,
-    held to the GPU's results (tolerances at the top of the file)."""
+    held to the GPU's results (tolerances at the top of the file); `hw`
+    defaults to the bench scene's size."""
     import torch
 
     from rso_torch.engine import _tree_map, init_state, make_step
 
-    step = make_step(cfg, seq.cam.to(torch.device("cpu")), H, W)
+    hw = hw or (H, W)
+    step = make_step(cfg, seq.cam.to(torch.device("cpu")), *hw,
+                     rectify_maps=maps)
     for i in range(n_frames):
-        st = (init_state(cfg, (H, W), device="cpu") if states[i] is None
+        st = (init_state(cfg, hw, device="cpu") if states[i] is None
               else _tree_map(lambda t: t.cpu(), states[i]))
         left, right = seq.frames[i]
         _, rc = step(st, torch.from_numpy(left), torch.from_numpy(right))
@@ -946,6 +986,268 @@ def run_engines(seq, dev):
     return out
 
 
+class StageTimer:
+    """CUDA events around the calls of a few functions of the engine: the
+    stream time from just before to just after each call (its kernels, and
+    the gaps while the host issues them), summed per stage.  Installed only
+    for the timed frames of a phase, after its counted run."""
+
+    def __init__(self, targets):
+        self.targets = targets        # [(module, attribute, stage)]
+        self.events = collections.defaultdict(list)
+        self.saved = []
+
+    def __enter__(self):
+        import torch
+
+        for mod, attr, stage in self.targets:
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, fn))
+
+            def timed(*a, _fn=fn, _stage=stage, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _fn(*a, **kw)
+                end.record()
+                self.events[_stage].append((start, end))
+                return out
+
+            setattr(mod, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+    def ms_per_frame(self, n_frames) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        return {stage: sum(a.elapsed_time(b) for a, b in ev) / n_frames
+                for stage, ev in self.events.items()}
+
+
+def stage_ms(name, cfg, seq, dev, n_frames, maps=None) -> dict:
+    """ms a frame of the plain stages new in these paths (remap, refine,
+    LK's levels and its coarse seed) and of the whole step, over n_frames
+    after a warm-up, with the stage events on."""
+    import torch
+
+    import rso_torch.engine as E
+    import rso_torch.frontend.optical_flow as OF
+    from rso_torch.engine import Engine
+
+    frames = [(torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev))
+              for l, r in seq.frames[:n_frames]]
+    eng = Engine(cfg, seq.cam, rectify_maps=maps)
+    for l, r in frames[:2]:
+        eng.process_frame(l, r)
+    eng.reset()
+    targets = [(E, "bilinear_remap", "remap"), (E, "refine_positions", "refine"),
+               (OF, "_lk_level", "lk_level"), (OF, "_coarse_sad_seed", "lk_seed")]
+    with StageTimer(targets) as t:
+        steps = []
+        for l, r in frames:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            eng.process_frame(l, r)
+            b.record()
+            steps.append((a, b))
+        out = t.ms_per_frame(n_frames)
+    out["step"] = sum(a.elapsed_time(b) for a, b in steps) / n_frames
+    print(f"stages {name}: ms a frame over {n_frames} frames (CUDA events "
+          f"around each call) {json.dumps(out)}", flush=True)
+    return out
+
+
+def _launch_counts(cfg, states, results, every=1):
+    """The launches a path's run should make, from its states: kernel 1
+    twice an octave (both eyes) and kernel 2 once an octave on each frame
+    that detects; kernel 3 once an octave on every frame unless the path
+    tracks by flow; kernel 4 twice (hypotheses and refit) for each RANSAC
+    call: the flat filter once a frame, or flow's per-octave filter."""
+    O = cfg.n_octaves
+    flow = cfg.if_match.ifm_method == 3
+    n = len(results)
+    if every == 1:
+        detects = n
+    else:
+        detects = 0
+        for st in states:       # the step's own rule, on its own state
+            if st is None:      # the first frame's state is made by the step
+                detects += 1
+                continue
+            pairs = sum(int(o.matches.valid.sum()) for o in st.prev.octaves)
+            detects += (not bool(st.have_prev) or int(st.since_detect) + 1 >= every
+                        or pairs < cfg.tpu.propagate_min_matches
+                        or int(st.err_streak) > 0)
+    return {"corner_response": 2 * O * detects, "stereo_sad_fused": O * detects,
+            "track_sad_fused": 0 if flow else O * n,
+            "nullvec9": 2 * (O if flow else 1) * n,
+            "hamming_matrix": 0, "sad_matrix": 0}, detects
+
+
+def _path_phase(name, cfg, seq, dev, n_frames, ref, maps=None, hw=None,
+                every=1, match_slack=0):
+    """One of the new engine paths: the run with its launches, the bounds
+    from the reference's CPU run, the CPU re-run, and its stage times."""
+    states, results, launches, ate = drive(name, cfg, seq, dev, n_frames, maps)
+    expect, detects = _launch_counts(cfg, states, results, every)
+    expect_launches(name, launches, exact=expect)
+    n_valid = sum(bool(r.valid) for r in results)
+    ref_valid, ref_ate = ref
+    print(f"engine {name}: {detects} of {n_frames} frames detected; valid "
+          f"{n_valid} (reference {ref_valid}), ATE {ate} (reference "
+          f"{ref_ate})", flush=True)
+    if n_valid < ref_valid - 3 or not ate <= 2 * ref_ate:
+        raise AssertionError(f"{name}: valid {n_valid} (reference "
+                             f"{ref_valid}), ATE {ate} (reference {ref_ate})")
+    cpu_rerun(name, cfg, seq, states, results, N_PATH_CPU_FRAMES,
+              match_slack=match_slack, maps=maps, hw=hw)
+    stage_ms(name, cfg, seq, dev, N_STAGE_FRAMES, maps)
+    return launches
+
+
+def run_seams(seq, dev, n_frames=4):
+    """The engine's seams on the card: precomputed features and matches
+    against the full step that detected them, a checkpoint round trip, a
+    repeat after a chunk, and reset_ids.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from rso_torch.engine import Engine, init_state
+    from rso_torch.frontend.detect import (detect_features, octave_budget,
+                                           octave_k_slots)
+    from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
+    from rso_torch.io import load_state, save_state
+    from rso_torch.io.checkpoint import _leaves
+    from rso_torch.kernels import LAUNCHES
+    from rso_torch.synthetic import synthetic_config
+
+    cfg = synthetic_config()
+    O = cfg.n_octaves
+    Ks = octave_k_slots(cfg.detect.orb_nfeats, O, cfg.tpu.max_kps_per_octave,
+                        cfg.tpu.octave_slot_decay)
+    budgets = octave_budget(cfg.detect.orb_nfeats, O)
+    frames = [(torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev))
+              for l, r in seq.frames[:n_frames]]
+    full, feats_eng, match_eng = (Engine(cfg, seq.cam) for _ in range(3))
+
+    def same(a, b, what):
+        for field, x, y in zip(a._fields, a, b):
+            if not torch.equal(x, y):
+                raise AssertionError(f"seams: {what} {field} differs")
+
+    LAUNCHES.clear()
+    for i, (l, r) in enumerate(frames[:3]):
+        st = full.state if full.state is not None else init_state(cfg, (H, W))
+        octs = []
+        for o, (pl, pr) in enumerate(zip(build_pyramid(to_grayscale(l), O),
+                                         build_pyramid(to_grayscale(r), O))):
+            ok = torch.arange(Ks[o], device=dev) < budgets[o]
+            fl, fr = (detect_features(p, cfg.detect, Ks[o], st.fast_th[o], False,
+                                      arc=cfg.tpu.fast_arc) for p in (pl, pr))
+            octs.append((fl._replace(valid=fl.valid & ok),
+                         fr._replace(valid=fr.valid & ok)))
+        want = full.process_frame(l, r)
+        left, right = [a for a, _ in octs], [b for _, b in octs]
+        same(feats_eng.process_precomputed(left, right, img_hw=(H, W)), want,
+             f"precomputed feats frame {i}")
+        m = [(np.flatnonzero(o.matches.valid.cpu().numpy()),
+              o.matches.ridx.cpu().numpy()[o.matches.valid.cpu().numpy()])
+             for o in full.state.prev.octaves]
+        got = match_eng.process_precomputed(left, right, matches=m,
+                                            img_hw=(H, W))
+        same(got, want, f"precomputed matches frame {i}")
+    launches = dict(LAUNCHES)
+    print(f"seams: 3 frames of precomputed features and of precomputed "
+          f"matches equal to the full step's results, launches {launches}",
+          flush=True)
+    expect_launches("seams", launches, positive=(
+        "corner_response", "stereo_sad_fused", "track_sad_fused", "nullvec9"))
+
+    # checkpoint round trip on the card, then one more step from each
+    out_dir = REPO / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = str(out_dir / "state.npz")
+    save_state(path, full.state)
+    back = Engine(cfg, seq.cam)
+    back.state = load_state(path, cfg, (H, W))
+    for a, b in zip(_leaves(full.state), _leaves(back.state)):
+        if a.device != b.device or not torch.equal(a, b):
+            raise AssertionError("checkpoint: a leaf differs after the round trip")
+    same(back.process_frame(*frames[3]), full.process_frame(*frames[3]),
+         "a step from the loaded checkpoint")
+
+    # reset_ids: current matches renumbered 0..N-1, the frame a keyframe
+    full.reset_ids()
+    ids = torch.cat([o.match_ids for o in full.state.prev.octaves])
+    n = int((ids >= 0).sum())
+    if (sorted(ids[ids >= 0].tolist()) != list(range(n))
+            or int(full.state.last_kf_max_id) != n - 1
+            or int(full.state.last_match_id) != n):
+        raise AssertionError("reset_ids did not renumber the matches")
+
+    # a repeat after a chunk re-runs against the state before the chunk
+    chunk, plain = Engine(cfg, seq.cam), Engine(cfg, seq.cam)
+    chunk.process_frame(*frames[0])
+    plain.process_frame(*frames[0])
+    chunk.process_chunk([f[0] for f in frames[1:3]], [f[1] for f in frames[1:3]])
+    same(chunk.process_frame(*frames[3], repeat=True),
+         plain.process_frame(*frames[3]), "repeat after a chunk")
+    print(f"seams: checkpoint round trip exact on the card, reset_ids "
+          f"renumbered {n} matches, a repeat after a chunk re-ran against "
+          "the state before it", flush=True)
+    return launches
+
+
+def run_new_paths(seq, dev):
+    """The preset, rectified, flow, detect_every, solve-backend and seam
+    phases; returns {phase: launches}."""
+    import dataclasses
+
+    from rso_torch.config import load_config
+    from rso_torch.io.calib import compute_rectify_maps
+    from rso_torch.synthetic import make_unrectified_sequence, synthetic_config
+
+    rep = dataclasses.replace
+    out = {}
+    # the KITTI preset: subpixel refine, robust 1-to-1, its own thresholds
+    cfg = load_config(str(REPO / "configs" / "kitti.ini"))
+    out["kitti"] = _path_phase("kitti", cfg, seq, dev, N_PATH_FRAMES,
+                               PATH_REF["kitti"])
+
+    # EuRoC's preset on a distorted, misaligned rig at EuRoC's 752x480
+    rseq, calib = make_unrectified_sequence(n_frames=N_PATH_FRAMES,
+                                            n_points=1800, H=EUROC_H, W=EUROC_W)
+    cam, map_l, map_r = compute_rectify_maps(calib)
+    rseq = rseq._replace(cam=cam)
+    cfg = load_config(str(REPO / "configs" / "euroc.ini"))
+    out["rectified"] = _path_phase("rectified", cfg, rseq, dev, N_PATH_FRAMES,
+                                   PATH_REF["rectified"], maps=(map_l, map_r),
+                                   hw=(EUROC_H, EUROC_W))
+
+    base = synthetic_config()
+    cfg = base.replace(if_match=rep(base.if_match, ifm_method=3))
+    out["flow"] = _path_phase("flow", cfg, seq, dev, N_PATH_FRAMES,
+                              PATH_REF["flow"])
+
+    cfg = base.replace(tpu=rep(base.tpu, detect_every=3))
+    out["detect_every"] = _path_phase("detect_every", cfg, seq, dev,
+                                      N_EVERY_FRAMES, PATH_REF["detect_every"],
+                                      every=3, match_slack=DESC_MATCH_SLACK)
+
+    cfg = base.replace(least_squares=rep(base.least_squares,
+                                         solve_backend="eigh", use_lm=True))
+    out["eigh_lm"] = _path_phase("eigh_lm", cfg, seq, dev, N_SOLVE_FRAMES,
+                                 PATH_REF["eigh_lm"])
+
+    out["seams"] = run_seams(seq, dev)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -971,6 +1273,7 @@ def main() -> int:
     seq = _bench_scene(N_FRAMES)
     report, timed = check_kernels(seq, dev)
     by_phase = run_engines(seq, dev)
+    by_phase.update(run_new_paths(seq, dev))
     time_kernels(timed)
 
     # the phase whose path each kernel's launches are read from

@@ -1,23 +1,26 @@
 """The odometry engine: EngineState + one per-frame step, on one device.
 
 Counterpart of rso/engine.py (`init_state`, `make_step`, `Engine`):
-grayscale + pyramid (stage 1), detection with every detector and adaptive
-NMS (stage 2), stereo matching by SAD or descriptors (stage 3), inter-frame
-tracking by SAD, DESC_WIN or DESC_BF, the flat two-eye fundamental-matrix
-RANSAC, match-ID propagation, the bad-tracking gate, stage-5 NMS, the
-two-phase robust pose solve, error codes and the bounded keep-prev recovery
-(`_tail`).  `tpu.use_fused_match` picks the fused SAD kernels (the default)
-or the dense SAD matrices for stages 3 and 4.
+grayscale, the optional rectification remap and the pyramid (stage 1),
+detection with every detector and adaptive NMS (stage 2), stereo matching by
+SAD or descriptors (stage 3), inter-frame tracking by SAD, DESC_WIN, DESC_BF
+or OPTICAL_FLOW, the flat two-eye fundamental-matrix RANSAC, the optional
+subpixel refine of the tracked observations, match-ID propagation, the
+bad-tracking gate, stage-5 NMS, the two-phase robust pose solve (Cholesky or
+eigh, with optional LM damping), error codes and the bounded keep-prev
+recovery (`_tail`).  `tpu.detect_every > 1` LK-propagates the previous
+frame's stereo pairs between detections (`_propagate`); `precomputed`
+steps take external features or matches (the reference's
+use_precomputed_data seam).  `tpu.use_fused_match` picks the fused SAD
+kernels (the default) or the dense SAD matrices for stages 3 and 4.
 
 The reference runs the step as one jitted XLA program; here it is eager
 PyTorch on the state's device, with the six CUDA kernels under it.  The
-state lives on the device between frames, and the step reads nothing back to
-the host except the pose solver's per-iteration stop flag.  The entry points
-run on the GPU unless the caller passes device="cpu", and raise where CUDA
-is absent.
-
-Configurations outside this slice raise NotImplementedError naming the
-ROADMAP item that ports them.
+state lives on the device between frames, and the step reads back to the
+host only the pose solver's per-iteration stop flag and, with
+detect_every > 1, the choice between detecting and propagating.  The entry
+points run on the GPU unless the caller passes device="cpu", and raise
+where CUDA is absent.
 """
 from __future__ import annotations
 
@@ -37,13 +40,18 @@ from rso_torch.config import (
 from rso_torch.frontend.detect import (
     Features,
     detect_features,
+    extract_patches,
     octave_budget,
     octave_k_slots,
     update_fast_threshold,
 )
-from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
+from rso_torch.frontend.optical_flow import lk_track
+from rso_torch.frontend.pyramid import (bilinear_remap, build_pyramid,
+                                        to_grayscale)
+from rso_torch.frontend.refine import refine_positions
 from rso_torch.frontend.stereo_match import StereoMatches, match_left_right
-from rso_torch.frontend.track import TrackResult, track_interframe
+from rso_torch.frontend.track import (TrackResult, track_interframe,
+                                      track_optical_flow)
 from rso_torch.geometry.stereo_camera import StereoCamera
 from rso_torch.solver.ransac import ransac_fundamental
 from rso_torch.solver.robust_gn import (
@@ -70,8 +78,8 @@ class FrameView(NamedTuple):
 
 class EngineState(NamedTuple):
     prev: FrameView
-    prev_pyr_l: tuple             # empty in this slice (flow / detect_every)
-    prev_pyr_r: tuple
+    prev_pyr_l: tuple             # prev-frame pyramids (OPTICAL_FLOW or
+    prev_pyr_r: tuple             # detect_every > 1, else empty)
     have_prev: torch.Tensor       # bool
     since_detect: torch.Tensor    # int32
     last_match_id: torch.Tensor   # int32
@@ -139,24 +147,10 @@ def _empty_octave(k: int, device) -> OctaveData:
     )
 
 
-def _check_slice(cfg: RSOConfig, rectify_maps=None, precomputed=None) -> None:
-    """Raise for every configuration this slice of the port does not run."""
-    def todo(what, item):
-        raise NotImplementedError(f"{what} is not ported yet "
-                                  f"(ROADMAP Queue 1 #{item})")
-
-    if rectify_maps is not None:
-        todo("rectification (rectify_maps)", 12)
-    if precomputed:
-        todo(f"precomputed={precomputed!r} injection", 15)
-    if cfg.tpu.detect_every > 1:
-        todo("detect_every > 1 (LK propagation)", 14)
-    if cfg.if_match.ifm_method == IFMatchMethod.OPTICAL_FLOW:
-        todo("ifm_method OPTICAL_FLOW", 14)
-    if cfg.tpu.subpixel_track_refine:
-        todo("subpixel_track_refine", 11)
-    if cfg.least_squares.solve_backend != "chol" or cfg.least_squares.use_lm:
-        todo("the eigh solve backend and LM damping", 8)
+def _keeps_pyramids(cfg: RSOConfig) -> bool:
+    """Whether the state carries the previous frame's pyramids."""
+    return (cfg.if_match.ifm_method == IFMatchMethod.OPTICAL_FLOW
+            or cfg.tpu.detect_every > 1)
 
 
 def _device(device) -> torch.device:
@@ -169,16 +163,26 @@ def _device(device) -> torch.device:
 def init_state(cfg: RSOConfig, img_hw: tuple | None = None,
                device="cuda") -> EngineState:
     """The state before the first frame.  The FAST threshold starts at the
-    config's initial_FAST_threshold for every octave."""
-    _check_slice(cfg)
+    config's initial_FAST_threshold for every octave.  OPTICAL_FLOW and
+    detect_every > 1 carry the previous pyramids, zero at first, and need
+    img_hw."""
     device = _device(device)
     O = cfg.n_octaves
     Ks = octave_k_slots(cfg.detect.orb_nfeats, O, cfg.tpu.max_kps_per_octave,
                         cfg.tpu.octave_slot_decay)
+    pyr_l = pyr_r = ()
+    if _keeps_pyramids(cfg):
+        if img_hw is None:
+            raise ValueError("OPTICAL_FLOW / detect_every>1 modes need "
+                             "img_hw for init_state")
+        h, w = img_hw
+        pyr_l, pyr_r = (tuple(torch.zeros((h >> o, w >> o), dtype=torch.float32,
+                                          device=device) for o in range(O))
+                        for _ in range(2))
     return EngineState(
         prev=FrameView(octaves=tuple(_empty_octave(k, device) for k in Ks)),
-        prev_pyr_l=(),
-        prev_pyr_r=(),
+        prev_pyr_l=pyr_l,
+        prev_pyr_r=pyr_r,
         have_prev=torch.zeros((), dtype=torch.bool, device=device),
         since_detect=_int(0, device),
         last_match_id=_int(0, device),
@@ -234,6 +238,22 @@ def _assign_new_ids(match_valid, tracked_mask, prop_ids, last_match_id):
     return ids, last_match_id + need_new.sum(dtype=torch.int32)
 
 
+def _set_last(old: torch.Tensor, tgt: torch.Tensor, values: torch.Tensor):
+    """(old.at[tgt].set(values, mode="drop"), the rows written), with the
+    order of XLA's scatter on the CPU where targets repeat: the last write
+    wins (an index_put_ on CUDA promises no order).  Targets outside
+    [0, len(old)) are dropped.  Stereo matches are one-to-one on right slots
+    in both arbitration modes, so the engine's own states never repeat a
+    target; a state made by hand can."""
+    rows = torch.arange(tgt.shape[0], device=tgt.device)
+    slots = torch.arange(old.shape[0], device=tgt.device)
+    writer = torch.where(tgt[:, None] == slots[None, :], rows[:, None],
+                         torch.full_like(rows, -1)[:, None]).amax(0)
+    written = writer >= 0
+    new = torch.where(written[:, None], values[torch.clamp(writer, min=0)], old)
+    return new, written
+
+
 def _stage5_nms(xy, resp, mask, min_distance):
     """Spatial decimation of the optimisation set: a point survives unless a
     strictly better one (response, then slot index) lies within
@@ -251,13 +271,23 @@ def _stage5_nms(xy, resp, mask, min_distance):
 def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
               rectify_maps=None, precomputed: str | None = None):
     """Build the per-frame step for a fixed config and image size:
-    step(state, left_img, right_img) -> (state', StepResult)."""
-    _check_slice(cfg, rectify_maps, precomputed)
+    step(state, left_img, right_img) -> (state', StepResult).
+
+    rectify_maps: optional ((mlx, mly), (mrx, mry)) float32 [H,W] sample
+        maps (rso_torch.io.calib.compute_rectify_maps), applied before the
+        pyramid on the camera's device.
+    precomputed: None for the full pipeline; "feats" for a step(state,
+        octs) that takes per-octave (left, right) Features and skips stages
+        1-2; "matches" for a step(state, octs, matches) that also takes the
+        per-octave StereoMatches and skips stage 3.
+    """
     O = cfg.n_octaves
+    dev = cam.fx_l.device
     budgets = octave_budget(cfg.detect.orb_nfeats, O)
     Ks = octave_k_slots(cfg.detect.orb_nfeats, O, cfg.tpu.max_kps_per_octave,
                         cfg.tpu.octave_slot_decay)
     offs = np.cumsum([0] + Ks).tolist()
+    flow = cfg.if_match.ifm_method == IFMatchMethod.OPTICAL_FLOW
     need_desc = (
         cfg.detect.detect_method in (DetectMethod.ORB, DetectMethod.FAST_ORB)
         or cfg.lr_match.match_method != StereoMatchMethod.SAD
@@ -269,23 +299,51 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
         min_response = cfg.detect.minimum_ORB_response
     else:
         min_response = 0.0  # reference stage3:188-193 for FAST detectors
+
+    if precomputed and flow:
+        raise ValueError("precomputed-data injection requires a descriptor/"
+                         "SAD tracking mode (no images for optical flow)")
+    if precomputed and cfg.tpu.detect_every > 1:
+        raise ValueError("precomputed-data injection cannot combine with "
+                         "detect_every>1 (propagation needs the images)")
+    detect_every = max(1, int(cfg.tpu.detect_every))
+    if detect_every > 1 and (need_desc or flow):
+        raise ValueError("detect_every>1 requires the SAD match/track "
+                         "methods (descriptors are not re-extracted on "
+                         "propagated frames; OPTICAL_FLOW already carries "
+                         "its own LK stage)")
+
+    maps = None
+    if rectify_maps is not None:
+        (mlx, mly), (mrx, mry) = rectify_maps
+        maps = tuple(torch.as_tensor(m, dtype=torch.float32, device=dev)
+                     for m in (mlx, mly, mrx, mry))
     use_fused = cfg.tpu.use_fused_match
     # the z-gate's octave-scaled fx*baseline, from the f32 camera entries
     fx_baseline = [float(cam.fx_l) * float(cam.baseline) / (2 ** o)
                    if cfg.lr_match.use_z_gate else None for o in range(O)]
-    # per-octave fundamental-matrix filtering is off: one flat filter runs
-    # over all octaves in _tail
+    # per-octave fundamental-matrix filtering is off for the matrix trackers:
+    # one flat filter runs over all octaves in _tail (flow keeps its own)
     ifm = dataclasses.replace(cfg.if_match, filter_fund_matrix=False)
     ls = cfg.least_squares
+    tpu = cfg.tpu
+
+    def _stage_1(left_img, right_img):
+        gl = to_grayscale(left_img)
+        gr = to_grayscale(right_img)
+        if maps is not None:
+            gl = bilinear_remap(gl, maps[0], maps[1])
+            gr = bilinear_remap(gr, maps[2], maps[3])
+        return build_pyramid(gl, O), build_pyramid(gr, O)
 
     def _stage_2(state, pyr_l, pyr_r):
         octs, new_fast_th, detected = [], [], []
         for o in range(O):
             th = state.fast_th[o]
             fl = detect_features(pyr_l[o], cfg.detect, Ks[o], th, need_desc,
-                                 arc=cfg.tpu.fast_arc)
+                                 arc=tpu.fast_arc)
             fr = detect_features(pyr_r[o], cfg.detect, Ks[o], th, need_desc,
-                                 arc=cfg.tpu.fast_arc)
+                                 arc=tpu.fast_arc)
             # octave budget: keep only the strongest budget[o] slots
             slot_ok = torch.arange(Ks[o], device=th.device) < budgets[o]
             fl = fl._replace(valid=fl.valid & slot_ok)
@@ -300,6 +358,9 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
             new_fast_th.append(th)
         return octs, new_fast_th, detected
 
+    def _new_ids(k):
+        return torch.full((k,), -1, dtype=torch.int32, device=dev)
+
     def _stage_3(octs):
         cur_octs, n_matches = [], []
         for o in range(O):
@@ -307,32 +368,124 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
             m = match_left_right(fl, fr, cfg.lr_match, img_w >> o,
                                  min_response, fx_baseline=fx_baseline[o],
                                  use_fused=use_fused)
-            cur_octs.append(OctaveData(
-                left=fl, right=fr, matches=m,
-                match_ids=torch.full((Ks[o],), -1, dtype=torch.int32,
-                                     device=m.ridx.device)))
+            cur_octs.append(OctaveData(left=fl, right=fr, matches=m,
+                                       match_ids=_new_ids(Ks[o])))
             n_matches.append(m.valid.sum(dtype=torch.int32))
         return cur_octs, n_matches
 
-    def step(state: EngineState, left_img, right_img):
-        pyr_l = build_pyramid(to_grayscale(left_img), O)
-        pyr_r = build_pyramid(to_grayscale(right_img), O)
-        octs, new_fast_th, detected = _stage_2(state, pyr_l, pyr_r)
-        cur_octs, n_matches = _stage_3(octs)
-        return _tail(state, cur_octs, n_matches, detected, new_fast_th)
+    def _counts(octs):
+        return [torch.stack([fl.valid.sum(dtype=torch.int32),
+                             fr.valid.sum(dtype=torch.int32)])
+                for fl, fr in octs]
 
-    def _tail(state, cur_octs, n_matches, detected, new_fast_th):
-        dev = state.last_pose.device
+    def step_feats(state: EngineState, octs):
+        cur_octs, n_matches = _stage_3(octs)
+        return _tail(state, None, None, cur_octs, n_matches, _counts(octs),
+                     [state.fast_th[o] for o in range(O)])
+
+    def step_matches(state: EngineState, octs, matches):
+        cur_octs = [OctaveData(left=octs[o][0], right=octs[o][1],
+                               matches=matches[o], match_ids=_new_ids(Ks[o]))
+                    for o in range(O)]
+        n_matches = [m.valid.sum(dtype=torch.int32) for m in matches]
+        return _tail(state, None, None, cur_octs, n_matches, _counts(octs),
+                     [state.fast_th[o] for o in range(O)])
+
+    def _propagate(state, pyr_l, pyr_r):
+        """Amortised detection: LK-propagate the previous frame's matched
+        stereo pairs into the current pyramids, skipping stages 2-3.  Each
+        pair is re-validated: LK convergence and bounds on both eyes, the
+        epipolar row (|dy| <= max(max_y_diff, 1)), a positive disparity and
+        the stereo SAD threshold on fresh 8x8 patches.  Stage 4 then
+        associates prev -> cur through the usual windowed tracker."""
+        cur_octs, n_matches, detected = [], [], []
+        for o in range(O):
+            p = state.prev.octaves[o]
+            K = Ks[o]
+            pair_ok = p.matches.valid
+            p_ridx = torch.clamp(p.matches.ridx.to(torch.int64), min=0)
+            pR_xy = p.right.xy[p_ridx]
+            fl = lk_track(state.prev_pyr_l[o:], pyr_l[o:], p.left.xy,
+                          p.left.valid)
+            fr = lk_track(state.prev_pyr_r[o:], pyr_r[o:], pR_xy, pair_ok)
+
+            new_lxy = torch.where(fl.status[:, None], fl.pos, p.left.xy)
+            lpatch = extract_patches(pyr_l[o], new_lxy)
+            left = p.left._replace(
+                xy=new_lxy, valid=p.left.valid & fl.status,
+                patch=torch.where(fl.status[:, None], lpatch, p.left.patch))
+
+            # tracked right positions go back to their slots; untracked
+            # rows write out of range and are dropped
+            upd = pair_ok & fr.status
+            tgt = torch.where(upd, p_ridx, torch.full_like(p_ridx, K))
+            new_rxy, moved = _set_last(p.right.xy, tgt, fr.pos)
+            rpatch = extract_patches(pyr_r[o], new_rxy)
+            right = p.right._replace(
+                xy=new_rxy,
+                patch=torch.where(moved[:, None], rpatch, p.right.patch))
+
+            # per-frame pair re-validation (the stage-3 gates that still
+            # apply without a fresh detect)
+            epi_ok = ((fl.pos[:, 1] - fr.pos[:, 1]).abs()
+                      <= max(cfg.lr_match.max_y_diff, 1.0))
+            disp_ok = (fl.pos[:, 0] - fr.pos[:, 0]) > 0.0
+            dist = (lpatch - rpatch[p_ridx]).abs().sum(1)
+            dist_ok = dist <= cfg.lr_match.sad_max_distance
+            m_ok = pair_ok & fl.status & fr.status & epi_ok & disp_ok & dist_ok
+            matches = p.matches._replace(
+                valid=m_ok, dist=torch.where(m_ok, dist,
+                                             torch.full_like(dist, 1e9)))
+            cur_octs.append(OctaveData(left=left, right=right, matches=matches,
+                                       match_ids=_new_ids(K)))
+            n_matches.append(m_ok.sum(dtype=torch.int32))
+            detected.append(torch.stack([left.valid.sum(dtype=torch.int32),
+                                         right.valid.sum(dtype=torch.int32)]))
+        return cur_octs, n_matches, detected
+
+    def step(state: EngineState, left_img, right_img):
+        pyr_l, pyr_r = _stage_1(left_img, right_img)
+        do_detect = True
+        if detect_every > 1:
+            prev_pairs = sum(oc.matches.valid.sum(dtype=torch.int32)
+                             for oc in state.prev.octaves)
+            # the reference's lax.cond becomes a host branch: one sync a frame
+            do_detect = bool(~state.have_prev
+                             | (state.since_detect + 1 >= detect_every)
+                             | (prev_pairs < tpu.propagate_min_matches)
+                             | (state.err_streak > 0))
+        if do_detect:
+            octs, new_fast_th, detected = _stage_2(state, pyr_l, pyr_r)
+            cur_octs, n_matches = _stage_3(octs)
+        else:
+            cur_octs, n_matches, detected = _propagate(state, pyr_l, pyr_r)
+            new_fast_th = [state.fast_th[o] for o in range(O)]
+        return _tail(state, pyr_l, pyr_r, cur_octs, n_matches, detected,
+                     new_fast_th, did_detect=do_detect)
+
+    def _tail(state, pyr_l, pyr_r, cur_octs, n_matches, detected, new_fast_th,
+              did_detect=True):
+        key = rrandom.fold_in(rrandom.PRNGKey(7, dev), state.frame_idx)
 
         # ---- stage 4: inter-frame tracking ----------------------------------
         tracks = []
         for o in range(O):
             p, c = state.prev.octaves[o], cur_octs[o]
-            trk = track_interframe(p.left, p.right, p.matches, c.left,
-                                   c.right, c.matches, ifm, key=None,
-                                   ransac_iters=cfg.tpu.ransac_iters,
-                                   ransac_threshold=cfg.tpu.ransac_threshold,
-                                   use_fused=use_fused)
+            if flow:
+                # pyramids sliced to [o:]: octave-o features live in octave-o
+                # pixels, so their LK pyramid starts at level o
+                trk = track_optical_flow(
+                    state.prev_pyr_l[o:], state.prev_pyr_r[o:], pyr_l[o:],
+                    pyr_r[o:], p.left, p.right, p.matches, c.left, c.right,
+                    c.matches, cfg.if_match, rrandom.fold_in(key, o),
+                    ransac_iters=tpu.ransac_iters,
+                    ransac_threshold=tpu.ransac_threshold)
+            else:
+                trk = track_interframe(p.left, p.right, p.matches, c.left,
+                                       c.right, c.matches, ifm, key=None,
+                                       ransac_iters=tpu.ransac_iters,
+                                       ransac_threshold=tpu.ransac_threshold,
+                                       use_fused=use_fused)
             trk_valid = trk.valid & state.have_prev   # no prev -> no tracks
             trk_idx = torch.where(trk_valid, trk.cur_idx,
                                   torch.full_like(trk.cur_idx, -1))
@@ -352,8 +505,23 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
                               + shift)
             safe_c = torch.clamp(trk.cur_idx.to(torch.int64), min=0)
             c_ridx = torch.clamp(c.matches.ridx.to(torch.int64)[safe_c], min=0)
-            cur_obs_l.append(torch.cat([c.left.xy[safe_c], c.right.xy[c_ridx]],
-                                       dim=1) * scale + shift)
+            cL_xy = c.left.xy[safe_c]
+            cR_xy = c.right.xy[c_ridx]
+            if tpu.subpixel_track_refine and pyr_l is not None:
+                # align the current observations to the previous frame's
+                # patches; the templates are centred on the ROUNDED prev
+                # coords, so the prev subpixel fraction is added back
+                frac_l = p.left.xy - torch.round(p.left.xy)
+                frac_r = pR_xy - torch.round(pR_xy)
+                cL_xy = refine_positions(
+                    pyr_l[o], p.left.patch, cL_xy, trk.valid,
+                    iters=tpu.refine_iters,
+                    ssd_gate=tpu.refine_ssd_gate) + frac_l
+                cR_xy = refine_positions(
+                    pyr_r[o], p.right.patch[p_ridx], cR_xy, trk.valid,
+                    iters=tpu.refine_iters,
+                    ssd_gate=tpu.refine_ssd_gate) + frac_r
+            cur_obs_l.append(torch.cat([cL_xy, cR_xy], dim=1) * scale + shift)
             resp_l.append(p.left.response)
             mask_l.append(trk.valid)
             # octave-o pixel noise is 2^o x larger at full res: weight 1/4^o
@@ -366,14 +534,13 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
         obs_w = torch.cat(w_l)
 
         # one flat fundamental-matrix filter over all octaves, both eyes
-        if cfg.if_match.filter_fund_matrix:
-            key = rrandom.fold_in(rrandom.PRNGKey(7, dev), state.frame_idx)
+        if cfg.if_match.filter_fund_matrix and not flow:
             keys = rrandom.split(rrandom.fold_in(key, 1000))
             res2 = ransac_fundamental(
                 torch.stack([prev_obs[:, :2], prev_obs[:, 2:4]]),
                 torch.stack([cur_obs[:, :2], cur_obs[:, 2:4]]),
-                tmask, keys, n_iters=cfg.tpu.ransac_iters,
-                threshold=cfg.tpu.ransac_threshold)
+                tmask, keys, n_iters=tpu.ransac_iters,
+                threshold=tpu.ransac_threshold)
             both = res2.inliers[0] & res2.inliers[1]
             tmask = torch.where(res2.ok[0] & res2.ok[1], both, tmask)
 
@@ -451,17 +618,26 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
             state.err_streak < cfg.general.max_recovery_frames)
         new_streak = torch.where(keep_prev, state.err_streak + 1,
                                  torch.zeros_like(state.err_streak))
-        new_prev = _tree_map(lambda new, old: torch.where(keep_prev, old, new),
-                             cur_view, state.prev)
+        keep = lambda new, old: torch.where(keep_prev, old, new)  # noqa: E731
+        new_prev = _tree_map(keep, cur_view, state.prev)
+        if _keeps_pyramids(cfg):
+            new_pyr_l = tuple(map(keep, pyr_l, state.prev_pyr_l))
+            new_pyr_r = tuple(map(keep, pyr_r, state.prev_pyr_r))
+        else:
+            new_pyr_l, new_pyr_r = state.prev_pyr_l, state.prev_pyr_r
         take_pose = valid & (ls.use_previous_pose_as_initial
                              and not ls.use_custom_initial_pose)
+        # a kept-prev (recovery) frame leaves the OLD features in state, so
+        # it never counts as a fresh detection whichever branch ran
+        new_since = torch.where(keep_prev | (not did_detect),
+                                state.since_detect + 1,
+                                torch.zeros_like(state.since_detect))
         new_state = EngineState(
             prev=new_prev,
-            prev_pyr_l=state.prev_pyr_l,
-            prev_pyr_r=state.prev_pyr_r,
+            prev_pyr_l=new_pyr_l,
+            prev_pyr_r=new_pyr_r,
             have_prev=torch.ones_like(state.have_prev),
-            since_detect=torch.where(keep_prev, state.since_detect + 1,
-                                     torch.zeros_like(state.since_detect)),
+            since_detect=new_since,
             last_match_id=last_id,
             last_kf_max_id=state.last_kf_max_id,
             last_pose=torch.where(take_pose, sol.delta_pose, state.last_pose),
@@ -472,6 +648,13 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
         )
         return new_state, result
 
+    if precomputed == "feats":
+        return step_feats
+    if precomputed == "matches":
+        return step_matches
+    if precomputed:
+        raise ValueError(f"precomputed={precomputed!r}: one of None, "
+                         "'feats', 'matches'")
     return step
 
 
@@ -481,24 +664,32 @@ class Engine:
     By default (`device="cuda"`) every stage runs on the GPU through the
     CUDA kernels, and the constructor raises if CUDA is not available;
     nothing falls back to the CPU.  `device="cpu"` runs the plain PyTorch
-    twins of the kernels.
+    twins of the kernels.  The API mirrors rso.engine.Engine (the
+    reference's processNewImagePair -> process_frame, setThisFrameAsKF,
+    resetIds, saveStateToFile -> rso_torch.io.checkpoint).
     """
 
     def __init__(self, cfg: RSOConfig, cam, rectify_maps=None, device="cuda"):
         self.device = _device(device)
-        _check_slice(cfg, rectify_maps)
         if not isinstance(cam, StereoCamera):
             cam = StereoCamera.from_numpy(cam)
         self.cfg = cfg
         self.cam = cam.to(self.device)
+        # the maps go to the device once
+        self.rectify_maps = None if rectify_maps is None else tuple(
+            tuple(torch.as_tensor(m, dtype=torch.float32, device=self.device)
+                  for m in eye) for eye in rectify_maps)
         self.state: EngineState | None = None
         self._state_before_last: EngineState | None = None
         self._step_cache: dict[tuple, object] = {}
 
-    def _get_step(self, h: int, w: int):
-        if (h, w) not in self._step_cache:
-            self._step_cache[(h, w)] = make_step(self.cfg, self.cam, h, w)
-        return self._step_cache[(h, w)]
+    def _get_step(self, h: int, w: int, precomputed: str | None = None):
+        key = (h, w, precomputed)
+        if key not in self._step_cache:
+            self._step_cache[key] = make_step(
+                self.cfg, self.cam, h, w, rectify_maps=self.rectify_maps,
+                precomputed=precomputed)
+        return self._step_cache[key]
 
     def _image(self, img) -> torch.Tensor:
         if not isinstance(img, torch.Tensor):
@@ -524,10 +715,174 @@ class Engine:
 
     def process_chunk(self, left_imgs, right_imgs) -> StepResult:
         """N consecutive frames; results stacked along a leading frame axis.
-        Same math and state evolution as N process_frame calls."""
+        Same math and state evolution as N process_frame calls; a later
+        `repeat` re-runs against the state before the chunk, as the
+        reference's one-dispatch chunk leaves it."""
+        if self.state is None:
+            h, w = self._image(left_imgs[0]).shape[:2]
+            self.state = init_state(self.cfg, (h, w), self.device)
+        before = self.state
         results = [self.process_frame(l, r)
                    for l, r in zip(left_imgs, right_imgs)]
+        self._state_before_last = before
         return StepResult(*(torch.stack(v) for v in zip(*results)))
+
+    # ---- dynamic threshold accessors (reference h:529-541) ----------------
+
+    def get_fast_threshold(self) -> int:
+        st = (self.state if self.state is not None
+              else init_state(self.cfg, device=self.device))
+        return int(st.fast_th[0])
+
+    def set_fast_threshold(self, value: int):
+        """Clamp to [fast_min_th, fast_max_th] and set every octave's FAST
+        threshold (the dynamic threshold the SLAM layer adjusts)."""
+        v = int(np.clip(value, self.cfg.detect.fast_min_th,
+                        self.cfg.detect.fast_max_th))
+        if self.state is None:
+            self.state = init_state(self.cfg, device=self.device)
+        self.state = self.state._replace(
+            fast_th=torch.full_like(self.state.fast_th, v))
+
+    def reset_fast_threshold(self):
+        self.set_fast_threshold(self.cfg.detect.initial_FAST_threshold)
+
+    def is_fast_th_min(self) -> bool:
+        return self.get_fast_threshold() == self.cfg.detect.fast_min_th
+
+    def is_fast_th_max(self) -> bool:
+        return self.get_fast_threshold() == self.cfg.detect.fast_max_th
+
+    def get_orb_threshold(self) -> float:
+        return self.cfg.lr_match.orb_max_distance
+
+    def set_orb_threshold(self, value: float):
+        """Clamp to [orb_min_th, orb_max_th] and set the ORB matching
+        distance of stereo matching and tracking; the steps are rebuilt."""
+        v = float(np.clip(value, self.cfg.lr_match.orb_min_th,
+                          self.cfg.lr_match.orb_max_th))
+        self.cfg = self.cfg.replace(
+            lr_match=dataclasses.replace(self.cfg.lr_match,
+                                         orb_max_distance=v),
+            if_match=dataclasses.replace(self.cfg.if_match,
+                                         orb_max_distance=v),
+        )
+        self._step_cache.clear()
+
+    def is_orb_th_min(self) -> bool:
+        return self.cfg.lr_match.orb_max_distance <= self.cfg.lr_match.orb_min_th
+
+    def is_orb_th_max(self) -> bool:
+        return self.cfg.lr_match.orb_max_distance >= self.cfg.lr_match.orb_max_th
+
+    def set_ids(self, ids):
+        """Overwrite octave-0 match IDs (reference setIds, h:687-694: the
+        SLAM layer re-keys matches after a loop closure)."""
+        assert self.state is not None
+        ids = np.asarray(ids, np.int32)
+        oct0 = self.state.prev.octaves[0]
+        K = oct0.match_ids.shape[0]
+        new_ids = np.full((K,), -1, np.int32)
+        new_ids[:len(ids)] = ids[:K]
+        octs = ((oct0._replace(match_ids=torch.from_numpy(new_ids).to(
+            self.device)),) + self.state.prev.octaves[1:])
+        self.state = self.state._replace(
+            prev=FrameView(octaves=octs),
+            last_match_id=torch.clamp(self.state.last_match_id,
+                                      min=int(ids.max()) + 1 if len(ids) else 0))
+
+    def process_precomputed(self, feats_left, feats_right, matches=None,
+                            img_hw=(376, 1241)) -> StepResult:
+        """Run the pipeline on externally computed features (the reference's
+        use_precomputed_data path, process_new_image_pair.cpp:131-162): skip
+        stages 1-2, and stage 3 too when `matches` is given.
+
+        feats_left/right: per-octave lists of Features or of dicts with
+        xy [N,2], optional response [N], desc [N,8] uint32/int32 and patch
+        [N,64].  matches: optional per-octave list of (left_idx, right_idx)
+        int arrays.
+        """
+        if self.cfg.if_match.ifm_method == IFMatchMethod.OPTICAL_FLOW:
+            raise ValueError("precomputed-data injection requires a "
+                             "descriptor/SAD tracking mode")
+        O = self.cfg.n_octaves
+        Ks = octave_k_slots(self.cfg.detect.orb_nfeats, O,
+                            self.cfg.tpu.max_kps_per_octave,
+                            self.cfg.tpu.octave_slot_decay)
+        h, w = img_hw
+        if self.state is None:
+            self.state = init_state(self.cfg, (h, w), self.device)
+        dev = self.device
+
+        def to_features(f, K) -> Features:
+            if isinstance(f, Features):
+                return Features(*(t.to(dev) for t in f))
+            xy = np.asarray(f["xy"], np.float32)
+            n = min(len(xy), K)
+            out = {name: t.cpu().numpy() for name, t in
+                   zip(Features._fields, _empty_features(K, "cpu"))}
+            out["xy"][:n] = xy[:n]
+            out["response"][:n] = np.asarray(
+                f.get("response", np.ones(len(xy))), np.float32)[:n]
+            out["valid"][:n] = True
+            if "desc" in f:
+                desc = np.asarray(f["desc"])
+                out["desc"][:n] = desc.astype(np.uint32).view(np.int32)[:n]
+            if "patch" in f:
+                out["patch"][:n] = np.asarray(f["patch"], np.float32)[:n]
+            return Features(*(torch.from_numpy(out[name]).to(dev)
+                              for name in Features._fields))
+
+        octs = tuple((to_features(feats_left[o], Ks[o]),
+                      to_features(feats_right[o], Ks[o])) for o in range(O))
+        if matches is None:
+            step = self._get_step(h, w, precomputed="feats")
+            self.state, result = step(self.state, octs)
+            return result
+        ms = []
+        for o in range(O):
+            li = np.asarray(matches[o][0], np.int64)
+            ri = np.asarray(matches[o][1], np.int64)
+            keep = (li < Ks[o]) & (ri < Ks[o])
+            ridx = np.full((Ks[o],), -1, np.int32)
+            valid = np.zeros((Ks[o],), bool)
+            ridx[li[keep]] = ri[keep]      # a repeated slot: the last wins
+            valid[li[keep]] = True
+            ms.append(StereoMatches(
+                ridx=torch.from_numpy(ridx).to(dev),
+                dist=torch.zeros((Ks[o],), dtype=torch.float32, device=dev),
+                valid=torch.from_numpy(valid).to(dev)))
+        step = self._get_step(h, w, precomputed="matches")
+        self.state, result = step(self.state, octs, tuple(ms))
+        return result
+
+    def set_this_frame_as_kf(self):
+        """Record the max match ID as the keyframe watermark (reference
+        setThisFrameAsKF, h:675-685)."""
+        assert self.state is not None
+        max_id = torch.stack([o.match_ids.amax() for o in
+                              self.state.prev.octaves]).amax()
+        self.state = self.state._replace(
+            last_kf_max_id=torch.clamp(max_id, min=-1).to(torch.int32))
+
+    def reset_ids(self):
+        """Renumber current matches 0..N-1 and mark this frame as keyframe
+        (reference resetIds + the m_reset block,
+        process_new_image_pair.cpp:254-267)."""
+        assert self.state is not None
+        last = _int(0, self.device)
+        new_octs = []
+        for o in self.state.prev.octaves:
+            valid = o.match_ids >= 0
+            rank = torch.cumsum(valid.to(torch.int32), 0, dtype=torch.int32) - 1
+            ids = torch.where(valid, rank + last, torch.full_like(rank, -1))
+            last = last + valid.sum(dtype=torch.int32)
+            new_octs.append(o._replace(match_ids=ids))
+        self.state = self.state._replace(
+            prev=FrameView(octaves=tuple(new_octs)),
+            last_match_id=last,
+            last_kf_max_id=last - 1,
+        )
 
     def reset(self):
         self.state = None

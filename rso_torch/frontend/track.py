@@ -14,7 +14,8 @@ cur-left-slot) cost with
 inside the search window (|dy| <= win_w, per-eye |dx| <= win_h) for SAD and
 DESC_WIN; one-to-one arbitration keeps the best previous slot per current
 slot, and an optional fundamental-matrix RANSAC filter on both eyes follows.
-Output is prev-slot aligned.  OPTICAL_FLOW is ROADMAP Queue 1 #14.
+Output is prev-slot aligned.  OPTICAL_FLOW runs through `track_optical_flow`
+(it needs the pyramids, which `track_interframe` does not take).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 from rso_torch import random as rrandom
 from rso_torch.config import IFMatchMethod, InterFrameMatchParams
 from rso_torch.frontend.detect import Features
+from rso_torch.frontend.optical_flow import flow_guided_association, lk_track
 from rso_torch.frontend.stereo_match import StereoMatches, _arbitrate_right
 from rso_torch.kernels.distance import hamming_matrix_auto, sad_matrix_auto
 from rso_torch.kernels.stereo_fused import (BIG, _best_second, _f32,
@@ -55,8 +57,7 @@ def track_interframe(prev_left: Features, prev_right: Features,
     if method not in (IFMatchMethod.SAD, IFMatchMethod.DESC_WIN,
                       IFMatchMethod.DESC_BF):
         raise NotImplementedError(
-            f"ifm_method={method!r} is not ported yet (OPTICAL_FLOW is "
-            "ROADMAP Queue 1 #14)")
+            "ifmOpticalFlow: use track_optical_flow (needs image pyramids)")
     K = prev_matches.ridx.shape[0]
     p_ok, c_ok = prev_matches.valid, cur_matches.valid
     pR_xy, pR_patch, pR_desc = _gather_right(prev_right, prev_matches.ridx)
@@ -127,3 +128,32 @@ def _finish(prev_left, pR_xy, cur_left, cR_xy, best_c, survive, params, key,
     cur_idx = torch.where(survive, best_c, torch.full_like(best_c, -1))
     return TrackResult(cur_idx=cur_idx, valid=survive,
                        n_tracked=survive.sum(dtype=torch.int32))
+
+
+def track_optical_flow(prev_pyr_l: list, prev_pyr_r: list, cur_pyr_l: list,
+                       cur_pyr_r: list, prev_left: Features,
+                       prev_right: Features, prev_matches: StereoMatches,
+                       cur_left: Features, cur_right: Features,
+                       cur_matches: StereoMatches,
+                       params: InterFrameMatchParams, key: torch.Tensor,
+                       ransac_iters: int = 64, ransac_threshold: float = 1.0,
+                       lk_win: int = 10, lk_iters: int = 10,
+                       gate: float = 4.0) -> TrackResult:
+    """ifmOpticalFlow (reference stage4_match_consecutive.cpp:333-431):
+    pyramidal LK on both eyes, the 1.5 px epipolar consistency of the
+    tracked pair (:397), flow-guided association onto the current match set
+    and the fundamental-matrix filter."""
+    p_ok = prev_matches.valid
+    pR_xy, _, _ = _gather_right(prev_right, prev_matches.ridx)
+    cR_xy, _, _ = _gather_right(cur_right, cur_matches.ridx)
+    fl = lk_track(prev_pyr_l, cur_pyr_l, prev_left.xy, p_ok, win=lk_win,
+                  iters=lk_iters)
+    fr = lk_track(prev_pyr_r, cur_pyr_r, pR_xy, p_ok, win=lk_win,
+                  iters=lk_iters)
+    epi_ok = (fl.pos[:, 1] - fr.pos[:, 1]).abs() <= 1.5
+    pred_ok = fl.status & fr.status & epi_ok
+    cur_idx, ok = flow_guided_association(fl.pos, pred_ok, cur_left.xy,
+                                          cur_matches.valid, gate=gate)
+    best_c = torch.where(ok, cur_idx, torch.zeros_like(cur_idx))
+    return _finish(prev_left, pR_xy, cur_left, cR_xy, best_c, ok, params, key,
+                   ransac_iters, ransac_threshold)

@@ -1,14 +1,15 @@
 """Two-phase robust Gauss-Newton 6-DoF pose solver.
 
-Counterpart of rso/solver/robust_gn.py `solve_pose` with the default
-"chol" backend and IRLS Hessian weighting: phase 1 (<= initial_max_iters),
-the residual-threshold outlier cut, phase 2 (<= max_iters) continuing from
-phase 1's pose and cost-increase count, and the same VOEC_* codes.
+Counterpart of rso/solver/robust_gn.py `solve_pose`: phase 1 (<=
+initial_max_iters), the residual-threshold outlier cut, phase 2 (<=
+max_iters) continuing from phase 1's pose and cost-increase count, and the
+same VOEC_* codes.  Both solve backends ("chol", the default, and "eigh",
+the reference's JacobiSVD semantics) and Levenberg-Marquardt damping
+(`use_lm`) are here.
 
 The reference's `lax.while_loop` becomes a bounded Python loop with the same
 exits.  It reads its stop flag back once per iteration: one host sync per GN
-iteration, which this slice accepts.  The "eigh" backend and LM damping are
-ROADMAP Queue 1 #8 leftovers and raise NotImplementedError.
+iteration.
 """
 from __future__ import annotations
 
@@ -50,9 +51,10 @@ class PoseSolveResult(NamedTuple):
 
 
 def _eval_rgn(cam: StereoCamera, lmks, obs, mask, delta_pose,
-              params: LeastSquaresParams, obs_weight=None):
+              params: LeastSquaresParams, obs_weight=None, lm_lambda=None):
     """One GN evaluation (reference m_evalRGN, stage5_optimization.cpp:275-390).
-    Returns (dx [6], cost, residual_sq [N], bad_cond)."""
+    `lm_lambda` adds Marquardt damping.  Returns (dx [6], cost, residual_sq
+    [N], bad_cond)."""
     pix, J = project_stereo_with_jacobian(cam, lmks, delta_pose)
     r = obs - pix
     s = (r * r).sum(-1)
@@ -76,18 +78,45 @@ def _eval_rgn(cam: StereoCamera, lmks, obs, mask, delta_pose,
     h_w = mf * rho_p if params.irls_hessian_weighting else mf
     H = torch.einsum("n,nij,nik->jk", h_w, J, J)
 
-    # Cholesky solve + cond_1 guard.  cholesky_ex reports a non-PD H in
-    # `info` instead of raising (and syncing); it becomes NaN, as
-    # jnp.linalg.cholesky reports it, so the guard below flags bad_cond.
-    L, info = torch.linalg.cholesky_ex(H)
-    eye6 = torch.eye(6, dtype=H.dtype, device=H.device)
-    Hinv = torch.cholesky_solve(eye6, L)
-    Hinv = torch.where(info == 0, Hinv, torch.full_like(Hinv, torch.nan))
-    dx = Hinv @ g
-    cond = H.abs().sum(0).amax() * Hinv.abs().sum(0).amax()
-    bad_cond = (~torch.isfinite(cond) | ~torch.isfinite(dx).all()
-                | (cond > _COND_MAX))
-    dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
+    if lm_lambda is not None:
+        # Marquardt damping: lambda * diag(H) keeps the step scale-relative
+        H = H + lm_lambda * torch.diag(torch.diagonal(H))
+
+    if params.solve_backend == "chol":
+        # Cholesky solve + cond_1 guard.  cholesky_ex reports a non-PD H in
+        # `info` instead of raising (and syncing); it becomes NaN, as
+        # jnp.linalg.cholesky reports it, so the guard below flags bad_cond.
+        L, info = torch.linalg.cholesky_ex(H)
+        eye6 = torch.eye(6, dtype=H.dtype, device=H.device)
+        Hinv = torch.cholesky_solve(eye6, L)
+        Hinv = torch.where(info == 0, Hinv, torch.full_like(Hinv, torch.nan))
+        dx = Hinv @ g
+        cond = H.abs().sum(0).amax() * Hinv.abs().sum(0).amax()
+        bad_cond = ~torch.isfinite(cond) | ~torch.isfinite(dx).all()
+        if lm_lambda is None:
+            bad_cond = bad_cond | (cond > _COND_MAX)
+        dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
+    else:
+        # symmetric eigendecomposition (the reference's JacobiSVD spectrum,
+        # :375-388).  LAPACK and cuSOLVER reject a non-finite matrix where
+        # jnp.linalg.eigh returns NaN: such an H is swapped for the identity
+        # and its condition number set to NaN, which flags bad_cond as NaN
+        # eigenvalues do in the reference.  Eigenvector signs may differ
+        # from the reference's; dx does not depend on them.
+        finite = torch.isfinite(H).all()
+        eye6 = torch.eye(6, dtype=H.dtype, device=H.device)
+        w, V = torch.linalg.eigh(torch.where(finite, H, eye6))   # ascending
+        cond = w[5] / torch.where(w[0] <= 0.0, torch.nan, w[0])
+        cond = torch.where(finite, cond, torch.nan)
+        # LM handles ill-conditioning by damping and aborts only on NaN
+        # (the reference's own abort condition, :380-386)
+        bad_cond = ~torch.isfinite(cond)
+        if lm_lambda is None:
+            bad_cond = bad_cond | (cond > _COND_MAX)
+        w_inv = torch.where(w > w[5] * 1e-9,
+                            1.0 / torch.where(w > 0, w, torch.ones_like(w)),
+                            torch.zeros_like(w))
+        dx = V @ (w_inv * (V.T @ g))
     s_out = torch.where(m, s, torch.full_like(s, _F32_MAX))
     return dx, cost, s_out, bad_cond
 
@@ -95,7 +124,9 @@ def _eval_rgn(cam: StereoCamera, lmks, obs, mask, delta_pose,
 def _gn_phase(cam, lmks, obs, mask, delta_pose0, max_iters: int, times_inc0,
               params: LeastSquaresParams, incr_cost_code: int,
               obs_weight=None):
-    """One of the two GN loops (reference :549-598 and :650-700)."""
+    """One of the two GN loops (reference :549-598 and :650-700); with
+    `params.use_lm` the LM loop (:160-213), whose lambda halves after a
+    step that did not raise the cost and quadruples after one that did."""
     dev = obs.device
     dp = delta_pose0
     p_cost = torch.zeros((), dtype=torch.float32, device=dev)
@@ -104,11 +135,17 @@ def _gn_phase(cam, lmks, obs, mask, delta_pose0, max_iters: int, times_inc0,
     abort = torch.zeros((), dtype=torch.bool, device=dev)
     res = torch.full((obs.shape[0],), _F32_MAX, dtype=torch.float32, device=dev)
     ec = torch.full((), VOEC_NONE, dtype=torch.int32, device=dev)
+    lam = (torch.full((), params.lm_init_lambda, dtype=torch.float32,
+                      device=dev) if params.use_lm else None)
     cost = p_cost
     it = 0
     while it < max_iters:
         dx, c_cost, res, bad_cond = _eval_rgn(cam, lmks, obs, mask, dp, params,
-                                              obs_weight)
+                                              obs_weight, lm_lambda=lam)
+        if lam is not None:
+            improved = (it == 0) | (c_cost <= p_cost)
+            lam = torch.where(improved, torch.clamp(lam * 0.5, min=1e-7),
+                              torch.clamp(lam * 4.0, max=1e3))
         ec = torch.where(bad_cond, VOEC_BAD_COND_NUMBER, ec)
         dp = torch.where(bad_cond, dp, dp + dx)
         # ending conditions count from iteration 1 (reference :580-596)
@@ -133,12 +170,6 @@ def solve_pose(cam: StereoCamera, prev_obs: torch.Tensor,
                obs_weight: torch.Tensor | None = None) -> PoseSolveResult:
     """Full two-phase robust GN pose solve on tracked stereo correspondences
     (the reference's getChangeInPose, common.cpp:355-413)."""
-    if params.solve_backend != "chol":
-        raise NotImplementedError(
-            f"solve_backend={params.solve_backend!r}: only 'chol' is ported "
-            "(the eigh backend is ROADMAP Queue 1 #8)")
-    if params.use_lm:
-        raise NotImplementedError("LM damping is ROADMAP Queue 1 #8")
     prev_obs = prev_obs.to(torch.float32)
     cur_obs = cur_obs.to(torch.float32)
     delta0 = (torch.zeros(6, dtype=torch.float32, device=cur_obs.device)

@@ -1,11 +1,10 @@
 """Synthetic stereo blob sequence with exact ground truth (host numpy).
 
-A copy of `make_sequence`, `render_frame` and `synthetic_config` from
-rso/synthetic.py, which cannot be imported here because it loads jax.  Same
-seed, same numpy calls in the same order, so the same arguments give the same
-frames as the reference's generator.  The unrectified-rig options of the
-reference's `render_frame` (`dist`, `R_lr`) belong to the rectification path
-(ROADMAP Queue 1 #12) and are left out.
+A copy of `make_sequence`, `make_unrectified_sequence`, `render_frame` and
+`synthetic_config` from rso/synthetic.py, which cannot be imported here
+because it loads jax.  Same seed, same numpy calls in the same order, so the
+same arguments give the same frames (and calibration) as the reference's
+generator.
 
 `mode_config` adds the detector / matcher / tracker combinations that
 tests/test_modes.py runs on the blob scene, so that tests and chip_smoke.py
@@ -26,6 +25,7 @@ from rso_torch.config import (
     StereoMatchMethod,
 )
 from rso_torch.geometry.stereo_camera import StereoCamera
+from rso_torch.io.calib import FullCalibration, _distort
 
 
 def synthetic_config() -> RSOConfig:
@@ -99,8 +99,12 @@ def _rotmat(w):
 
 
 def render_frame(pts_w, intens, sizes, T_wc, cam: StereoCamera, H, W,
-                 rng=None):
-    """Render left/right u8 images of the blob field from camera pose T_wc."""
+                 rng=None, dist=None, R_lr=None):
+    """Render left/right u8 images of the blob field from camera pose T_wc.
+
+    dist: optional plumb-bob coefficients [k1,k2,p1,p2,k3] applied to both
+    eyes (an unrectified rig); R_lr: optional 3x3 rotation of the right
+    camera wrt the left (rig misalignment)."""
     R = T_wc[:3, :3]
     t = T_wc[:3, 3]
     pts_c = (pts_w - t) @ R  # world -> camera
@@ -115,9 +119,16 @@ def render_frame(pts_w, intens, sizes, T_wc, cam: StereoCamera, H, W,
         img = np.full((H, W), 128.0, dtype=np.float32)
         P = pts_c.copy()
         P[:, 0] -= b if eye == 1 else 0.0
+        if eye == 1 and R_lr is not None:
+            P = P @ R_lr  # right-camera frame rotated wrt left: R_lr^T P
         vis = P[:, 2] > 0.5
-        u = fx * (P[vis, 0] / P[vis, 2]) + cx
-        v = fy * (P[vis, 1] / P[vis, 2]) + cy
+        xn = P[vis, 0] / P[vis, 2]
+        yn = P[vis, 1] / P[vis, 2]
+        if dist is not None:
+            d = _distort(np.stack([xn, yn], -1), dist)
+            xn, yn = d[:, 0], d[:, 1]
+        u = fx * xn + cx
+        v = fy * yn + cy
         Z = P[:, 2]
         Ai = intens[vis]
         Pi = sizes[vis]  # [N,3]: sig_a, sig_b, theta
@@ -193,3 +204,54 @@ def make_sequence(n_frames: int = 10, n_points: int = 900, H: int = 240,
     rel = np.stack(rel) if rel else np.zeros((0, 4, 4))
     return SyntheticSequence(frames=frames, rel_poses=rel, poses=poses,
                              cam=cam)
+
+
+def make_unrectified_sequence(n_frames=8, n_points=1500, H=240, W=376,
+                              seed=0, speed=0.25,
+                              dist=(-0.12, 0.04, 0.0005, -0.0005, 0.0),
+                              rig_rot=(0.0, 0.006, 0.003)):
+    """Synthetic sequence from a distorted, slightly misaligned rig, plus
+    its FullCalibration: the input of the rectification path
+    (io.calib.compute_rectify_maps + Engine(rectify_maps=...))."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+    fx = 320.0
+    cam = StereoCamera.make(fx_l=fx, fy_l=fx, cx_l=W / 2.0, cy_l=H / 2.0,
+                            baseline=0.4)
+    R_lr = Rotation.from_rotvec(np.asarray(rig_rot)).as_matrix()
+    dist = np.asarray(dist, np.float64)
+
+    pts = np.stack([
+        rng.uniform(-18, 18, n_points),
+        rng.uniform(-6, 6, n_points),
+        rng.uniform(2.0, 45.0, n_points),
+    ], axis=-1)
+    amp = rng.uniform(60, 127, n_points) * rng.choice([-1.0, 1.0], n_points)
+    sizes = np.stack([
+        rng.uniform(0.02, 0.12, n_points),
+        rng.uniform(0.02, 0.12, n_points),
+        rng.uniform(0, np.pi, n_points),
+    ], axis=-1).astype(np.float32)
+
+    poses = []
+    T = np.eye(4)
+    for _ in range(n_frames):
+        poses.append(T.copy())
+        step = np.eye(4)
+        step[:3, 3] = np.array([0.0, 0.0, speed])
+        T = T @ step
+    poses = np.stack(poses)
+    frames = [render_frame(pts, amp.astype(np.float32), sizes, poses[i], cam,
+                           H, W, rng, dist=dist, R_lr=R_lr)
+              for i in range(n_frames)]
+    rel = [np.linalg.inv(poses[i - 1]) @ poses[i] for i in range(1, n_frames)]
+    rel = np.stack(rel) if rel else np.zeros((0, 4, 4))
+
+    K = np.array([[fx, 0, W / 2.0], [0, fx, H / 2.0], [0, 0, 1.0]])
+    calib = FullCalibration(
+        K_l=K, K_r=K, dist_l=dist, dist_r=dist,
+        R_lr=R_lr, t_lr=np.array([0.4, 0.0, 0.0]), size=(H, W))
+    seq = SyntheticSequence(frames=frames, rel_poses=rel, poses=poses,
+                            cam=cam)
+    return seq, calib

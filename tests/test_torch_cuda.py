@@ -306,3 +306,74 @@ def test_cuda_engine_modes_match_the_cpu(cuda, mode):
     kernel = {"fast_orb_rbr_win": "hamming_matrix", "orb_bf_bf": "hamming_matrix",
               "sad_dense": "sad_matrix"}.get(mode, "stereo_sad_fused")
     assert K.LAUNCHES[kernel] > 0 and K.LAUNCHES["nullvec9"] > 0
+
+
+def _two_frame_pyramids(dev):
+    seq = make_sequence(n_frames=2, n_points=2000, H=376, W=1241)
+    return [[build_pyramid(to_grayscale(torch.from_numpy(seq.frames[f][e])).to(dev), 3)
+             for e in (0, 1)] for f in (0, 1)]
+
+
+def _keypoints(img, k=512):
+    from rso_torch.config import DetectParams
+    from rso_torch.frontend.detect import detect_features
+
+    return detect_features(img, DetectParams(), k,
+                           torch.tensor(20, dtype=torch.int32, device=img.device),
+                           False)
+
+
+@pytest.mark.gpu
+def test_cuda_set_last_equals_the_cpu(cuda):
+    """_propagate's scatter on repeated targets: the last write wins on the
+    card as on the CPU (a plain index_put_ promises no order on CUDA)."""
+    from rso_torch.engine import _set_last
+
+    r = np.random.default_rng(3)
+    old = torch.tensor(r.normal(size=(512, 2)), dtype=torch.float32)
+    vals = torch.tensor(r.normal(size=(512, 2)), dtype=torch.float32)
+    tgt = torch.tensor(r.integers(0, 600, 512))       # repeats and drops
+    new_c, w_c = _set_last(old, tgt, vals)
+    new_g, w_g = _set_last(old.to(cuda), tgt.to(cuda), vals.to(cuda))
+    assert torch.equal(new_g.cpu(), new_c) and torch.equal(w_g.cpu(), w_c)
+    last = {}
+    for i, t in enumerate(tgt.tolist()):
+        last[t] = i
+    for t, i in last.items():
+        if t < 512:
+            assert torch.equal(new_c[t], vals[i])
+
+
+@pytest.mark.gpu
+def test_cuda_lk_track_matches_the_cpu(cuda):
+    """LK on the card and on the CPU: status equal; positions and residuals
+    within 2e-3 px and 1e-3 (window sums in another order)."""
+    from rso_torch.frontend.optical_flow import lk_track
+
+    pyr = _two_frame_pyramids(cuda)
+    f = _keypoints(pyr[0][0][0])
+    g = lk_track(pyr[0][0], pyr[1][0], f.xy, f.valid)
+    c = lk_track([p.cpu() for p in pyr[0][0]], [p.cpu() for p in pyr[1][0]],
+                 f.xy.cpu(), f.valid.cpu())
+    assert torch.equal(g.status.cpu(), c.status) and int(c.status.sum()) > 100
+    torch.testing.assert_close(g.pos.cpu(), c.pos, atol=2e-3, rtol=0)
+    torch.testing.assert_close(g.err.cpu(), c.err, atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ssd_gate", [False, True])
+def test_cuda_refine_positions_matches_the_cpu(cuda, ssd_gate):
+    """The subpixel refine on the card and on the CPU: the same slots move,
+    refined xy within 1e-3 px."""
+    from rso_torch.frontend.refine import refine_positions
+
+    pyr = _two_frame_pyramids(cuda)
+    f = _keypoints(pyr[0][0][0])
+    r = np.random.default_rng(4)
+    xy = f.xy + torch.tensor(r.uniform(-1.5, 1.5, tuple(f.xy.shape)),
+                             dtype=torch.float32, device=cuda)
+    g = refine_positions(pyr[1][0][0], f.patch, xy, f.valid, ssd_gate=ssd_gate)
+    c = refine_positions(pyr[1][0][0].cpu(), f.patch.cpu(), xy.cpu(),
+                         f.valid.cpu(), ssd_gate=ssd_gate)
+    assert torch.equal((g != xy).any(1).cpu(), (c != xy.cpu()).any(1))
+    torch.testing.assert_close(g.cpu(), c, atol=1e-3, rtol=0)

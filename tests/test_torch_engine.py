@@ -201,37 +201,13 @@ def test_entry_points_default_to_the_gpu(reference_run):
             call()
 
 
-@pytest.mark.parametrize("change,item", [
-    (lambda c: c.replace(tpu=dataclasses.replace(c.tpu, detect_every=2)), "#14"),
-    (lambda c: c.replace(tpu=dataclasses.replace(c.tpu, subpixel_track_refine=True)), "#11"),
-    (lambda c: c.replace(least_squares=dataclasses.replace(c.least_squares, use_lm=True)), "#8"),
-    (lambda c: c.replace(detect=dataclasses.replace(c.detect, detect_method=1),
-                         if_match=dataclasses.replace(c.if_match, ifm_method=3)), "#14"),
-    (lambda c: c.replace(if_match=dataclasses.replace(c.if_match, ifm_method=3)), "#14"),
-    (lambda c: c.replace(least_squares=dataclasses.replace(c.least_squares, solve_backend="eigh")), "#8"),
-])
-def test_unported_configurations_raise(change, item):
-    cam = StereoCamera.make(fx_l=320.0, fy_l=320.0, cx_l=188.0, cy_l=120.0,
-                            baseline=0.4)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        te.Engine(change(synthetic_config()), cam, device="cpu")
-
-
-def test_rectification_raises():
-    cam = StereoCamera.make(fx_l=320.0, fy_l=320.0, cx_l=188.0, cy_l=120.0,
-                            baseline=0.4)
-    maps = np.zeros((2, 2, H, W), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #12"):
-        te.Engine(synthetic_config(), cam, rectify_maps=maps, device="cpu")
-
-
 def test_no_module_loads_jax_or_rso():
     """Every module of the package, imported in a fresh interpreter."""
     code = ("import pkgutil, importlib, sys, rso_torch\n"
             "names = [m.name for m in pkgutil.walk_packages(rso_torch.__path__, "
             "'rso_torch.')]\n"
             "for n in names: importlib.import_module(n)\n"
-            "assert len(names) > 20, names\n"
+            "assert len(names) >= 30, names\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rso')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

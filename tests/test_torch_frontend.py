@@ -305,12 +305,3 @@ def test_track_interframe_dense(frames, method):
         np.testing.assert_array_equal(getattr(out, name).numpy(),
                                       np.asarray(getattr(ref, name)), err_msg=name)
     assert int(out.n_tracked) > 20
-
-
-def test_unported_methods_raise(frames):
-    fl, fr, m = (_feats_t(f) if i < 2 else StereoMatches(*(_t(v) for v in f))
-                 for i, f in enumerate(_desc_frame(frames[0])))
-    ifm = dataclasses.replace(synthetic_config().if_match,
-                              ifm_method=IFMatchMethod.OPTICAL_FLOW)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #14"):
-        t_track(fl, fr, m, fl, fr, m, ifm, None)

@@ -1,6 +1,6 @@
 """rso_torch solvers against rso on the CPU: the fundamental-matrix RANSAC
 (same key -> same draws -> same inliers) and the two-phase robust pose solve
-on the tests/test_solver.py cases.
+on the tests/test_solver.py cases, with both solve backends and LM damping.
 
 Tolerances: inlier masks, counts, error codes and iteration counts exact;
 poses atol 1e-5 (float32 GN in another framework, converged to
@@ -125,14 +125,83 @@ def test_solve_pose_degenerate_bad_cond():
     assert not bool(out.valid)
 
 
-def test_solve_pose_unported_backends_raise():
-    prev, cur, mask = make_problem(8, n=20)
-    args = (TCAM, torch.from_numpy(prev), torch.from_numpy(cur),
-            torch.from_numpy(mask))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_solve(*args, TLS(solve_backend="eigh"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_solve(*args, TLS(use_lm=True))
+@pytest.mark.parametrize("case", ["exact", "noisy", "outliers",
+                                  "masked_padding", "too_few",
+                                  "larger_rotation"])
+@pytest.mark.parametrize("backend,lm", [("eigh", False), ("chol", True),
+                                        ("eigh", True)])
+def test_solve_pose_eigh_and_lm(case, backend, lm):
+    """The eigh backend (eigenvector signs may differ; dx = V (w_inv V^T g)
+    does not depend on them) and LM damping: iteration counts, error code,
+    validity and inliers exact, the pose within 1e-5."""
+    prev, cur, mask = make_problem(sorted(CASES).index(case), **CASES[case])
+    _compare_solve(prev, cur, mask, JLS(solve_backend=backend, use_lm=lm),
+                   TLS(solve_backend=backend, use_lm=lm))
+
+
+def _ill_conditioned():
+    """tests/test_solver.py's tight distant cluster: the undamped condition
+    guard fires, LM's damping keeps the solve alive."""
+    rng = np.random.default_rng(0)
+    pts = np.stack([rng.uniform(-0.5, 0.5, 12), rng.uniform(-0.3, 0.3, 12),
+                    rng.uniform(55, 60, 12)], -1).astype(np.float32)
+    pose = np.asarray([0.01, -0.02, 0.005, 0.02, -0.01, 0.15], np.float32)
+    prev = np.asarray(project_stereo(JCAM, jnp.asarray(pts), jnp.zeros(6)))
+    cur = np.asarray(project_stereo(JCAM, jnp.asarray(pts),
+                                    pose_inverse(jnp.asarray(pose))))
+    cur = cur + rng.normal(0, 0.3, (12, 4)).astype(np.float32)
+    return prev.astype(np.float32), cur.astype(np.float32), np.ones(12, bool)
+
+
+def _compare_outcome(prev, cur, mask, jp, tp, pose_atol):
+    """Validity and error code exact; each phase's iteration count within 1
+    and the pose within pose_atol (where valid): on ill-conditioned or
+    garbage systems float32 rounding in another summation order moves the
+    step that crosses min_mod_out_vector, and an aborted solve's pose is
+    whatever the last accepted step left."""
+    ref = j_solve(JCAM, jnp.asarray(prev), jnp.asarray(cur), jnp.asarray(mask), jp)
+    out = t_solve(TCAM, torch.from_numpy(prev), torch.from_numpy(cur),
+                  torch.from_numpy(mask), tp)
+    assert bool(out.valid) == bool(ref.valid)
+    assert int(out.error_code) == int(ref.error_code)
+    for name in ("num_it", "num_it_final"):
+        assert abs(int(getattr(out, name)) - int(getattr(ref, name))) <= 1, name
+    if bool(ref.valid):
+        np.testing.assert_allclose(out.pose.numpy(), np.asarray(ref.pose),
+                                   atol=pose_atol)
+    return out
+
+
+@pytest.mark.parametrize("backend", ["chol", "eigh"])
+def test_solve_pose_ill_conditioned(backend):
+    """Pose within 1e-4 (a 12-point cluster at 55-60 m: the undamped
+    condition number passes 1e7, so float32 rounding of the damped normal
+    equations moves the solution by ~1e-5)."""
+    prev, cur, mask = _ill_conditioned()
+    gn = _compare_outcome(prev, cur, mask, JLS(solve_backend=backend),
+                          TLS(solve_backend=backend), 1e-4)
+    lm = _compare_outcome(prev, cur, mask,
+                          JLS(solve_backend=backend, use_lm=True),
+                          TLS(solve_backend=backend, use_lm=True), 1e-4)
+    assert not bool(gn.valid) and bool(lm.valid)
+
+
+@pytest.mark.parametrize("lm", [False, True])
+def test_solve_pose_eigh_degenerate(lm):
+    """Garbage observations (~1e7 px): the eigh backend aborts with
+    VOEC_BAD_COND_NUMBER as the reference does; coincident points abort
+    without LM."""
+    prev, cur, mask = make_problem(9, n=40)
+    garbage = np.random.default_rng(9).normal(0, 1e7, cur.shape).astype(np.float32)
+    jp, tp = JLS(solve_backend="eigh", use_lm=lm), TLS(solve_backend="eigh", use_lm=lm)
+    out = _compare_outcome(prev, garbage, mask, jp, tp, 0.0)
+    assert not bool(out.valid) and int(out.error_code) == 2
+    # coincident points: H has rank 3; LM's damping still returns a pose
+    # (valid in both), undetermined to ~1e-3
+    prev[:] = prev[0]
+    cur[:] = cur[0]
+    out = _compare_outcome(prev, cur, mask, jp, tp, 1e-3)
+    assert bool(out.valid) == lm
 
 
 def _ransac_case(seed, n=200, n_out=40, n_valid=None):
