@@ -26,7 +26,7 @@ Two runs per path, as in tests/_torch_modes.py:
 
 `rectified`: XLA's CPU backend contracts the remap's bilinear mix into FMAs
 (top = fma(Ia, 1-fx, Ib fx), and so on); the port does not, so remapped
-pixels differ by up to 2 ulp: patches atol RECT_PATCH_ATOL and stereo
+pixels differ by up to 2^-15: patches atol RECT_PATCH_ATOL and stereo
 distances (sums of 64 of them) RECT_DIST_ATOL.  On frame 0 of the test
 scene one FAST test `p - c > th` falls the other way on octave 1 (one
 keypoint more or less: RECT_TIE_FRAMES, ROADMAP Queue 3); that frame holds

@@ -52,9 +52,10 @@ def test_detect_every_alternates_detect_and_propagate():
     assert since == [0, 1, 0, 1], since
 
 
-def test_set_last_is_xla_scatter_order(rng):
+def test_set_last_is_xla_scatter_order():
     """_propagate's scatter: repeated targets resolve as XLA's scatter on
     the CPU applies them (the last write wins); out-of-range ones drop."""
+    rng = np.random.default_rng(6)
     old = rng.normal(size=(40, 2)).astype(np.float32)
     vals = rng.normal(size=(40, 2)).astype(np.float32)
     tgt = rng.integers(0, 50, 40)          # repeats, and >= 40 drops

@@ -93,7 +93,8 @@ def _points(feats, rng, spread):
 
 @pytest.mark.parametrize("ssd_gate", [False, True])
 @pytest.mark.parametrize("iters", [2, 3])
-def test_refine_positions(scene, rng, iters, ssd_gate):
+def test_refine_positions(scene, iters, ssd_gate):
+    rng = np.random.default_rng(10 * iters + ssd_gate)
     pyr, feats = scene
     img = pyr[1][0][0]
     xy, valid = _points(feats, rng, 1.5)
@@ -117,7 +118,8 @@ def test_refine_positions(scene, rng, iters, ssd_gate):
 
 @pytest.mark.parametrize("octave", [1, 2])
 @pytest.mark.parametrize("seed_range", [4, 12])
-def test_coarse_sad_seed_exact(scene, rng, octave, seed_range):
+def test_coarse_sad_seed_exact(scene, octave, seed_range):
+    rng = np.random.default_rng(100 * octave + seed_range)
     pyr, feats = scene
     prev, cur = pyr[0][0][octave], pyr[1][0][octave]
     pts = (_points(feats, rng, 3.0)[0] / 2 ** octave).astype(np.float32)
@@ -141,7 +143,8 @@ def test_coarse_sad_seed_ties_take_the_first_index():
 
 
 @pytest.mark.parametrize("levels", [1, 3])
-def test_lk_track(scene, rng, levels):
+def test_lk_track(scene, levels):
+    rng = np.random.default_rng(levels)
     pyr, feats = scene
     pts, valid = _points(feats, rng, 0.0)
     lk = jax.jit(jof.lk_track)
@@ -158,7 +161,8 @@ def test_lk_track(scene, rng, levels):
                                atol=LK_ERR_ATOL, rtol=0)
 
 
-def test_flow_guided_association_exact(rng):
+def test_flow_guided_association_exact():
+    rng = np.random.default_rng(5)
     n = 96
     # coordinates on a 1/8 grid: every squared distance is exact
     pred = (rng.integers(0, 200 * 8, (n, 2)) / 8).astype(np.float32)
