@@ -60,7 +60,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
      then the seams: precomputed features and matches against the full step
      (3 frames, equal results), a checkpoint round trip on the card,
      reset_ids, and a repeat after a chunk;
-  9. timing: phase 3's call times, then its device times in one profiler
+  9. bundle adjustment (rso_torch.ba; no kernel of its own: its products
+     are cuBLAS GEMMs and one cuSOLVER solve a LM iteration), bounds from
+     the reference's own CPU run (`tests/_torch_ba.py`):
+       (a) the bench's BA problem (rso/cli/bench.py:144-152: P = 8,
+           L = 1024 from default_rng(0)), bundle_adjust(max_iters=15) on
+           the card and on the CPU from the same inputs, held together;
+           BA iterations/s as the slope of the call time between 25 and 75
+           iterations at tol=0 (CUDA events, best of 3, in turns);
+       (b) VOWithBA at its defaults (8 keyframes, 1024 landmarks, 15
+           iterations) over the 30 bench frames: launches of kernels 1-4
+           held to the default path's counts, keyframe and solve counts to
+           the reference's within BA_SLACK, finite costs, ATE; ms a frame
+           with and without a solve (their difference: the stall per BA
+           keyframe), LM iterations per solve; the last solve again on the
+           CPU from the card's BAProblem;
+       (c) marginalize=True with a 4-keyframe window: evictions, a finite,
+           symmetric prior, finite costs;
+       (d) KeyframeCollector over a plain run, refine_trajectory(window=8,
+           overlap=2): its windows solved as one batch on the card, ATE of
+           VO and of the refined trajectory;
+ 10. timing: phase 3's call times, then its device times in one profiler
      session, last, since a profiler session slows the process after it;
      each octave-shaped kernel is also timed at the other octaves' shapes
      (`octaves`; the null vectors at the refit's B = 2 beside B = 512), and
@@ -146,6 +166,49 @@ PATH_REF = {
     "detect_every": (15, 0.5721879200835153),
     "eigh_lm": (9, 0.014722613025692274),
 }
+# Phase 9, bundle adjustment.  Bounds from the reference's own CPU run of
+# the same 30 bench frames (rso.ba, JAX on the CPU: `JAX_PLATFORMS=cpu
+# PYTHONPATH=. python tests/_torch_ba.py 30`).  Keyframe and solve counts
+# may differ by BA_SLACK: RANSAC near-ties move tracked counts by a track or
+# two (ROADMAP Queue 3), and the keyframe policy reads them; ATE at most
+# twice the reference's, as for phases 5 and 8.
+BA_REF = {
+    "vo_with_ba": {"keyframes": 10, "solves": 8, "ate_vo": 0.015853860601408136,
+                   "ate_ba": 0.030093093532769156},
+    "marginalized": {"keyframes": 10, "solves": 8, "evictions": 6,
+                     "ate_ba": 0.051402789999461476},
+    "offline": {"keyframes": 10, "windows": 2, "ate_vo": 0.015853860601408136,
+                "ate_refined": 0.11402044066615265},
+}
+BA_SLACK = 2
+# A solve on the card against the same solve on the CPU, at the CPU tests'
+# bounds (tests/test_torch_ba*.py: poses 5e-5 rad/m, landmarks 3e-3 m, cost
+# 2e-5 relative, plus 1e-6 px^2 for costs that reach 0).  n_iters and
+# converged are equal, or both runs sat at the f32 noise floor of the cost
+# (within BA_FLOOR_RTOL of the converged cost) at the earlier stop: there an
+# accept compares costs that differ by less than the two devices' rounding
+# of the cost sum (tests/test_torch_ba.py).
+BA_POSE_ATOL = 5e-5
+BA_LMK_ATOL = 3e-3
+BA_COST_RTOL = 2e-5
+BA_COST_ATOL = 1e-6
+BA_FLOOR_RTOL = 2e-5
+# A window of the VOWithBA run is a real problem: its cost is flat along
+# some directions (weak parallax, landmarks seen by two keyframes), where
+# f32 rounding moves the minimizer without moving the cost.  The card's
+# solution must then reach the CPU's cost at the CPU (as above) and lie
+# within these of the CPU's: on the run's 8 windows the reference and the
+# port on the CPU part by up to 6.1e-4 rad/m and 1.1e-2 m, the card and the
+# CPU alike, with costs within 6e-6 (tests/_torch_ba_windows.py on the
+# windows the card solved, measured on one H100).
+BA_WINDOW_POSE_ATOL = 2e-3
+BA_WINDOW_LMK_ATOL = 3e-2
+BA_SYM_RTOL = 1e-12
+# BA iterations/s: the slope of the call time between these iteration
+# counts at tol=0, best of BA_REPS calls each, the two counts in turns
+BA_SLOPE_ITERS = (25, 75)
+BA_REPS = 3
+BA_WARM_FRAMES = 10
 # Peak rates of the H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
 # outside the tensor cores, counted for every scalar operation of the
 # kernels (integer ones included), and device memory.
@@ -1248,6 +1311,294 @@ def run_new_paths(seq, dev):
     return out
 
 
+def _same_solve(what, card, cpu, rerun_card, rerun_cpu, cost_on_cpu,
+                pose_atol=BA_POSE_ATOL, lmk_atol=BA_LMK_ATOL):
+    """A BAResult of the card against the CPU's from the same inputs (the
+    bounds above): rerun_*(k) solve again with max_iters=k; cost_on_cpu(
+    poses, landmarks) is the CPU's cost at a solution, so the card's
+    solution must also be the CPU's minimum."""
+    dp = (card.poses.cpu() - cpu.poses).abs().max().item()
+    dl = (card.lmks.cpu() - cpu.lmks).abs().max().item()
+    c_card, c_cpu = float(card.cost), float(cpu.cost)
+    c_at = float(cost_on_cpu(card.poses.cpu(), card.lmks.cpu()))
+    tol = BA_COST_RTOL * abs(c_cpu) + BA_COST_ATOL
+    if (dp > pose_atol or dl > lmk_atol or abs(c_card - c_cpu) > tol
+            or abs(c_at - c_cpu) > tol):
+        raise AssertionError(f"{what}: card and CPU differ: poses {dp}, "
+                             f"landmarks {dl}, cost {c_card} vs {c_cpu} (the "
+                             f"card's solution on the CPU: {c_at})")
+    its = (int(card.n_iters), int(cpu.n_iters))
+    conv = (bool(card.converged), bool(cpu.converged))
+    floor = None
+    if its[0] != its[1] or conv[0] != conv[1]:
+        k = min(its)
+        floor = [float(rerun_card(k).cost), float(rerun_cpu(k).cost)]
+        limit = BA_FLOOR_RTOL * abs(c_cpu) + BA_COST_ATOL
+        if any(abs(c - c_cpu) > limit for c in floor):
+            raise AssertionError(f"{what}: n_iters {its}, converged {conv} "
+                                 f"part at iteration {k} with costs {floor} "
+                                 f"above the floor {c_cpu}")
+    print(f"{what}: card vs CPU poses {dp}, landmarks {dl}, cost {c_card} "
+          f"vs {c_cpu} (the card's solution on the CPU: {c_at}), n_iters "
+          f"{its}, converged {conv}"
+          + ("" if floor is None else f" (parted at the noise floor: costs "
+             f"{floor} at iteration {min(its)})"), flush=True)
+
+
+def _bench_ba_problem(cam, dev):
+    """rso/cli/bench.py:144-152's problem (P = 8, L = 1024, from
+    default_rng(0)), its observations from the port's _project_grid."""
+    import numpy as np
+    import torch
+
+    from rso_torch.ba.ba import BAProblem, _project_grid
+
+    rng = np.random.default_rng(0)
+    P, L = 8, 1024
+    poses0 = torch.zeros((P, 6), dtype=torch.float32)
+    poses0[:, 5] = torch.arange(P, dtype=torch.float32) * -0.4
+    lmks0 = torch.from_numpy(np.stack([rng.uniform(-10, 10, L),
+                                       rng.uniform(-5, 5, L),
+                                       rng.uniform(5, 40, L)], -1)
+                             .astype(np.float32))
+    poses0, lmks0 = poses0.to(dev), lmks0.to(dev)
+    obs = _project_grid(cam.to(dev), poses0, lmks0)[0]
+    return BAProblem(poses=poses0 + 0.01, lmks=lmks0 + 0.05, obs=obs,
+                     mask=torch.ones((P, L), dtype=torch.bool, device=dev))
+
+
+def _ba_iters_per_sec(cam, prob) -> dict:
+    """BA iterations/s on the card: the slope of bundle_adjust's call time
+    (CUDA events) between BA_SLOPE_ITERS iterations at tol=0."""
+    import torch
+
+    from rso_torch.ba import bundle_adjust
+
+    lo, hi = BA_SLOPE_ITERS
+    best = {lo: float("inf"), hi: float("inf")}
+    bundle_adjust(cam, prob, max_iters=lo, tol=0.0)        # warm-up
+    for _ in range(BA_REPS):
+        for n in (lo, hi):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = bundle_adjust(cam, prob, max_iters=n, tol=0.0)
+            b.record()
+            b.synchronize()
+            if int(out.n_iters) != n:
+                raise AssertionError(f"tol=0 ran {int(out.n_iters)} of {n}")
+            best[n] = min(best[n], a.elapsed_time(b))
+    dt = best[hi] - best[lo]
+    if not dt > 0:
+        raise AssertionError(f"BA slope not positive: {best}")
+    return {"ms": best, "ms_per_iter": dt / (hi - lo),
+            "iters_per_sec": (hi - lo) / dt * 1e3}
+
+
+def _problem_to(prob, dev):
+    return type(prob)(*(None if t is None else t.to(dev) for t in prob))
+
+
+class CallRecorder:
+    """Wraps module.attribute to keep each call's arguments and result
+    (read after the run, so the timed frames sync no more)."""
+
+    def __init__(self, module, attribute):
+        self.module, self.attribute, self.calls = module, attribute, []
+
+    def __enter__(self):
+        self.inner = getattr(self.module, self.attribute)
+
+        def wrapped(*args, **kw):
+            out = self.inner(*args, **kw)
+            self.calls.append((args, kw, out))
+            return out
+
+        setattr(self.module, self.attribute, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attribute, self.inner)
+
+
+def _trajectory_ate(poses, gt):
+    import numpy as np
+
+    from rso_torch.metrics import ate_rmse
+
+    return float(ate_rmse(np.stack(poses), gt[:len(poses)]))
+
+
+def run_ba(seq, dev):
+    """Phase 9: bundle adjustment on the card.  Returns the launches of the
+    VOWithBA run."""
+    import numpy as np
+    import torch
+
+    import rso_torch.ba.ba as ba_mod
+    import rso_torch.ba.offline as offline
+    import rso_torch.ba.pipeline as pipeline
+    import rso_torch.ba.window as window_mod
+    from rso_torch.ba import (KeyframeCollector, VOWithBA, bundle_adjust,
+                              refine_trajectory, split_into_windows)
+    from rso_torch.engine import Engine
+    from rso_torch.geometry import pose_matrix
+    from rso_torch.kernels import LAUNCHES
+    from rso_torch.synthetic import synthetic_config
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    cam = seq.cam.to(dev)
+    ref = BA_REF
+
+    # (a) the bench's BA problem, on the card and on the CPU
+    prob = _bench_ba_problem(cam, dev)
+    prob_cpu = _problem_to(prob, cpu)
+    cam_cpu = seq.cam.to(cpu)
+    card = bundle_adjust(cam, prob, max_iters=15)
+    if card.poses.device.type != dev.type:
+        raise AssertionError(f"bundle_adjust ran on {card.poses.device}")
+    host = bundle_adjust(cam_cpu, prob_cpu, max_iters=15)
+    _same_solve("ba bench problem P=8 L=1024, 15 iterations", card, host,
+                lambda k: bundle_adjust(cam, prob, max_iters=k),
+                lambda k: bundle_adjust(cam_cpu, prob_cpu, max_iters=k),
+                lambda p, l: bundle_adjust(cam_cpu, prob_cpu._replace(
+                    poses=p, lmks=l), max_iters=0).cost)
+    rate = _ba_iters_per_sec(cam, prob)
+    print(f"ba iterations/s (P=8, L=1024, slope {BA_SLOPE_ITERS[0]}-"
+          f"{BA_SLOPE_ITERS[1]} iterations at tol=0, best of {BA_REPS}): "
+          f"{rate['iters_per_sec']} ({rate['ms_per_iter']} ms an iteration; "
+          f"calls {rate['ms']} ms)", flush=True)
+
+    # (b) VOWithBA at its defaults over the bench frames
+    cfg = synthetic_config()
+    frames = [(torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev))
+              for l, r in seq.frames]
+    gt = seq.poses
+    warm = VOWithBA(cfg, seq.cam)
+    if warm.engine.device.type != dev.type:
+        raise AssertionError(f"VOWithBA's default device is "
+                             f"{warm.engine.device}")
+    for left, right in frames[:BA_WARM_FRAMES]:
+        warm.process_frame(left, right)
+    vo = VOWithBA(cfg, seq.cam)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    LAUNCHES.clear()
+    outs, vo_poses, ms = [], [], []
+    stages = [(pipeline, "keyframe_obs_from_state", "keyframe_obs"),
+              (window_mod.SlidingWindow, "build_problem", "build_problem"),
+              (ba_mod, "ba_normal_equations", "normal_equations"),
+              (ba_mod, "relpose_prior_terms", "odometry_prior"),
+              (ba_mod, "_schur_solve", "schur_solve")]
+    with CallRecorder(pipeline, "bundle_adjust") as rec, \
+            StageTimer(stages) as st:
+        for left, right in frames:
+            t0 = time.perf_counter()
+            outs.append(vo.process_frame(left, right))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            vo_poses.append(vo.T.copy())
+    launches = dict(LAUNCHES)
+    expect, _ = _launch_counts(cfg, outs, outs)
+    expect_launches("vo_with_ba", launches, exact=expect)
+    n_kf = sum(o.is_keyframe for o in outs)
+    costs = [o.ba_cost for o in outs if o.ba_cost is not None]
+    if not all(np.isfinite(costs)):
+        raise AssertionError(f"vo_with_ba: non-finite BA cost in {costs}")
+    ate_vo = _trajectory_ate(vo_poses, gt)
+    ate_ba = _trajectory_ate([o.pose_wc for o in outs], gt)
+    r = ref["vo_with_ba"]
+    print(f"vo_with_ba: {len(frames)} frames, {n_kf} keyframes (reference "
+          f"{r['keyframes']}), {len(costs)} BA solves (reference "
+          f"{r['solves']}), ATE VO {ate_vo} m (reference {r['ate_vo']}), "
+          f"ATE BA {ate_ba} m (reference {r['ate_ba']}), launches {launches}",
+          flush=True)
+    if (abs(n_kf - r["keyframes"]) > BA_SLACK
+            or abs(len(costs) - r["solves"]) > BA_SLACK
+            or not ate_ba <= 2 * r["ate_ba"]):
+        raise AssertionError("vo_with_ba outside the reference's bounds")
+    solve = [o.ba_cost is not None for o in outs]
+    with_solve = sorted(t for t, s in zip(ms[1:], solve[1:]) if s)
+    without = sorted(t for t, s in zip(ms[1:], solve[1:]) if not s)
+    med_s, med_n = with_solve[len(with_solve) // 2], without[len(without) // 2]
+    iters = [int(out.n_iters) for _, _, out in rec.calls]
+    totals = st.ms_per_frame(1)      # summed over the run
+    print(f"vo_with_ba ms a frame (host clock to a synchronize, after frame "
+          f"0): median {med_n} without a solve ({len(without)} frames), "
+          f"{med_s} with one ({len(with_solve)} frames); stall per BA "
+          f"keyframe {med_s - med_n} ms; LM iterations per solve {iters}; "
+          f"ms by stage over the run's {n_kf} keyframes and {len(costs)} "
+          f"solves (CUDA events around each call) {json.dumps(totals)}",
+          flush=True)
+
+    # one solve again on the CPU from the card's BAProblem
+    (s_cam, s_prob), s_kw, s_out = rec.calls[-1]
+    c_prob = _problem_to(s_prob, cpu)
+    on_cpu = bundle_adjust(cam_cpu, c_prob, **s_kw)
+    _same_solve(f"vo_with_ba last solve (P={s_prob.poses.shape[0]})", s_out,
+                on_cpu,
+                lambda k: bundle_adjust(s_cam, s_prob, **dict(s_kw, max_iters=k)),
+                lambda k: bundle_adjust(cam_cpu, c_prob, **dict(s_kw, max_iters=k)),
+                lambda p, l: bundle_adjust(cam_cpu, c_prob._replace(
+                    poses=p, lmks=l), **dict(s_kw, max_iters=0)).cost,
+                pose_atol=BA_WINDOW_POSE_ATOL, lmk_atol=BA_WINDOW_LMK_ATOL)
+
+    # (c) marginalization: a 4-keyframe window evicts within the frames
+    marg = VOWithBA(cfg, seq.cam, marginalize=True, max_keyframes=4)
+    m_outs = [marg.process_frame(l, r) for l, r in frames]
+    m_kf = sum(o.is_keyframe for o in m_outs)
+    m_costs = [o.ba_cost for o in m_outs if o.ba_cost is not None]
+    evictions = m_kf - len(marg.window)
+    prior = marg.window.prior
+    r = ref["marginalized"]
+    print(f"marginalized: {m_kf} keyframes (reference {r['keyframes']}), "
+          f"{evictions} evictions (reference {r['evictions']}), "
+          f"{len(m_costs)} solves (reference {r['solves']}), prior over "
+          f"{None if prior is None else prior.n} keyframes, ATE BA "
+          f"{_trajectory_ate([o.pose_wc for o in m_outs], gt)} m (reference "
+          f"{r['ate_ba']})", flush=True)
+    if (prior is None or evictions < 1 or not np.isfinite(prior.H).all()
+            or np.abs(prior.H - prior.H.T).max() > BA_SYM_RTOL
+            * np.abs(prior.H).max() or not np.isfinite(m_costs).all()):
+        raise AssertionError("marginalization: no eviction, or a prior that "
+                             "is missing, not finite or not symmetric")
+
+    # (d) offline refinement: keyframes of a plain run, windows in a batch
+    eng = Engine(cfg, seq.cam)
+    col = KeyframeCollector(eng, cfg)
+    T, poses = np.eye(4), []
+    for i, (left, right) in enumerate(frames):
+        res = eng.process_frame(left, right)
+        if bool(res.valid):
+            T = T @ pose_matrix(res.pose).cpu().numpy()
+        poses.append(T.copy())
+        col.observe(i, res, T)
+    poses = np.stack(poses)
+    with CallRecorder(offline, "window_sharded_bundle_adjust") as solves:
+        refined = refine_trajectory(seq.cam, col.kfs, col.kf_frame_idx, poses,
+                                    window=8, overlap=2)
+    batches = [(len(probs), probs[0].poses.device.type)
+               for (_, probs), _, _ in solves.calls]
+    n = len(col.kfs)
+    n_win = len(split_into_windows(n, min(8, n), min(2, min(8, n) - 1)))
+    ate_off, ate_ref = _trajectory_ate(list(poses), gt), _trajectory_ate(
+        list(refined), gt)
+    r = ref["offline"]
+    print(f"offline: {n} keyframes (reference {r['keyframes']}), {n_win} "
+          f"windows solved as one batch {batches}, ATE VO {ate_off} m "
+          f"(reference {r['ate_vo']}), ATE refined {ate_ref} m (reference "
+          f"{r['ate_refined']})", flush=True)
+    if (batches != [(n_win, dev.type)] or n_win < 2
+            or not ate_ref <= 2 * r["ate_refined"]):
+        raise AssertionError("offline refinement: not one batch of >= 2 "
+                             "windows on the card, or ATE past its bound")
+    print(f"phase 9 (bundle adjustment) took {time.perf_counter() - t_phase} "
+          "s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1274,6 +1625,7 @@ def main() -> int:
     report, timed = check_kernels(seq, dev)
     by_phase = run_engines(seq, dev)
     by_phase.update(run_new_paths(seq, dev))
+    by_phase["vo_with_ba"] = run_ba(seq, dev)
     time_kernels(timed)
 
     # the phase whose path each kernel's launches are read from

@@ -44,8 +44,9 @@ def rodrigues(w: torch.Tensor) -> torch.Tensor:
 
 
 def rodrigues_with_grad(w: torch.Tensor):
-    """Return (R [3,3], dR [3,3,3]) where dR[k] = dR/dw_k (w is one [3])."""
-    w1, w2, w3 = w[0], w[1], w[2]
+    """Return (R [...,3,3], dR [...,3,3,3]) where dR[..., k, :, :] =
+    dR/dw_k, for one rotation vector [3] or a batch [...,3]."""
+    w1, w2, w3 = w[..., 0], w[..., 1], w[..., 2]
     t2 = w1 * w1 + w2 * w2 + w3 * w3
     t = torch.sqrt(t2)
     small = t < _SMALL
@@ -60,21 +61,24 @@ def rodrigues_with_grad(w: torch.Tensor):
 
     u = (1.0 - cos_t) / safe_t2
     v = sin_t / safe_t
-    du = ((sin_t / safe_t) * safe_t2 - (1.0 - cos_t) * 2.0) / safe_t4 * w
-    dv = (safe_t * cos_t - sin_t) / safe_t3 * w
+    du = (((sin_t / safe_t) * safe_t2 - (1.0 - cos_t) * 2.0) / safe_t4)[..., None] * w
+    dv = ((safe_t * cos_t - sin_t) / safe_t3)[..., None] * w
 
     K = _hat(w)
     K2 = K @ K
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
-    R_full = eye + v * K + u * K2
+    u2, v2 = u[..., None, None], v[..., None, None]
+    R_full = eye + v2 * K + u2 * K2
 
     E = _hat(eye)                                       # [3,3,3]: dK/dw_k
-    dK2 = torch.einsum("kij,jl->kil", E, K) + torch.einsum("ij,kjl->kil", K, E)
-    dR_full = (dv[:, None, None] * K[None] + v * E
-               + du[:, None, None] * K2[None] + u * dK2)
+    dK2 = (torch.einsum("kij,...jl->...kil", E, K)
+           + torch.einsum("...ij,kjl->...kil", K, E))
+    dR_full = (dv[..., :, None, None] * K[..., None, :, :] + v2[..., None] * E
+               + du[..., :, None, None] * K2[..., None, :, :]
+               + u2[..., None] * dK2)
 
-    R = torch.where(small, eye + K, R_full)
-    dR = torch.where(small, E, dR_full)
+    R = torch.where(small[..., None, None], eye + K, R_full)
+    dR = torch.where(small[..., None, None, None], E, dR_full)
     return R, dR
 
 

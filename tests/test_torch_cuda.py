@@ -23,9 +23,11 @@ import torch
 
 import _torch_stereo_cases as SC
 import _torch_track_cases as TC
+import chip_smoke as CS
 from rso_torch import kernels as K
 from rso_torch.engine import Engine
 from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
+from rso_torch.geometry import StereoCamera
 from rso_torch.synthetic import MODES, make_sequence, mode_config
 
 
@@ -377,3 +379,105 @@ def test_cuda_refine_positions_matches_the_cpu(cuda, ssd_gate):
                          f.valid.cpu(), ssd_gate=ssd_gate)
     assert torch.equal((g != xy).any(1).cpu(), (c != xy.cpu()).any(1))
     torch.testing.assert_close(g.cpu(), c, atol=1e-3, rtol=0)
+
+
+BA_CAM = StereoCamera.make(fx_l=500.0, fy_l=500.0, cx_l=320.0, cy_l=240.0,
+                           baseline=0.5)
+
+
+def _ba_problem(seed, P=8, L=256, noise=0.2):
+    """tests/test_ba.py's make_ba_problem without jax: a forward-walking
+    window, landmarks 5-30 m deep, observations with `noise` px, poses
+    perturbed by 1 cm and landmarks by 20 cm; on the CPU."""
+    from scipy.spatial.transform import Rotation
+
+    from rso_torch.ba.ba import BAProblem, _project_grid
+
+    r = np.random.default_rng(seed)
+    poses = []
+    for p in range(P):
+        Rwc = Rotation.from_rotvec([0.0, 0.002 * p, 0.0]).as_matrix().T
+        t = -Rwc @ np.array([0.01 * p, -0.005 * p, 0.4 * p])
+        poses.append(np.concatenate([Rotation.from_matrix(Rwc).as_rotvec(), t]))
+    poses = torch.tensor(np.stack(poses), dtype=torch.float32)
+    lmks = torch.tensor(np.stack([r.uniform(-8, 8, L), r.uniform(-4, 4, L),
+                                  r.uniform(5, 30, L)], -1), dtype=torch.float32)
+    pix = _project_grid(BA_CAM, poses, lmks)[0]
+    obs = pix + torch.tensor(r.normal(0, noise, tuple(pix.shape)),
+                             dtype=torch.float32)
+    poses0 = poses + torch.tensor(r.normal(0, 0.01, (P, 6)), dtype=torch.float32)
+    poses0[0] = poses[0]
+    lmks0 = lmks + torch.tensor(r.normal(0, 0.2, (L, 3)), dtype=torch.float32)
+    return BAProblem(poses0, lmks0, obs, torch.ones((P, L), dtype=torch.bool))
+
+
+BA_CASES = {"robust": {}, "least_squares": {"use_robust": False},
+            "odometry_prior": {"rel_meas": np.zeros((7, 6), np.float32),
+                               "rel_w_rot": 4e2, "rel_w_trans": 25.0},
+            "tol0": {"tol": 0.0}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BA_CASES)
+def test_cuda_bundle_adjust_matches_the_cpu(cuda, case):
+    """bundle_adjust on the card and on the CPU from the same problem, held
+    as chip_smoke.py holds them (its BA_* bounds: the CPU tests' tolerances,
+    n_iters equal or parted at the f32 noise floor of the cost)."""
+    from rso_torch.ba import bundle_adjust
+
+    prob = _ba_problem(11)
+    gprob = CS._problem_to(prob, cuda)
+    gcam = BA_CAM.to(cuda)
+    kw = dict(BA_CASES[case], max_iters=20)
+    g = bundle_adjust(gcam, gprob, **kw)
+    assert g.poses.device.type == "cuda"
+    c = bundle_adjust(BA_CAM, prob, **kw)
+    CS._same_solve(case, g, c,
+                   lambda k: bundle_adjust(gcam, gprob, **dict(kw, max_iters=k)),
+                   lambda k: bundle_adjust(BA_CAM, prob, **dict(kw, max_iters=k)),
+                   lambda p, l: bundle_adjust(BA_CAM, prob._replace(
+                       poses=p, lmks=l), **dict(kw, max_iters=0)).cost)
+
+
+@pytest.mark.gpu
+def test_cuda_bench_ba_problem(cuda):
+    """The bench's P = 8, L = 1024 problem (chip_smoke.py phase 9a)."""
+    from rso_torch.ba import bundle_adjust
+
+    seq_cam = StereoCamera.make(fx_l=718.856, fy_l=718.856, cx_l=620.5,
+                                cy_l=188.0, baseline=0.5371)
+    gcam = seq_cam.to(cuda)
+    gprob = CS._bench_ba_problem(gcam, cuda)
+    prob = CS._problem_to(gprob, torch.device("cpu"))
+    g = bundle_adjust(gcam, gprob, max_iters=15)
+    c = bundle_adjust(seq_cam, prob, max_iters=15)
+    CS._same_solve("bench", g, c,
+                   lambda k: bundle_adjust(gcam, gprob, max_iters=k),
+                   lambda k: bundle_adjust(seq_cam, prob, max_iters=k),
+                   lambda p, l: bundle_adjust(seq_cam, prob._replace(
+                       poses=p, lmks=l), max_iters=0).cost)
+    assert torch.isfinite(g.poses).all() and float(g.cost) < 1e-3
+
+
+@pytest.mark.gpu
+def test_cuda_window_solve_matches_the_cpu(cuda):
+    """Three windows as one batch on the card against the same batch on the
+    CPU, window by window (one noiseless; they stop at different
+    iterations: the batch freezes each one's carry)."""
+    from rso_torch.ba import window_sharded_bundle_adjust
+
+    probs = [_ba_problem(21), _ba_problem(22), _ba_problem(23, noise=0.0)]
+    gprobs = [CS._problem_to(p, cuda) for p in probs]
+    gcam = BA_CAM.to(cuda)
+
+    def solve(cam, ps, k=15):
+        return window_sharded_bundle_adjust(cam, ps, max_iters=k)
+
+    g, c = solve(gcam, gprobs), solve(BA_CAM, probs)
+    for w in range(3):
+        assert g[w].poses.device.type == "cuda"
+        CS._same_solve(f"window {w}", g[w], c[w],
+                       lambda k: solve(gcam, gprobs, k)[w],
+                       lambda k: solve(BA_CAM, probs, k)[w],
+                       lambda p, l: solve(BA_CAM, [probs[w]._replace(
+                           poses=p, lmks=l)], 0)[0].cost)
