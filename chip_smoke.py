@@ -80,7 +80,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
        (d) KeyframeCollector over a plain run, refine_trajectory(window=8,
            overlap=2): its windows solved as one batch on the card, ATE of
            VO and of the refined trajectory;
- 10. timing: phase 3's call times, then its device times in one profiler
+ 10. the entry points (rso_torch.cli) on the card, each main(argv) with its
+     stdout captured and the launch counters reset just before and read
+     just after; DEMO_REF from the reference's own CPU run of (a)'s argv
+     (`tests/_torch_cli.py`):
+       (a) rso-demo --synthetic --frames 30 (--out, --tum, --viz-dir,
+           --save-state): 6/3/3/2 launches a frame, valid count and ATE
+           within DEMO_REF's bounds, trajectory.html written; then --chunk 8,
+           whose KITTI and TUM files equal the per-frame run's; then
+           --load-state, whose first frame equals an Engine's given the
+           saved state;
+       (b) rso-demo --kitti on the 30 bench frames written as a KITTI
+           odometry layout (PNG, calib.txt from the bench camera, poses)
+           with configs/kitti.ini, 20 frames: the trajectory equals phase
+           8's kitti path when the calib round trip gives the bench camera
+           (else PATH_REF's bounds);
+       (c) --ba and --ba-offline on that layout with SYNTHETIC_INI (phase
+           9's configuration), 30 frames: keyframe and solve counts equal
+           phase 9b's and 9d's;
+       (d) rso-eval on (a)'s trajectory against the ground truth written
+           beside it: the ATE the demo printed;
+       (e) rso-fleet --synthetic 2 --frames 30 --chunk 8: sequence 0's
+           trajectory equals (a)'s; its JSON summary line;
+       (f) rso-stages --iters 10 at 1241x376: the span table;
+       (g) run_bench at 1241x376, 2000 points, 60 frames, 2 passes: its JSON
+           on a line of its own, the reference's keys, finite values;
+       (h) rso-demo --live on loopback (the overlay only with cv2): a
+           client sees frames on /state, the page's token, /frame.jpg, a
+           wrong token refused, and `q` on /control ends the run with 0;
+ 11. timing: phase 3's call times, then its device times in one profiler
      session, last, since a profiler session slows the process after it;
      each octave-shaped kernel is also timed at the other octaves' shapes
      (`octaves`; the null vectors at the refit's B = 2 beside B = 512), and
@@ -204,10 +232,6 @@ BA_FLOOR_RTOL = 2e-5
 BA_WINDOW_POSE_ATOL = 2e-3
 BA_WINDOW_LMK_ATOL = 3e-2
 BA_SYM_RTOL = 1e-12
-# BA iterations/s: the slope of the call time between these iteration
-# counts at tol=0, best of BA_REPS calls each, the two counts in turns
-BA_SLOPE_ITERS = (25, 75)
-BA_REPS = 3
 BA_WARM_FRAMES = 10
 # Peak rates of the H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
 # outside the tensor cores, counted for every scalar operation of the
@@ -222,6 +246,9 @@ PROFILE_ATTEMPTS = 3
 # (`floor_us`, the least a launch takes) and on kernel 5's [K,K] output
 # (`write_us`, the least a kernel that writes that output takes).
 FILL_KERNEL = "FillFunctor"
+# what the entry-point phase holds against the earlier phases' runs: each
+# engine path's StepResults by name (drive), and the BA runs' counts
+RUNS = {}
 
 
 def _nvidia_smi() -> str:
@@ -860,7 +887,7 @@ def drive(name, cfg, seq, dev, n_frames, maps=None):
     """One engine path on the card: warm-up, then n_frames from a fresh
     state with the launch counters reset just before and read just after.
     `maps`: the rectification maps.  Returns (states, results, launches,
-    ATE)."""
+    ATE); the results are also kept in RUNS[name]."""
     import torch
 
     from rso_torch.engine import Engine
@@ -904,6 +931,7 @@ def drive(name, cfg, seq, dev, n_frames, maps=None):
                 raise AssertionError(f"{name}: StepResult.{field} on {t.device}")
         if not torch.isfinite(r.pose).all():
             raise AssertionError(f"{name}: non-finite pose")
+    RUNS[name] = results
     times = sorted(a.elapsed_time(b) for a, b in step_ms[1:])
     med = times[len(times) // 2]
     ate = _ate(results, seq.poses)
@@ -1347,52 +1375,10 @@ def _same_solve(what, card, cpu, rerun_card, rerun_cpu, cost_on_cpu,
 
 def _bench_ba_problem(cam, dev):
     """rso/cli/bench.py:144-152's problem (P = 8, L = 1024, from
-    default_rng(0)), its observations from the port's _project_grid."""
-    import numpy as np
-    import torch
+    default_rng(0)), as run_bench builds it."""
+    from rso_torch.cli.bench import bench_ba_problem
 
-    from rso_torch.ba.ba import BAProblem, _project_grid
-
-    rng = np.random.default_rng(0)
-    P, L = 8, 1024
-    poses0 = torch.zeros((P, 6), dtype=torch.float32)
-    poses0[:, 5] = torch.arange(P, dtype=torch.float32) * -0.4
-    lmks0 = torch.from_numpy(np.stack([rng.uniform(-10, 10, L),
-                                       rng.uniform(-5, 5, L),
-                                       rng.uniform(5, 40, L)], -1)
-                             .astype(np.float32))
-    poses0, lmks0 = poses0.to(dev), lmks0.to(dev)
-    obs = _project_grid(cam.to(dev), poses0, lmks0)[0]
-    return BAProblem(poses=poses0 + 0.01, lmks=lmks0 + 0.05, obs=obs,
-                     mask=torch.ones((P, L), dtype=torch.bool, device=dev))
-
-
-def _ba_iters_per_sec(cam, prob) -> dict:
-    """BA iterations/s on the card: the slope of bundle_adjust's call time
-    (CUDA events) between BA_SLOPE_ITERS iterations at tol=0."""
-    import torch
-
-    from rso_torch.ba import bundle_adjust
-
-    lo, hi = BA_SLOPE_ITERS
-    best = {lo: float("inf"), hi: float("inf")}
-    bundle_adjust(cam, prob, max_iters=lo, tol=0.0)        # warm-up
-    for _ in range(BA_REPS):
-        for n in (lo, hi):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            out = bundle_adjust(cam, prob, max_iters=n, tol=0.0)
-            b.record()
-            b.synchronize()
-            if int(out.n_iters) != n:
-                raise AssertionError(f"tol=0 ran {int(out.n_iters)} of {n}")
-            best[n] = min(best[n], a.elapsed_time(b))
-    dt = best[hi] - best[lo]
-    if not dt > 0:
-        raise AssertionError(f"BA slope not positive: {best}")
-    return {"ms": best, "ms_per_iter": dt / (hi - lo),
-            "iters_per_sec": (hi - lo) / dt * 1e3}
+    return bench_ba_problem(cam, dev)
 
 
 def _problem_to(prob, dev):
@@ -1441,6 +1427,7 @@ def run_ba(seq, dev):
     import rso_torch.ba.window as window_mod
     from rso_torch.ba import (KeyframeCollector, VOWithBA, bundle_adjust,
                               refine_trajectory, split_into_windows)
+    from rso_torch.cli.bench import BA_REPS, BA_SLOPE_ITERS, ba_slope
     from rso_torch.engine import Engine
     from rso_torch.geometry import pose_matrix
     from rso_torch.kernels import LAUNCHES
@@ -1464,7 +1451,9 @@ def run_ba(seq, dev):
                 lambda k: bundle_adjust(cam_cpu, prob_cpu, max_iters=k),
                 lambda p, l: bundle_adjust(cam_cpu, prob_cpu._replace(
                     poses=p, lmks=l), max_iters=0).cost)
-    rate = _ba_iters_per_sec(cam, prob)
+    rate = ba_slope(cam, prob)
+    if rate["iters_per_sec"] is None:
+        raise AssertionError(f"BA slope not positive: {rate['ms']}")
     print(f"ba iterations/s (P=8, L=1024, slope {BA_SLOPE_ITERS[0]}-"
           f"{BA_SLOPE_ITERS[1]} iterations at tol=0, best of {BA_REPS}): "
           f"{rate['iters_per_sec']} ({rate['ms_per_iter']} ms an iteration; "
@@ -1519,6 +1508,8 @@ def run_ba(seq, dev):
             or abs(len(costs) - r["solves"]) > BA_SLACK
             or not ate_ba <= 2 * r["ate_ba"]):
         raise AssertionError("vo_with_ba outside the reference's bounds")
+    RUNS["vo_with_ba"] = {"keyframes": n_kf, "solves": len(costs),
+                          "poses": [o.pose_wc for o in outs]}
     solve = [o.ba_cost is not None for o in outs]
     with_solve = sorted(t for t, s in zip(ms[1:], solve[1:]) if s)
     without = sorted(t for t, s in zip(ms[1:], solve[1:]) if not s)
@@ -1594,9 +1585,420 @@ def run_ba(seq, dev):
             or not ate_ref <= 2 * r["ate_refined"]):
         raise AssertionError("offline refinement: not one batch of >= 2 "
                              "windows on the card, or ATE past its bound")
+    RUNS["offline"] = {"keyframes": n, "windows": n_win, "ate_vo": ate_off,
+                       "ate_refined": ate_ref}
     print(f"phase 9 (bundle adjustment) took {time.perf_counter() - t_phase} "
           "s", flush=True)
     return launches
+
+# Phase 10, the entry points (rso_torch.cli).  DEMO_REF: the reference's own
+# CPU run of (a)'s argv, `rso-demo --synthetic --frames 30` (rso.cli.demo,
+# JAX on the CPU: `JAX_PLATFORMS=cpu PYTHONPATH=. python tests/_torch_cli.py
+# 30`): (valid frames, the ATE it prints, unrounded).  As for phases 5 and
+# 8, the port may lose up to 3 more frames and reach twice the ATE.
+N_DEMO_FRAMES = 30
+DEMO_REF = (29, 0.11118255801335822)
+DEMO_CHUNK = 8
+N_LIVE_FRAMES = 100
+LIVE_SEEN = 12
+N_STAGE_ITERS = 10
+N_BENCH_FRAMES = 60
+N_BENCH_PASSES = 2
+# rso/cli/bench.py:219-236
+BENCH_KEYS = ["fps", "fps_live_per_dispatch", "step_ms_device",
+              "fps_device_step", "ba_iters_per_sec", "ate_rmse_m",
+              "detect_ms_per_image", "detect_hbm_gbps_model",
+              "detect_hbm_util_vs_v5e_peak", "n_frames", "image", "backend",
+              "device"]
+# synthetic_config() in the reference's INI keys: the KITTI layout of the
+# bench frames runs phase 9's configuration through rso-demo
+SYNTHETIC_INI = """[MATCH]
+max_y_diff = 1.0
+sad_max_distance = 4000
+sad_max_ratio = 0.7
+enable_robust_1to1_match = true
+use_z_gate = true
+min_z = 2.0
+max_z = 25.0
+
+[IF-MATCH]
+sad_max_distance = 4000
+"""
+
+
+def _entry(main, argv, record=False):
+    """One entry point's main(argv) on the card with its stdout captured,
+    the launch counters reset just before and read just after, and (with
+    `record`) every Engine.process_frame result and every bundle_adjust
+    call of the BA pipeline kept.  Returns (rc, lines, launches, results,
+    ba calls)."""
+    import contextlib
+    import io
+
+    import torch
+
+    import rso_torch.ba.pipeline as pipeline
+    from rso_torch.engine import Engine
+    from rso_torch.kernels import LAUNCHES
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(contextlib.redirect_stdout(buf))
+        rec = ba = None
+        if record:
+            rec = stack.enter_context(CallRecorder(Engine, "process_frame"))
+            ba = stack.enter_context(CallRecorder(pipeline, "bundle_adjust"))
+        rc = main(argv)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    results = [out for _, _, out in rec.calls] if record else []
+    return rc, buf.getvalue().splitlines(), launches, results, (
+        ba.calls if record else [])
+
+
+def _chained(results):
+    """The demo's trajectory from StepResults: the identity, then each
+    valid frame's pose matrix composed on (no coast)."""
+    import numpy as np
+
+    from rso_torch.geometry import pose_matrix
+
+    T, poses = np.eye(4), [np.eye(4)]
+    for r in results:
+        if bool(r.valid):
+            T = T @ pose_matrix(r.pose).cpu().numpy()
+        poses.append(T.copy())
+    return np.stack(poses)
+
+
+def _write_kitti_layout(seq, root: Path):
+    """The bench frames as a KITTI odometry sequence: image_0, image_1 (PNG),
+    calib.txt from the bench camera and a poses file."""
+    import numpy as np
+    from PIL import Image
+
+    from rso_torch.io.trajectory import write_kitti
+
+    for eye in (0, 1):
+        (root / f"image_{eye}").mkdir(parents=True, exist_ok=True)
+    for i, frame in enumerate(seq.frames):
+        for eye in (0, 1):
+            Image.fromarray(frame[eye]).save(root / f"image_{eye}" /
+                                             f"{i:06d}.png")
+    c = {k: float(v) for k, v in zip(seq.cam._fields, seq.cam)}
+    P0 = np.array([[c["fx_l"], 0, c["cx_l"], 0], [0, c["fy_l"], c["cy_l"], 0],
+                   [0, 0, 1, 0]])
+    P1 = np.array([[c["fx_r"], 0, c["cx_r"], -c["fx_l"] * c["baseline"]],
+                   [0, c["fy_r"], c["cy_r"], 0], [0, 0, 1, 0]])
+    row = lambda P: " ".join(repr(float(v)) for v in P.ravel())  # noqa: E731
+    (root / "calib.txt").write_text(
+        f"P0: {row(P0)}\nP1: {row(P1)}\nP2: {row(P0)}\nP3: {row(P1)}\n")
+    write_kitti(str(root / "poses.txt"), seq.poses)
+    return str(root), str(root / "poses.txt")
+
+
+def _live(out: Path, have_cv2: bool):
+    """(h): rso-demo --live --pause on loopback in a thread.  A client reads
+    the page's token, single-steps three frames (`s`), resumes (`p`) until
+    /state shows LIVE_SEEN frames, pauses again and sees /state hold, reads
+    /frame.jpg, has a wrong token refused, and quits the run (`q`)."""
+    import re
+    import socket
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from rso_torch.cli import demo
+
+    with socket.socket() as sk:              # a free loopback port
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    argv = ["--synthetic", "--frames", str(N_LIVE_FRAMES), "--pause", "--live",
+            str(port), "--out", str(out / "live.txt"), "--verbosity", "0"]
+    if not have_cv2:
+        argv += ["--live-overlay", "0"]    # the overlay draws with cv2
+    box = {}
+
+    def run():
+        try:
+            box["run"] = _entry(demo.main, argv)
+        except Exception as e:               # reported below
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def http(path, data=None):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                     data=data,
+                                     method="GET" if data is None else "POST")
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def frame(until, timeout=120.0):
+        """/state's newest frame (-1 before the first) once the server
+        answers and `until(frame)` holds."""
+        t0, f = time.perf_counter(), None
+        while time.perf_counter() - t0 < timeout and th.is_alive():
+            try:
+                f = json.loads(http("/state")[1])["latest"]["frame"]
+            except (urllib.error.URLError, ConnectionError, ValueError):
+                f = None                     # the server is not up yet
+            if f is not None and until(f):
+                return f
+            time.sleep(0.1)
+        raise AssertionError(f"live: /state stopped at frame {f} "
+                             f"({box.get('error')!r})")
+
+    frame(lambda f: True)                    # the server answers
+    token = re.search(rb"/control\?t=([A-Za-z0-9_-]+)",
+                      http("/")[1]).group(1).decode()
+    ctl = lambda c: http(f"/control?t={token}", c.encode())  # noqa: E731
+    stepped = []
+    for i in range(3):
+        if ctl("s") != (200, b"ok"):
+            raise AssertionError("live: `s` refused")
+        stepped.append(frame(lambda f, i=i: f >= i))
+    ctl("p")                                 # resume
+    seen = frame(lambda f: f >= LIVE_SEEN)
+    ctl("p")                                 # pause again
+    time.sleep(1.0)
+    held = frame(lambda f: True)
+    time.sleep(1.0)
+    still = frame(lambda f: True)
+    jpg = http("/frame.jpg")
+    bad = http("/control?t=wrong", b"q")[0]
+    quit_ = ctl("q")
+    th.join(600)
+    if th.is_alive() or "error" in box:
+        raise AssertionError(f"live: the run did not end after q "
+                             f"({box.get('error')!r})")
+    rc, _, launches, _, _ = box["run"]
+    n_done = sum(1 for _ in open(out / "live.txt")) - 1
+    print(f"entry points (h) rso-demo --live --pause: /state after each `s` "
+          f"{stepped}, after `p` {seen}, paused again at {held} then {still}; "
+          f"/frame.jpg {jpg[0]} ({len(jpg[1])} bytes); /control with a wrong "
+          f"token {bad}, `q` {quit_}; the run ended with code {rc} after "
+          f"{n_done} of {N_LIVE_FRAMES} frames, launches {launches}",
+          flush=True)
+    if (rc != 0 or stepped != [0, 1, 2] or held != still or bad != 403
+            or quit_ != (200, b"ok") or n_done != still + 1
+            or (have_cv2 and (jpg[0] != 200 or jpg[1][:2] != b"\xff\xd8"))):
+        raise AssertionError("live view: a check failed")
+    return launches
+
+
+def run_entry_points(seq, dev, smi: str):
+    """Phase 10: the entry points on the card.  Returns the launches of all
+    its runs, summed."""
+    import importlib.util
+    import math
+
+    import numpy as np
+    import torch
+
+    from rso_torch.cli import bench, demo, eval as eval_, fleet, stages
+    from rso_torch.config import RSOConfig, load_config
+    from rso_torch.engine import Engine
+    from rso_torch.io import load_kitti_calib, load_state
+    from rso_torch.io.trajectory import read_kitti, write_kitti
+    from rso_torch.metrics import ate_rmse
+    from rso_torch.metrics.logging import error_name
+    from rso_torch.synthetic import make_sequence, synthetic_config
+
+    t_phase = time.perf_counter()
+    out = REPO / "build" / "chip_smoke" / "cli"
+    out.mkdir(parents=True, exist_ok=True)
+    total = collections.Counter()
+    per_frame = lambda n, O=3: {  # noqa: E731  the default path's launches
+        "corner_response": 2 * O * n, "stereo_sad_fused": O * n,
+        "track_sad_fused": O * n, "nullvec9": 2 * n, "hamming_matrix": 0,
+        "sad_matrix": 0}
+
+    # (a) rso-demo --synthetic, per frame and chunked, then resumed
+    a = {k: str(out / f"a.{k}") for k in ("txt", "tum", "npz")}
+    argv = ["--synthetic", "--frames", str(N_DEMO_FRAMES), "--out", a["txt"],
+            "--tum", a["tum"], "--viz-dir", str(out / "viz"), "--save-state",
+            a["npz"], "--verbosity", "0"]
+    rc, lines, launches, results, _ = _entry(demo.main, argv, record=True)
+    total.update(launches)
+    expect_launches("rso-demo", launches, exact=per_frame(N_DEMO_FRAMES))
+    dseq = make_sequence(n_frames=N_DEMO_FRAMES, n_points=2000)
+    gt_path = str(out / "a_gt.txt")
+    write_kitti(gt_path, dseq.poses)
+    est = read_kitti(a["txt"])
+    n_valid = sum(bool(r.valid) for r in results)
+    ate = ate_rmse(est[:N_DEMO_FRAMES], dseq.poses)
+    fps_line = next(x for x in lines if "FPS" in x)
+    a_ate = next(x for x in lines if x.startswith("[rso] ATE RMSE"))
+    print(f"entry points (a) rso-demo --synthetic --frames {N_DEMO_FRAMES}: "
+          f"rc {rc}, valid {n_valid} (reference {DEMO_REF[0]}), ATE {ate} m "
+          f"(reference {DEMO_REF[1]}); '{fps_line}' '{a_ate}' on {smi}; "
+          f"launches {launches}", flush=True)
+    if (rc != 0 or n_valid < DEMO_REF[0] - 3 or not ate <= 2 * DEMO_REF[1]
+            or len(results) != N_DEMO_FRAMES
+            or not (out / "viz" / "trajectory.html").is_file()):
+        raise AssertionError("rso-demo: outside the reference's bounds, or "
+                             "no trajectory.html")
+    c = {k: str(out / f"chunk.{k}") for k in ("txt", "tum")}
+    rc, lines, launches, _, _ = _entry(demo.main, argv[:3] + [
+        "--chunk", str(DEMO_CHUNK), "--out", c["txt"], "--tum", c["tum"],
+        "--verbosity", "0"])
+    total.update(launches)
+    expect_launches("rso-demo --chunk", launches, exact=per_frame(N_DEMO_FRAMES))
+    same = all(Path(a[k]).read_bytes() == Path(c[k]).read_bytes()
+               for k in ("txt", "tum"))
+    print(f"entry points (a) rso-demo --chunk {DEMO_CHUNK}: rc {rc}, "
+          f"trajectory (KITTI and TUM files) equal to the per-frame run's: "
+          f"{same}; '{next(x for x in lines if 'FPS' in x)}' on {smi}",
+          flush=True)
+    if rc != 0 or not same:
+        raise AssertionError("rso-demo --chunk: not the per-frame trajectory")
+    rc, lines, launches, resumed, _ = _entry(demo.main, argv[:3] + [
+        "--load-state", a["npz"], "--out", str(out / "resumed.txt"),
+        "--verbosity", "1"], record=True)
+    total.update(launches)
+    direct = Engine(synthetic_config(), dseq.cam)
+    direct.state = load_state(a["npz"], synthetic_config())
+    first = direct.process_frame(*dseq.frames[0])
+    same = all(torch.equal(x, y) for x, y in zip(first, resumed[0]))
+    print(f"entry points (a) rso-demo --load-state: rc {rc}, first frame "
+          f"'{lines[0]}', equal to an Engine given the saved state: {same}",
+          flush=True)
+    if rc != 0 or not same or int(first.error_code) == 5 or \
+            error_name(first.error_code) not in lines[0]:
+        raise AssertionError("rso-demo --load-state did not resume")
+
+    # (b) rso-demo --kitti on the bench frames at full width
+    kdir, kposes = _write_kitti_layout(seq, out / "kitti")
+    kcam = load_kitti_calib(str(Path(kdir) / "calib.txt"))
+    same_cam = all(torch.equal(x, y) for x, y in zip(kcam, seq.cam))
+    kitti_ini = str(REPO / "configs" / "kitti.ini")
+    same_cfg = load_config(kitti_ini, base=RSOConfig()) == load_config(kitti_ini)
+    rc, lines, launches, results, _ = _entry(demo.main, [
+        "--kitti", kdir, "--poses", kposes, "--config", kitti_ini,
+        "--frames", str(N_PATH_FRAMES), "--out", str(out / "b.txt"),
+        "--verbosity", "0"], record=True)
+    total.update(launches)
+    expect_launches("rso-demo --kitti", launches,
+                    exact=per_frame(N_PATH_FRAMES))
+    write_kitti(str(out / "b_phase8.txt"), _chained(RUNS["kitti"]))
+    equal = (out / "b.txt").read_bytes() == (out / "b_phase8.txt").read_bytes()
+    n_valid = sum(bool(r.valid) for r in results)
+    ate_b = _ate(results, seq.poses)
+    print(f"entry points (b) rso-demo --kitti at {W}x{H}: rc {rc}, calib "
+          f"round trip gives the bench camera: {same_cam}, the demo's config "
+          f"is phase 8's: {same_cfg}, trajectory equal to phase 8's kitti "
+          f"path: {equal}; valid {n_valid}, ATE {ate_b} m (reference "
+          f"{PATH_REF['kitti']}); "
+          f"'{next(x for x in lines if 'FPS' in x)}' on {smi}", flush=True)
+    if rc != 0 or not same_cfg:
+        raise AssertionError("rso-demo --kitti failed")
+    if same_cam and not equal:
+        raise AssertionError("rso-demo --kitti: not phase 8's trajectory")
+    if not same_cam and (n_valid < PATH_REF["kitti"][0] - 3
+                         or not ate_b <= 2 * PATH_REF["kitti"][1]):
+        raise AssertionError("rso-demo --kitti outside PATH_REF's bounds")
+
+    # (c) --ba and --ba-offline on the same layout with phase 9's config
+    ini = out / "synthetic.ini"
+    ini.write_text(SYNTHETIC_INI)
+    if load_config(str(ini)) != synthetic_config():
+        raise AssertionError("SYNTHETIC_INI is not synthetic_config()")
+    base = ["--kitti", kdir, "--poses", kposes, "--config", str(ini),
+            "--frames", str(N_FRAMES), "--verbosity", "0"]
+    rc, lines, launches, _, solves = _entry(
+        demo.main, base + ["--ba", "--out", str(out / "c_ba.txt")], record=True)
+    total.update(launches)
+    expect_launches("rso-demo --ba", launches, exact=per_frame(N_FRAMES))
+    n_kf = int(next(x for x in lines if "keyframes in window BA" in x)
+               .split()[1])
+    ref = RUNS["vo_with_ba"]
+    write_kitti(str(out / "c_phase9.txt"),
+                np.stack([np.eye(4)] + ref["poses"]))
+    dp = np.abs(read_kitti(str(out / "c_ba.txt"))
+                - read_kitti(str(out / "c_phase9.txt"))).max()
+    print(f"entry points (c) rso-demo --ba over {N_FRAMES} bench frames: rc "
+          f"{rc}, {n_kf} keyframes and {len(solves)} BA solves (phase 9b: "
+          f"{ref['keyframes']} and {ref['solves']}), trajectory within {dp} m"
+          f" of 9b's; '{next(x for x in lines if 'FPS' in x)}' on {smi}",
+          flush=True)
+    if rc != 0 or (n_kf, len(solves)) != (ref["keyframes"], ref["solves"]):
+        raise AssertionError("rso-demo --ba: not phase 9b's counts")
+    rc, lines, launches, _, _ = _entry(
+        demo.main, base + ["--ba-offline", "--out", str(out / "c_off.txt")])
+    total.update(launches)
+    expect_launches("rso-demo --ba-offline", launches,
+                    exact=per_frame(N_FRAMES))
+    n_kf = int(next(x for x in lines if "offline window-sharded refine" in x)
+               .split()[-2])
+    ate_line = next(x for x in lines if "VO-only ATE" in x)
+    ref = RUNS["offline"]
+    print(f"entry points (c) rso-demo --ba-offline: rc {rc}, {n_kf} "
+          f"keyframes (phase 9d: {ref['keyframes']}), '{ate_line}' (phase 9d: "
+          f"VO {ref['ate_vo']:.4f} m, refined {ref['ate_refined']:.4f} m)",
+          flush=True)
+    if rc != 0 or n_kf != ref["keyframes"]:
+        raise AssertionError("rso-demo --ba-offline: not phase 9d's count")
+
+    # (d) rso-eval on (a)'s trajectory against the ground truth beside it
+    rc, lines, _, _, _ = _entry(eval_.main, [a["txt"], gt_path])
+    print(f"entry points (d) rso-eval: rc {rc}, {lines}; the demo printed "
+          f"'{a_ate}'", flush=True)
+    if rc != 0 or not a_ate.startswith(f"[rso] {lines[0]} |"):
+        raise AssertionError("rso-eval: not the demo's ATE")
+
+    # (e) rso-fleet: two sequences, chunked; sequence 0 is (a)'s
+    fdir = out / "fleet"
+    rc, lines, launches, _, _ = _entry(fleet.main, [
+        "--synthetic", "2", "--frames", str(N_DEMO_FRAMES), "--chunk",
+        str(DEMO_CHUNK), "--out-dir", str(fdir)])
+    total.update(launches)
+    expect_launches("rso-fleet", launches,
+                    exact=per_frame(2 * N_DEMO_FRAMES))
+    summary = json.loads(lines[-1])
+    same = (fdir / "seq_synthetic_0.txt").read_bytes() == \
+        Path(a["txt"]).read_bytes()
+    print(f"entry points (e) rso-fleet on {smi}: {lines[-1]}", flush=True)
+    print(f"entry points (e) sequence 0 equal to (a)'s trajectory: {same}",
+          flush=True)
+    if rc != 0 or not same or summary["mesh_devices"] != 1:
+        raise AssertionError("rso-fleet: sequence 0 is not the demo's run")
+
+    # (f) rso-stages at the bench size
+    rc, lines, _, _, _ = _entry(stages.main, [
+        "--width", str(W), "--height", str(H), "--iters", str(N_STAGE_ITERS)])
+    print(f"entry points (f) rso-stages --iters {N_STAGE_ITERS} at {W}x{H} "
+          f"on {smi}:", flush=True)
+    for x in lines:
+        print(f"  {x}", flush=True)
+    if rc != 0 or not any(x.startswith("_stg5 (robust GN)") for x in lines):
+        raise AssertionError("rso-stages: no span table")
+
+    # (g) run_bench at the bench size
+    res = bench.run_bench(n_frames=N_BENCH_FRAMES, n_points=2000, width=W,
+                          height=H, repeat_passes=N_BENCH_PASSES)
+    print(f"entry points (g) run_bench({N_BENCH_FRAMES} frames, {W}x{H}, "
+          f"{N_BENCH_PASSES} passes) on {smi}: {json.dumps(res)}", flush=True)
+    bad = [k for k, v in res.items() if isinstance(v, float)
+           and not (math.isfinite(v) and v > 0)]
+    if (list(res) != BENCH_KEYS or bad
+            or res["detect_hbm_util_vs_v5e_peak"] is not None
+            or res["backend"] != "cuda"):
+        raise AssertionError(f"run_bench: keys {list(res)}, values not finite "
+                             f"and positive: {bad}")
+
+    # (h) --live on loopback
+    have_cv2 = importlib.util.find_spec("cv2") is not None
+    total.update(_live(out, have_cv2))
+    print(f"phase 10 (entry points) took {time.perf_counter() - t_phase} s",
+          flush=True)
+    return dict(total)
 
 
 def main() -> int:
@@ -1626,6 +2028,7 @@ def main() -> int:
     by_phase = run_engines(seq, dev)
     by_phase.update(run_new_paths(seq, dev))
     by_phase["vo_with_ba"] = run_ba(seq, dev)
+    by_phase["entry_points"] = run_entry_points(seq, dev, smi)
     time_kernels(timed)
 
     # the phase whose path each kernel's launches are read from

@@ -25,9 +25,14 @@ def _hat(w: torch.Tensor) -> torch.Tensor:
     )
 
 
-def rodrigues(w: torch.Tensor) -> torch.Tensor:
+def rodrigues(w: torch.Tensor, batch_invariant: bool = False) -> torch.Tensor:
     """R = I + v*[w]x + u*[w]x^2 with u=(1 - cos t)/t^2, v=sin t / t;
-    small angle: R = I + [w]x."""
+    small angle: R = I + [w]x.
+
+    batch_invariant forms [w]x^2 from three elementwise products: a matmul
+    sums in another order for another batch count (on the CPU and the GPU
+    alike), these in none, so a rotation has the same bits alone and in a
+    batch of any shape."""
     t2 = torch.sum(w * w, dim=-1)
     t = torch.sqrt(t2)
     small = t < _SMALL
@@ -36,7 +41,12 @@ def rodrigues(w: torch.Tensor) -> torch.Tensor:
     v = torch.where(small, torch.ones_like(t),
                     torch.sin(t) / torch.where(small, torch.ones_like(t), t))
     K = _hat(w)
-    K2 = K @ K
+    if batch_invariant:
+        K2 = (K[..., :, 0, None] * K[..., None, 0, :]
+              + K[..., :, 1, None] * K[..., None, 1, :]
+              + K[..., :, 2, None] * K[..., None, 2, :])
+    else:
+        K2 = K @ K
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
     R_full = eye + v[..., None, None] * K + u[..., None, None] * K2
     R_small = eye + K

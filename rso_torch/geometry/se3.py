@@ -11,10 +11,13 @@ from rso_torch.geometry.rotations import rodrigues, rotvec_from_matrix
 
 
 def pose_matrix(pose6: torch.Tensor) -> torch.Tensor:
-    """4x4 homogeneous matrix of a [w,t] 6-vector."""
-    T = torch.eye(4, dtype=pose6.dtype, device=pose6.device)
-    T[:3, :3] = rodrigues(pose6[:3])
-    T[:3, 3] = pose6[3:]
+    """4x4 homogeneous matrix of a [w,t] 6-vector; [...,4,4] of a [...,6]
+    batch (the reference's jax.vmap(pose_matrix)), in one set of launches.
+    A pose's matrix has the same bits alone and in any batch."""
+    T = torch.eye(4, dtype=pose6.dtype, device=pose6.device).repeat(
+        *pose6.shape[:-1], 1, 1)
+    T[..., :3, :3] = rodrigues(pose6[..., :3], batch_invariant=True)
+    T[..., :3, 3] = pose6[..., 3:]
     return T
 
 

@@ -1,3 +1,3 @@
-from rso_torch.metrics.ate import ate_rmse
+from rso_torch.metrics.ate import ate_rmse, rpe
 
-__all__ = ["ate_rmse"]
+__all__ = ["ate_rmse", "rpe"]

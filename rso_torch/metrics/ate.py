@@ -1,5 +1,6 @@
-"""Absolute trajectory error (host numpy): a copy of rso/metrics/ate.py
-`ate_rmse`, which cannot be imported here because `rso` loads jax."""
+"""Trajectory evaluation (host numpy): ATE (absolute trajectory error) and
+RPE (relative pose error), a copy of rso/metrics/ate.py, which cannot be
+imported here because `rso` loads jax."""
 from __future__ import annotations
 
 import numpy as np
@@ -33,3 +34,23 @@ def ate_rmse(est_poses: np.ndarray, gt_poses: np.ndarray,
         est = (s * (R @ est.T)).T + t
     err = est - gt
     return float(np.sqrt((err ** 2).sum(axis=1).mean()))
+
+
+def rpe(est_poses: np.ndarray, gt_poses: np.ndarray, delta: int = 1):
+    """Relative pose error over frame gaps of `delta`.
+
+    Returns (trans_rmse [m], rot_rmse [deg]).
+    """
+    est = np.asarray(est_poses)
+    gt = np.asarray(gt_poses)
+    n = min(len(est), len(gt))
+    t_errs, r_errs = [], []
+    for i in range(n - delta):
+        d_est = np.linalg.inv(est[i]) @ est[i + delta]
+        d_gt = np.linalg.inv(gt[i]) @ gt[i + delta]
+        e = np.linalg.inv(d_gt) @ d_est
+        t_errs.append(np.linalg.norm(e[:3, 3]))
+        cosang = np.clip((np.trace(e[:3, :3]) - 1) / 2, -1, 1)
+        r_errs.append(np.degrees(np.arccos(cosang)))
+    return (float(np.sqrt(np.mean(np.square(t_errs)))),
+            float(np.sqrt(np.mean(np.square(r_errs)))))
