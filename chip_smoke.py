@@ -108,7 +108,33 @@ Phases, each of which raises (and so exits non-zero) on failure:
        (h) rso-demo --live on loopback (the overlay only with cv2): a
            client sees frames on /state, the page's token, /frame.jpg, a
            wrong token refused, and `q` on /control ends the run with 0;
- 11. timing: phase 3's call times, then its device times in one profiler
+ 11. the mesh forms (rso_torch.ba.distributed, window_sharded, multihost,
+     parallel's 'seq' mesh) and the host oracles.  NCCL takes one rank per
+     card, so (a) and (d) run one NCCL rank in this process and (b)-(c)
+     run ranks of this script (`--mesh-rank`) that share the card through
+     gloo, which stages CUDA tensors through the host:
+       (a) one NCCL rank: distributed_bundle_adjust on 9a's problem equals
+           bundle_adjust bit for bit (two all_reduces an iteration and one
+           before the loop); BA iterations/s as 9a's slope, beside
+           bundle_adjust's in the same call;
+       (b) 4 gloo ranks: the same problem with its landmarks split four
+           ways, and 9d's offline windows on a (2,2) ('win','lmk') mesh,
+           each held to the one-device solve with phase 9's bounds; the
+           collectives of each group counted (none on 'win' inside the
+           loop); iterations/s as (a)'s slope, ms per all_reduce of the
+           reduced system and of the cost;
+       (c) 2 of those ranks on a 'seq' mesh: BatchEngine over two bench-
+           scene sequences (seeds 0, 1; 10 frames at 1241x376), each
+           rank's equal to an Engine alone bit for bit, 6/3/3/2 launches a
+           frame on each rank; then rso-fleet --synthetic 2 --frames 30
+           --chunk 8 over the two ranks: mesh_devices 2, trajectories equal
+           to 10e's;
+       (d) rso-demo --ba --ba-distributed on 10c's layout at one rank:
+           trajectory, keyframes and every solve equal to 10c's --ba run;
+       (e) rso_torch.native built with g++; kernel 1's FAST mask on bench
+           frame 0 at the default threshold equals the C++ FAST-12 as a
+           set, kernels 5 and 6 at K = 512 equal the C++ matrices;
+ 12. timing: phase 3's call times, then its device times in one profiler
      session, last, since a profiler session slows the process after it;
      each octave-shaped kernel is also timed at the other octaves' shapes
      (`octaves`; the null vectors at the refit's B = 2 beside B = 512), and
@@ -339,14 +365,18 @@ def _bound(ops: float, n_bytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _bench_scene(n_frames: int):
+def _bench_cam():
     from rso_torch.geometry import StereoCamera
+
+    return StereoCamera.make(fx_l=718.856, fy_l=718.856, cx_l=W / 2.0,
+                             cy_l=H / 2.0, baseline=0.5371)
+
+
+def _bench_scene(n_frames: int, seed: int = 0):
     from rso_torch.synthetic import make_sequence
 
-    cam = StereoCamera.make(fx_l=718.856, fy_l=718.856, cx_l=W / 2.0,
-                            cy_l=H / 2.0, baseline=0.5371)
-    return make_sequence(n_frames=n_frames, n_points=2000, H=H, W=W, cam=cam,
-                         speed=0.8)
+    return make_sequence(n_frames=n_frames, n_points=2000, H=H, W=W,
+                         cam=_bench_cam(), speed=0.8, seed=seed)
 
 
 def rank8_matrices(rng, B: int, dev):
@@ -1340,7 +1370,8 @@ def run_new_paths(seq, dev):
 
 
 def _same_solve(what, card, cpu, rerun_card, rerun_cpu, cost_on_cpu,
-                pose_atol=BA_POSE_ATOL, lmk_atol=BA_LMK_ATOL):
+                pose_atol=BA_POSE_ATOL, lmk_atol=BA_LMK_ATOL,
+                sides=("card", "CPU")):
     """A BAResult of the card against the CPU's from the same inputs (the
     bounds above): rerun_*(k) solve again with max_iters=k; cost_on_cpu(
     poses, landmarks) is the CPU's cost at a solution, so the card's
@@ -1352,9 +1383,10 @@ def _same_solve(what, card, cpu, rerun_card, rerun_cpu, cost_on_cpu,
     tol = BA_COST_RTOL * abs(c_cpu) + BA_COST_ATOL
     if (dp > pose_atol or dl > lmk_atol or abs(c_card - c_cpu) > tol
             or abs(c_at - c_cpu) > tol):
-        raise AssertionError(f"{what}: card and CPU differ: poses {dp}, "
-                             f"landmarks {dl}, cost {c_card} vs {c_cpu} (the "
-                             f"card's solution on the CPU: {c_at})")
+        raise AssertionError(f"{what}: {sides[0]} and {sides[1]} differ: "
+                             f"poses {dp}, landmarks {dl}, cost {c_card} "
+                             f"vs {c_cpu} (the {sides[0]}'s solution in the "
+                             f"{sides[1]}'s cost: {c_at})")
     its = (int(card.n_iters), int(cpu.n_iters))
     conv = (bool(card.converged), bool(cpu.converged))
     floor = None
@@ -1366,8 +1398,9 @@ def _same_solve(what, card, cpu, rerun_card, rerun_cpu, cost_on_cpu,
             raise AssertionError(f"{what}: n_iters {its}, converged {conv} "
                                  f"part at iteration {k} with costs {floor} "
                                  f"above the floor {c_cpu}")
-    print(f"{what}: card vs CPU poses {dp}, landmarks {dl}, cost {c_card} "
-          f"vs {c_cpu} (the card's solution on the CPU: {c_at}), n_iters "
+    print(f"{what}: {sides[0]} vs {sides[1]} poses {dp}, landmarks {dl}, "
+          f"cost {c_card} vs {c_cpu} (the {sides[0]}'s solution in the "
+          f"{sides[1]}'s cost: {c_at}), n_iters "
           f"{its}, converged {conv}"
           + ("" if floor is None else f" (parted at the noise floor: costs "
              f"{floor} at iteration {min(its)})"), flush=True)
@@ -1571,7 +1604,7 @@ def run_ba(seq, dev):
         refined = refine_trajectory(seq.cam, col.kfs, col.kf_frame_idx, poses,
                                     window=8, overlap=2)
     batches = [(len(probs), probs[0].poses.device.type)
-               for (_, probs), _, _ in solves.calls]
+               for (_, probs, *_), _, _ in solves.calls]
     n = len(col.kfs)
     n_win = len(split_into_windows(n, min(8, n), min(2, min(8, n) - 1)))
     ate_off, ate_ref = _trajectory_ate(list(poses), gt), _trajectory_ate(
@@ -1585,8 +1618,9 @@ def run_ba(seq, dev):
             or not ate_ref <= 2 * r["ate_refined"]):
         raise AssertionError("offline refinement: not one batch of >= 2 "
                              "windows on the card, or ATE past its bound")
+    (_, probs, *_), kw, _ = solves.calls[0]
     RUNS["offline"] = {"keyframes": n, "windows": n_win, "ate_vo": ate_off,
-                       "ate_refined": ate_ref}
+                       "ate_refined": ate_ref, "problems": (probs, kw)}
     print(f"phase 9 (bundle adjustment) took {time.perf_counter() - t_phase} "
           "s", flush=True)
     return launches
@@ -1793,6 +1827,13 @@ def _live(out: Path, have_cv2: bool):
     return launches
 
 
+def _per_frame(n: int, O: int = 3) -> dict:
+    """The default path's launches over n frames (6/3/3/2 a frame)."""
+    return {"corner_response": 2 * O * n, "stereo_sad_fused": O * n,
+            "track_sad_fused": O * n, "nullvec9": 2 * n, "hamming_matrix": 0,
+            "sad_matrix": 0}
+
+
 def run_entry_points(seq, dev, smi: str):
     """Phase 10: the entry points on the card.  Returns the launches of all
     its runs, summed."""
@@ -1815,10 +1856,7 @@ def run_entry_points(seq, dev, smi: str):
     out = REPO / "build" / "chip_smoke" / "cli"
     out.mkdir(parents=True, exist_ok=True)
     total = collections.Counter()
-    per_frame = lambda n, O=3: {  # noqa: E731  the default path's launches
-        "corner_response": 2 * O * n, "stereo_sad_fused": O * n,
-        "track_sad_fused": O * n, "nullvec9": 2 * n, "hamming_matrix": 0,
-        "sad_matrix": 0}
+    per_frame = _per_frame
 
     # (a) rso-demo --synthetic, per frame and chunked, then resumed
     a = {k: str(out / f"a.{k}") for k in ("txt", "tum", "npz")}
@@ -1930,6 +1968,8 @@ def run_entry_points(seq, dev, smi: str):
           flush=True)
     if rc != 0 or (n_kf, len(solves)) != (ref["keyframes"], ref["solves"]):
         raise AssertionError("rso-demo --ba: not phase 9b's counts")
+    RUNS["demo_ba"] = {"argv": base + ["--ba"], "out": out / "c_ba.txt",
+                       "keyframes": n_kf, "solves": [r for _, _, r in solves]}
     rc, lines, launches, _, _ = _entry(
         demo.main, base + ["--ba-offline", "--out", str(out / "c_off.txt")])
     total.update(launches)
@@ -2001,9 +2041,387 @@ def run_entry_points(seq, dev, smi: str):
     return dict(total)
 
 
+# Phase 11, the mesh forms and the host oracles.  NCCL takes one rank per
+# card, so (a) and (d) run one NCCL rank in this process, and (b)-(c) run
+# ranks of this script (`--mesh-rank`) that share the card through gloo,
+# which stages CUDA tensors through the host.  The ranks load the library
+# phase 2 built (the same sources hash to the same path).
+N_MESH_RANKS = 4
+N_SEQ_RANKS = 2
+N_SEQ_FRAMES = 10
+N_ALL_REDUCE = 50
+MESH_RANK_TIMEOUT = 300
+MESH_DIR = REPO / "build" / "chip_smoke" / "mesh"
+
+
+def _same_bits(what, a, b):
+    """Two NamedTuples of tensors, field by field, bit for bit."""
+    import torch
+
+    bad = [f for f, x, y in zip(a._fields, a, b) if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(f"{what}: {bad} differ")
+
+
+def _parted_at(a, b):
+    """The iteration where two BAResults stop apart, else None."""
+    if (int(a.n_iters), bool(a.converged)) == (int(b.n_iters),
+                                               bool(b.converged)):
+        return None
+    return min(int(a.n_iters), int(b.n_iters))
+
+
+def _to_cpu(result):
+    return type(result)(*(t.cpu() for t in result))
+
+
+def _all_reduce_ms(group, n: int, dev) -> float:
+    """ms per all_reduce of n float32 on the group (host clock to a
+    synchronize around N_ALL_REDUCE calls, after 5)."""
+    import torch
+    import torch.distributed as dist
+
+    buf = torch.ones(n, device=dev)
+    for _ in range(5):
+        dist.all_reduce(buf, group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N_ALL_REDUCE):
+        dist.all_reduce(buf, group=group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / N_ALL_REDUCE
+
+
+def mesh_rank(rank: int, world: int, work: Path) -> None:
+    """One rank of phases 11b-c (gloo; results to work/rank<R>.pt)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from rso_torch.ba import (bundle_adjust, distributed_bundle_adjust,
+                              make_mesh, make_win_mesh,
+                              window_sharded_bundle_adjust)
+    from rso_torch.ba.multihost import initialize_multihost
+    from rso_torch.cli import fleet
+    from rso_torch.cli.bench import ba_slope
+    from rso_torch.engine import Engine
+    from rso_torch.kernels import LAUNCHES, _lib
+    from rso_torch.mesh import COLLECTIVES, make_device_mesh
+    from rso_torch.parallel import BatchEngine
+    from rso_torch.synthetic import synthetic_config
+
+    _lib.load()
+    dev = torch.device("cuda")
+    out = {}
+    initialize_multihost(f"file://{work}/store", world, rank, backend="gloo")
+
+    # (b) the bench BA problem with its landmarks split `world` ways
+    cam = _bench_cam().to(dev)
+    prob = _bench_ba_problem(cam, dev)
+    mesh = make_mesh()
+    COLLECTIVES.clear()
+    got = distributed_bundle_adjust(cam, prob, mesh, max_iters=15)
+    out["ba_collectives"] = dict(COLLECTIVES)
+    one = bundle_adjust(cam, prob, max_iters=15)
+    k = _parted_at(got, one)
+    out["ba"] = [_to_cpu(got), _to_cpu(one)] + ([] if k is None else [
+        _to_cpu(distributed_bundle_adjust(cam, prob, mesh, max_iters=k)),
+        _to_cpu(bundle_adjust(cam, prob, max_iters=k))])
+    out["ba_rate"] = ba_slope(cam, prob, solve=lambda c, p, **kw:
+                              distributed_bundle_adjust(c, p, mesh, **kw))
+    P = prob.poses.shape[0]
+    out["all_reduce_ms"] = {
+        f"system ({P * P * 36 + P * 42} floats)": _all_reduce_ms(
+            mesh.get_group("lmk"), P * P * 36 + P * 42, dev),
+        "cost and bad count (2 floats)": _all_reduce_ms(
+            mesh.get_group("lmk"), 2, dev)}
+
+    # (b) phase 9d's windows on a (2, world/2) ('win','lmk') mesh
+    probs, kw = torch.load(work / "windows.pt", weights_only=False)
+    probs = [type(p)(*(None if t is None else t.to(dev) for t in p))
+             for p in probs]
+    wmesh = make_win_mesh(2, world // 2)
+    COLLECTIVES.clear()
+    wins = window_sharded_bundle_adjust(cam, probs, wmesh, **kw)
+    out["win_collectives"] = dict(COLLECTIVES)
+    batch = window_sharded_bundle_adjust(cam, probs, **kw)
+    out["win"] = []
+    for w, (a, b) in enumerate(zip(wins, batch)):
+        k = _parted_at(a, b)
+        out["win"].append([_to_cpu(a), _to_cpu(b)] + ([] if k is None else [
+            _to_cpu(window_sharded_bundle_adjust(
+                cam, probs, wmesh, **dict(kw, max_iters=k))[w]),
+            _to_cpu(window_sharded_bundle_adjust(
+                cam, probs, **dict(kw, max_iters=k))[w])]))
+    dist.destroy_process_group()
+
+    # (c) the 'seq' mesh of the first N_SEQ_RANKS ranks
+    if rank < N_SEQ_RANKS:
+        initialize_multihost(f"file://{work}/store_seq", N_SEQ_RANKS, rank,
+                             backend="gloo")
+        cfg = synthetic_config()
+        seqs = [_bench_scene(N_SEQ_FRAMES, seed=s) for s in range(N_SEQ_RANKS)]
+        lefts = np.stack([[f[0] for f in s.frames] for s in seqs])
+        rights = np.stack([[f[1] for f in s.frames] for s in seqs])
+        be = BatchEngine(cfg, seqs[0].cam, batch=N_SEQ_RANKS, img_h=H,
+                         img_w=W, mesh=make_device_mesh((N_SEQ_RANKS,),
+                                                        ("seq",)))
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        chunk = be.process_chunk(lefts, rights)
+        torch.cuda.synchronize()
+        out["seq_ms"] = (time.perf_counter() - t0) * 1e3 / N_SEQ_FRAMES
+        out["seq_launches"] = dict(LAUNCHES)
+        eng = Engine(cfg, seqs[rank].cam)
+        out["seq_sequences"] = list(be.sequences)
+        out["seq_equal"] = all(
+            torch.equal(x, y[0]) for n, (l, r) in enumerate(seqs[rank].frames)
+            for x, y in zip(eng.process_frame(l, r),
+                            type(chunk)(*(t[n] for t in chunk))))
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        with contextlib.redirect_stdout(buf):
+            out["fleet_rc"] = fleet.main([
+                "--synthetic", "2", "--frames", str(N_DEMO_FRAMES), "--chunk",
+                str(DEMO_CHUNK), "--out-dir", str(work / "fleet")])
+        torch.cuda.synchronize()
+        out["fleet_launches"] = dict(LAUNCHES)
+        out["fleet_stdout"] = buf.getvalue()
+        dist.destroy_process_group()
+    torch.save(out, work / f"rank{rank}.pt")
+
+
+def _spawn_ranks(world: int, work: Path) -> list:
+    """Run `world` ranks of this script on `work`; every rank's results.
+    Every rank started is waited for, or killed, before this returns."""
+    import torch
+
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+         str(r), str(world), str(work)], cwd=str(REPO),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=MESH_RANK_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh rank {r} failed ({p.returncode}):\n"
+                                 f"{log[-4000:]}")
+    return [torch.load(work / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _hold_solve(what, got, ref, parted, cost_at, **tol):
+    """A sharded solve against the one-device one at phase 9's bounds
+    (_same_solve): `parted` holds both again at the iteration where they
+    stop apart; cost_at(poses, landmarks) is the one-device cost there."""
+    _same_solve(what, got, ref, lambda k: parted[0], lambda k: parted[1],
+                cost_at, sides=("sharded", "one-device"), **tol)
+
+
+def run_mesh(seq, dev, smi: str) -> dict:
+    """Phase 11: the mesh forms and the host oracles.  Returns the launches
+    of its main-path runs (rank 0's of (c), and (d)'s)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import rso_torch.ba.pipeline as pipeline
+    from rso_torch import native
+    from rso_torch.ba import bundle_adjust, distributed_bundle_adjust, make_mesh
+    from rso_torch.cli import demo
+    from rso_torch.cli.bench import ba_slope
+    from rso_torch.config import RSOConfig
+    from rso_torch.frontend.detect import extract_patches
+    from rso_torch.kernels import (LAUNCHES, corner_response_cuda,
+                                   hamming_matrix_cuda, sad_matrix_cuda)
+    from rso_torch.mesh import COLLECTIVES
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    cam = seq.cam.to(dev)
+
+    # (a) one NCCL rank: the all_reduce is a copy
+    mesh = make_mesh()
+    prob = _bench_ba_problem(cam, dev)
+    one = bundle_adjust(cam, prob, max_iters=15)
+    COLLECTIVES.clear()
+    got = distributed_bundle_adjust(cam, prob, mesh, max_iters=15)
+    _same_bits("mesh (a) distributed_bundle_adjust on one NCCL rank", got, one)
+    coll = dict(COLLECTIVES)
+    rate = ba_slope(cam, prob, solve=lambda c, p, **kw:
+                    distributed_bundle_adjust(c, p, mesh, **kw))
+    plain = ba_slope(cam, prob)
+    print(f"mesh (a) one {dist.get_backend()} rank: distributed_bundle_adjust "
+          f"(P=8, L=1024, 15 iterations) equals bundle_adjust bit for bit; "
+          f"{int(got.n_iters)} iterations, collectives {coll}; BA "
+          f"iterations/s (slope 25-75 at tol=0) {rate['iters_per_sec']} "
+          f"({rate['ms_per_iter']} ms an iteration), bundle_adjust's in the "
+          f"same call {plain['iters_per_sec']} ({plain['ms_per_iter']} ms) "
+          f"on {smi}", flush=True)
+    if rate["iters_per_sec"] is None or dist.get_backend() != "nccl":
+        raise AssertionError("mesh (a): no NCCL group, or no positive slope")
+
+    # (b), (c): ranks sharing the card through gloo
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    probs, kw = RUNS["offline"]["problems"]
+    torch.save(([type(p)(*(None if t is None else t.cpu() for t in p))
+                 for p in probs], kw), MESH_DIR / "windows.pt")
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(N_MESH_RANKS, MESH_DIR)
+    print(f"mesh (b)-(c): {N_MESH_RANKS} gloo ranks on the card took "
+          f"{time.perf_counter() - t0} s", flush=True)
+    def cost_at(p, l, prob=prob, **kw):
+        """The one-device cost of a problem at (poses, landmarks)."""
+        return bundle_adjust(cam, prob._replace(poses=p.to(dev),
+                                                lmks=l.to(dev)),
+                             max_iters=0, **kw).cost.cpu()
+
+    wkw = {k: kw[k] for k in ("rel_w_rot", "rel_w_trans")}
+    for r, o in enumerate(ranks):
+        ours, ref, *parted = o["ba"]
+        _hold_solve(f"mesh (b) rank {r}: the bench BA problem on "
+                    f"{N_MESH_RANKS} ranks vs one", ours, ref, parted,
+                    cost_at)
+        _same_bits(f"mesh (b) rank {r} vs rank 0", ours, ranks[0]["ba"][0])
+        n = int(ours.n_iters)
+        expect = {"solve lmk": 1 + 2 * n, "gather lmk": 1}
+        if o["ba_collectives"] != expect:
+            raise AssertionError(f"mesh (b) rank {r}: collectives "
+                                 f"{o['ba_collectives']}, expected {expect}")
+        for w, (ours, ref, *parted) in enumerate(o["win"]):
+            _hold_solve(f"mesh (b) rank {r}: offline window {w} on the (2,"
+                        f"{N_MESH_RANKS // 2}) mesh vs the batch", ours, ref,
+                        parted, lambda p, l, w=w: cost_at(
+                            p, l, probs[w], rel_meas=kw["rel_meas"][w],
+                            **wkw),
+                        pose_atol=BA_WINDOW_POSE_ATOL,
+                        lmk_atol=BA_WINDOW_LMK_ATOL)
+        c = o["win_collectives"]
+        if any(key.startswith("solve win") for key in c) or c.get(
+                "gather win") != 1 or c.get("gather lmk") != 1:
+            raise AssertionError(f"mesh (b) rank {r}: window collectives {c}")
+    r0 = ranks[0]
+    print(f"mesh (b) rank 0: collectives of the BA {r0['ba_collectives']}, "
+          f"of the windows {r0['win_collectives']} (none on 'win' in the "
+          f"loop); BA iterations/s (slope 25-75 at tol=0) "
+          f"{r0['ba_rate']['iters_per_sec']} ({r0['ba_rate']['ms_per_iter']} "
+          f"ms an iteration); ms per all_reduce {r0['all_reduce_ms']}; every "
+          f"rank: {[o['ba_rate']['iters_per_sec'] for o in ranks]} "
+          f"iterations/s on {smi}", flush=True)
+
+    fleet_ref = REPO / "build" / "chip_smoke" / "cli" / "fleet"
+    for r, o in enumerate(ranks[:N_SEQ_RANKS]):
+        expect_launches(f"mesh (c) rank {r} BatchEngine", o["seq_launches"],
+                        exact=_per_frame(N_SEQ_FRAMES))
+        expect_launches(f"mesh (c) rank {r} rso-fleet", o["fleet_launches"],
+                        exact=_per_frame(N_DEMO_FRAMES))
+        print(f"mesh (c) rank {r}: sequences {o['seq_sequences']}, equal to "
+              f"an Engine alone: {o['seq_equal']}, {o['seq_ms']} ms a frame; "
+              f"launches {o['seq_launches']}, rso-fleet's {o['fleet_launches']}",
+              flush=True)
+        if o["seq_sequences"] != [r] or not o["seq_equal"] or o["fleet_rc"]:
+            raise AssertionError(f"mesh (c) rank {r}: not an Engine alone")
+    total.update(r0["seq_launches"])
+    total.update(r0["fleet_launches"])
+    summary = json.loads(r0["fleet_stdout"].splitlines()[-1])
+    same = all((MESH_DIR / "fleet" / f).read_bytes()
+               == (fleet_ref / f).read_bytes()
+               for f in ("seq_synthetic_0.txt", "seq_synthetic_1.txt"))
+    print(f"mesh (c) rso-fleet over {N_SEQ_RANKS} ranks on {smi}: "
+          f"{json.dumps(summary)}; trajectories equal to phase 10e's: {same}",
+          flush=True)
+    if (summary["mesh_devices"] != N_SEQ_RANKS or not same
+            or ranks[1]["fleet_stdout"] != ""):
+        raise AssertionError("mesh (c) rso-fleet: not phase 10e's run")
+
+    # (d) rso-demo --ba --ba-distributed: phase 10c's run, at one rank
+    ref = RUNS["demo_ba"]
+    d_out = MESH_DIR / "d_ba.txt"
+    with CallRecorder(pipeline, "distributed_bundle_adjust") as solves:
+        rc, lines, launches, _, _ = _entry(demo.main, ref["argv"] + [
+            "--ba-distributed", "--out", str(d_out)])
+    total.update(launches)
+    expect_launches("mesh (d) rso-demo --ba --ba-distributed", launches,
+                    exact=_per_frame(N_FRAMES))
+    n_kf = int(next(x for x in lines if "keyframes in window BA" in x)
+               .split()[1])
+    same_traj = d_out.read_bytes() == ref["out"].read_bytes()
+    outs = [o for _, _, o in solves.calls]
+    same_solves = len(outs) == len(ref["solves"]) and all(
+        all(torch.equal(x, y) for x, y in zip(a, b))
+        for a, b in zip(outs, ref["solves"]))
+    print(f"mesh (d) rso-demo --ba --ba-distributed: rc {rc}, {n_kf} "
+          f"keyframes and {len(outs)} solves (10c: {ref['keyframes']} and "
+          f"{len(ref['solves'])}), trajectory equal to 10c's: {same_traj}, "
+          f"every solve equal to 10c's: {same_solves}; launches {launches}",
+          flush=True)
+    if rc != 0 or not same_traj or not same_solves or n_kf != ref["keyframes"]:
+        raise AssertionError("mesh (d): --ba-distributed is not --ba's run")
+    dist.destroy_process_group()
+
+    # (e) the host oracles against kernels 1, 5 and 6 (not counted)
+    t0 = time.perf_counter()
+    if not native.available():
+        native._load()          # raises with the compiler's message
+    print(f"mesh (e) rso_torch.native built and loaded in "
+          f"{time.perf_counter() - t0} s", flush=True)
+    frame = seq.frames[0][0]
+    th = RSOConfig().detect.initial_FAST_threshold
+    resp = corner_response_cuda(torch.from_numpy(frame).to(dev).float(), th)
+    ys, xs = np.nonzero(torch.isfinite(resp).cpu().numpy())
+    ours = set(zip(xs.tolist(), ys.tolist()))
+    theirs = set(map(tuple, native.fast_detect(frame, th, arc=12).tolist()))
+    rng = np.random.default_rng(11)
+    K = 512
+    xy = np.stack([rng.integers(4, W - 5, K), rng.integers(4, H - 5, K)], -1)
+    img = torch.from_numpy(frame).to(dev).float()
+    pa = extract_patches(img, torch.from_numpy(xy[:, :]).float().to(dev))
+    pb = extract_patches(torch.from_numpy(seq.frames[1][0]).to(dev).float(),
+                         torch.from_numpy(xy[::-1].copy()).float().to(dev))
+    sad = sad_matrix_cuda(pa, pb).cpu().numpy()
+    sad_ref = native.sad_matrix(pa.cpu().numpy().astype(np.uint8),
+                                pb.cpu().numpy().astype(np.uint8))
+    da = rng.integers(0, 2**32, (K, 8), dtype=np.uint32)
+    db = rng.integers(0, 2**32, (K, 8), dtype=np.uint32)
+    ham = hamming_matrix_cuda(torch.from_numpy(da.view(np.int32)).to(dev),
+                              torch.from_numpy(db.view(np.int32)).to(dev))
+    ham_ref = native.hamming_matrix(da, db)
+    ok = (ours == theirs,
+          np.array_equal(sad.astype(np.uint32), sad_ref),
+          np.array_equal(ham.cpu().numpy().astype(np.uint32), ham_ref))
+    print(f"mesh (e) oracles: kernel 1's FAST mask at threshold {th} on bench "
+          f"frame 0 ({W}x{H}): {len(ours)} corners, the C++ FAST-12's "
+          f"{len(theirs)}, equal as sets: {ok[0]}; kernel 6 at K={K}: equal "
+          f"to native.sad_matrix: {ok[1]}; kernel 5 at K={K}, W=8: equal to "
+          f"native.hamming_matrix: {ok[2]}", flush=True)
+    if not all(ok) or not theirs:
+        raise AssertionError("mesh (e): a kernel differs from its C++ oracle")
+    print(f"phase 11 (mesh forms and oracles) took "
+          f"{time.perf_counter() - t_phase} s", flush=True)
+    return dict(total)
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 5 and sys.argv[1] == "--mesh-rank":
+        mesh_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -2029,6 +2447,7 @@ def main() -> int:
     by_phase.update(run_new_paths(seq, dev))
     by_phase["vo_with_ba"] = run_ba(seq, dev)
     by_phase["entry_points"] = run_entry_points(seq, dev, smi)
+    by_phase["mesh"] = run_mesh(seq, dev, smi)
     time_kernels(timed)
 
     # the phase whose path each kernel's launches are read from

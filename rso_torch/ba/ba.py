@@ -274,13 +274,18 @@ def ba_normal_equations(cam: StereoCamera, prob: BAProblem,
 
 
 def _schur_solve(g_p, g_l, H_pp, H_ll, H_pl, lm_lambda, fix_first: bool,
-                 lmk_valid, prior=None):
+                 lmk_valid, prior=None, reduce=None):
     """Schur-complement reduced camera solve + landmark back-substitution.
 
     Returns (dpose [P,6], dlmk [L,3]).  lm_lambda is a number or a tensor
     of the batch shape.  The [6P,6P] solve is torch.linalg.solve_ex with
     its status ignored: a singular system gives non-finite steps, which the
     LM loop rejects, as it does the reference's jnp.linalg.solve.
+
+    reduce: None on one device; with the landmarks sharded over a mesh,
+    the sum over the shards of (g_p, H_pp, the Schur cross term, W g_l),
+    the four landmark sums the reference psums (rso/ba/distributed.py:
+    132-133, 146-148).  Everything after it is replicated.
     """
     P = g_p.shape[-2]
     dt, dev = g_p.dtype, g_p.device
@@ -300,11 +305,15 @@ def _schur_solve(g_p, g_l, H_pp, H_ll, H_pl, lm_lambda, fix_first: bool,
     # W_l = H_pl H_ll^-1  [P,L,6,3]
     W = torch.einsum("...pljk,...lkm->...pljm", H_pl, H_ll_inv)
     # S = H_pp - sum_l W H_pl^T  (cross-pose blocks)  [P,P,6,6]
-    S = -torch.einsum("...pljm,...qlkm->...pqjk", W, H_pl)
+    cross = torch.einsum("...pljm,...qlkm->...pqjk", W, H_pl)
+    # reduced gradient: g_p - sum_l W g_l
+    Wg = (W * g_l[..., None, :, None, :]).sum((-3, -1))
+    if reduce is not None:
+        g_p, H_pp, cross, Wg = reduce(g_p, H_pp, cross, Wg)
+    S = -cross
     diag = torch.arange(P, device=dev)
     S[..., diag, diag, :, :] += H_pp + lam * eye6
-    # reduced gradient: g_p - sum_l W g_l
-    b = g_p - (W * g_l[..., None, :, None, :]).sum((-3, -1))
+    b = g_p - Wg
 
     # odometry / marginalization prior (pose-only): add before the gauge fix
     if prior is not None:
@@ -339,7 +348,8 @@ def levenberg_marquardt(cam: StereoCamera, prob: BAProblem, max_iters: int,
                         kernel_param: float, use_robust: bool,
                         fix_first: bool, init_lambda: float, tol: float,
                         rel_meas=None, rel_w_rot: float = 0.0,
-                        rel_w_trans: float = 0.0, marg_prior=None) -> BAResult:
+                        rel_w_trans: float = 0.0, marg_prior=None,
+                        reduce=None, active=None) -> BAResult:
     """The LM loop over a problem with leading batch dimensions (none for
     one window).
 
@@ -347,7 +357,16 @@ def levenberg_marquardt(cam: StereoCamera, prob: BAProblem, max_iters: int,
     `max_iters` iterations, keeps its whole carry (iteration count
     included) while the others go on, as the reference's vmapped
     while_loop does; the loop ends when no window is left.  `tol=0` runs
-    exactly `max_iters` iterations.
+    exactly `max_iters` iterations.  A window where `active` (batch shape)
+    is False starts done: a padding slot.
+
+    reduce: None on one device.  Where `prob` holds this rank's shard of
+    the landmarks, reduce(*tensors) returns each tensor summed over the
+    shards (rso_torch.ba.distributed): it is called once for the normal
+    equations' landmark sums and once for the cost with the count of
+    non-finite landmarks, so every decision below is taken from reduced
+    values and replicated poses, the same on every rank.  The pose-only
+    priors are added after the reduction, once.
     """
     lmk_valid = prob.mask.any(-2)                       # [...,L]
     dt, dev = prob.poses.dtype, prob.poses.device
@@ -366,7 +385,8 @@ def levenberg_marquardt(cam: StereoCamera, prob: BAProblem, max_iters: int,
         dx = (poses - mlin).flatten(-2)
         return dx, (mHf * dx[..., None, :]).sum(-1)
 
-    def eval_cost(poses, lmks):
+    def eval_cost(poses, lmks, *extra):
+        """The cost, and `extra` (landmark sums) reduced with it."""
         R, _ = rodrigues_with_grad(poses[..., :3])
         pix = _pixels(cam, R, poses, lmks)[0]
         r2 = torch.sum((prob.obs - pix) ** 2, dim=-1)
@@ -375,21 +395,24 @@ def levenberg_marquardt(cam: StereoCamera, prob: BAProblem, max_iters: int,
         if prob.lmk_weight is not None:
             m = m * prob.lmk_weight[..., None, :]
         cost = torch.sum(m * fi, dim=(-2, -1))
+        if reduce is not None:
+            cost, *extra = reduce(cost, *extra)
         if use_prior:
             e = _relpose_residuals(poses, rel_meas)
             cost = cost + 0.5 * torch.sum(e * e * W_rel, dim=(-2, -1))
         if marg_prior is not None:
             dx, Hdx = marg_step(poses)
             cost = cost + 0.5 * (dx * Hdx).sum(-1) - (mbf * dx).sum(-1)
-        return cost
+        return cost, *extra
 
     tol32 = _f32(tol)
     poses, lmks = prob.poses, prob.lmks
     batch = poses.shape[:-2]
     it = torch.zeros(batch, dtype=torch.int32, device=dev)
-    done = torch.zeros(batch, dtype=torch.bool, device=dev)
+    done = (torch.zeros(batch, dtype=torch.bool, device=dev) if active is None
+            else ~active)
     lam = torch.full(batch, _f32(init_lambda), dtype=torch.float32, device=dev)
-    cost = eval_cost(poses, lmks)
+    cost, = eval_cost(poses, lmks)
     for n in range(max_iters):
         p = prob._replace(poses=poses, lmks=lmks)
         _c, g_p, g_l, H_pp, H_ll, H_pl, _r2, _m = ba_normal_equations(
@@ -405,12 +428,15 @@ def levenberg_marquardt(cam: StereoCamera, prob: BAProblem, max_iters: int,
             prior = (mH, g_m) if prior is None else (prior[0] + mH,
                                                      prior[1] + g_m)
         dpose, dlmk = _schur_solve(g_p, g_l, H_pp, H_ll, H_pl, lam,
-                                   fix_first, lmk_valid, prior=prior)
+                                   fix_first, lmk_valid, prior=prior,
+                                   reduce=reduce)
         new_poses = poses + dpose
         new_lmks = lmks + dlmk * lmk_valid[..., None]
-        new_cost = eval_cost(new_poses, new_lmks)
+        n_bad = (~torch.isfinite(new_lmks)).flatten(-2).sum(
+            -1, dtype=torch.float32)
+        new_cost, n_bad = eval_cost(new_poses, new_lmks, n_bad)
         accept = ((new_cost < cost) & torch.isfinite(new_cost)
-                  & _all_finite(new_poses, 2) & _all_finite(new_lmks, 2))
+                  & _all_finite(new_poses, 2) & (n_bad == 0))
         step = torch.sqrt(torch.sum(dpose ** 2, dim=(-2, -1)))
 
         live = ~done                # windows still iterating take the step

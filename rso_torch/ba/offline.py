@@ -2,10 +2,9 @@
 
 Counterpart of rso/ba/offline.py: a completed VO run's keyframes split into
 overlapping windows, all windows solve at once (rso_torch.ba.window_sharded:
-the windows are a batch dimension on one device, where the reference
-spreads them over a ('win','lmk') mesh), the solved windows stitch back
-into one trajectory, and each keyframe's correction propagates to the
-frames that follow it.
+over a ('win','lmk') mesh where one is given, else as a batch dimension on
+one device), the solved windows stitch back into one trajectory, and each
+keyframe's correction propagates to the frames that follow it.
 """
 from __future__ import annotations
 
@@ -14,13 +13,13 @@ import numpy as np
 from rso_torch.ba.pipeline import keyframe_obs_from_state
 from rso_torch.ba.window import KeyframeObs, SlidingWindow
 from rso_torch.ba.window_sharded import (
-    MESH_ERROR,
     split_into_windows,
     stitch_window_poses,
     window_sharded_bundle_adjust,
 )
 from rso_torch.engine import _device
 from rso_torch.geometry.stereo_camera import StereoCamera
+from rso_torch.mesh import check_mesh
 
 
 def refine_trajectory(
@@ -44,10 +43,13 @@ def refine_trajectory(
     rso_torch.ba.pipeline.keyframe_obs_from_state) and their frame indices.
     Returns [N,4,4] refined camera-to-world poses (vo_poses unchanged when
     there are too few keyframes to form a window).  The windows solve on
-    `device`, the GPU unless the caller passes "cpu" (raises without CUDA).
+    `device`, the GPU unless the caller passes "cpu" (raises without CUDA):
+    over `mesh` (rso_torch.ba.window_sharded.make_win_mesh; every rank of
+    it calling with the same keyframes) where one is given, else as one
+    batch.
     """
     if mesh is not None:
-        raise ValueError(MESH_ERROR)
+        check_mesh(mesh, ("win", "lmk"))
     dev = _device(device)
     if not isinstance(cam, StereoCamera):
         cam = StereoCamera.from_numpy(cam)
@@ -74,7 +76,7 @@ def refine_trajectory(
         rels.append(win.rel_measurements())
 
     outs = window_sharded_bundle_adjust(
-        cam, probs, max_iters=ba_iters, rel_meas=rels,
+        cam, probs, mesh, max_iters=ba_iters, rel_meas=rels,
         rel_w_rot=rel_w_rot, rel_w_trans=rel_w_trans)
 
     stitched = stitch_window_poses(

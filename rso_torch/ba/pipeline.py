@@ -16,12 +16,13 @@ import numpy as np
 import torch
 
 from rso_torch.ba.ba import bundle_adjust
+from rso_torch.ba.distributed import distributed_bundle_adjust
 from rso_torch.ba.window import KeyframeObs, SlidingWindow, should_make_keyframe
-from rso_torch.ba.window_sharded import MESH_ERROR
 from rso_torch.config import RSOConfig
 from rso_torch.engine import Engine, EngineState
 from rso_torch.geometry import pose_matrix
 from rso_torch.geometry.stereo_camera import StereoCamera
+from rso_torch.mesh import check_mesh
 
 
 def _to_host(tensors) -> list[np.ndarray]:
@@ -122,8 +123,10 @@ class BAFrameResult(NamedTuple):
 class VOWithBA:
     """Per-frame VO with keyframe-rate sliding-window BA refinement, on the
     GPU by default (raises without CUDA; device="cpu" runs the plain path).
-    A `mesh` (the reference's distributed solve) raises ValueError: the
-    port solves on one device."""
+    With a 1-D `mesh` (rso_torch.ba.distributed.make_mesh) every solve
+    shards its landmarks over the mesh's ranks, each of which runs this
+    pipeline on the same frames; as in the reference, that solve takes no
+    marginalization prior."""
 
     def __init__(self, cfg: RSOConfig, cam: StereoCamera,
                  max_keyframes: int = 8, max_landmarks: int = 1024,
@@ -135,7 +138,7 @@ class VOWithBA:
                  min_obs: int = 2, two_view_weight: float = 0.2,
                  marginalize: bool = False, device="cuda"):
         if mesh is not None:
-            raise ValueError(MESH_ERROR)
+            check_mesh(mesh, ndim=1)
         self.engine = Engine(cfg, cam, device=device)
         self.cfg = cfg
         self.cam = self.engine.cam
@@ -203,12 +206,18 @@ class VOWithBA:
                 n_shared = int(prob.mask.any(0).sum())
                 if n_shared >= 24:
                     rel = self.window.rel_measurements()
-                    out = bundle_adjust(self.cam, prob,
-                                        max_iters=self.ba_iters,
-                                        rel_meas=rel,
-                                        rel_w_rot=self.rel_w_rot,
-                                        rel_w_trans=self.rel_w_trans,
-                                        marg_prior=self.window.prior_terms())
+                    if self.mesh is not None:
+                        out = distributed_bundle_adjust(
+                            self.cam, prob, self.mesh,
+                            max_iters=self.ba_iters,
+                            rel_meas=rel, rel_w_rot=self.rel_w_rot,
+                            rel_w_trans=self.rel_w_trans)
+                    else:
+                        out = bundle_adjust(
+                            self.cam, prob, max_iters=self.ba_iters,
+                            rel_meas=rel, rel_w_rot=self.rel_w_rot,
+                            rel_w_trans=self.rel_w_trans,
+                            marg_prior=self.window.prior_terms())
                     cost, refined_poses = _to_host([out.cost, out.poses])
                     ba_cost = float(cost)
                     refined = self.window.apply_result(refined_poses)

@@ -7,8 +7,10 @@ codes) and of the reference's demo-stereo-odometry app
 engine config INI (--config, same sections/keys), per-frame loop, global pose
 composition, trajectory writing, and an ATE report when ground truth exists.
 The engine runs on the GPU unless main's caller passes device="cpu", and
-main raises where CUDA is absent.  --ba-distributed exits with code 2: the
-port solves BA on one device (no mesh).
+main raises where CUDA is absent.  --ba-distributed shards each BA solve's
+landmarks over a mesh of every rank (rso_torch.ba.distributed.make_mesh):
+under torchrun, one rank per card, each running the same demo; in a plain
+process, a one-rank mesh, whose solves equal --ba's bit for bit.
 """
 from __future__ import annotations
 
@@ -89,8 +91,8 @@ def build_parser():
     p.add_argument("--ba-window", type=int, default=8, help="BA keyframe window")
     p.add_argument("--ba-landmarks", type=int, default=1024, help="BA landmark slots")
     p.add_argument("--ba-distributed", action="store_true",
-                   help="shard BA landmarks over all local devices (not "
-                        "supported here: with --ba, exits with code 2)")
+                   help="shard BA landmarks over every rank of the "
+                        "process group (one rank without one)")
     return p
 
 
@@ -307,14 +309,17 @@ def main(argv=None, device="cuda"):
     ba = None
     if args.ba:
         from rso_torch.ba.pipeline import VOWithBA
-        from rso_torch.ba.window_sharded import MESH_ERROR
 
+        mesh = None
         if args.ba_distributed:
-            # no mesh here: refuse rather than run the one-device solve
-            print(f"[rso] --ba-distributed: {MESH_ERROR}", file=sys.stderr)
-            return 2
+            from rso_torch.ba.distributed import make_mesh
+            from rso_torch.ba.multihost import initialize_multihost
+
+            initialize_multihost()          # torchrun's ranks, if any
+            mesh = make_mesh(device=device)
         ba = VOWithBA(cfg, cam, max_keyframes=args.ba_window,
-                      max_landmarks=args.ba_landmarks, device=device)
+                      max_landmarks=args.ba_landmarks, mesh=mesh,
+                      device=device)
         ba.engine = eng
 
     collector = None

@@ -3,11 +3,18 @@
 Counterpart of rso/cli/fleet.py (same arguments, printed lines, JSON summary
 keys and return codes).  Within a sequence frame t depends on t-1, so
 parallelism happens ACROSS sequences: rso_torch.parallel.BatchEngine takes a
-[B,N,H,W] chunk, its B states through one step on one device (the GPU unless
-main's caller passes device="cpu"; raises without CUDA), so `mesh_devices`
-is 1.  An offline benchmark sweep (e.g. KITTI 00-10) becomes one process
-instead of B serial demo runs; the reference app has no analogue
-(demo-main.cpp runs exactly one stream).
+[B,N,H,W] chunk, its states through one step (on the GPU unless main's
+caller passes device="cpu"; raises without CUDA).  Under torchrun (or in
+processes that started their process group, e.g. with
+rso_torch.ba.multihost.initialize_multihost) the B sequences go over a
+'seq' mesh of every rank, one per card:
+
+    torchrun --nproc-per-node N -m rso_torch.cli.fleet --kitti ... --kitti ...
+
+`mesh_devices` is the number of ranks that step; rank 0 prints the lines and
+writes every sequence's trajectory.  An offline benchmark sweep (e.g. KITTI
+00-10) becomes one program instead of B serial demo runs; the reference app
+has no analogue (demo-main.cpp runs exactly one stream).
 
 Sources: repeated --kitti/--euroc/--malaga/--img-dir sequence dirs (all must
 share image size, calibration, and rectification maps — the step is built
@@ -144,9 +151,13 @@ def _load_sequences(args):
 def main(argv=None, device="cuda"):
     args = build_parser().parse_args(argv)
 
+    import torch.distributed as dist
+
+    from rso_torch.ba.multihost import initialize_multihost
     from rso_torch.config import load_config
     from rso_torch.engine import _device
     from rso_torch.geometry import pose_matrix
+    from rso_torch.mesh import make_device_mesh
     from rso_torch.metrics.ate import ate_rmse
     from rso_torch.parallel import BatchEngine
 
@@ -169,11 +180,16 @@ def main(argv=None, device="cuda"):
                              f"fleet is {H}x{W}: image sizes must match")
     pending = [[f] for f in firsts]  # peeked frames re-enter the stream
 
-    be = BatchEngine(cfg, cam, batch=B, img_h=H, img_w=W,
+    mesh, rank = None, 0
+    if dist.is_initialized() or initialize_multihost():
+        mesh = make_device_mesh((dist.get_world_size(),), ("seq",), device)
+        rank = dist.get_rank()
+    be = BatchEngine(cfg, cam, batch=B, img_h=H, img_w=W, mesh=mesh,
                      rectify_maps=rectify_maps, device=device)
-    n_devices = 1
-    print(f"[rso-fleet] {B} sequences x {n} frames at {W}x{H} over "
-          f"{n_devices} device(s)", file=sys.stderr)
+    n_devices = be.mesh_devices
+    if rank == 0:
+        print(f"[rso-fleet] {B} sequences x {n} frames at {W}x{H} over "
+              f"{n_devices} device(s)", file=sys.stderr)
 
     def pull(i, m):
         out = pending[i][:m]
@@ -182,22 +198,23 @@ def main(argv=None, device="cuda"):
             out.append(next(its[i]))
         return out
 
-    Ts = [np.eye(4) for _ in range(B)]
-    trajs = [[np.eye(4)] for _ in range(B)]
-    last_delta = [None] * B
+    mine = be.sequences                 # this rank's share of the B
+    Ts = [np.eye(4) for _ in mine]
+    trajs = [[np.eye(4)] for _ in mine]
+    last_delta = [None] * len(mine)
     n_valid = 0
     t0 = time.time()
     done = 0
-    while done < n:
+    while mine and done < n:
         m = min(args.chunk, n - done)
         batch = [pull(i, m) for i in range(B)]
         lefts = np.stack([np.stack([f[0] for f in b]) for b in batch])
         rights = np.stack([np.stack([f[1] for f in b]) for b in batch])
-        res = be.process_chunk(lefts, rights)  # [m,B,...]
+        res = be.process_chunk(lefts, rights)  # [m,b,...]
         rel = pose_matrix(res.pose).cpu().numpy()
         val = res.valid.cpu().numpy()
         for t in range(m):
-            for i in range(B):
+            for i in range(len(mine)):
                 if val[t, i]:
                     last_delta[i] = rel[t, i]
                     Ts[i] = Ts[i] @ rel[t, i]
@@ -207,6 +224,13 @@ def main(argv=None, device="cuda"):
                 trajs[i].append(Ts[i].copy())
         done += m
     wall = time.time() - t0
+    # every rank's trajectories, valid count and time, in sequence order
+    shares = be.gather((trajs, n_valid, wall))
+    if rank != 0:
+        return 0
+    trajs = [t for share in shares for t in share[0]]
+    n_valid = sum(share[1] for share in shares)
+    wall = max(share[2] for share in shares)
 
     import os
 

@@ -1,10 +1,11 @@
 """Fixed-batch 8-point RANSAC for the fundamental matrix.
 
 Counterpart of rso/solver/ransac.py `ransac_fundamental`: stratified
-distinct sampling from jax-identical uniform draws (rso_torch.random), the
-normalised 8-point solve through the batched 9x9 null vector (kernel 4,
-kernels/smallchol.py), Sampson scoring, the least-squares refit of the best
-model on its inliers, and the >= 8 / >= 25% acceptance with pass-through.
+distinct sampling from uniform draws identical to jax.random's
+(rso_torch.random), the normalised 8-point solve through the batched 9x9
+null vector (kernel 4, kernels/smallchol.py), Sampson scoring, the
+least-squares refit of the best model on its inliers, and the >= 8 / >= 25%
+acceptance with pass-through.
 
 Both eyes run in one call: points carry a leading eye axis [E,N,2] with one
 key per eye [E,2] and one shared mask [N], so the hypothesis solve is one

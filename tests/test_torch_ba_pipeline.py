@@ -48,7 +48,14 @@ from rso.engine import Engine as JEngine
 from rso.geometry import pose_matrix as j_pose_matrix
 from rso.synthetic import make_sequence
 from rso.synthetic import synthetic_config as j_synthetic_config
-from rso_torch.ba import KeyframeCollector, VOWithBA, refine_trajectory
+from _torch_mesh_ranks import one_rank_group
+from rso_torch.ba import (
+    KeyframeCollector,
+    VOWithBA,
+    make_mesh,
+    make_win_mesh,
+    refine_trajectory,
+)
 from rso_torch.engine import Engine
 from rso_torch.geometry import StereoCamera, pose_matrix
 from rso_torch.synthetic import synthetic_config
@@ -178,8 +185,7 @@ def test_keyframe_collector_and_refine_trajectory(scene):
 def test_entry_points_default_to_the_gpu(scene):
     """Without a device the pipeline and the offline refinement ask for
     CUDA: here, where there is none, each raises instead of running on the
-    CPU; a mesh raises, as the port solves on one device (the batched
-    window solve: test_torch_ba_window.py)."""
+    CPU; a mesh that is not a torch DeviceMesh raises."""
     seq, _, tc, _, tcam = scene
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")
@@ -187,8 +193,33 @@ def test_entry_points_default_to_the_gpu(scene):
         VOWithBA(tc, tcam)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         refine_trajectory(tcam, [], [], np.zeros((0, 4, 4)))
-    with pytest.raises(ValueError, match="one device"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         VOWithBA(tc, tcam, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="one device"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         refine_trajectory(tcam, [], [], np.zeros((0, 4, 4)), mesh=object(),
                           device="cpu")
+
+
+def test_one_rank_mesh(scene, runs):
+    """VOWithBA on a one-rank 'lmk' mesh (its solves through
+    distributed_bundle_adjust) gives the plain window run's results bit for
+    bit; so does refine_trajectory on a one-rank ('win','lmk') mesh against
+    its one-device batch."""
+    seq, _, tc, _, tcam = scene
+    with one_rank_group():
+        ours = VOWithBA(tc, tcam, device="cpu", mesh=make_mesh(device="cpu"),
+                        **COMMON)
+        got = [ours.process_frame(l, r) for l, r in seq.frames]
+        for i, (a, b) in enumerate(zip(got, runs["window"][3])):
+            assert (a.is_keyframe, a.vo_valid, a.ba_cost) == (
+                b.is_keyframe, b.vo_valid, b.ba_cost), i
+            np.testing.assert_array_equal(a.pose_wc, b.pose_wc, err_msg=i)
+
+        teng = Engine(tc, tcam, device="cpu")
+        col = KeyframeCollector(teng, tc, min_kf_gap=1)
+        vo = _collect(teng, col, seq.frames, lambda p: pose_matrix(p).numpy())
+        kw = dict(window=4, overlap=2, device="cpu")
+        np.testing.assert_array_equal(
+            refine_trajectory(tcam, col.kfs, col.kf_frame_idx, vo,
+                              mesh=make_win_mesh(1, 1, device="cpu"), **kw),
+            refine_trajectory(tcam, col.kfs, col.kf_frame_idx, vo, **kw))

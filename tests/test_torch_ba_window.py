@@ -242,7 +242,9 @@ def test_batched_windows_against_the_reference_mesh(case):
 
 
 def test_mesh_raises():
+    """A mesh that is not a torch DeviceMesh raises (the mesh forms:
+    tests/test_torch_mesh.py)."""
     tcam = _tcam(WIN_CAM)
-    with pytest.raises(ValueError, match="one device"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         TS.window_sharded_bundle_adjust(tcam, _port_problems(
             _window_problems()[:1]), mesh=object())

@@ -16,7 +16,7 @@ Port-only, exact (torch.equal, or equal bytes of the files the demo
 writes): --chunk equals the per-frame run; --ba equals a direct VOWithBA
 run and --ba-offline a direct KeyframeCollector + refine_trajectory; a
 --save-state / --load-state round trip; --watch equals --img-dir on the
-same pairs; --ba-distributed exits with 2;
+same pairs; --ba --ba-distributed (a one-rank mesh) equals --ba;
 BatchEngine equals one Engine per sequence, and rso-fleet's sequence 0 the
 demo's trajectory; run_bench returns the reference's keys; rso-stages
 prints the reference's span names; every entry point raises without CUDA.
@@ -40,8 +40,8 @@ import rso_torch.cli.fleet as t_fleet
 import rso_torch.cli.stages as t_stages
 import rso_torch.engine as t_engine
 from _torch_cli import run_demo
+from _torch_mesh_ranks import one_rank_group
 from rso_torch.ba import KeyframeCollector, VOWithBA, refine_trajectory
-from rso_torch.ba.window_sharded import MESH_ERROR
 from rso_torch.geometry import pose_matrix
 from rso_torch.io import load_state
 from rso_torch.io.checkpoint import _leaves
@@ -140,10 +140,20 @@ def _frames(n):
     return make_sequence(n_frames=n, n_points=2000)
 
 
-def test_ba_equals_vo_with_ba(tmp_path):
-    out = tmp_path / "ba.txt"
-    rc, lines, _ = _port(["--synthetic", "--frames", str(N_BA_FRAMES), "--ba",
-                          "--out", str(out), "--verbosity", "0"])
+BA_ARGV = ["--synthetic", "--frames", str(N_BA_FRAMES), "--ba",
+           "--verbosity", "0"]
+
+
+@pytest.fixture(scope="module")
+def ba_run(tmp_path_factory):
+    """(return code, stdout lines, trajectory file) of rso-demo --ba."""
+    out = tmp_path_factory.mktemp("ba") / "ba.txt"
+    rc, lines, _ = _port(BA_ARGV + ["--out", str(out)])
+    return rc, lines, out
+
+
+def test_ba_equals_vo_with_ba(ba_run, tmp_path):
+    rc, lines, out = ba_run
     assert rc == 0
     seq = _frames(N_BA_FRAMES)
     vo = VOWithBA(synthetic_config(), seq.cam, device="cpu")
@@ -243,20 +253,26 @@ def test_watch_equals_img_dir(tmp_path):
     assert "cannot load dataset" in err.getvalue()
 
 
-def test_ba_distributed_exits_2(tmp_path):
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        rc, _, results = _port(ARGV + ["--ba", "--ba-distributed", "--out",
-                                       str(tmp_path / "x.txt")])
-    assert rc == 2 and results == []
-    assert MESH_ERROR in err.getvalue()
-    assert not (tmp_path / "x.txt").exists()
+def test_ba_distributed_exits_2(ba_run, tmp_path):
+    """--ba-distributed no longer exits with 2: in one process its solves
+    run on a one-rank mesh, and the run equals --ba's bit for bit."""
+    out = tmp_path / "dist.txt"
+    with one_rank_group():
+        rc, lines, _ = _port(BA_ARGV + ["--ba-distributed", "--out",
+                                        str(out)])
+    assert rc == ba_run[0] == 0
+    fps = re.compile(r"in [0-9.]+s \([0-9.]+ FPS\)")
+    assert ([fps.sub("", s).replace(str(out), "OUT") for s in lines]
+            == [fps.sub("", s).replace(str(ba_run[2]), "OUT")
+                for s in ba_run[1]])
+    assert out.read_bytes() == ba_run[2].read_bytes()
 
 
 def test_batch_engine():
     """BatchEngine(B=2): process_frames ([B,...]) and process_chunk
     ([N,B,...]) equal one Engine per sequence, field by field and state by
-    state; a mesh raises."""
+    state; a mesh that is not a torch DeviceMesh raises (the 'seq' mesh:
+    tests/test_torch_mesh.py)."""
     seqs = [make_sequence(n_frames=4, n_points=2000, seed=s)
             for s in range(2)]
     cfg = synthetic_config()
