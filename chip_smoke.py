@@ -26,7 +26,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      descriptors unpacked to 0/1 floats (checked equal once); two floors
      are timed beside the kernels: `floor_us`, PyTorch's fill of one
      element, and the Hamming matrix's `write_us`, the fill of its [K,K]
-     output;
+     output; kernel 1 is also checked at win 45 (the widest window of its
+     one-tile path), 46 and 64 (its two-pass wide path, reported as
+     `corner_response_wide`) on every octave, bit for bit with the twin on
+     the card and on the CPU, each window's launch counted under its path;
   4. engine, default path: 30 frames of the bench scene (1241x376, 2000
      points, speed 0.8, fx 718.856, baseline 0.5371) through
      Engine(synthetic_config()) on the card, with every kernel's launch
@@ -46,8 +49,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      held to the counts its states imply, its valid count and ATE held to
      bounds from the reference's own CPU run of the same frames
      (`tests/_torch_paths.py`), 3 steps again on the CPU, and the ms a
-     frame of its new plain stages (remap, refine, LK levels, LK seed) from
-     CUDA events around their calls over 5 more frames:
+     frame of its main stages (detection, stereo, tracking, RANSAC, the
+     pose solve) and of its new plain stages (remap, refine, LK levels, LK
+     seed) from CUDA events around their calls over 5 more frames:
        kitti         configs/kitti.ini (subpixel refine on), 20 bench frames;
        rectified     configs/euroc.ini through compute_rectify_maps on the
                      distorted rig of make_unrectified_sequence at EuRoC's
@@ -59,7 +63,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
        eigh_lm       the eigh solve with LM damping, 10 bench frames;
      then the seams: precomputed features and matches against the full step
      (3 frames, equal results), a checkpoint round trip on the card,
-     reset_ids, and a repeat after a chunk;
+     reset_ids, and a repeat after a chunk; then
+       textured      textured_config() on make_textured_sequence (seed 0)
+                     at 1241x376 with the bench camera, 20 frames;
+       wide_window   the same frames with KLT_win 46, 3 frames: every
+                     kernel-1 launch on the wide path, and the CPU re-run of
+                     each step (detection equal);
+     the valid count within 3 frames and the ATE within a factor 2 of the
+     reference's, either way;
   9. bundle adjustment (rso_torch.ba; no kernel of its own: its products
      are cuBLAS GEMMs and one cuSOLVER solve a LM iteration), bounds from
      the reference's own CPU run (`tests/_torch_ba.py`):
@@ -133,7 +144,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
            trajectory, keyframes and every solve equal to 10c's --ba run;
        (e) rso_torch.native built with g++; kernel 1's FAST mask on bench
            frame 0 at the default threshold equals the C++ FAST-12 as a
-           set, kernels 5 and 6 at K = 512 equal the C++ matrices;
+           set, kernels 5 and 6 at K = 512 equal the C++ matrices, and
+           windowed_sad_search on the card (K = 512 templates of frame 0,
+           +-8 px around their centers in frame 1, interior centers) equals
+           the C++ tracking_SAD's best centers and SADs;
  12. timing: phase 3's call times, then its device times in one profiler
      session, last, since a profiler session slows the process after it;
      each octave-shaped kernel is also timed at the other octaves' shapes
@@ -197,16 +211,24 @@ DESC_BIT_SHARE = 1e-3
 # Phase 5's bounds, from the reference's own CPU run of the same 30 frames
 # and configuration (rso.engine.Engine, JAX on the CPU:
 # `JAX_PLATFORMS=cpu PYTHONPATH=. python tests/_torch_modes.py
-# fast_orb_rbr_win 30`): 28 valid frames, ATE 0.0835021 m.  The port may
-# lose up to 3 more frames and reach twice the ATE: free-running
-# trajectories part through ulp-level differences.
+# fast_orb_rbr_win 30`): 28 valid frames, ATE 0.0835021 m.  The port's
+# valid count may differ by up to REF_VALID_SLACK either way and its ATE
+# lie within a factor REF_ATE_FACTOR either way (`within_reference`):
+# free-running trajectories part through ulp-level differences.
 DESC_REF_VALID = 28
 DESC_REF_ATE = 0.0835021
 # Phase 8: frames per path, and the bounds of each from the reference's own
 # CPU run of the same frames and configuration (rso.engine.Engine, JAX on
 # the CPU: `JAX_PLATFORMS=cpu PYTHONPATH=. python tests/_torch_paths.py
-# PATH N_FRAMES`): (valid frames, ATE m).  As for phase 5, the port may lose
-# up to 3 more frames and reach twice the ATE.
+# PATH N_FRAMES`): (valid frames, ATE m), held as phase 5's.  The bounds of
+# phases 5 and 8 are two-sided: a bound that only caps the loss cannot see
+# the port part from the reference in its favour, as the detect_every path
+# did on the card (18 valid frames of 21 against the reference's 15).  The
+# port on the CPU matches the reference's 15 there
+# (`tests/_torch_detect_every.py`): the card's run parts from the CPU's at
+# the RANSAC filter's near-ties (ROADMAP Queue 3).
+REF_VALID_SLACK = 3
+REF_ATE_FACTOR = 2.0
 N_PATH_FRAMES = 20
 N_EVERY_FRAMES = 21
 N_SOLVE_FRAMES = 10
@@ -219,7 +241,16 @@ PATH_REF = {
     "flow": (19, 0.029196550111255402),
     "detect_every": (15, 0.5721879200835153),
     "eigh_lm": (9, 0.014722613025692274),
+    "textured": (19, 0.01990080636273349),
 }
+# The textured corridor (make_textured_sequence, seed 0, at the bench size
+# and camera under textured_config()): its frames per run, and the window
+# and frames of the run that takes kernel 1's wide path (KLT_win past the
+# one-tile path's 45; detection only, so it has no reference bounds: its
+# launches and its CPU re-run are held).
+N_TEXTURED_FRAMES = 20
+WIDE_WIN = 46
+N_WIDE_FRAMES = 3
 # Phase 9, bundle adjustment.  Bounds from the reference's own CPU run of
 # the same 30 bench frames (rso.ba, JAX on the CPU: `JAX_PLATFORMS=cpu
 # PYTHONPATH=. python tests/_torch_ba.py 30`).  Keyframe and solve counts
@@ -304,7 +335,9 @@ def _median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
 
 def device_times(jobs, reps: int = 50, warmup: int = 5) -> list:
     """Median device duration, in us, of each job's kernel over `reps` calls
-    of its function.  jobs: [(kernel, fn)].  Every job runs in ONE
+    of its function.  jobs: [(kernel, fn)], where kernel may be a tuple of
+    the kernels one call launches (their durations summed per call: kernel
+    1's wide path launches two).  Every job runs in ONE
     torch.profiler session (CUDA activity, CUPTI): on an H100, a sixth
     session in one process once recorded no device event at all.  The
     kernels are launched through ctypes, so they are found by their own
@@ -323,7 +356,8 @@ def device_times(jobs, reps: int = 50, warmup: int = 5) -> list:
         for _ in range(warmup):
             fn()
     torch.cuda.synchronize()
-    n_jobs = collections.Counter(k for k, _ in jobs)
+    names_of = [(k,) if isinstance(k, str) else tuple(k) for k, _ in jobs]
+    n_jobs = collections.Counter(k for names in names_of for k in names)
     for attempt in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _, fn in jobs:
@@ -348,11 +382,14 @@ def device_times(jobs, reps: int = 50, warmup: int = 5) -> list:
     else:
         raise AssertionError(f"no profiler session saw every launch: {short}")
     out, taken = [], collections.Counter()
-    for kernel, _ in jobs:
-        k = taken[kernel]
-        taken[kernel] += 1
-        t = sorted(e.time_range.elapsed_us()
-                   for e in by_kernel[kernel][k * reps:(k + 1) * reps])
+    for names in names_of:
+        per_call = [0.0] * reps
+        for kernel in names:
+            k = taken[kernel]
+            taken[kernel] += 1
+            for i, e in enumerate(by_kernel[kernel][k * reps:(k + 1) * reps]):
+                per_call[i] += e.time_range.elapsed_us()
+        t = sorted(per_call)
         out.append(t[len(t) // 2])
     return out
 
@@ -363,6 +400,14 @@ def _bound(ops: float, n_bytes: float):
     rate."""
     t_ops, t_bytes = ops / PEAK_OPS * 1e3, n_bytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def corner_ops(win: int) -> int:
+    """Kernel 1's operations a pixel, counted from the twin's arithmetic:
+    FAST's 32 compares and 32 bit packs, ~50 for the two arc tests, 4 for
+    the gradients, 3 products, 2 x 3 x 2*win box-sum adds (48 at win 4), 3
+    means and ~10 for the eigenvalue: 190 at win 4."""
+    return 142 + 12 * win
 
 
 def _bench_cam():
@@ -585,20 +630,70 @@ def check_kernels(seq, dev):
               f"max|d| {d}, equal to the CPU twin", flush=True)
         err = max(err, d)
     n_px = pyr[0].numel()
-    # ~190 operations a pixel, counted from the twin's arithmetic: FAST's 32
-    # compares and 32 bit packs, ~50 for the two arc tests, 4 for the
-    # gradients, 3 products, 48 box-sum adds, 3 means and ~10 for the
-    # eigenvalue; one f32 image read, one written
+    # one f32 image read, one written; corner_ops(win) operations a pixel
     report["corner_response"] = entry(
         err, lambda img=pyr[0]: K.corner_response_cuda(img, th),
         "corner_response_kernel",
         lambda img=pyr[0]: K.corner_response_torch(img, th), None,
-        190 * n_px, 8 * n_px, list(pyr[0].shape),
+        corner_ops(4) * n_px, 8 * n_px, list(pyr[0].shape),
         "no single PyTorch call computes FAST + Shi-Tomasi")
     for img in pyr[1:]:
         octave(report["corner_response"], "corner_response_kernel",
                lambda img=img: K.corner_response_cuda(img, th),
-               190 * img.numel(), 8 * img.numel(), list(img.shape))
+               corner_ops(4) * img.numel(), 8 * img.numel(), list(img.shape))
+
+    # ---- kernel 1 at wide windows: the one-tile path's widest (45), then
+    # the two-pass wide path (46, the wide-window engine run's, and 64) ------
+    def window(out, kernel, fn, win, img):
+        """The kernel at another window, timed beside its main one."""
+        bound_ms, bound_by = _bound(corner_ops(win) * img.numel(),
+                                    8 * img.numel())
+        d = dict(win=win, shape=list(img.shape), bound_ms=bound_ms,
+                 bound_by=bound_by, label=f"win {win} {list(img.shape)}")
+        out.setdefault("windows", []).append(d)
+        timed.append((d, kernel, fn, None, None))
+
+    wide_kernels = ("corner_colsum_kernel", "corner_wide_kernel")
+    for win in (45, WIDE_WIN, 64):
+        for img in pyr:
+            K.LAUNCHES.clear()
+            out = K.corner_response_cuda(img, th, win=win)
+            path = "corner_response_wide" if win > 45 else "corner_response"
+            if dict(K.LAUNCHES) != {path: 1}:
+                raise AssertionError(f"corner_response at win {win}: "
+                                     f"launches {dict(K.LAUNCHES)}, expected "
+                                     f"one {path}")
+            ref = K.corner_response_torch(img, th, win=win)
+            if not torch.equal(out, ref):
+                raise AssertionError(f"corner_response at win {win} "
+                                     f"{tuple(img.shape)}: kernel != twin")
+            if not torch.equal(out.cpu(), K.corner_response_torch(
+                    img.cpu(), th.cpu(), win=win)):
+                raise AssertionError(f"corner_response at win {win} "
+                                     f"{tuple(img.shape)}: kernel != twin on "
+                                     "the CPU")
+            fin = torch.isfinite(ref)
+            print(f"kernel {path} win {win} {tuple(img.shape)}: corners "
+                  f"{int(fin.sum())}, bit-exact with the twin on the card and "
+                  "on the CPU", flush=True)
+    window(report["corner_response"], "corner_response_kernel",
+           lambda img=pyr[0]: K.corner_response_cuda(img, th, win=45), 45,
+           pyr[0])
+    report["corner_response_wide"] = entry(
+        0.0,                                  # bit-exact, checked above
+        lambda img=pyr[0]: K.corner_response_cuda(img, th, win=WIDE_WIN),
+        wide_kernels,
+        lambda img=pyr[0]: K.corner_response_torch(img, th, win=WIDE_WIN),
+        None, corner_ops(WIDE_WIN) * n_px, 8 * n_px, list(pyr[0].shape),
+        "no single PyTorch call computes FAST + Shi-Tomasi")
+    for img in pyr[1:]:
+        octave(report["corner_response_wide"], wide_kernels,
+               lambda img=img: K.corner_response_cuda(img, th, win=WIDE_WIN),
+               corner_ops(WIDE_WIN) * img.numel(), 8 * img.numel(),
+               list(img.shape))
+    window(report["corner_response_wide"], wide_kernels,
+           lambda img=pyr[0]: K.corner_response_cuda(img, th, win=64), 64,
+           pyr[0])
 
     # ---- kernels 2, 3: real features of bench frames 0 and 1 per octave -----
     def odd_case(k, seed):
@@ -985,6 +1080,17 @@ def expect_launches(name, launches, positive=(), zero=(), exact=None):
                                  f"{launches.get(k, 0)}x, expected {n}")
 
 
+def within_reference(name, n_valid, ate, ref) -> None:
+    """A run's valid count and ATE against the reference's CPU run of the
+    same frames, `ref` = (valid, ATE): within REF_VALID_SLACK frames and a
+    factor REF_ATE_FACTOR, either way."""
+    ref_valid, ref_ate = ref
+    if (abs(n_valid - ref_valid) > REF_VALID_SLACK
+            or not ref_ate / REF_ATE_FACTOR <= ate <= REF_ATE_FACTOR * ref_ate):
+        raise AssertionError(f"{name}: valid {n_valid} (reference "
+                             f"{ref_valid}), ATE {ate} (reference {ref_ate})")
+
+
 def cpu_rerun(name, cfg, seq, states, results, n_frames, match_slack=0,
               track_slack=TRACK_SLACK, maps=None, hw=None):
     """The plain path on the CPU, one step from each of the same states,
@@ -1057,10 +1163,8 @@ def run_engines(seq, dev):
         "corner_response", "nullvec9"), zero=fused + ("sad_matrix",),
         exact={"hamming_matrix": 6 * N_FRAMES})   # 3 octaves x (stereo + track)
     n_valid = sum(bool(r.valid) for r in results)
-    if n_valid < DESC_REF_VALID - 3 or not ate <= 2 * DESC_REF_ATE:
-        raise AssertionError(f"descriptor path: valid {n_valid} (reference "
-                             f"{DESC_REF_VALID}), ATE {ate} (reference "
-                             f"{DESC_REF_ATE})")
+    within_reference("fast_orb_rbr_win", n_valid, ate,
+                     (DESC_REF_VALID, DESC_REF_ATE))
     cpu_rerun("fast_orb_rbr_win", cfg, seq, states, results,
               N_DESC_CPU_FRAMES, match_slack=DESC_MATCH_SLACK)
     out["fast_orb_rbr_win"] = launches
@@ -1150,9 +1254,11 @@ class StageTimer:
 
 
 def stage_ms(name, cfg, seq, dev, n_frames, maps=None) -> dict:
-    """ms a frame of the plain stages new in these paths (remap, refine,
-    LK's levels and its coarse seed) and of the whole step, over n_frames
-    after a warm-up, with the stage events on."""
+    """ms a frame of the step's main stages (detection, stereo matching,
+    tracking, the RANSAC filter, the pose solve), of the plain stages new
+    in these paths (remap, refine, LK's levels and its coarse seed) and of
+    the whole step, over n_frames after a warm-up, with the stage events
+    on."""
     import torch
 
     import rso_torch.engine as E
@@ -1166,7 +1272,12 @@ def stage_ms(name, cfg, seq, dev, n_frames, maps=None) -> dict:
         eng.process_frame(l, r)
     eng.reset()
     targets = [(E, "bilinear_remap", "remap"), (E, "refine_positions", "refine"),
-               (OF, "_lk_level", "lk_level"), (OF, "_coarse_sad_seed", "lk_seed")]
+               (OF, "_lk_level", "lk_level"), (OF, "_coarse_sad_seed", "lk_seed"),
+               (E, "detect_features", "detect"),
+               (E, "match_left_right", "stereo"),
+               (E, "track_interframe", "track"),
+               (E, "ransac_fundamental", "ransac"),
+               (E, "solve_pose", "solve")]
     with StageTimer(targets) as t:
         steps = []
         for l, r in frames:
@@ -1222,9 +1333,7 @@ def _path_phase(name, cfg, seq, dev, n_frames, ref, maps=None, hw=None,
     print(f"engine {name}: {detects} of {n_frames} frames detected; valid "
           f"{n_valid} (reference {ref_valid}), ATE {ate} (reference "
           f"{ref_ate})", flush=True)
-    if n_valid < ref_valid - 3 or not ate <= 2 * ref_ate:
-        raise AssertionError(f"{name}: valid {n_valid} (reference "
-                             f"{ref_valid}), ATE {ate} (reference {ref_ate})")
+    within_reference(name, n_valid, ate, ref)
     cpu_rerun(name, cfg, seq, states, results, N_PATH_CPU_FRAMES,
               match_slack=match_slack, maps=maps, hw=hw)
     stage_ms(name, cfg, seq, dev, N_STAGE_FRAMES, maps)
@@ -1366,6 +1475,39 @@ def run_new_paths(seq, dev):
                                  PATH_REF["eigh_lm"])
 
     out["seams"] = run_seams(seq, dev)
+    out.update(run_textured(dev))
+    return out
+
+
+def run_textured(dev):
+    """The textured corridor at the bench size, then kernel 1's wide path
+    through the engine; returns {phase: launches}."""
+    import dataclasses
+
+    from rso_torch.synthetic import make_textured_sequence, textured_config
+
+    t0 = time.perf_counter()
+    tseq = make_textured_sequence(n_frames=N_TEXTURED_FRAMES, H=H, W=W,
+                                  cam=_bench_cam())
+    print(f"textured: {N_TEXTURED_FRAMES} frames of the corridor rendered at "
+          f"{W}x{H} in {time.perf_counter() - t0} s", flush=True)
+    cfg = textured_config()
+    out = {"textured": _path_phase("textured", cfg, tseq, dev,
+                                   N_TEXTURED_FRAMES, PATH_REF["textured"])}
+
+    # kernel 1's wide path on the engine's main path: KLT_win past 45
+    cfg = cfg.replace(detect=dataclasses.replace(cfg.detect, KLT_win=WIDE_WIN))
+    states, results, launches, _ = drive("wide_window", cfg, tseq, dev,
+                                         N_WIDE_FRAMES)
+    expect, _ = _launch_counts(cfg, states, results)
+    expect["corner_response_wide"] = expect.pop("corner_response")
+    expect_launches("wide_window", launches, exact=expect,
+                    zero=("corner_response",))
+    print(f"engine wide_window (KLT_win {WIDE_WIN}): detected "
+          f"{[r.detected_feats.tolist() for r in results]}, launches "
+          f"{launches}", flush=True)
+    cpu_rerun("wide_window", cfg, tseq, states, results, N_WIDE_FRAMES)
+    out["wide_window"] = launches
     return out
 
 
@@ -2247,7 +2389,8 @@ def run_mesh(seq, dev, smi: str) -> dict:
     from rso_torch.config import RSOConfig
     from rso_torch.frontend.detect import extract_patches
     from rso_torch.kernels import (LAUNCHES, corner_response_cuda,
-                                   hamming_matrix_cuda, sad_matrix_cuda)
+                                   hamming_matrix_cuda, sad_matrix_cuda,
+                                   windowed_sad_search)
     from rso_torch.mesh import COLLECTIVES
 
     t_phase = time.perf_counter()
@@ -2401,14 +2544,34 @@ def run_mesh(seq, dev, smi: str) -> dict:
     ham = hamming_matrix_cuda(torch.from_numpy(da.view(np.int32)).to(dev),
                               torch.from_numpy(db.view(np.int32)).to(dev))
     ham_ref = native.hamming_matrix(da, db)
+    # windowed_sad_search (plain PyTorch on the card) against the C++
+    # tracking_SAD at interior centers, where neither clamps its window:
+    # frame 0's patches searched for in frame 1 around their own centers
+    wx, wy = 8, 8
+    cxy = np.stack([rng.integers(wx + 4, W - wx - 5, K),
+                    rng.integers(wy + 4, H - wy - 5, K)], -1)
+    tmpl = extract_patches(img, torch.from_numpy(cxy).float().to(dev))
+    img1 = seq.frames[1][0]
+    win = windowed_sad_search(torch.from_numpy(img1).to(dev).float(), tmpl,
+                              torch.from_numpy(cxy).float().to(dev), wx, wy)
+    t8 = tmpl.cpu().numpy().astype(np.uint8)
+    oracle = np.array([native.tracking_sad(img1, t8[i], int(cxy[i, 0]),
+                                           int(cxy[i, 1]), wx, wy)
+                       for i in range(K)])
+    ours_ws = np.concatenate([win.best_xy.cpu().numpy(),
+                              win.best_sad.cpu().numpy()[:, None]], 1)
     ok = (ours == theirs,
           np.array_equal(sad.astype(np.uint32), sad_ref),
-          np.array_equal(ham.cpu().numpy().astype(np.uint32), ham_ref))
+          np.array_equal(ham.cpu().numpy().astype(np.uint32), ham_ref),
+          win.best_xy.device.type == "cuda"
+          and np.array_equal(ours_ws, oracle.astype(np.float32)))
     print(f"mesh (e) oracles: kernel 1's FAST mask at threshold {th} on bench "
           f"frame 0 ({W}x{H}): {len(ours)} corners, the C++ FAST-12's "
           f"{len(theirs)}, equal as sets: {ok[0]}; kernel 6 at K={K}: equal "
           f"to native.sad_matrix: {ok[1]}; kernel 5 at K={K}, W=8: equal to "
-          f"native.hamming_matrix: {ok[2]}", flush=True)
+          f"native.hamming_matrix: {ok[2]}; windowed_sad_search on the card, "
+          f"K={K} at +-{wx}x{wy} (best SAD median {np.median(oracle[:, 2])}): "
+          f"equal to native.tracking_sad: {ok[3]}", flush=True)
     if not all(ok) or not theirs:
         raise AssertionError("mesh (e): a kernel differs from its C++ oracle")
     print(f"phase 11 (mesh forms and oracles) took "
@@ -2453,6 +2616,8 @@ def main() -> int:
     # the phase whose path each kernel's launches are read from
     kernels = {
         "corner_response": ("fast_detect.cu", "rso/kernels/fast_detect.py:146", "default"),
+        "corner_response_wide": ("fast_detect.cu", "rso/kernels/fast_detect.py:146",
+                                 "wide_window"),
         "stereo_sad_fused": ("stereo_fused.cu", "rso/kernels/stereo_fused.py:207", "default"),
         "track_sad_fused": ("stereo_fused.cu", "rso/kernels/stereo_fused.py:133", "default"),
         "nullvec9": ("smallchol.cu", "rso/kernels/smallchol.py:136", "default"),
@@ -2460,7 +2625,7 @@ def main() -> int:
         "sad_matrix": ("distance.cu", "rso/kernels/distance.py:123", "sad_dense"),
     }
     frames = {"default": N_FRAMES, "fast_orb_rbr_win": N_FRAMES,
-              "sad_dense": N_DENSE_FRAMES}
+              "sad_dense": N_DENSE_FRAMES, "wide_window": N_WIDE_FRAMES}
     floor_us = report["floor"]["device_us"]
     for x in [report["hamming_matrix"]] + report["hamming_matrix"]["octaves"]:
         x["write_us"] = x.pop("write")["device_us"]

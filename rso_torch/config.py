@@ -55,8 +55,9 @@ class RectifyParams:
 class DetectParams:
     detect_method: DetectMethod = DetectMethod.FASTER
     target_feats_per_pixel: float = 10.0 / 1000.0
-    # 1..45 on the card (kernels/fast_detect.py MAX_WIN); 4 is compiled as
-    # a constant, other values take the slower run-time path
+    # any value >= 1; on the card 4 is compiled as a constant, other values
+    # take the run-time window, and those whose tile does not fit a block's
+    # shared memory (> 45 on the H100) take kernel 1's two-pass wide path
     KLT_win: int = 4
     minimum_KLT_response: float = 10.0
     non_maximal_suppression: bool = True
@@ -327,3 +328,17 @@ def load_config(path: str, base: RSOConfig | None = None) -> RSOConfig:
         if kw:
             updates[attr] = dataclasses.replace(getattr(cfg, attr), **kw)
     return cfg.replace(**updates) if updates else cfg
+
+
+def dump_to_console(cfg: RSOConfig) -> str:
+    """Pretty-print the config (reference: dumpToConsole(), libstereo-odometry.h:187)."""
+    lines = []
+    for attr in ("rectify", "detect", "lr_match", "if_match", "least_squares",
+                 "gui", "general", "tpu"):
+        sub = getattr(cfg, attr)
+        name = type(sub).__name__
+        for f in dataclasses.fields(sub):
+            lines.append(f"\t[{name}]\t{f.name} = {getattr(sub, f.name)}")
+    text = "\n".join(lines)
+    print(text)
+    return text

@@ -32,7 +32,19 @@
 // counts are constants; any other win takes the same kernel with the window
 // at run time.  The launch sizes the tile's shared memory from win (23.6 KB
 // at win 4) and from win 13, past 48 KB, opts in to more, up to the H100's
-// 227 KB a block, so win <= 45 (kernels/fast_detect.py MAX_WIN).
+// 227 KB a block, which holds the tile of win <= 45.
+//
+// A wider window takes the wide path (`launch_wide`, below): pass 1 writes
+// each pixel's three column sums over its 2*win + 1 rows to global memory,
+// pass 2 sums 2*win + 1 of them along the row, in the same order as the
+// tile path and the twin (a sliding or prefix sum would round otherwise:
+// the sums pass 2^24), and takes the response and the FAST test through
+// the same device functions.  It is simple, not fast.  Measured
+// (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W): 111.554 us at win 46
+// and 145.665 us at win 64 on 376x1241, against 330.915 us for the tile
+// path at win 45 (whose 32x16 tile carries a 124x108 halo); the bound is
+// ~4.8 / 6.3 us of operations.  Each pixel reads 4 (2*win + 1) image
+// values in pass 1 and 3 (2*win + 1) column sums in pass 2, through L1/L2.
 //
 // Measured (tests/_torch_kernel_ab.py on the bench frame, NVIDIA H100 80GB
 // HBM3 at 700 W; the A/B of record in PERF.md, section 6): 14.779 us on the
@@ -97,6 +109,37 @@ __device__ __forceinline__ bool has_arc(unsigned b, int arc) {
     run &= run >> len;
   }
   return (acc & 0xffffu) != 0u;
+}
+
+// The Shi-Tomasi response (the smaller eigenvalue) of the window sums of
+// the three products: both paths take it from here, so they round alike.
+__device__ __forceinline__ float shi_tomasi(float sxx, float syy, float sxy,
+                                            float inv_area) {
+  const float gxx = __fmul_rn(sxx, inv_area);
+  const float gyy = __fmul_rn(syy, inv_area);
+  const float gxy = __fmul_rn(sxy, inv_area);
+  const float tr_half = __fmul_rn(0.5f, __fadd_rn(gxx, gyy));
+  const float dd = __fsub_rn(gxx, gyy);
+  const float inner = __fadd_rn(__fmul_rn(0.25f, __fmul_rn(dd, dd)),
+                                __fmul_rn(gxy, gxy));
+  return __fsub_rn(tr_half, __fsqrt_rn(fmaxf(inner, 0.f)));
+}
+
+// The FAST segment test of the pixel at `cen` in rows `stride` floats apart
+// (shared or global memory): an arc of `arc` circle taps all brighter than
+// cen + t or all darker than cen - t.
+__device__ __forceinline__ bool fast_corner(const float* cen, int stride,
+                                            float t, int arc) {
+  const float hi = __fadd_rn(cen[0], t);
+  const float lo = __fsub_rn(cen[0], t);
+  unsigned bright = 0u, dark = 0u;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const float v = cen[circle_dy(k) * stride + circle_dx(k)];
+    if (v > hi) bright |= 1u << k;
+    if (v < lo) dark |= 1u << k;
+  }
+  return has_arc(bright, arc) || has_arc(dark, arc);
 }
 
 // v modulo n for the halo's coordinates, which lie within about a tile of
@@ -231,45 +274,142 @@ __global__ void __launch_bounds__(kThreads) corner_response_kernel(
       syy = __fadd_rn(syy, q[col_plane + dx]);
       sxy = __fadd_rn(sxy, q[2 * col_plane + dx]);
     }
-    const float gxx = __fmul_rn(sxx, inv_area);
-    const float gyy = __fmul_rn(syy, inv_area);
-    const float gxy = __fmul_rn(sxy, inv_area);
-    const float tr_half = __fmul_rn(0.5f, __fadd_rn(gxx, gyy));
-    const float dd = __fsub_rn(gxx, gyy);
-    const float inner = __fadd_rn(__fmul_rn(0.25f, __fmul_rn(dd, dd)),
-                                  __fmul_rn(gxy, gxy));
-    const float resp = __fsub_rn(tr_half, __fsqrt_rn(fmaxf(inner, 0.f)));
-
-    bool corner = false;
-    if (x >= 3 && x < W - 3 && y >= 3 && y < H - 3) {
-      const float* cen = s_img + (r + T.halo) * T.iw + c + T.halo;
-      const float hi = __fadd_rn(cen[0], t);
-      const float lo = __fsub_rn(cen[0], t);
-      unsigned bright = 0u, dark = 0u;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const float v = cen[circle_dy(k) * T.iw + circle_dx(k)];
-        if (v > hi) bright |= 1u << k;
-        if (v < lo) dark |= 1u << k;
-      }
-      corner = has_arc(bright, arc) || has_arc(dark, arc);
-    }
+    const float resp = shi_tomasi(sxx, syy, sxy, inv_area);
+    const bool corner =
+        x >= 3 && x < W - 3 && y >= 3 && y < H - 3 &&
+        fast_corner(s_img + (r + T.halo) * T.iw + c + T.halo, T.iw, t, arc);
     out[y * W + x] = corner ? resp : -INFINITY;
   }
 }
 
+// The wide path, for a window whose tile does not fit a block's shared
+// memory: two launches over the whole image, in the twin's order.  Pass 1
+// gives each pixel the sums of the three products over its column's
+// 2*win + 1 rows (dy = 0..2*win, 0 outside the image) in `colsum`
+// ([3][H][W] in global memory, scratch the caller allocates); pass 2 sums 2*win + 1 of those along the
+// row (dx = 0..2*win, 0 outside), then takes the response and the FAST
+// test as the tile path does.  One thread a pixel; the gradients are
+// recomputed at each row of the column from global memory (L1/L2 serve
+// the neighbours' reads).
+constexpr int kWideW = 32;
+constexpr int kWideH = 8;
+
+__global__ void __launch_bounds__(kWideW * kWideH) corner_colsum_kernel(
+    const float* __restrict__ img, float* __restrict__ colsum, int H, int W,
+    int win) {
+  const int x = blockIdx.x * kWideW + threadIdx.x;
+  const int y = blockIdx.y * kWideH + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const int xl = x == 0 ? W - 1 : x - 1, xr = x == W - 1 ? 0 : x + 1;
+  float a = 0.f, b = 0.f, d = 0.f;
+  for (int dy = 0; dy <= 2 * win; ++dy) {
+    const int yy = y - win + dy;
+    float gxx = 0.f, gyy = 0.f, gxy = 0.f;
+    if (yy >= 0 && yy < H) {
+      const int yu = yy == 0 ? H - 1 : yy - 1, yd = yy == H - 1 ? 0 : yy + 1;
+      const float gx = __fmul_rn(__fsub_rn(img[yy * W + xr], img[yy * W + xl]), 0.5f);
+      const float gy = __fmul_rn(__fsub_rn(img[yd * W + x], img[yu * W + x]), 0.5f);
+      gxx = __fmul_rn(gx, gx);
+      gyy = __fmul_rn(gy, gy);
+      gxy = __fmul_rn(gx, gy);
+    }
+    a = __fadd_rn(a, gxx);
+    b = __fadd_rn(b, gyy);
+    d = __fadd_rn(d, gxy);
+  }
+  const size_t plane = (size_t)H * W, i = (size_t)y * W + x;
+  colsum[i] = a;
+  colsum[plane + i] = b;
+  colsum[2 * plane + i] = d;
+}
+
+__global__ void __launch_bounds__(kWideW * kWideH) corner_wide_kernel(
+    const float* __restrict__ img, const int* __restrict__ threshold,
+    const float* __restrict__ colsum, float* __restrict__ out, int H, int W,
+    int arc, int win) {
+  const int x = blockIdx.x * kWideW + threadIdx.x;
+  const int y = blockIdx.y * kWideH + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const size_t plane = (size_t)H * W;
+  const float* row = colsum + (size_t)y * W;
+  float sxx = 0.f, syy = 0.f, sxy = 0.f;
+  for (int dx = 0; dx <= 2 * win; ++dx) {
+    const int xx = x - win + dx;
+    float a = 0.f, b = 0.f, d = 0.f;
+    if (xx >= 0 && xx < W) {
+      a = row[xx];
+      b = row[plane + xx];
+      d = row[2 * plane + xx];
+    }
+    sxx = __fadd_rn(sxx, a);
+    syy = __fadd_rn(syy, b);
+    sxy = __fadd_rn(sxy, d);
+  }
+  const int n = 2 * win + 1;
+  const float resp = shi_tomasi(sxx, syy, sxy, __fdiv_rn(1.0f, (float)(n * n)));
+  const bool corner = x >= 3 && x < W - 3 && y >= 3 && y < H - 3 &&
+                      fast_corner(img + (size_t)y * W + x, W,
+                                  (float)threshold[0], arc);
+  out[(size_t)y * W + x] = corner ? resp : -INFINITY;
+}
+
+// The largest dynamic shared memory a block may opt in to on this device.
+cudaError_t smem_optin(size_t* bytes) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  *bytes = (size_t)optin;
+  return e;
+}
+
+int launch_wide(const float* img, const int* threshold, float* colsum,
+                float* out, int H, int W, int arc, int win,
+                cudaStream_t stream) {
+  if (colsum == nullptr) return (int)cudaErrorInvalidValue;
+  const dim3 block(kWideW, kWideH);
+  const dim3 grid((W + kWideW - 1) / kWideW, (H + kWideH - 1) / kWideH);
+  corner_colsum_kernel<<<grid, block, 0, stream>>>(img, colsum, H, W, win);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  corner_wide_kernel<<<grid, block, 0, stream>>>(img, threshold, colsum, out,
+                                                 H, W, arc, win);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// 1 where window half-width `win` takes the one-tile path on this device
+// (its tile fits the shared memory a block may opt in to: win <= 45 on the
+// H100), 0 where it takes the wide path; negative: a CUDA error.
+extern "C" int rso_corner_tile_fits(int win) {
+  size_t optin = 0;
+  const cudaError_t e = smem_optin(&optin);
+  if (e != cudaSuccess) return -(int)e;
+  return Tile(win).floats() * sizeof(float) <= optin ? 1 : 0;
+}
+
+// `colsum`: 3*H*W floats of scratch for the wide path, which this entry
+// takes where the window's tile does not fit (NULL where it does).
 extern "C" int rso_corner_response(const float* img, const int* threshold,
-                                   float* out, int H, int W, int arc, int win,
-                                   void* stream) {
+                                   float* out, float* colsum, int H, int W,
+                                   int arc, int win, void* stream) {
   if (win < 1) return (int)cudaErrorInvalidValue;
-  const auto kernel = win == 4 ? corner_response_kernel<4>
-                               : corner_response_kernel<0>;
   const size_t smem = Tile(win).floats() * sizeof(float);
   if (smem > (size_t)kSmemDefault) {
+    size_t optin = 0;
+    const cudaError_t e = smem_optin(&optin);
+    if (e != cudaSuccess) return (int)e;
+    if (smem > optin)   // the tile does not fit: the wide path
+      return launch_wide(img, threshold, colsum, out, H, W, arc, win,
+                         (cudaStream_t)stream);
+  }
+  const auto kernel = win == 4 ? corner_response_kernel<4>
+                               : corner_response_kernel<0>;
+  if (smem > (size_t)kSmemDefault) {
     // win >= 13: opt in to the larger shared memory (227 KB a block on the
-    // H100, so win <= 45); fails where the tile does not fit
+    // H100, so win <= 45)
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;

@@ -6,6 +6,7 @@ from rso_torch.geometry.rotations import (
 from rso_torch.geometry.se3 import (
     pose_apply,
     pose_compose,
+    pose_from_matrix,
     pose_inverse,
     pose_matrix,
 )
@@ -24,6 +25,7 @@ __all__ = [
     "pose_compose",
     "pose_inverse",
     "pose_matrix",
+    "pose_from_matrix",
     "pose_apply",
     "StereoCamera",
     "triangulate",

@@ -21,6 +21,12 @@ def pose_matrix(pose6: torch.Tensor) -> torch.Tensor:
     return T
 
 
+def pose_from_matrix(T: torch.Tensor) -> torch.Tensor:
+    """[w,t] 6-vector from a 4x4 (or 3x4) homogeneous matrix."""
+    w = rotvec_from_matrix(T[:3, :3])
+    return torch.cat([w, T[:3, 3]])
+
+
 def pose_inverse(pose6: torch.Tensor) -> torch.Tensor:
     """Inverse pose: (w,t)^-1 = (-w, -R(w)^T t)."""
     R = rodrigues(pose6[:3])

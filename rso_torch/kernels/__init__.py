@@ -2,9 +2,12 @@
 
 Each module holds `<name>_torch` (the twin, used for CPU tensors),
 `<name>_cuda` (the kernel wrapper) and `<name>_auto` (the dispatcher).
-`LAUNCHES` counts kernel launches by name.
+`LAUNCHES` counts kernel launches by name.  `cost_volume` is the exception:
+the reference's windowed SAD search is plain XLA, not a Pallas kernel, so
+its counterpart is plain PyTorch.
 """
 from rso_torch.kernels._lib import LAUNCHES
+from rso_torch.kernels.cost_volume import WindowedSearchResult, windowed_sad_search
 from rso_torch.kernels.distance import (
     hamming_matrix_auto,
     hamming_matrix_cuda,
@@ -30,6 +33,7 @@ from rso_torch.kernels.stereo_fused import (
 
 __all__ = [
     "LAUNCHES",
+    "WindowedSearchResult",
     "corner_response_auto",
     "corner_response_cuda",
     "corner_response_torch",
@@ -48,4 +52,5 @@ __all__ = [
     "track_sad_fused_auto",
     "track_sad_fused_cuda",
     "track_sad_fused_torch",
+    "windowed_sad_search",
 ]

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -38,7 +39,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: every pointer (and the stream) is a c_void_p
 _SIGNATURES = {
-    "rso_corner_response": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "rso_corner_response": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rso_corner_tile_fits": [_I],
     "rso_stereo_sad_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _F, _F, _F, _P, _P, _P, _P],
     "rso_track_sad_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -121,14 +123,29 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry `rso_<name>` on the current stream; raise on error."""
+def launch(name: str, *args, counted_as: str | None = None) -> None:
+    """Call C entry `rso_<name>` on the current stream; raise on error.
+    The launch counts under `counted_as` where an entry has two paths."""
     fn = getattr(load(), f"rso_{name}")
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel rso_{name} failed to launch: "
                            f"cudaError {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[counted_as or name] += 1
+
+
+@functools.cache
+def _tile_fits(device: int, win: int) -> bool:
+    rc = load().rso_corner_tile_fits(win)
+    if rc < 0:
+        raise RuntimeError(f"rso_corner_tile_fits: cudaError {-rc}")
+    return rc == 1
+
+
+def tile_fits(win: int) -> bool:
+    """Whether kernel 1 takes its one-tile path at half-width `win` on the
+    current device (else its wide path); asked of the device once."""
+    return _tile_fits(torch.cuda.current_device(), win)
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

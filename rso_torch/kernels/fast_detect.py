@@ -3,8 +3,11 @@
 Replaces rso/kernels/fast_detect.py `corner_response_pallas` (see the header
 of csrc/fast_detect.cu for the border semantics, the H100 bound and the
 design: a shared-memory tile per block, sized from `win` at launch, the
-gradients and products computed once per position, separable box sums).  `corner_response_torch` is the
-plain PyTorch twin: the `fast_corner_mask` + `shi_tomasi_response`
+gradients and products computed once per position, separable box sums;
+where that tile does not fit a block's shared memory, win > 45 on the H100,
+the wide path: the column sums to global memory, then the row sums, the
+response and the FAST test, in two launches).  `corner_response_torch` is
+the plain PyTorch twin: the `fast_corner_mask` + `shi_tomasi_response`
 composition of the reference's `corner_response_jnp`.  The CUDA kernel
 equals the twin bit for bit, mask and response: the same summation order
 (each column's rows, then the column sums), no FMA contraction, and the
@@ -15,10 +18,6 @@ from __future__ import annotations
 import torch
 
 from rso_torch.kernels import _lib
-
-# the largest structure-tensor half-width whose tile fits the H100's 227 KB
-# of shared memory a block (csrc/fast_detect.cu; configs use 4)
-MAX_WIN = 45
 
 
 def corner_response_torch(img: torch.Tensor, threshold, arc: int = 12,
@@ -35,11 +34,13 @@ def corner_response_torch(img: torch.Tensor, threshold, arc: int = 12,
 def corner_response_cuda(img: torch.Tensor, threshold, arc: int = 12,
                          win: int = 4) -> torch.Tensor:
     """The CUDA kernel; `threshold` is an int scalar or a 0-d/1-element int32
-    tensor on the image's device (read on the device, no host sync)."""
+    tensor on the image's device (read on the device, no host sync).  Its
+    launches count as `corner_response` on the one-tile path and as
+    `corner_response_wide` where the window's tile does not fit."""
     if not 1 <= arc <= 16:
         raise ValueError(f"arc must be in 1..16, got {arc}")
-    if not 1 <= win <= MAX_WIN:
-        raise ValueError(f"win must be in 1..{MAX_WIN}, got {win}")
+    if win < 1:
+        raise ValueError(f"win must be >= 1, got {win}")
     _lib.load()
     if not img.is_cuda:
         raise ValueError(f"corner_response_cuda: image on {img.device}")
@@ -48,8 +49,15 @@ def corner_response_cuda(img: torch.Tensor, threshold, arc: int = 12,
     th = th.reshape(1).contiguous()
     img_p = _lib.check(img, "img", torch.float32, (H, W), img.device)
     out = torch.empty_like(img)
-    _lib.launch("corner_response", img_p, th.data_ptr(), out.data_ptr(),
-                H, W, arc, win)
+    if _lib.tile_fits(win):
+        _lib.launch("corner_response", img_p, th.data_ptr(), out.data_ptr(),
+                    None, H, W, arc, win)
+    else:
+        # the wide path's column sums of the three products
+        colsum = torch.empty((3, H, W), dtype=torch.float32, device=img.device)
+        _lib.launch("corner_response", img_p, th.data_ptr(), out.data_ptr(),
+                    colsum.data_ptr(), H, W, arc, win,
+                    counted_as="corner_response_wide")
     return out
 
 

@@ -1,10 +1,13 @@
-"""Synthetic stereo blob sequence with exact ground truth (host numpy).
+"""Synthetic stereo sequences with exact ground truth (host numpy).
 
 A copy of `make_sequence`, `make_unrectified_sequence`, `render_frame` and
-`synthetic_config` from rso/synthetic.py, which cannot be imported here
-because it loads jax.  Same seed, same numpy calls in the same order, so the
-same arguments give the same frames (and calibration) as the reference's
-generator.
+`synthetic_config` (the blob field), and of `default_texture`,
+`render_textured_frame`, `make_textured_sequence` and `textured_config`
+(the textured corridor, the scene the presets' refine and robust 1-to-1
+arbitration were tuned on) from rso/synthetic.py, which cannot be imported
+here because it loads jax.  Same seed, same numpy calls in the same order,
+so the same arguments give the same frames (and calibration) as the
+reference's generator.
 
 `mode_config` adds the detector / matcher / tracker combinations that
 tests/test_modes.py runs on the blob scene, so that tests and chip_smoke.py
@@ -255,3 +258,179 @@ def make_unrectified_sequence(n_frames=8, n_points=1500, H=240, W=376,
     seq = SyntheticSequence(frames=frames, rel_poses=rel, poses=poses,
                             cam=cam)
     return seq, calib
+
+
+# the photographic texture the reference's generator takes when the file
+# exists (the same path as rso/synthetic.py's); else both packages take the
+# procedural texture
+_REFERENCE_TEXTURE = "/root/reference/libstereo-odometry/tests/0L.png"
+
+
+def default_texture(size: int = 512, seed: int = 0) -> np.ndarray:
+    """A texture for the corridor renderer: the reference repo's real test
+    image when present (real photographic texture), else procedural
+    multi-octave noise (still gradient-rich, unlike Gaussian blobs)."""
+    import os
+
+    if os.path.exists(_REFERENCE_TEXTURE):
+        try:
+            try:
+                import cv2
+
+                tex = cv2.imread(_REFERENCE_TEXTURE, cv2.IMREAD_GRAYSCALE)
+            except ImportError:
+                from PIL import Image
+
+                tex = np.asarray(Image.open(_REFERENCE_TEXTURE).convert("L"))
+            if tex is not None:
+                # crop the black rectification-fill borders so they don't
+                # tile into the corridor as textureless voids
+                h, w = tex.shape
+                return tex[int(0.12 * h):int(0.88 * h),
+                           int(0.08 * w):int(0.92 * w)]
+        except OSError:
+            pass
+    rng = np.random.default_rng(seed)
+    tex = np.zeros((size, size), np.float32)
+    for octv in (4, 8, 16, 32, 64):
+        g = rng.normal(0, 1, (octv, octv)).astype(np.float32)
+        # bilinear upsample the octave to full size (tileable via wrap)
+        yy = np.linspace(0, octv, size, endpoint=False)
+        xx = np.linspace(0, octv, size, endpoint=False)
+        y0 = np.floor(yy).astype(int); x0 = np.floor(xx).astype(int)
+        fy = (yy - y0)[:, None]; fx = (xx - x0)[None, :]
+        y1 = (y0 + 1) % octv; x1 = (x0 + 1) % octv
+        up = (g[np.ix_(y0, x0)] * (1 - fy) * (1 - fx)
+              + g[np.ix_(y0, x1)] * (1 - fy) * fx
+              + g[np.ix_(y1, x0)] * fy * (1 - fx)
+              + g[np.ix_(y1, x1)] * fy * fx)
+        tex += up * (64.0 / octv ** 0.5)
+    tex = 128 + 64 * tex / np.abs(tex).max() * 2
+    return np.clip(tex, 0, 255).astype(np.uint8)
+
+
+def _sample_texture(tex: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Bilinear sample a tiled texture at continuous (u,v) pixel coords."""
+    TH, TW = tex.shape
+    u = np.mod(u, TW); v = np.mod(v, TH)
+    x0 = np.floor(u).astype(np.int64); y0 = np.floor(v).astype(np.int64)
+    fx = (u - x0); fy = (v - y0)
+    x1 = (x0 + 1) % TW; y1 = (y0 + 1) % TH
+    t = tex.astype(np.float32)
+    return (t[y0, x0] * (1 - fy) * (1 - fx) + t[y0, x1] * (1 - fy) * fx
+            + t[y1, x0] * fy * (1 - fx) + t[y1, x1] * fy * fx)
+
+
+def render_textured_frame(tex, T_wc, cam: StereoCamera, H, W,
+                          corridor=(4.0, 2.0), px_per_m=48.0,
+                          z_end=1e9, rng=None, supersample=2):
+    """Ray-cast left/right u8 views of a texture-mapped corridor.
+
+    The world is a corridor along +z: walls at x=+-corridor[0], floor and
+    ceiling at y=+-corridor[1], an end-cap at z=z_end, every surface textured
+    with `tex` at px_per_m texture pixels per meter.  Unlike the blob field,
+    this produces dense photographic gradients — real-texture statistics for
+    the detector, descriptors, and SAD matching.  Rendered at `supersample`x
+    and box-downsampled (anti-aliasing at grazing angles).
+    """
+    a, b = corridor
+    fx, fy = float(cam.fx_l), float(cam.fy_l)
+    cx, cy = float(cam.cx_l), float(cam.cy_l)
+    bl = float(cam.baseline)
+    R = T_wc[:3, :3]
+    t = T_wc[:3, 3]
+
+    s = supersample
+    Hs, Ws = H * s, W * s
+    ys, xs = np.mgrid[0:Hs, 0:Ws].astype(np.float64)
+    # supersampled pixel centers map to original pixel coords (x+0.5)/s - 0.5
+    xn = ((xs + 0.5) / s - 0.5 - cx) / fx
+    yn = ((ys + 0.5) / s - 0.5 - cy) / fy
+    d_cam = np.stack([xn, yn, np.ones_like(xn)], axis=-1)   # [Hs,Ws,3]
+    d = d_cam @ R.T                                         # world dirs
+
+    out = []
+    for eye in (0, 1):
+        o = t + R @ np.array([bl * eye, 0.0, 0.0])
+        best_t = np.full((Hs, Ws), np.inf)
+        img = np.zeros((Hs, Ws), np.float32)
+        # (axis, plane value, uv axes, shade): walls use (z,y), floor/ceiling
+        # (z,x), end-cap (x,y); per-plane shade adds large-scale contrast
+        planes = [(0, +a, (2, 1), 1.00), (0, -a, (2, 1), 0.85),
+                  (1, +b, (2, 0), 0.70), (1, -b, (2, 0), 0.55),
+                  (2, z_end, (0, 1), 0.80)]
+        for axis, val, (ua, va), shade in planes:
+            da = d[..., axis]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                ti = (val - o[axis]) / da
+            hit = np.isfinite(ti) & (ti > 0.05) & (ti < best_t)
+            if not hit.any():
+                continue
+            p = o[None, :] + ti[hit][:, None] * d[hit]
+            u = p[:, ua] * px_per_m
+            v = p[:, va] * px_per_m
+            img[hit] = _sample_texture(tex, u, v) * shade
+            best_t[hit] = ti[hit]
+        # box-downsample the supersampled render
+        img = img.reshape(H, s, W, s).mean(axis=(1, 3))
+        if rng is not None:
+            img += rng.normal(0, 1.0, img.shape).astype(np.float32)
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out[0], out[1]
+
+
+def make_textured_sequence(
+    texture: np.ndarray | None = None,
+    n_frames: int = 10,
+    H: int = 240,
+    W: int = 376,
+    seed: int = 0,
+    speed: float = 0.25,
+    yaw_rate: float = 0.004,
+    cam: StereoCamera | None = None,
+    corridor=(4.0, 2.0),
+    px_per_m: float = 48.0,
+) -> SyntheticSequence:
+    """Forward motion with gentle yaw through a texture-mapped corridor.
+
+    Same trajectory model as make_sequence but with photographic surface
+    texture instead of Gaussian blobs — the real-imagery regression scene
+    (detector/descriptor/SAD statistics match real images much more closely).
+    """
+    rng = np.random.default_rng(seed)
+    if texture is None:
+        texture = default_texture(seed=seed)
+    if cam is None:
+        cam = StereoCamera.make(fx_l=320.0, fy_l=320.0, cx_l=W / 2.0,
+                                cy_l=H / 2.0, baseline=0.4)
+    poses = []
+    T = np.eye(4)
+    for _ in range(n_frames):
+        poses.append(T.copy())
+        step = np.eye(4)
+        step[:3, :3] = _rotmat(np.array([0.0, yaw_rate, 0.0]))
+        step[:3, 3] = np.array([0.0, 0.0, speed])
+        T = T @ step
+    poses = np.stack(poses)
+    z_end = n_frames * speed + 25.0
+    frames = [render_textured_frame(texture, poses[i], cam, H, W,
+                                    corridor=corridor, px_per_m=px_per_m,
+                                    z_end=z_end, rng=rng)
+              for i in range(n_frames)]
+    rel = [np.linalg.inv(poses[i - 1]) @ poses[i] for i in range(1, n_frames)]
+    rel = np.stack(rel) if rel else np.zeros((0, 4, 4))
+    return SyntheticSequence(frames=frames, rel_poses=rel, poses=poses,
+                             cam=cam)
+
+
+def textured_config() -> RSOConfig:
+    """RSOConfig tuned for the textured corridor scenes: real-texture SAD
+    levels (a good 8x8 match sits ~300-500, computeSAD8_unittest.cpp:28)
+    with an epipolar row tolerance for subpixel detections."""
+    cfg = RSOConfig()
+    return cfg.replace(
+        lr_match=dataclasses.replace(
+            cfg.lr_match, max_y_diff=1.0, sad_max_distance=1500,
+            sad_max_ratio=0.7, enable_robust_1to1_match=True),
+        if_match=dataclasses.replace(cfg.if_match, sad_max_distance=1500),
+    )

@@ -1,10 +1,12 @@
-"""Engine parity of the preset, rectified, optical-flow, detect_every and
-eigh/LM paths: shared helpers.
+"""Engine parity of the preset, rectified, optical-flow, detect_every,
+eigh/LM and textured paths: shared helpers.
 
 The reference engine runs each path over 4 frames of the test scene
 (make_sequence(1800 points, 160x240); the rectified path: the distorted,
 misaligned rig of make_unrectified_sequence(1800 points, 160x240) through
-compute_rectify_maps), with `use_mxu_distance=False` (the exact dense SAD,
+compute_rectify_maps; the textured path: textured_config() on
+make_textured_sequence at its 240x376), with `use_mxu_distance=False` (the
+exact dense SAD,
 where the default would take the TPU-only MXU shortlist).  The port then
 starts from each reference state (`state_from_numpy`), steps one frame on
 the CPU and is compared field by field, as tests/test_torch_engine.py does:
@@ -43,15 +45,19 @@ from rso.config import load_config as j_load_config
 from rso.engine import Engine as JEngine, init_state as j_init_state
 from rso.io.calib import compute_rectify_maps as j_rectify_maps
 from rso.synthetic import make_sequence as j_make_sequence
+from rso.synthetic import make_textured_sequence as j_make_textured_sequence
 from rso.synthetic import make_unrectified_sequence as j_unrectified
 from rso.synthetic import synthetic_config as j_synthetic_config
+from rso.synthetic import textured_config as j_textured_config
 from rso_torch.config import load_config as t_load_config
 from rso_torch.engine import make_step, state_from_numpy
 from rso_torch.geometry import StereoCamera
 from rso_torch.synthetic import synthetic_config as t_synthetic_config
+from rso_torch.synthetic import textured_config as t_textured_config
 from test_torch_engine import _flat, _tol
 
 H, W = 160, 240
+TEXTURED_HW = (240, 376)
 N_FRAMES = 4
 TRACK_SLACK = 2
 POSE_ATOL_OTHER_SET = 3e-2
@@ -60,7 +66,7 @@ RECT_TIE_FRAMES = (0,)
 RECT_PATCH_ATOL = 4e-5
 RECT_DIST_ATOL = 2e-3
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PATHS = ("kitti", "rectified", "flow", "detect_every", "eigh_lm")
+PATHS = ("kitti", "rectified", "flow", "detect_every", "eigh_lm", "textured")
 _RUNS = {}
 
 
@@ -88,6 +94,8 @@ def config(path: str, ransac: bool, jax_side: bool = False):
     if path == "kitti":
         load = j_load_config if jax_side else t_load_config
         cfg = load(os.path.join(REPO, "configs", "kitti.ini"))
+    elif path == "textured":
+        cfg = j_textured_config() if jax_side else t_textured_config()
     else:
         cfg = j_synthetic_config() if jax_side else t_synthetic_config()
     cfg = _change(path, cfg, ransac)
@@ -99,7 +107,11 @@ def config(path: str, ransac: bool, jax_side: bool = False):
 
 def scene(path: str, n_frames: int = N_FRAMES, h: int = H, w: int = W):
     """(sequence, rectify maps or None) of the reference's generators; the
-    rectified path's camera is the rectified one."""
+    rectified path's camera is the rectified one; the textured path's size
+    is TEXTURED_HW."""
+    if path == "textured":
+        return j_make_textured_sequence(n_frames=n_frames, H=TEXTURED_HW[0],
+                                        W=TEXTURED_HW[1]), None
     if path != "rectified":
         return j_make_sequence(n_frames=n_frames, n_points=1800, H=h, W=w), None
     seq, calib = j_unrectified(n_frames=n_frames, n_points=1800, H=h, W=w)
@@ -115,7 +127,8 @@ def reference_run(path: str, ransac: bool):
         cfg = config(path, ransac, jax_side=True)
         eng = JEngine(cfg, seq.cam, rectify_maps=maps)
         to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
-        states, results = [to_np(j_init_state(cfg, (H, W)))], []
+        hw = seq.frames[0][0].shape
+        states, results = [to_np(j_init_state(cfg, hw))], []
         for left, right in seq.frames:
             results.append(to_np(eng.process_frame(left, right)))
             states.append(to_np(eng.state))
@@ -127,8 +140,9 @@ def port_step(path: str, ransac: bool, frame: int):
     """One port step on the CPU from the reference's state before `frame`."""
     seq, maps, states, _ = reference_run(path, ransac)
     cam = StereoCamera.from_numpy(jax.tree_util.tree_map(np.asarray, seq.cam))
-    step = make_step(config(path, ransac), cam, H, W, rectify_maps=maps)
     left, right = seq.frames[frame]
+    step = make_step(config(path, ransac), cam, *left.shape,
+                     rectify_maps=maps)
     return step(state_from_numpy(states[frame], device="cpu"),
                 torch.from_numpy(left), torch.from_numpy(right))
 
@@ -219,8 +233,10 @@ def bench_scene_reference(path: str, n_frames: int,
     the phase there.  kitti, flow, detect_every and eigh_lm: the 30-frame
     bench scene (1241x376, 2000 points, speed 0.8, fx 718.856, baseline
     0.5371); rectified: the distorted rig of make_unrectified_sequence at
-    EuRoC's 752x480 (1800 points) under configs/euroc.ini.  detect_every
-    runs with 3 (and 1-to-1 matching on)."""
+    EuRoC's 752x480 (1800 points) under configs/euroc.ini; textured:
+    make_textured_sequence(n_frames, seed 0) at 1241x376 with the bench
+    camera under textured_config() (its corridor's end wall depends on
+    n_frames).  detect_every runs with 3 (and 1-to-1 matching on)."""
     from rso.geometry import StereoCamera as JCamera, pose_matrix
     from rso.metrics.ate import ate_rmse
 
@@ -235,8 +251,12 @@ def bench_scene_reference(path: str, n_frames: int,
         h, w = 376, 1241
         cam = JCamera.make(fx_l=718.856, fy_l=718.856, cx_l=w / 2.0,
                            cy_l=h / 2.0, baseline=0.5371)
-        seq = j_make_sequence(n_frames=scene_frames, n_points=2000, H=h,
-                              W=w, cam=cam, speed=0.8)
+        if path == "textured":
+            seq = j_make_textured_sequence(n_frames=n_frames, H=h, W=w,
+                                           cam=cam)
+        else:
+            seq = j_make_sequence(n_frames=scene_frames, n_points=2000, H=h,
+                                  W=w, cam=cam, speed=0.8)
         maps = None
         cfg = config(path, True, jax_side=True)
         if path == "detect_every":

@@ -76,13 +76,14 @@ def test_cuda_corner_response_equals_the_cpu_twin(cuda, th):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arc", [9, 12])
-@pytest.mark.parametrize("win", [2, 4, 13, 45])
+@pytest.mark.parametrize("win", [2, 4, 13, 45, 46, 64])
 @pytest.mark.parametrize("hw", [(17, 23), (94, 310), (377, 1243)])
 def test_cuda_corner_response_noise(cuda, hw, win, arc):
     """Uniform noise of odd sizes, corners up to the 3-px ring on every edge
-    (partial tiles, wrapped halos): bit-exact with the twin on the card and
-    on the CPU.  Win 13 and 45 take more than 48 KB of shared memory a
-    block (the launch opts in), 45 the most the kernel takes."""
+    (partial tiles, wrapped halos, windows wider than the image): bit-exact
+    with the twin on the card and on the CPU.  Win 13 and 45 take more than
+    48 KB of shared memory a block (the launch opts in), 45 the most a
+    block's tile holds; 46 and 64 take the two-pass wide path."""
     img = np.random.default_rng(hw[0] * hw[1]).uniform(0, 255, hw).astype(np.float32)
     cpu = torch.from_numpy(img)
     out = K.corner_response_cuda(cpu.to(cuda), 20, arc, win)
@@ -90,6 +91,24 @@ def test_cuda_corner_response_noise(cuda, hw, win, arc):
     assert torch.isfinite(ref[3:6]).any() and torch.isfinite(ref[:, -6:-3]).any()
     assert torch.equal(out, ref)
     assert torch.equal(out.cpu(), K.corner_response_torch(cpu, 20, arc, win))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("win", [45, 46, 64])
+def test_cuda_corner_response_at_any_window(cuda, win):
+    """Kernel 1 at the widest one-tile window and past it, on every octave
+    of a bench frame: mask and response equal to the twin bit for bit; 45
+    launches the one-tile path, 46 and 64 the wide path."""
+    seq = make_sequence(n_frames=1, n_points=2000, H=376, W=1241)
+    img = to_grayscale(torch.from_numpy(seq.frames[0][0]).to(cuda))
+    K.LAUNCHES.clear()
+    for octave in build_pyramid(img, 3):
+        out = K.corner_response_cuda(octave, 20, win=win)
+        assert torch.isfinite(out).any()
+        assert torch.equal(out, K.corner_response_torch(octave, 20, win=win))
+    wide = win > 45
+    assert K.LAUNCHES["corner_response_wide"] == (3 if wide else 0)
+    assert K.LAUNCHES["corner_response"] == (0 if wide else 3)
 
 
 @pytest.mark.gpu
@@ -281,9 +300,12 @@ def test_cuda_wrappers_count_launches_and_check_operands(cuda):
         K.sad_matrix_cuda(torch.zeros((4, 200), device=cuda),
                           torch.zeros((4, 200), device=cuda))
     assert K.LAUNCHES["hamming_matrix"] == 1 and K.LAUNCHES["sad_matrix"] == 0
-    with pytest.raises(ValueError, match="win must be in 1.."):
-        K.corner_response_cuda(img, 20, win=K.fast_detect.MAX_WIN + 1)
+    with pytest.raises(ValueError, match="win must be >= 1"):
+        K.corner_response_cuda(img, 20, win=0)
     assert K.LAUNCHES["corner_response"] == 1
+    K.corner_response_cuda(img, 20, win=46)
+    assert K.LAUNCHES["corner_response"] == 1
+    assert K.LAUNCHES["corner_response_wide"] == 1
 
 
 @pytest.mark.gpu

@@ -4,7 +4,18 @@ scatter of right-eye positions, and the detect-or-propagate choice.
 
 Tolerances: as tests/_torch_paths.py (integers and masks exact; keypoint xy
 1e-3 px, poses 1e-5, residuals and cost 5e-3).
+
+The free run holds chip_smoke.py's configuration of the path (detect_every
+3, robust 1-to-1 matching, the RANSAC filter on) over 21 frames of the
+160x240 test scene, each package free-running from its own first state:
+every frame's StepResult and next state, with no tie on the way.  On the
+21 bench frames (1241x376) the two part first at frame 3's pose (2.3e-5
+against the 1e-5 tolerance; 1.5e-5 without the filter) and first in an
+integer at frame 6, a near-tie of the RANSAC filter's hypotheses
+(`tests/_torch_detect_every.py`, ROADMAP Queue 3).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,10 +24,16 @@ import torch
 
 import _torch_paths as P
 import rso_torch.engine as te
+from rso.engine import Engine as JEngine
 from rso.engine import make_step as j_make_step
+from rso.synthetic import make_sequence as j_make_sequence
+from rso.synthetic import synthetic_config as j_synthetic_config
 from rso_torch.geometry import StereoCamera
+from rso_torch.synthetic import synthetic_config as t_synthetic_config
 
 H, W = P.H, P.W
+N_FREE = 21
+_FREE = {}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -90,3 +107,43 @@ def test_propagate_with_shared_right_slots():
     assert int(res.stereo_matches.sum()) > 0
     P._assert_trees_match(res, _np(ref), "shared slots result")
     P._assert_trees_match(state, _np(ref_state), "shared slots state")
+
+
+def _every3(cfg):
+    """chip_smoke.py's detect_every path on either package's config."""
+    return cfg.replace(tpu=dataclasses.replace(cfg.tpu, detect_every=3))
+
+
+def _free_runs():
+    """Both engines free-running over N_FREE frames: (reference results,
+    reference states after each frame, the port's likewise); cached."""
+    if not _FREE:
+        seq = j_make_sequence(n_frames=N_FREE, n_points=1800, H=H, W=W)
+        jcfg = _every3(j_synthetic_config())
+        jcfg = jcfg.replace(tpu=dataclasses.replace(jcfg.tpu,
+                                                    use_mxu_distance=False))
+        ref, port = JEngine(jcfg, seq.cam), te.Engine(
+            _every3(t_synthetic_config()), _tcam(seq.cam), device="cpu")
+        for name in ("ref_res", "ref_states", "res", "states"):
+            _FREE[name] = []
+        for left, right in seq.frames:
+            _FREE["ref_res"].append(_np(ref.process_frame(left, right)))
+            _FREE["ref_states"].append(_np(ref.state))
+            _FREE["res"].append(port.process_frame(torch.from_numpy(left),
+                                                   torch.from_numpy(right)))
+            _FREE["states"].append(port.state)
+    return _FREE
+
+
+@pytest.mark.parametrize("frame", range(N_FREE))
+def test_detect_every_free_run(frame):
+    """Frame `frame` of the 21-frame free runs: the StepResult and the
+    state after it, at the tolerances above."""
+    runs = _free_runs()
+    if frame == N_FREE - 1:
+        since = [int(s.since_detect) for s in runs["ref_states"]]
+        assert 0 < since.count(0) < N_FREE and max(since) == 2, since
+    P._assert_trees_match(runs["res"][frame], runs["ref_res"][frame],
+                          f"free run frame {frame} result")
+    P._assert_trees_match(runs["states"][frame], runs["ref_states"][frame],
+                          f"free run frame {frame} state")

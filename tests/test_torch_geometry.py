@@ -62,6 +62,21 @@ def test_config_ini_equal(ini):
     assert _cfg_dict(jc.load_config(ini)) == _cfg_dict(tc.load_config(ini))
 
 
+@pytest.mark.parametrize("ini", [None] + sorted(glob.glob(os.path.join(
+    REPO, "configs", "*.ini"))), ids=lambda p: os.path.basename(p or "defaults"))
+def test_dump_to_console_equal(ini, capsys):
+    """The same text, printed and returned, on the defaults and each INI."""
+    jcfg = jc.RSOConfig() if ini is None else jc.load_config(ini)
+    tcfg = tc.RSOConfig() if ini is None else tc.load_config(ini)
+    ref = jc.dump_to_console(jcfg)
+    ref_out = capsys.readouterr().out
+    text = tc.dump_to_console(tcfg)
+    assert text == ref and capsys.readouterr().out == ref_out
+    assert len(text.splitlines()) == sum(
+        len(dataclasses.fields(getattr(tcfg, f.name)))
+        for f in dataclasses.fields(tcfg))
+
+
 def test_config_enums_compare_by_value():
     assert tc.DetectMethod.FASTER == jc.DetectMethod.FASTER
     assert tc.IFMatchMethod.SAD == jc.IFMatchMethod.SAD
@@ -113,6 +128,18 @@ def test_se3_ops(rng):
     np.testing.assert_allclose(tse3.pose_apply(ta, torch.from_numpy(pts)).numpy(),
                                np.asarray(jse3.pose_apply(ja, jnp.asarray(pts))),
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("rows", [4, 3])
+def test_pose_from_matrix(rng, rows):
+    """A 4x4 and a 3x4 homogeneous matrix to [w, t], within 1e-6."""
+    for w in _rotvecs(rng):
+        pose = np.concatenate([w, rng.normal(0, 2, 3)]).astype(np.float32)
+        T = np.asarray(jse3.pose_matrix(jnp.asarray(pose)))[:rows]
+        ref = np.asarray(jse3.pose_from_matrix(jnp.asarray(T)))
+        out = tse3.pose_from_matrix(torch.from_numpy(T.copy())).numpy()
+        assert out.shape == (6,) and out.dtype == np.float32
+        np.testing.assert_allclose(out, ref, atol=1e-6)
 
 
 def test_camera_holds_float32_entries():

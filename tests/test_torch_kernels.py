@@ -24,6 +24,7 @@ import _torch_stereo_cases as SC
 import _torch_track_cases as TC
 import chip_smoke as CS
 
+from rso.kernels.cost_volume import windowed_sad_search as j_windowed_sad_search
 from rso.kernels.distance import (
     hamming_matrix_jnp,
     hamming_matrix_pallas,
@@ -123,10 +124,11 @@ def test_corner_twin_vs_reference_noise(hw, win, arc):
     np.testing.assert_allclose(out[fin], ref[fin], rtol=1e-5, atol=1e-3)
 
 
-@pytest.mark.parametrize("win", [7, 13])
+@pytest.mark.parametrize("win", [7, 13, 46, 64])
 def test_corner_twin_vs_reference_wide_window(win):
-    """Windows wider than the configs' 4 (the kernel takes any win up to
-    MAX_WIN), on uniform noise of an odd size; tolerance as above."""
+    """Windows wider than the configs' 4 (the kernel takes any win: 46 and
+    64 take its wide path on the card), on uniform noise of an odd size;
+    tolerance as above."""
     img = np.random.default_rng(win).uniform(0, 255, (94, 310)).astype(np.float32)
     ref = np.asarray(jax.jit(corner_response_jnp, static_argnums=(2, 3))(
         jnp.asarray(img), 20, 12, win))
@@ -403,14 +405,61 @@ def test_non_cpu_tensor_never_falls_back(monkeypatch):
         K.hamming_matrix_auto(d, d)
 
 
+@pytest.mark.parametrize("win_x, win_y", [(8, 8), (4, 6), (3, 0), (16, 2)])
+def test_windowed_sad_search_vs_reference(win_x, win_y):
+    """rso's windowed SAD search (plain XLA in rso, plain PyTorch here) on a
+    u8-valued image: best_xy and best_sad exact, with centers whose windows
+    clamp at every border, half-pixel centers (round half to even), planted
+    templates, repeated-value ties (the first minimum in row order) and
+    invalid templates (float32's max)."""
+    rng = np.random.default_rng(10 * win_x + win_y)
+    h, w, k = 70, 95, 48
+    img = rng.integers(0, 256, (h, w)).astype(np.float32)
+    img[40:60, 10:40] = 7.0                 # a flat block: tied minima
+    tm = rng.integers(0, 256, (k, 64)).astype(np.float32)
+    cxy = np.stack([rng.uniform(-6, w + 5, k),
+                    rng.uniform(-6, h + 5, k)], 1).astype(np.float32)
+    cxy[:6] = [[10.5, 11.5], [12.5, 13.5], [0, 0], [w - 1, h - 1],
+               [25.0, 50.0], [30.0, 45.0]]
+    tm[4:6] = 7.0
+    for i, (x, y) in enumerate([(50, 20), (70, 30), (33, 12)]):
+        tm[6 + i] = img[y - 3:y + 5, x - 3:x + 5].reshape(64)
+        cxy[6 + i] = (x + 2.0, y - 1.0)
+    valid = rng.random(k) > 0.2
+    valid[:9] = True
+    ref = j_windowed_sad_search(jnp.asarray(img), jnp.asarray(tm),
+                                jnp.asarray(cxy), win_x, win_y,
+                                jnp.asarray(valid))
+    out = K.windowed_sad_search(torch.from_numpy(img), torch.from_numpy(tm),
+                                torch.from_numpy(cxy), win_x, win_y,
+                                torch.from_numpy(valid))
+    np.testing.assert_array_equal(out.best_xy.numpy(), np.asarray(ref.best_xy))
+    np.testing.assert_array_equal(out.best_sad.numpy(), np.asarray(ref.best_sad))
+    np.testing.assert_array_equal(out.valid.numpy(), np.asarray(ref.valid))
+    assert (out.best_sad.numpy()[~valid] == np.finfo(np.float32).max).all()
+    assert (out.best_sad.numpy()[4:6] == 0).all()
+    if win_x >= 2 and win_y >= 1:
+        assert (out.best_sad.numpy()[6:9] == 0).all()
+    default = K.windowed_sad_search(torch.from_numpy(img),
+                                    torch.from_numpy(tm),
+                                    torch.from_numpy(cxy), win_x, win_y)
+    assert bool(default.valid.all())
+    np.testing.assert_array_equal(default.best_xy.numpy(),
+                                  out.best_xy.numpy())
+
+
 def test_corner_kernel_takes_only_its_windows(monkeypatch):
-    """A window whose tile does not fit the kernel's shared memory (or no
-    window at all) raises in the wrapper, before any launch, and the
-    dispatcher does not fall back to the twin."""
+    """No window at all raises in the wrapper, before any launch; a window
+    past the one-tile path's 45 passes that check (the kernel's wide path
+    takes it) and reaches the device check; the dispatcher never falls back
+    to the twin."""
     monkeypatch.setattr(_lib, "load", lambda: None)
     meta = torch.empty((64, 64), device="meta")
-    for win in (0, -1, K.fast_detect.MAX_WIN + 1):
-        with pytest.raises(ValueError, match="win must be in 1.."):
+    for win in (0, -1):
+        with pytest.raises(ValueError, match="win must be >= 1"):
+            K.corner_response_auto(meta, 20, win=win)
+    for win in (46, 64):
+        with pytest.raises(ValueError, match="image on meta"):
             K.corner_response_auto(meta, 20, win=win)
 
 
