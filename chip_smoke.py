@@ -35,7 +35,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      Engine(synthetic_config()) on the card, with every kernel's launch
      counter reset just before and read just after; then the first 5 steps
      again on the CPU (the plain path) from the same states, held to the
-     GPU's counts, error codes and poses;
+     GPU's counts, error codes and poses.  Engine runs its step as CUDA
+     graphs (rso_torch.graphs; the eigh backend eagerly), captured in each
+     phase's warm-up, so phases 4-11 drive the graphs; each engine run also
+     prints its host reads a frame and its graphs;
   5. engine, descriptor path: FAST_ORB + DESC_RBR + DESC_WIN with oriented
      descriptors (3 octaves, K = 512/256/128), 30 bench frames; the valid
      count and ATE held to bounds set from the reference's own CPU run; 3
@@ -49,7 +52,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      held to the counts its states imply, its valid count and ATE held to
      bounds from the reference's own CPU run of the same frames
      (`tests/_torch_paths.py`), 3 steps again on the CPU, and the ms a
-     frame of its main stages (detection, stereo, tracking, RANSAC, the
+     frame of the eager step's main stages (detection, stereo, tracking, RANSAC, the
      pose solve) and of its new plain stages (remap, refine, LK levels, LK
      seed) from CUDA events around their calls over 5 more frames:
        kitti         configs/kitti.ini (subpixel refine on), 20 bench frames;
@@ -71,6 +74,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
                      each step (detection equal);
      the valid count within 3 frames and the ATE within a factor 2 of the
      reference's, either way;
+ 8b. the compiled step: for the default, kitti, textured, flow,
+     detect_every and descriptor paths, the eager make_step loop and
+     Engine's CUDA graphs from the same first state on the same frames (20;
+     detect_every 21), every field of every frame equal (torch.equal) and
+     the same launches a frame; per path each form's median step ms (CUDA
+     events) and wall ms a frame, the flag reads a frame, the GN iteration
+     distribution and the graphs; on default and kitti the graphs again at
+     each GN_BLOCK of GN_BLOCK_SWEEP, all captured first and then timed in
+     turns, twice (what GN_BLOCK was chosen from);
   9. bundle adjustment (rso_torch.ba; no kernel of its own: its products
      are cuBLAS GEMMs and one cuSOLVER solve a LM iteration), bounds from
      the reference's own CPU run (`tests/_torch_ba.py`):
@@ -251,6 +263,10 @@ PATH_REF = {
 N_TEXTURED_FRAMES = 20
 WIDE_WIN = 46
 N_WIDE_FRAMES = 3
+# The compiled step: frames per path (detect_every: N_EVERY_FRAMES), and
+# the GN block sizes timed on the default and kitti paths.
+N_COMPILED_FRAMES = 20
+GN_BLOCK_SWEEP = (1, 2, 3, 4, 6, 10)
 # Phase 9, bundle adjustment.  Bounds from the reference's own CPU run of
 # the same 30 bench frames (rso.ba, JAX on the CPU: `JAX_PLATFORMS=cpu
 # PYTHONPATH=. python tests/_torch_ba.py 30`).  Keyframe and solve counts
@@ -306,6 +322,8 @@ FILL_KERNEL = "FillFunctor"
 # what the entry-point phase holds against the earlier phases' runs: each
 # engine path's StepResults by name (drive), and the BA runs' counts
 RUNS = {}
+# scenes made by one phase and driven again by a later one
+SCENES = {}
 
 
 def _nvidia_smi() -> str:
@@ -1017,6 +1035,7 @@ def drive(name, cfg, seq, dev, n_frames, maps=None):
 
     from rso_torch.engine import Engine
     from rso_torch.kernels import LAUNCHES
+    from rso_torch.solver.robust_gn import HOST_READS
 
     lefts = [torch.from_numpy(l).to(dev) for l, _ in seq.frames[:n_frames]]
     rights = [torch.from_numpy(r).to(dev) for _, r in seq.frames[:n_frames]]
@@ -1029,6 +1048,7 @@ def drive(name, cfg, seq, dev, n_frames, maps=None):
     torch.cuda.synchronize()
 
     LAUNCHES.clear()
+    HOST_READS.clear()
     results, states, step_ms = [], [], []
     t0 = time.perf_counter()
     for i in range(n_frames):
@@ -1042,6 +1062,8 @@ def drive(name, cfg, seq, dev, n_frames, maps=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
+    reads = {k: v / n_frames for k, v in HOST_READS.items()}
+    n_graphs = eng._get_step(*lefts[0].shape[:2]).n_graphs
 
     # the card is deterministic: the warm-up's steps ran the same frames
     # from the same states
@@ -1063,7 +1085,8 @@ def drive(name, cfg, seq, dev, n_frames, maps=None):
     n_valid = sum(bool(r.valid) for r in results)
     print(f"engine {name}: {n_frames} frames, valid {n_valid}/{n_frames}, "
           f"ATE {ate} m, median step {med} ms ({1e3 / med} frames/s), wall "
-          f"{n_frames / wall} frames/s, launches {launches}", flush=True)
+          f"{n_frames / wall} frames/s, launches {launches}, host reads a "
+          f"frame {reads}, CUDA graphs {n_graphs}", flush=True)
     return states, results, launches, ate
 
 
@@ -1254,23 +1277,27 @@ class StageTimer:
 
 
 def stage_ms(name, cfg, seq, dev, n_frames, maps=None) -> dict:
-    """ms a frame of the step's main stages (detection, stereo matching,
-    tracking, the RANSAC filter, the pose solve), of the plain stages new
-    in these paths (remap, refine, LK's levels and its coarse seed) and of
-    the whole step, over n_frames after a warm-up, with the stage events
-    on."""
+    """ms a frame of the eager step's main stages (detection, stereo
+    matching, tracking, the RANSAC filter, the pose solve), of the plain
+    stages new in these paths (remap, refine, LK's levels and its coarse
+    seed) and of the whole step, over n_frames after a warm-up, with the
+    stage events on.  The eager step (make_step), since Engine's graphs
+    replay without calling the stages' Python functions."""
     import torch
 
     import rso_torch.engine as E
     import rso_torch.frontend.optical_flow as OF
-    from rso_torch.engine import Engine
+    from rso_torch.engine import Engine, init_state, make_step
 
     frames = [(torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev))
               for l, r in seq.frames[:n_frames]]
+    hw = tuple(frames[0][0].shape[:2])
     eng = Engine(cfg, seq.cam, rectify_maps=maps)
+    step = make_step(cfg, eng.cam, *hw, rectify_maps=eng.rectify_maps)
+    st = init_state(cfg, hw, dev)
     for l, r in frames[:2]:
-        eng.process_frame(l, r)
-    eng.reset()
+        st, _ = step(st, l, r)
+    st = init_state(cfg, hw, dev)
     targets = [(E, "bilinear_remap", "remap"), (E, "refine_positions", "refine"),
                (OF, "_lk_level", "lk_level"), (OF, "_coarse_sad_seed", "lk_seed"),
                (E, "detect_features", "detect"),
@@ -1284,13 +1311,14 @@ def stage_ms(name, cfg, seq, dev, n_frames, maps=None) -> dict:
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            eng.process_frame(l, r)
+            st, _ = step(st, l, r)
             b.record()
             steps.append((a, b))
         out = t.ms_per_frame(n_frames)
     out["step"] = sum(a.elapsed_time(b) for a, b in steps) / n_frames
-    print(f"stages {name}: ms a frame over {n_frames} frames (CUDA events "
-          f"around each call) {json.dumps(out)}", flush=True)
+    print(f"stages {name}: ms a frame of the eager step over {n_frames} "
+          f"frames (CUDA events around each call) {json.dumps(out)}",
+          flush=True)
     return out
 
 
@@ -1491,6 +1519,7 @@ def run_textured(dev):
                                   cam=_bench_cam())
     print(f"textured: {N_TEXTURED_FRAMES} frames of the corridor rendered at "
           f"{W}x{H} in {time.perf_counter() - t0} s", flush=True)
+    SCENES["textured"] = tseq
     cfg = textured_config()
     out = {"textured": _path_phase("textured", cfg, tseq, dev,
                                    N_TEXTURED_FRAMES, PATH_REF["textured"])}
@@ -1509,6 +1538,155 @@ def run_textured(dev):
     cpu_rerun("wide_window", cfg, tseq, states, results, N_WIDE_FRAMES)
     out["wide_window"] = launches
     return out
+
+
+def _timed_frames(run, frames):
+    """Each frame through run(left, right) -> StepResult: the results, each
+    frame's launches and host reads, the median step ms after frame 0
+    (CUDA events around each call) and the wall ms a frame (host clock to
+    a synchronize)."""
+    import torch
+
+    from rso_torch.kernels import LAUNCHES
+    from rso_torch.solver.robust_gn import HOST_READS
+
+    out, launches, reads, events = [], [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for left, right in frames:
+        LAUNCHES.clear()
+        HOST_READS.clear()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out.append(run(left, right))
+        b.record()
+        launches.append(dict(LAUNCHES))
+        reads.append(dict(HOST_READS))
+        events.append((a, b))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / len(frames)
+    times = sorted(a.elapsed_time(b) for a, b in events[1:])
+    return out, launches, reads, times[len(times) // 2], wall
+
+
+def _same_frames(what, got, want):
+    import torch
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        for field, a, b in zip(g._fields, g, w):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: frame {i} {field} differs")
+
+
+def compiled_path(name, cfg, seq, dev, n_frames, sweep=False) -> dict:
+    """The eager make_step loop and Engine's CUDA graphs from the same first
+    state on the same frames: every field of every frame equal, the same
+    launches a frame; each form's median step ms and wall ms a frame, the
+    flag reads a frame, the GN iteration distribution, the graphs.  With
+    `sweep`, the graphs again at each GN_BLOCK of GN_BLOCK_SWEEP, every
+    block size captured first and then timed in turns, twice."""
+    import torch
+
+    import rso_torch.solver.robust_gn as G
+    from rso_torch.engine import Engine, init_state, make_step
+
+    frames = [(torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev))
+              for l, r in seq.frames[:n_frames]]
+    hw = tuple(frames[0][0].shape[:2])
+    eng = Engine(cfg, seq.cam)
+    step = make_step(cfg, eng.cam, *hw)
+    st = [init_state(cfg, hw, dev)]
+
+    def eager(left, right):
+        st[0], res = step(st[0], left, right)
+        return res
+
+    for left, right in frames[:2]:
+        eager(left, right)
+    st[0] = init_state(cfg, hw, dev)
+    for left, right in frames:      # captures every graph set it meets
+        eng.process_frame(left, right)
+    eng.reset()
+    want, e_launch, e_reads, e_ms, e_wall = _timed_frames(eager, frames)
+    got, g_launch, g_reads, g_ms, g_wall = _timed_frames(eng.process_frame,
+                                                         frames)
+    _same_frames(f"compiled {name}", got, want)
+    for i, (a, b) in enumerate(zip(g_launch, e_launch)):
+        if a != b:
+            raise AssertionError(f"compiled {name}: frame {i} launches {a} "
+                                 f"in the graphs, {b} eager")
+    n_graphs = eng._get_step(*hw).n_graphs
+    sets = 2 if cfg.tpu.detect_every > 1 else 1
+    if n_graphs < 3 * sets:
+        raise AssertionError(f"compiled {name}: {n_graphs} graphs")
+    mean = lambda rs, k: sum(r.get(k, 0) for r in rs) / len(rs)  # noqa: E731
+    report = {
+        "frames": n_frames, "eager_ms": e_ms, "graph_ms": g_ms,
+        "eager_wall_ms": e_wall, "graph_wall_ms": g_wall,
+        "gn_reads_per_frame": {"eager": mean(e_reads, "gn"),
+                               "graph": mean(g_reads, "gn")},
+        "detect_reads_per_frame": mean(g_reads, "detect_every"),
+        "num_it": dict(sorted(collections.Counter(
+            int(r.num_it) for r in want).items())),
+        "num_it_final": dict(sorted(collections.Counter(
+            int(r.num_it_final) for r in want).items())),
+        "graphs": n_graphs, "gn_block": G.GN_BLOCK,
+        "launches": {k: sum(x.get(k, 0) for x in g_launch)
+                     for k in sorted({k for x in g_launch for k in x})}}
+    if sweep:
+        engines = {}
+        try:
+            for b in GN_BLOCK_SWEEP:
+                G.GN_BLOCK = b
+                engines[b] = Engine(cfg, seq.cam)
+                for left, right in frames[:2]:
+                    engines[b].process_frame(left, right)
+        finally:
+            G.GN_BLOCK = report["gn_block"]
+        ms = collections.defaultdict(list)
+        for order in (GN_BLOCK_SWEEP, GN_BLOCK_SWEEP[::-1]):
+            for b in order:
+                engines[b].reset()
+                res, _, reads, b_ms, b_wall = _timed_frames(
+                    engines[b].process_frame, frames)
+                _same_frames(f"compiled {name} GN_BLOCK {b}", res, want)
+                ms[b].append({"ms": b_ms, "wall_ms": b_wall,
+                              "gn_reads_per_frame": mean(reads, "gn")})
+        report["gn_block_sweep"] = dict(ms)
+    print(f"compiled {name}: graphs equal the eager step on {n_frames} "
+          f"frames, launches equal a frame; {json.dumps(report)}", flush=True)
+    return report
+
+
+def run_compiled(seq, dev) -> dict:
+    """The compiled step: the graphs held to the eager step on the default,
+    kitti, textured, flow, detect_every and descriptor paths; the GN block
+    size swept on default and kitti.  Returns the graph runs' launches."""
+    import dataclasses
+
+    from rso_torch.config import load_config
+    from rso_torch.synthetic import mode_config, synthetic_config, textured_config
+
+    rep = dataclasses.replace
+    base = synthetic_config()
+    paths = [
+        ("default", base, seq, N_COMPILED_FRAMES, True),
+        ("kitti", load_config(str(REPO / "configs" / "kitti.ini")), seq,
+         N_COMPILED_FRAMES, True),
+        ("textured", textured_config(), SCENES["textured"], N_COMPILED_FRAMES,
+         False),
+        ("flow", base.replace(if_match=rep(base.if_match, ifm_method=3)), seq,
+         N_COMPILED_FRAMES, False),
+        ("detect_every", base.replace(tpu=rep(base.tpu, detect_every=3)), seq,
+         N_EVERY_FRAMES, False),
+        ("fast_orb_rbr_win", mode_config("fast_orb_rbr_win", upright=False),
+         seq, N_COMPILED_FRAMES, False),
+    ]
+    launches = collections.Counter()
+    for name, cfg, s, n, sweep in paths:
+        launches.update(compiled_path(name, cfg, s, dev, n, sweep)["launches"])
+    return dict(launches)
 
 
 def _same_solve(what, card, cpu, rerun_card, rerun_cpu, cost_on_cpu,
@@ -2608,6 +2786,7 @@ def main() -> int:
     report, timed = check_kernels(seq, dev)
     by_phase = run_engines(seq, dev)
     by_phase.update(run_new_paths(seq, dev))
+    by_phase["compiled"] = run_compiled(seq, dev)
     by_phase["vo_with_ba"] = run_ba(seq, dev)
     by_phase["entry_points"] = run_entry_points(seq, dev, smi)
     by_phase["mesh"] = run_mesh(seq, dev, smi)

@@ -14,13 +14,19 @@ steps take external features or matches (the reference's
 use_precomputed_data seam).  `tpu.use_fused_match` picks the fused SAD
 kernels (the default) or the dense SAD matrices for stages 3 and 4.
 
-The reference runs the step as one jitted XLA program; here it is eager
-PyTorch on the state's device, with the six CUDA kernels under it.  The
-state lives on the device between frames, and the step reads back to the
-host only the pose solver's per-iteration stop flag and, with
-detect_every > 1, the choice between detecting and propagating.  The entry
-points run on the GPU unless the caller passes device="cpu", and raise
-where CUDA is absent.
+`make_step` is the eager step: PyTorch on the state's device, with the six
+CUDA kernels under it.  `Engine` runs it as the reference runs its jitted
+step: one `rso_torch.graphs.CompiledStep` per (h, w, precomputed), which on
+the GPU captures the step as CUDA graphs once and replays them on every
+frame, through static buffers that the caller's states and results never
+alias.  The state lives on the device between frames, and a frame reads
+back to the host only the pose solver's stop flag, once per block of
+GN_BLOCK iterations, and, with detect_every > 1, the choice between
+detecting and propagating (one read a frame, which picks one of the two
+graph sets).  The eigh solve backend's cuSOLVER call checks its result on
+the host, so that configuration runs the eager step through the same
+buffers.  The entry points run on the GPU unless the caller passes
+device="cpu", and raise where CUDA is absent.
 """
 from __future__ import annotations
 
@@ -53,12 +59,16 @@ from rso_torch.frontend.stereo_match import StereoMatches, match_left_right
 from rso_torch.frontend.track import (TrackResult, track_interframe,
                                       track_optical_flow)
 from rso_torch.geometry.stereo_camera import StereoCamera
+from rso_torch.graphs import CompiledStep
+from rso_torch.graphs import tree_map as _tree_map
 from rso_torch.solver.ransac import ransac_fundamental
 from rso_torch.solver.robust_gn import (
+    HOST_READS,
     VOEC_BAD_COND_NUMBER,
     VOEC_BAD_TRACKING,
     VOEC_FIRST_ITERATION,
     VOEC_NONE,
+    eager_blocks,
     solve_pose,
 )
 
@@ -110,15 +120,6 @@ class StepResult(NamedTuple):
     obs_outlier: torch.Tensor                   # [T] bool cur slots cut as outliers
 
 
-def _tree_map(fn, *trees):
-    """Map fn over the tensor leaves of matching NamedTuple/tuple trees."""
-    t0 = trees[0]
-    if isinstance(t0, torch.Tensor):
-        return fn(*trees)
-    mapped = [_tree_map(fn, *xs) for xs in zip(*trees)]
-    return type(t0)(*mapped) if hasattr(t0, "_fields") else tuple(mapped)
-
-
 def _int(v, device) -> torch.Tensor:
     # a fill kernel, not a host-to-device copy (which would sync the stream)
     return torch.full((), v, dtype=torch.int32, device=device)
@@ -145,6 +146,22 @@ def _empty_octave(k: int, device) -> OctaveData:
         ),
         match_ids=torch.full((k,), -1, dtype=torch.int32, device=device),
     )
+
+
+def detects_this_frame(cfg: RSOConfig, state: EngineState) -> bool:
+    """detect_every's choice (the reference's lax.cond, rso/engine.py:454):
+    detect on the first frame, every detect_every-th frame, when too few
+    stereo pairs are left to propagate, and after a recovery.  One host
+    read where detect_every > 1; always True otherwise."""
+    every = max(1, int(cfg.tpu.detect_every))
+    if every == 1:
+        return True
+    prev_pairs = sum(oc.matches.valid.sum(dtype=torch.int32)
+                     for oc in state.prev.octaves)
+    HOST_READS["detect_every"] += 1
+    return bool(~state.have_prev | (state.since_detect + 1 >= every)
+                | (prev_pairs < cfg.tpu.propagate_min_matches)
+                | (state.err_streak > 0))
 
 
 def _keeps_pyramids(cfg: RSOConfig) -> bool:
@@ -271,7 +288,10 @@ def _stage5_nms(xy, resp, mask, min_distance):
 def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
               rectify_maps=None, precomputed: str | None = None):
     """Build the per-frame step for a fixed config and image size:
-    step(state, left_img, right_img) -> (state', StepResult).
+    step(state, left_img, right_img) -> (state', StepResult), run eagerly.
+    Every step also takes `loop`, the runner of the pose solver's GN blocks
+    (robust_gn.eager_blocks), and the image step `do_detect`, the branch
+    of detect_every (None: detects_this_frame's host read).
 
     rectify_maps: optional ((mlx, mly), (mrx, mry)) float32 [H,W] sample
         maps (rso_torch.io.calib.compute_rectify_maps), applied before the
@@ -378,18 +398,18 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
                              fr.valid.sum(dtype=torch.int32)])
                 for fl, fr in octs]
 
-    def step_feats(state: EngineState, octs):
+    def step_feats(state: EngineState, octs, *, loop=eager_blocks):
         cur_octs, n_matches = _stage_3(octs)
         return _tail(state, None, None, cur_octs, n_matches, _counts(octs),
-                     [state.fast_th[o] for o in range(O)])
+                     [state.fast_th[o] for o in range(O)], loop)
 
-    def step_matches(state: EngineState, octs, matches):
+    def step_matches(state: EngineState, octs, matches, *, loop=eager_blocks):
         cur_octs = [OctaveData(left=octs[o][0], right=octs[o][1],
                                matches=matches[o], match_ids=_new_ids(Ks[o]))
                     for o in range(O)]
         n_matches = [m.valid.sum(dtype=torch.int32) for m in matches]
         return _tail(state, None, None, cur_octs, n_matches, _counts(octs),
-                     [state.fast_th[o] for o in range(O)])
+                     [state.fast_th[o] for o in range(O)], loop)
 
     def _propagate(state, pyr_l, pyr_r):
         """Amortised detection: LK-propagate the previous frame's matched
@@ -443,17 +463,12 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
                                          right.valid.sum(dtype=torch.int32)]))
         return cur_octs, n_matches, detected
 
-    def step(state: EngineState, left_img, right_img):
+    def step(state: EngineState, left_img, right_img, *, loop=eager_blocks,
+             do_detect: bool | None = None):
+        if do_detect is None:
+            # the reference's lax.cond becomes a host branch: one read a frame
+            do_detect = detects_this_frame(cfg, state)
         pyr_l, pyr_r = _stage_1(left_img, right_img)
-        do_detect = True
-        if detect_every > 1:
-            prev_pairs = sum(oc.matches.valid.sum(dtype=torch.int32)
-                             for oc in state.prev.octaves)
-            # the reference's lax.cond becomes a host branch: one sync a frame
-            do_detect = bool(~state.have_prev
-                             | (state.since_detect + 1 >= detect_every)
-                             | (prev_pairs < tpu.propagate_min_matches)
-                             | (state.err_streak > 0))
         if do_detect:
             octs, new_fast_th, detected = _stage_2(state, pyr_l, pyr_r)
             cur_octs, n_matches = _stage_3(octs)
@@ -461,10 +476,10 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
             cur_octs, n_matches, detected = _propagate(state, pyr_l, pyr_r)
             new_fast_th = [state.fast_th[o] for o in range(O)]
         return _tail(state, pyr_l, pyr_r, cur_octs, n_matches, detected,
-                     new_fast_th, did_detect=do_detect)
+                     new_fast_th, loop, did_detect=do_detect)
 
     def _tail(state, pyr_l, pyr_r, cur_octs, n_matches, detected, new_fast_th,
-              did_detect=True):
+              loop, did_detect=True):
         key = rrandom.fold_in(rrandom.PRNGKey(7, dev), state.frame_idx)
 
         # ---- stage 4: inter-frame tracking ----------------------------------
@@ -577,7 +592,7 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
         init_pose = (state.last_pose if ls.use_previous_pose_as_initial
                      else torch.zeros_like(state.last_pose))
         sol = solve_pose(cam, prev_obs, cur_obs, smask, ls,
-                         initial_pose=init_pose, obs_weight=obs_w)
+                         initial_pose=init_pose, obs_weight=obs_w, loop=loop)
 
         # per-CURRENT-slot outlier flags (dense one-hot routing, as above)
         outlier_prev = smask & ~sol.inliers
@@ -683,12 +698,26 @@ class Engine:
         self._state_before_last: EngineState | None = None
         self._step_cache: dict[tuple, object] = {}
 
-    def _get_step(self, h: int, w: int, precomputed: str | None = None):
+    def _get_step(self, h: int, w: int,
+                  precomputed: str | None = None) -> CompiledStep:
+        """The compiled step of (h, w, precomputed), made at first use (the
+        reference's jit cache, rso/engine.py:737-758).  On the GPU it runs
+        as CUDA graphs, except with the eigh solve backend, whose cuSOLVER
+        call reads its status on the host: that configuration runs the
+        eager step through the same buffers."""
         key = (h, w, precomputed)
         if key not in self._step_cache:
-            self._step_cache[key] = make_step(
-                self.cfg, self.cam, h, w, rectify_maps=self.rectify_maps,
-                precomputed=precomputed)
+            cfg = self.cfg
+            step = make_step(cfg, self.cam, h, w,
+                             rectify_maps=self.rectify_maps,
+                             precomputed=precomputed)
+            branch = None
+            if precomputed is None and cfg.tpu.detect_every > 1:
+                branch = lambda st: detects_this_frame(cfg, st)  # noqa: E731
+            self._step_cache[key] = CompiledStep(
+                step, branch=branch,
+                capture=(self.device.type == "cuda"
+                         and cfg.least_squares.solve_backend != "eigh"))
         return self._step_cache[key]
 
     def _image(self, img) -> torch.Tensor:
@@ -714,18 +743,22 @@ class Engine:
         return result
 
     def process_chunk(self, left_imgs, right_imgs) -> StepResult:
-        """N consecutive frames; results stacked along a leading frame axis.
-        Same math and state evolution as N process_frame calls; a later
-        `repeat` re-runs against the state before the chunk, as the
-        reference's one-dispatch chunk leaves it."""
+        """N consecutive frames; results stacked along a leading frame axis
+        (the reference's lax.scan): the compiled step's graphs replayed N
+        times, the state kept in its buffers between frames and each result
+        written into [N, ...] buffers.  Same math and state evolution as N
+        process_frame calls; a later `repeat` re-runs against the state
+        before the chunk, as the reference's one-dispatch chunk leaves it."""
+        lefts = [self._image(l) for l in left_imgs]
+        rights = [self._image(r) for r in right_imgs]
+        h, w = lefts[0].shape[:2]
         if self.state is None:
-            h, w = self._image(left_imgs[0]).shape[:2]
             self.state = init_state(self.cfg, (h, w), self.device)
         before = self.state
-        results = [self.process_frame(l, r)
-                   for l, r in zip(left_imgs, right_imgs)]
+        self.state, results = self._get_step(h, w).chunk(self.state, lefts,
+                                                          rights)
         self._state_before_last = before
-        return StepResult(*(torch.stack(v) for v in zip(*results)))
+        return results
 
     # ---- dynamic threshold accessors (reference h:529-541) ----------------
 

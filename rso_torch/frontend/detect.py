@@ -63,7 +63,9 @@ def fast_corner_mask(img: torch.Tensor, threshold, arc: int = 12) -> torch.Tenso
     A pixel is a corner if >= `arc` contiguous circle pixels are all brighter
     than center+t or all darker than center-t.  `threshold` may be a device
     scalar (the threshold servo's state)."""
-    t = torch.as_tensor(threshold, device=img.device).to(img.dtype)
+    t = (threshold.to(img.device, img.dtype)
+         if isinstance(threshold, torch.Tensor) else
+         torch.full((), threshold, dtype=img.dtype, device=img.device))
     hi = img + t
     lo = img - t
     bright = torch.zeros(img.shape, dtype=torch.int32, device=img.device)
@@ -98,7 +100,7 @@ def fast_corner_mask(img: torch.Tensor, threshold, arc: int = 12) -> torch.Tenso
     corner = has_arc(bright) | has_arc(dark)
     H, W = img.shape
     border = torch.zeros_like(corner)
-    border[3:H - 3, 3:W - 3] = True
+    border[3:H - 3, 3:W - 3].fill_(True)   # a fill, no host-to-device copy
     return corner & border
 
 
@@ -355,7 +357,7 @@ def _inside(shape, margin: int, device) -> torch.Tensor:
     """[H,W] bool: True at least `margin` px away from every edge."""
     H, W = shape
     inb = torch.zeros((H, W), dtype=torch.bool, device=device)
-    inb[margin:H - margin, margin:W - margin] = True
+    inb[margin:H - margin, margin:W - margin].fill_(True)
     return inb
 
 

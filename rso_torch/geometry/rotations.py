@@ -121,7 +121,8 @@ def rotvec_from_matrix(R: torch.Tensor) -> torch.Tensor:
     angle = 2.0 * torch.arccos(qw)
     s = torch.sqrt(torch.clamp(1.0 - qw * qw, min=0.0))
     tiny = s < 1e-7
-    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=R.dtype, device=R.device)
+    x_axis = torch.zeros(3, dtype=R.dtype, device=R.device)
+    x_axis[0:1].fill_(1.0)      # a fill, no host-to-device copy
     axis = torch.where(tiny, x_axis,
                        q[1:] / torch.where(tiny, torch.ones_like(s), s))
     return axis * angle

@@ -1,0 +1,304 @@
+"""The compiled per-frame step: the engine's counterpart of rso's jax.jit.
+
+rso jit-compiles its step once per (h, w, precomputed) and runs each frame
+as one device program.  Here `CompiledStep` holds, per signature of the
+state and the inputs (shapes, dtypes, devices), static buffers for the
+state, the inputs and the result, and per branch of the step (detect or
+propagate with detect_every > 1: the counterpart of the reference's
+lax.cond) a set of CUDA graphs captured once and replayed on every frame.
+The graphs are split where the pose solver reads its stop flag:
+
+    pre     everything up to the first GN block of phase 1
+    block   one block of GN_BLOCK masked GN iterations of phase 1, replayed
+            until its stop flag, read after each replay but the last, is
+            false (the counterpart of lax.while_loop)
+    mid     the outlier cut between the phases
+    block   the same for phase 2
+    tail    the rest of the step, ending with copies of the new state and
+            the result into the static buffers
+
+A block's carry is cloned at the end of the segment before it, and each
+block writes its output back into that clone, so a replayed block reads what
+the last replay wrote.  The first frame of each (signature, branch) runs the
+step eagerly on a side stream, the warm-up PyTorch's graph rules ask for (it
+builds the kernels, initialises cuBLAS and cuSOLVER and fills the cached
+tables), and that run is the frame's answer; the capture then records the
+step without running it.  A host read or a copy from pageable memory inside
+the step makes the capture raise; nothing falls back to eager.
+
+The caller's state is copied into the static buffers before each frame and
+the new state and the result are copied out after it, so a later step never
+changes a state or a result the caller holds.  With `capture=False` (the
+CPU, and the solve backends that cannot be captured) the same object runs
+the step eagerly through the same buffers, each GN block writing its carry
+in place as a replay does.
+
+A replay runs no Python wrapper: each segment's kernel launches are
+recorded at capture (and taken back out of LAUNCHES, since a capture
+launches nothing) and added to LAUNCHES on every replay.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+from typing import NamedTuple
+
+import torch
+
+from rso_torch.kernels._lib import LAUNCHES
+from rso_torch.solver.robust_gn import stops_after
+
+
+def tree_map(fn, *trees):
+    """Map fn over the tensor leaves of matching NamedTuple/tuple trees
+    (None leaves stay None)."""
+    t0 = trees[0]
+    if t0 is None:
+        return None
+    if isinstance(t0, torch.Tensor):
+        return fn(*trees)
+    mapped = [tree_map(fn, *xs) for xs in zip(*trees)]
+    return type(t0)(*mapped) if hasattr(t0, "_fields") else tuple(mapped)
+
+
+def leaves(tree) -> list:
+    """The tensor leaves of a NamedTuple/tuple tree, in order."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for sub in tree for x in leaves(sub)]
+
+
+def _copy(dst: list, src: list) -> None:
+    if dst:
+        torch._foreach_copy_(dst, src)
+
+
+def tree_clone(tree):
+    """Fresh tensors with the tree's values (one batched copy)."""
+    out = tree_map(torch.empty_like, tree)
+    _copy(leaves(out), leaves(tree))
+    return out
+
+
+def _signature(tree) -> tuple:
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in leaves(tree))
+
+
+def _check_disjoint(dst: list, src: list) -> None:
+    """dst[i] may be src[i] itself, but no other source may share memory
+    with a destination: the batched copy would read what it overwrote."""
+    def span(t):
+        if t.numel() == 0:
+            return None
+        lo = t.data_ptr()
+        return lo, lo + t.element_size() * t.numel()
+
+    spans = [span(d) for d in dst]
+    for j, s in enumerate(src):
+        b = span(s)
+        for i, a in enumerate(spans):
+            if (a and b and i != j and s is not dst[i]
+                    and a[0] < b[1] and b[0] < a[1]):
+                raise RuntimeError("compiled step: an output shares memory "
+                                   "with another static buffer")
+
+
+def _blocks(block, carry, n_blocks: int, replay=None):
+    """Run (or, with `replay`, replay) up to n_blocks blocks in place on
+    `carry`."""
+    for b in range(n_blocks):
+        if replay is None:
+            _copy(leaves(carry), leaves(block(carry)))
+        else:
+            replay()
+        if stops_after(carry, b, n_blocks):
+            break
+
+
+def in_place_blocks(block, carry, n_blocks: int):
+    """The GN loop runner of the eager form: the carry is cloned once and
+    each block writes its output back into the clone, as a replay does."""
+    if n_blocks == 0:
+        return carry
+    carry = tree_clone(carry)
+    _blocks(block, carry, n_blocks)
+    return carry
+
+
+class _Segment(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    launches: collections.Counter   # kernel launches of one replay
+    loop: tuple | None              # (carry, n_blocks) for a GN block
+
+
+class _Capture:
+    """The GN loop runner while a step is captured: it closes the open
+    graph, captures one block as a graph of its own on the cloned carry,
+    and opens the next graph."""
+
+    def __init__(self):
+        self.pool = torch.cuda.graph_pool_handle()
+        self.segments: list[_Segment] = []
+        self._graph = None
+        self._saved = None
+
+    def begin(self) -> None:
+        self._saved = collections.Counter(LAUNCHES)
+        self._graph = torch.cuda.CUDAGraph()
+        self._graph.capture_begin(pool=self.pool,
+                                  capture_error_mode="thread_local")
+
+    def end(self, loop=None) -> None:
+        graph, self._graph = self._graph, None
+        graph.capture_end()
+        self.segments.append(_Segment(graph, LAUNCHES - self._saved, loop))
+        LAUNCHES.clear()
+        LAUNCHES.update(self._saved)
+
+    def abandon(self) -> None:
+        """End a capture that failed, so that the stream leaves capture
+        mode; the caller re-raises the failure."""
+        if self._graph is not None:
+            with contextlib.suppress(RuntimeError):
+                self._graph.capture_end()
+            LAUNCHES.clear()
+            LAUNCHES.update(self._saved)
+
+    def __call__(self, block, carry, n_blocks: int):
+        if n_blocks == 0:
+            return carry
+        carry = tree_clone(carry)
+        self.end()
+        self.begin()
+        _copy(leaves(carry), leaves(block(carry)))
+        self.end(loop=(carry, n_blocks))
+        self.begin()
+        return carry
+
+
+def _replay(segments) -> None:
+    for seg in segments:
+        def once(seg=seg):
+            seg.graph.replay()
+            LAUNCHES.update(seg.launches)
+        if seg.loop is None:
+            once()
+        else:
+            carry, n_blocks = seg.loop
+            _blocks(None, carry, n_blocks, replay=once)
+
+
+class _Variant:
+    """Static buffers for one signature of the state and the inputs, and
+    the captured graph segments of each branch."""
+
+    def __init__(self, state, inputs):
+        self.state = tree_map(torch.empty_like, state)
+        self.inputs = tree_map(torch.empty_like, inputs)
+        self.result = None
+        self.graphs: dict = {}
+        self.checked: set = set()   # (branch, eager?) whose outputs were checked
+
+
+class CompiledStep:
+    """step(state, *inputs) -> (state', result) through static buffers and,
+    with `capture`, CUDA graphs (the module docstring).
+
+    fn(state, *inputs, loop=runner[, do_detect=branch]) is the eager step;
+    `branch(state) -> bool`, where given, picks the step's branch before
+    each frame (one host read) and is passed to fn as `do_detect`."""
+
+    def __init__(self, fn, branch=None, capture: bool = True):
+        self.fn = fn
+        self.branch = branch
+        self.capture = capture
+        self._variants: dict = {}
+        self._stream = None
+
+    @property
+    def n_graphs(self) -> int:
+        """CUDA graphs captured so far, over every signature and branch."""
+        return sum(len(segs) for v in self._variants.values()
+                   for segs in v.graphs.values())
+
+    def _variant(self, state, inputs) -> _Variant:
+        key = (_signature(state), _signature(inputs))
+        v = self._variants.get(key)
+        if v is None:
+            v = self._variants[key] = _Variant(state, inputs)
+        return v
+
+    def _call_fn(self, v: _Variant, loop, branch):
+        kw = {} if self.branch is None else {"do_detect": branch}
+        new_state, result = self.fn(v.state, *v.inputs, loop=loop, **kw)
+        if v.result is None:
+            v.result = tree_map(torch.empty_like, result)
+        dst = leaves(v.state) + leaves(v.result)
+        src = leaves(new_state) + leaves(result)
+        if (branch, loop is in_place_blocks) not in v.checked:
+            _check_disjoint(dst, src)
+            v.checked.add((branch, loop is in_place_blocks))
+        _copy(dst, src)
+
+    def _run(self, v: _Variant) -> None:
+        """One frame from v.state and v.inputs; leaves the new state in
+        v.state and the result in v.result."""
+        branch = None if self.branch is None else self.branch(v.state)
+        if not self.capture:
+            self._call_fn(v, in_place_blocks, branch)
+            return
+        segments = v.graphs.get(branch)
+        if segments is not None:
+            _replay(segments)
+            return
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+        # the warm-up on a side stream is this frame's answer
+        self._stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self._stream):
+            self._call_fn(v, in_place_blocks, branch)
+        torch.cuda.synchronize()
+        cap = _Capture()
+        with torch.cuda.stream(self._stream):
+            cap.begin()
+            try:
+                self._call_fn(v, cap, branch)
+                cap.end()
+            except BaseException:
+                cap.abandon()
+                raise
+        torch.cuda.synchronize()
+        v.graphs[branch] = cap.segments
+
+    def __call__(self, state, *inputs):
+        v = self._variant(state, inputs)
+        _copy(leaves(v.state) + leaves(v.inputs),
+              leaves(state) + leaves(inputs))
+        self._run(v)
+        return tree_clone(v.state), tree_clone(v.result)
+
+    def chunk(self, state, *input_seqs):
+        """N frames (input_seqs: one sequence of N per input) from `state`:
+        (the state after the last frame, the results stacked along a
+        leading frame axis).  The state stays in the static buffers from
+        one frame to the next."""
+        n = len(input_seqs[0])
+        v, stacked = None, None
+        for i in range(n):
+            inputs = tuple(seq[i] for seq in input_seqs)
+            if v is None:
+                v = self._variant(state, inputs)
+                _copy(leaves(v.state), leaves(state))
+            else:
+                prev, v = v, self._variant(v.state, inputs)
+                if v is not prev:
+                    _copy(leaves(v.state), leaves(prev.state))
+            _copy(leaves(v.inputs), leaves(inputs))
+            self._run(v)
+            if stacked is None:
+                stacked = tree_map(lambda t: t.new_empty((n,) + t.shape),
+                                   v.result)
+            _copy([t[i] for t in leaves(stacked)], leaves(v.result))
+        return tree_clone(v.state), stacked

@@ -45,7 +45,9 @@ def corner_response_cuda(img: torch.Tensor, threshold, arc: int = 12,
     if not img.is_cuda:
         raise ValueError(f"corner_response_cuda: image on {img.device}")
     H, W = img.shape
-    th = torch.as_tensor(threshold, dtype=torch.int32, device=img.device)
+    th = (threshold.to(img.device, torch.int32)
+          if isinstance(threshold, torch.Tensor)
+          else torch.full((), threshold, dtype=torch.int32, device=img.device))
     th = th.reshape(1).contiguous()
     img_p = _lib.check(img, "img", torch.float32, (H, W), img.device)
     out = torch.empty_like(img)

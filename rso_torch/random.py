@@ -37,7 +37,7 @@ def threefry2x32(k1, k2, x1, x2):
 def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
     """jax.random.PRNGKey(seed) for a seed in [0, 2**32)."""
     key = torch.zeros(2, dtype=torch.int64, device=device)
-    key[1] = seed & _M32            # a fill, no host-to-device copy
+    key[1:].fill_(seed & _M32)      # a fill, no host-to-device copy
     return key
 
 

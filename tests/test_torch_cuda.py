@@ -503,3 +503,107 @@ def test_cuda_window_solve_matches_the_cpu(cuda):
                        lambda k: solve(BA_CAM, probs, k)[w],
                        lambda p, l: solve(BA_CAM, [probs[w]._replace(
                            poses=p, lmks=l)], 0)[0].cost)
+
+
+# ---- the compiled step: CUDA graphs against the eager step ------------------
+
+def _eager_run(cfg, cam, frames, hw, dev):
+    """The plain make_step loop from init_state: results and the launches
+    of each frame."""
+    from rso_torch.engine import init_state, make_step
+
+    step = make_step(cfg, cam, *hw)
+    st = init_state(cfg, hw, dev)
+    out = []
+    for left, right in frames:
+        K.LAUNCHES.clear()
+        st, res = step(st, left, right)
+        out.append((res, dict(K.LAUNCHES)))
+    return out
+
+
+def _same_result(a, b, what):
+    for field, x, y in zip(a._fields, a, b):
+        assert torch.equal(x, y), f"{what}: {field} differs"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("every", [1, 3])
+def test_cuda_graphs_equal_the_eager_step(cuda, every):
+    """Engine's CUDA graphs against the eager step on the bench scene:
+    every field of every frame bit for bit and the same launches a frame,
+    frame by frame (detect_every 3: both graph sets) and as one chunk."""
+    import dataclasses
+
+    from rso_torch.synthetic import synthetic_config
+
+    cfg = synthetic_config()
+    cfg = cfg.replace(tpu=dataclasses.replace(cfg.tpu, detect_every=every))
+    seq = make_sequence(n_frames=7, n_points=2000, H=376, W=1241)
+    frames = [(torch.from_numpy(l).to(cuda), torch.from_numpy(r).to(cuda))
+              for l, r in seq.frames]
+    eng = Engine(cfg, seq.cam, device=cuda)
+    eager = _eager_run(cfg, eng.cam, frames, (376, 1241), cuda)
+    for left, right in frames:            # captures every graph set
+        eng.process_frame(left, right)
+    n_graphs = eng._get_step(376, 1241).n_graphs
+    assert n_graphs >= (10 if every > 1 else 5)
+    eng.reset()
+    for i, (left, right) in enumerate(frames):
+        K.LAUNCHES.clear()
+        got = eng.process_frame(left, right)
+        _same_result(got, eager[i][0], f"frame {i}")
+        assert dict(K.LAUNCHES) == eager[i][1], f"frame {i} launches"
+    eng.reset()
+    chunk = eng.process_chunk([f[0] for f in frames], [f[1] for f in frames])
+    for i, (want, _) in enumerate(eager):
+        _same_result(StepResultAt(chunk, i), want, f"chunk frame {i}")
+    assert eng._get_step(376, 1241).n_graphs == n_graphs
+
+
+def StepResultAt(stacked, i):
+    return type(stacked)(*(t[i] for t in stacked))
+
+
+@pytest.mark.gpu
+def test_cuda_graph_capture_raises_on_a_host_read(cuda):
+    """A host read inside the step fails the capture, which raises; the
+    warm-up before it ran eagerly and the stream is usable afterwards."""
+    from rso_torch.graphs import CompiledStep
+
+    def step(state, x, *, loop):
+        y = x * 2.0
+        if bool(y.sum() > 0):             # a host read
+            y = y + 1.0
+        return state + 1.0, y
+
+    cs = CompiledStep(step)
+    state = torch.zeros(3, device=cuda)
+    x = torch.ones(3, device=cuda)
+    with pytest.raises(RuntimeError):
+        cs(state, x)
+    assert cs.n_graphs == 0
+    assert torch.equal((x + 1.0).cpu(), torch.full((3,), 2.0))
+
+
+@pytest.mark.gpu
+def test_cuda_eigh_backend_runs_the_eager_step(cuda):
+    """torch.linalg.eigh reads its status on the host, so the eigh backend
+    captures no graph: Engine runs the eager step through the compiled
+    step's buffers, equal to the plain loop."""
+    import dataclasses
+
+    from rso_torch.synthetic import synthetic_config
+
+    cfg = synthetic_config()
+    cfg = cfg.replace(least_squares=dataclasses.replace(
+        cfg.least_squares, solve_backend="eigh", use_lm=True))
+    seq = make_sequence(n_frames=3, n_points=1800, H=160, W=240)
+    frames = [(torch.from_numpy(l).to(cuda), torch.from_numpy(r).to(cuda))
+              for l, r in seq.frames]
+    eng = Engine(cfg, seq.cam, device=cuda)
+    eager = _eager_run(cfg, eng.cam, frames, (160, 240), cuda)
+    for i, (left, right) in enumerate(frames):
+        _same_result(eng.process_frame(left, right), eager[i][0], f"frame {i}")
+    step = eng._get_step(160, 240)
+    assert not step.capture and step.n_graphs == 0
