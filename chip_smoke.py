@@ -84,25 +84,37 @@ Phases, each of which raises (and so exits non-zero) on failure:
      each GN_BLOCK of GN_BLOCK_SWEEP, all captured first and then timed in
      turns, twice (what GN_BLOCK was chosen from);
   9. bundle adjustment (rso_torch.ba; no kernel of its own: its products
-     are cuBLAS GEMMs and one cuSOLVER solve a LM iteration), bounds from
-     the reference's own CPU run (`tests/_torch_ba.py`):
+     are cuBLAS GEMMs and one cuSOLVER or batched cuBLAS LU solve an LM
+     iteration), its LM loop as CUDA graphs (rso_torch.ba.ba.solve_lm),
+     every graph solve equal to the eager loop bit for bit (poses,
+     landmarks, cost, n_iters, converged); bounds from the reference's own
+     CPU run (`tests/_torch_ba.py`):
        (a) the bench's BA problem (rso/cli/bench.py:144-152: P = 8,
            L = 1024 from default_rng(0)), bundle_adjust(max_iters=15) on
-           the card and on the CPU from the same inputs, held together;
-           BA iterations/s as the slope of the call time between 25 and 75
-           iterations at tol=0 (CUDA events, best of 3, in turns);
+           the card (its first call: warm-up and capture; then a replay)
+           and on the CPU from the same inputs, held together; BA
+           iterations/s as the slope of the call time between 25 and 75
+           iterations at tol=0 (CUDA events, best of 3, in turns), in
+           graphs and eager; the flag reads; the LM_BLOCK sweep;
        (b) VOWithBA at its defaults (8 keyframes, 1024 landmarks, 15
-           iterations) over the 30 bench frames: launches of kernels 1-4
-           held to the default path's counts, keyframe and solve counts to
-           the reference's within BA_SLACK, finite costs, ATE; ms a frame
-           with and without a solve (their difference: the stall per BA
-           keyframe), LM iterations per solve; the last solve again on the
-           CPU from the card's BAProblem;
+           iterations) over the 30 bench frames, twice: run 1 captures
+           each solve's shape, run 2 replays them (and equals run 1 frame
+           by frame); launches of kernels 1-4 held to the default path's
+           counts, keyframe and solve counts to the reference's within
+           BA_SLACK, finite costs, ATE; per run ms a frame with and without
+           a solve (their difference: the stall per BA keyframe), each
+           solve's ms and whether it captured, the flag reads a solve, and
+           the host stages around the solve (keyframe_obs, build_problem,
+           apply_result); the LM_BLOCK sweep over run 2's solves; the last
+           solve again on the CPU from the card's BAProblem;
        (c) marginalize=True with a 4-keyframe window: evictions, a finite,
-           symmetric prior, finite costs;
+           symmetric prior, finite costs; its solves first of shape or
+           replayed (P = 4 repeats with the prior);
        (d) KeyframeCollector over a plain run, refine_trajectory(window=8,
            overlap=2): its windows solved as one batch on the card, ATE of
-           VO and of the refined trajectory;
+           VO and of the refined trajectory; the call's ms in graphs (the
+           first call, a replay, a capture with no warm-up) and eager, the
+           trajectories equal bit for bit;
  10. the entry points (rso_torch.cli) on the card, each main(argv) with its
      stdout captured and the launch counters reset just before and read
      just after; DEMO_REF from the reference's own CPU run of (a)'s argv
@@ -306,6 +318,9 @@ BA_WINDOW_POSE_ATOL = 2e-3
 BA_WINDOW_LMK_ATOL = 3e-2
 BA_SYM_RTOL = 1e-12
 BA_WARM_FRAMES = 10
+# The LM block sizes timed on the bench problem and on the VOWithBA run's
+# solves (what rso_torch.ba.ba.LM_BLOCK was chosen from).
+LM_BLOCK_SWEEP = (1, 2, 3, 4, 5, 8, 15)
 # Peak rates of the H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
 # outside the tensor cores, counted for every scalar operation of the
 # kernels (integer ones included), and device memory.
@@ -1734,6 +1749,23 @@ def _bench_ba_problem(cam, dev):
     return bench_ba_problem(cam, dev)
 
 
+def _eager_ba(cam, prob, max_iters=20, kernel_param=3.0, use_robust=True,
+              fix_first=True, init_lambda=1e-4, tol=1e-5, rel_meas=None,
+              rel_w_rot=0.0, rel_w_trans=0.0, marg_prior=None):
+    """bundle_adjust's solve run eagerly (levenberg_marquardt's blocks,
+    one flag read each): what the compiled solve must equal bit for bit."""
+    import torch
+
+    from rso_torch.ba.ba import levenberg_marquardt
+
+    dev = prob.poses.device
+    if rel_meas is not None:
+        rel_meas = torch.as_tensor(rel_meas, dtype=torch.float32, device=dev)
+    return levenberg_marquardt(cam.to(dev), prob, max_iters, kernel_param,
+                               use_robust, fix_first, init_lambda, tol,
+                               rel_meas, rel_w_rot, rel_w_trans, marg_prior)
+
+
 def _problem_to(prob, dev):
     return type(prob)(*(None if t is None else t.to(dev) for t in prob))
 
@@ -1747,14 +1779,14 @@ class CallRecorder:
 
     def __enter__(self):
         self.inner = getattr(self.module, self.attribute)
-
-        def wrapped(*args, **kw):
-            out = self.inner(*args, **kw)
-            self.calls.append((args, kw, out))
-            return out
-
-        setattr(self.module, self.attribute, wrapped)
+        setattr(self.module, self.attribute,
+                lambda *args, **kw: self._call(args, kw))
         return self
+
+    def _call(self, args, kw):
+        out = self.inner(*args, **kw)
+        self.calls.append((args, kw, out))
+        return out
 
     def __exit__(self, *exc):
         setattr(self.module, self.attribute, self.inner)
@@ -1768,36 +1800,183 @@ def _trajectory_ate(poses, gt):
     return float(ate_rmse(np.stack(poses), gt[:len(poses)]))
 
 
+class _SolveLog(CallRecorder):
+    """A CallRecorder of a BA solve that also keeps each call's ms (CUDA
+    events around it) and whether it captured graphs (the first solve of
+    its key and shape: warm-up and capture) or replayed."""
+
+    def __init__(self, module, attribute):
+        super().__init__(module, attribute)
+        self.timing = []
+
+    def _call(self, args, kw):
+        import torch
+
+        import rso_torch.ba.ba as B
+
+        n = _n_solve_graphs(B)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = super()._call(args, kw)
+        b.record()
+        self.timing.append((a, b, _n_solve_graphs(B) > n))
+        return out
+
+    def summary(self) -> list:
+        import torch
+
+        torch.cuda.synchronize()
+        return [{"P": args[1].poses.shape[-2],
+                 "marg_prior": kw.get("marg_prior") is not None,
+                 "captured": captured, "n_iters": int(out.n_iters),
+                 "ms": a.elapsed_time(b)}
+                for (args, kw, out), (a, b, captured)
+                in zip(self.calls, self.timing)]
+
+
+def _n_solve_graphs(B) -> int:
+    """The CUDA graphs the compiled BA solves of this process hold."""
+    return sum(s.n_graphs for s in B._SOLVES.values())
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def _vo_with_ba(cfg, cam, frames, **kw):
+    """VOWithBA(cfg, cam, **kw) over the frames, the counters zeroed just
+    before: its BAFrameResults, ms a frame (host clock to a synchronize),
+    VO poses, launches, host reads, its solves (_SolveLog) and the ms of
+    each call of the host stages around them (CUDA events)."""
+    import types
+
+    import torch
+
+    import rso_torch.ba.pipeline as pipeline
+    import rso_torch.ba.window as window_mod
+    from rso_torch.ba import VOWithBA
+    from rso_torch.kernels import LAUNCHES
+    from rso_torch.solver.robust_gn import HOST_READS
+
+    vo = VOWithBA(cfg, cam, **kw)
+    stages = [(pipeline, "keyframe_obs_from_state", "keyframe_obs"),
+              (window_mod.SlidingWindow, "build_problem", "build_problem"),
+              (window_mod.SlidingWindow, "apply_result", "apply_result")]
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    HOST_READS.clear()
+    outs, ms, vo_poses = [], [], []
+    with _SolveLog(pipeline, "bundle_adjust") as log, \
+            StageTimer(stages) as st:
+        for left, right in frames:
+            t0 = time.perf_counter()
+            outs.append(vo.process_frame(left, right))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            vo_poses.append(vo.T.copy())
+    solve = [o.ba_cost is not None for o in outs]
+    with_s = [t for t, s in zip(ms[1:], solve[1:]) if s]
+    without = [t for t, s in zip(ms[1:], solve[1:]) if not s]
+    solves = log.summary()
+    stage_ms = {k: [a.elapsed_time(b) for a, b in ev]
+                for k, ev in st.events.items()}
+    stage_ms["solve"] = [s["ms"] for s in solves]
+    return types.SimpleNamespace(
+        vo=vo, outs=outs, vo_poses=vo_poses, launches=dict(LAUNCHES),
+        lm_reads=HOST_READS["lm"], calls=log.calls, solves=solves,
+        stage_ms=stage_ms,
+        ms_without=_median(without), ms_with=_median(with_s),
+        stall=(None if not with_s else _median(with_s) - _median(without)),
+        n_with=len(with_s), n_without=len(without))
+
+
+def _same_as_eager(what, calls):
+    """Each recorded graph solve equal to the eager solve of its inputs,
+    bit for bit."""
+    for i, (args, kw, out) in enumerate(calls):
+        _same_bits(f"{what} solve {i} (P={args[1].poses.shape[-2]}): "
+                   "graphs vs eager", out, _eager_ba(*args, **kw))
+
+
+def _lm_block_sweep(name, calls) -> dict:
+    """The recorded solves (arguments, eager answer) at each LM_BLOCK of
+    LM_BLOCK_SWEEP: every block size captured first, then the solves' total
+    ms (CUDA events around each) and flag reads a solve, two passes in
+    turns; every result equal to the eager answer."""
+    import torch
+
+    import rso_torch.ba.ba as B
+    from rso_torch.solver.robust_gn import HOST_READS
+
+    saved = B.LM_BLOCK
+    out = collections.defaultdict(list)
+    try:
+        # a pass that captures, then two timed passes in turns
+        passes = (LM_BLOCK_SWEEP, LM_BLOCK_SWEEP, LM_BLOCK_SWEEP[::-1])
+        for timed, order in enumerate(passes):
+            for b in order:
+                B.LM_BLOCK = b
+                HOST_READS.clear()
+                events = []
+                for args, kw, want in calls:
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    got = B.bundle_adjust(*args, **kw)
+                    e1.record()
+                    events.append((e0, e1))
+                    _same_bits(f"{name} LM_BLOCK {b}", got, want)
+                if timed:
+                    torch.cuda.synchronize()
+                    out[b].append({
+                        "ms": sum(a.elapsed_time(e) for a, e in events),
+                        "reads_per_solve": HOST_READS["lm"] / len(calls)})
+    finally:
+        B.LM_BLOCK = saved
+    return dict(out)
+
+
 def run_ba(seq, dev):
-    """Phase 9: bundle adjustment on the card.  Returns the launches of the
-    VOWithBA run."""
+    """Phase 9: bundle adjustment on the card, the LM loop as CUDA graphs
+    (rso_torch.ba.ba.solve_lm) held to the eager loop.  Returns the
+    launches of the first VOWithBA run."""
     import numpy as np
     import torch
 
-    import rso_torch.ba.ba as ba_mod
+    import rso_torch.ba.ba as B
     import rso_torch.ba.offline as offline
-    import rso_torch.ba.pipeline as pipeline
-    import rso_torch.ba.window as window_mod
+    import rso_torch.ba.window_sharded as window_sharded
     from rso_torch.ba import (KeyframeCollector, VOWithBA, bundle_adjust,
                               refine_trajectory, split_into_windows)
     from rso_torch.cli.bench import BA_REPS, BA_SLOPE_ITERS, ba_slope
     from rso_torch.engine import Engine
     from rso_torch.geometry import pose_matrix
-    from rso_torch.kernels import LAUNCHES
+    from rso_torch.graphs import CompiledStep, _replay
+    from rso_torch.solver.robust_gn import HOST_READS
     from rso_torch.synthetic import synthetic_config
 
     t_phase = time.perf_counter()
     cpu = torch.device("cpu")
     cam = seq.cam.to(dev)
     ref = BA_REF
+    report = {"lm_block": B.LM_BLOCK}
 
-    # (a) the bench's BA problem, on the card and on the CPU
+    # (a) the bench's BA problem: the graphs against the eager loop and
+    # against the CPU
     prob = _bench_ba_problem(cam, dev)
     prob_cpu = _problem_to(prob, cpu)
     cam_cpu = seq.cam.to(cpu)
-    card = bundle_adjust(cam, prob, max_iters=15)
+    card = bundle_adjust(cam, prob, max_iters=15)      # warm-up + capture
     if card.poses.device.type != dev.type:
         raise AssertionError(f"bundle_adjust ran on {card.poses.device}")
+    HOST_READS.clear()
+    replay = bundle_adjust(cam, prob, max_iters=15)
+    report["bench_lm_reads"] = HOST_READS["lm"]
+    eager = _eager_ba(cam, prob, max_iters=15)
+    _same_bits("ba bench problem: the first graph solve vs eager", card, eager)
+    _same_bits("ba bench problem: a replay vs eager", replay, eager)
     host = bundle_adjust(cam_cpu, prob_cpu, max_iters=15)
     _same_solve("ba bench problem P=8 L=1024, 15 iterations", card, host,
                 lambda k: bundle_adjust(cam, prob, max_iters=k),
@@ -1805,14 +1984,31 @@ def run_ba(seq, dev):
                 lambda p, l: bundle_adjust(cam_cpu, prob_cpu._replace(
                     poses=p, lmks=l), max_iters=0).cost)
     rate = ba_slope(cam, prob)
-    if rate["iters_per_sec"] is None:
-        raise AssertionError(f"BA slope not positive: {rate['ms']}")
+    eager_rate = ba_slope(cam, prob, solve=_eager_ba)
+    for n in BA_SLOPE_ITERS:
+        _same_bits(f"ba bench problem at tol=0, {n} iterations: graphs vs "
+                   "eager", bundle_adjust(cam, prob, max_iters=n, tol=0.0),
+                   _eager_ba(cam, prob, max_iters=n, tol=0.0))
+    if rate["iters_per_sec"] is None or eager_rate["iters_per_sec"] is None:
+        raise AssertionError(f"BA slope not positive: {rate['ms']}, "
+                             f"eager {eager_rate['ms']}")
+    report["bench"] = {"graph": rate, "eager": eager_rate}
     print(f"ba iterations/s (P=8, L=1024, slope {BA_SLOPE_ITERS[0]}-"
           f"{BA_SLOPE_ITERS[1]} iterations at tol=0, best of {BA_REPS}): "
-          f"{rate['iters_per_sec']} ({rate['ms_per_iter']} ms an iteration; "
-          f"calls {rate['ms']} ms)", flush=True)
+          f"graphs {rate['iters_per_sec']} ({rate['ms_per_iter']} ms an "
+          f"iteration; calls {rate['ms']} ms), eager "
+          f"{eager_rate['iters_per_sec']} ({eager_rate['ms_per_iter']} ms; "
+          f"calls {eager_rate['ms']} ms); graphs equal eager bit for bit; "
+          f"{report['bench_lm_reads']} flag reads in 15 iterations at "
+          f"LM_BLOCK {B.LM_BLOCK}", flush=True)
+    report["bench_sweep"] = _lm_block_sweep(
+        "ba bench problem", [((cam, prob), {"max_iters": 15}, eager)])
+    print(f"ba bench problem LM_BLOCK sweep (15 iterations at tol=1e-5): "
+          f"{json.dumps(report['bench_sweep'])}", flush=True)
 
-    # (b) VOWithBA at its defaults over the bench frames
+    # (b) VOWithBA at its defaults over the bench frames, twice: run 1
+    # captures each solve's shape (first of shape: warm-up and capture),
+    # run 2 replays them
     cfg = synthetic_config()
     frames = [(torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev))
               for l, r in seq.frames]
@@ -1823,33 +2019,15 @@ def run_ba(seq, dev):
                              f"{warm.engine.device}")
     for left, right in frames[:BA_WARM_FRAMES]:
         warm.process_frame(left, right)
-    vo = VOWithBA(cfg, seq.cam)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    LAUNCHES.clear()
-    outs, vo_poses, ms = [], [], []
-    stages = [(pipeline, "keyframe_obs_from_state", "keyframe_obs"),
-              (window_mod.SlidingWindow, "build_problem", "build_problem"),
-              (ba_mod, "ba_normal_equations", "normal_equations"),
-              (ba_mod, "relpose_prior_terms", "odometry_prior"),
-              (ba_mod, "_schur_solve", "schur_solve")]
-    with CallRecorder(pipeline, "bundle_adjust") as rec, \
-            StageTimer(stages) as st:
-        for left, right in frames:
-            t0 = time.perf_counter()
-            outs.append(vo.process_frame(left, right))
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            vo_poses.append(vo.T.copy())
-    launches = dict(LAUNCHES)
+    first = _vo_with_ba(cfg, seq.cam, frames)
+    outs, launches = first.outs, first.launches
     expect, _ = _launch_counts(cfg, outs, outs)
     expect_launches("vo_with_ba", launches, exact=expect)
     n_kf = sum(o.is_keyframe for o in outs)
     costs = [o.ba_cost for o in outs if o.ba_cost is not None]
     if not all(np.isfinite(costs)):
         raise AssertionError(f"vo_with_ba: non-finite BA cost in {costs}")
-    ate_vo = _trajectory_ate(vo_poses, gt)
+    ate_vo = _trajectory_ate(first.vo_poses, gt)
     ate_ba = _trajectory_ate([o.pose_wc for o in outs], gt)
     r = ref["vo_with_ba"]
     print(f"vo_with_ba: {len(frames)} frames, {n_kf} keyframes (reference "
@@ -1863,22 +2041,40 @@ def run_ba(seq, dev):
         raise AssertionError("vo_with_ba outside the reference's bounds")
     RUNS["vo_with_ba"] = {"keyframes": n_kf, "solves": len(costs),
                           "poses": [o.pose_wc for o in outs]}
-    solve = [o.ba_cost is not None for o in outs]
-    with_solve = sorted(t for t, s in zip(ms[1:], solve[1:]) if s)
-    without = sorted(t for t, s in zip(ms[1:], solve[1:]) if not s)
-    med_s, med_n = with_solve[len(with_solve) // 2], without[len(without) // 2]
-    iters = [int(out.n_iters) for _, _, out in rec.calls]
-    totals = st.ms_per_frame(1)      # summed over the run
-    print(f"vo_with_ba ms a frame (host clock to a synchronize, after frame "
-          f"0): median {med_n} without a solve ({len(without)} frames), "
-          f"{med_s} with one ({len(with_solve)} frames); stall per BA "
-          f"keyframe {med_s - med_n} ms; LM iterations per solve {iters}; "
-          f"ms by stage over the run's {n_kf} keyframes and {len(costs)} "
-          f"solves (CUDA events around each call) {json.dumps(totals)}",
+    n_graphs = _n_solve_graphs(B)
+    second = _vo_with_ba(cfg, seq.cam, frames)
+    if _n_solve_graphs(B) != n_graphs or any(s["captured"]
+                                             for s in second.solves):
+        raise AssertionError("vo_with_ba run 2 captured graphs: its solves "
+                             "are not run 1's shapes")
+    for i, (a, b) in enumerate(zip(first.outs, second.outs)):
+        if not (np.array_equal(a.pose_wc, b.pose_wc)
+                and a.ba_cost == b.ba_cost):
+            raise AssertionError(f"vo_with_ba run 2 parts from run 1 at "
+                                 f"frame {i}")
+    _same_as_eager("vo_with_ba run 1", first.calls)
+    _same_as_eager("vo_with_ba run 2", second.calls)
+    for name, run in (("run 1", first), ("run 2", second)):
+        rep = {"ms_without": run.ms_without, "ms_with": run.ms_with,
+               "stall": run.stall, "frames_with": run.n_with,
+               "frames_without": run.n_without,
+               "lm_reads_per_solve": run.lm_reads / len(run.solves),
+               "solves": run.solves,
+               "stage_ms_total": {k: sum(v) for k, v in run.stage_ms.items()},
+               "stage_ms_median": {k: _median(v)
+                                   for k, v in run.stage_ms.items()}}
+        report[f"vo_with_ba_{name.replace(' ', '')}"] = rep
+        print(f"vo_with_ba {name} (ms a frame: host clock to a synchronize, "
+              f"after frame 0; the solve's and the stages' ms: CUDA events "
+              f"around each call): {json.dumps(rep)}", flush=True)
+    report["vo_with_ba_sweep"] = _lm_block_sweep("vo_with_ba solves",
+                                                  second.calls)
+    print(f"vo_with_ba solves LM_BLOCK sweep ({len(second.calls)} solves, "
+          f"ms of all of them): {json.dumps(report['vo_with_ba_sweep'])}",
           flush=True)
 
     # one solve again on the CPU from the card's BAProblem
-    (s_cam, s_prob), s_kw, s_out = rec.calls[-1]
+    (s_cam, s_prob), s_kw, s_out = first.calls[-1]
     c_prob = _problem_to(s_prob, cpu)
     on_cpu = bundle_adjust(cam_cpu, c_prob, **s_kw)
     _same_solve(f"vo_with_ba last solve (P={s_prob.poses.shape[0]})", s_out,
@@ -1889,27 +2085,43 @@ def run_ba(seq, dev):
                     poses=p, lmks=l), **dict(s_kw, max_iters=0)).cost,
                 pose_atol=BA_WINDOW_POSE_ATOL, lmk_atol=BA_WINDOW_LMK_ATOL)
 
-    # (c) marginalization: a 4-keyframe window evicts within the frames
-    marg = VOWithBA(cfg, seq.cam, marginalize=True, max_keyframes=4)
-    m_outs = [marg.process_frame(l, r) for l, r in frames]
+    # (c) marginalization: a 4-keyframe window evicts within the frames;
+    # its solves at P = 4 repeat, with the prior, as replays
+    marg_run = _vo_with_ba(cfg, seq.cam, frames, marginalize=True,
+                           max_keyframes=4)
+    marg, m_outs = marg_run.vo, marg_run.outs
     m_kf = sum(o.is_keyframe for o in m_outs)
     m_costs = [o.ba_cost for o in m_outs if o.ba_cost is not None]
     evictions = m_kf - len(marg.window)
     prior = marg.window.prior
+    _same_as_eager("marginalized", marg_run.calls)
+    rep = {"stall": marg_run.stall, "ms_without": marg_run.ms_without,
+           "ms_with": marg_run.ms_with,
+           "first_of_shape_ms": [s["ms"] for s in marg_run.solves
+                                 if s["captured"]],
+           "replay_ms": [s["ms"] for s in marg_run.solves
+                         if not s["captured"]],
+           "solves": marg_run.solves,
+           "stage_ms_median": {k: _median(v)
+                               for k, v in marg_run.stage_ms.items()}}
+    report["marginalized"] = rep
     r = ref["marginalized"]
     print(f"marginalized: {m_kf} keyframes (reference {r['keyframes']}), "
           f"{evictions} evictions (reference {r['evictions']}), "
           f"{len(m_costs)} solves (reference {r['solves']}), prior over "
           f"{None if prior is None else prior.n} keyframes, ATE BA "
           f"{_trajectory_ate([o.pose_wc for o in m_outs], gt)} m (reference "
-          f"{r['ate_ba']})", flush=True)
+          f"{r['ate_ba']}); graphs equal eager; {json.dumps(rep)}",
+          flush=True)
     if (prior is None or evictions < 1 or not np.isfinite(prior.H).all()
             or np.abs(prior.H - prior.H.T).max() > BA_SYM_RTOL
             * np.abs(prior.H).max() or not np.isfinite(m_costs).all()):
         raise AssertionError("marginalization: no eviction, or a prior that "
                              "is missing, not finite or not symmetric")
 
-    # (d) offline refinement: keyframes of a plain run, windows in a batch
+    # (d) offline refinement: keyframes of a plain run, windows in a batch;
+    # refine_trajectory's call in graphs (the first: warm-up and capture;
+    # again: replays), with a capture and no warm-up, and eager
     eng = Engine(cfg, seq.cam)
     col = KeyframeCollector(eng, cfg)
     T, poses = np.eye(4), []
@@ -1920,9 +2132,52 @@ def run_ba(seq, dev):
         poses.append(T.copy())
         col.observe(i, res, T)
     poses = np.stack(poses)
+
+    def refine():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = refine_trajectory(seq.cam, col.kfs, col.kf_frame_idx, poses,
+                                window=8, overlap=2)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    sizes = {k: len(s._variants) for k, s in B._SOLVES.items()}
     with CallRecorder(offline, "window_sharded_bundle_adjust") as solves:
-        refined = refine_trajectory(seq.cam, col.kfs, col.kf_frame_idx, poses,
-                                    window=8, overlap=2)
+        refined, first_ms = refine()
+    new = [k for k, s in B._SOLVES.items()     # the batch's compiled solve
+           if len(s._variants) > sizes.get(k, 0)]
+    again, replay_ms = refine()
+    saved = B._SOLVES[new[0]]
+
+    class NoWarmUp(CompiledStep):
+        def _run(self, v):
+            if None not in v.graphs:
+                self._capture(v, None)
+            _replay(v.graphs[None])
+
+    B._SOLVES[new[0]] = NoWarmUp(saved.fn)
+    try:
+        cold, cold_ms = refine()
+    finally:
+        B._SOLVES[new[0]] = saved
+
+    def eager_lm(cam, prob, *args, **kw):
+        return B.levenberg_marquardt(cam.to(prob.poses.device), prob, *args,
+                                     **kw)
+
+    window_sharded.solve_lm = eager_lm
+    try:
+        plain, eager_ms = refine()
+    finally:
+        window_sharded.solve_lm = B.solve_lm
+    for what, x in (("a replay", again), ("a capture with no warm-up", cold),
+                    ("the first graph call", refined)):
+        if not np.array_equal(x, plain):
+            raise AssertionError(f"offline: {what} parts from the eager "
+                                 "refinement")
+    report["offline"] = {"first_ms": first_ms, "replay_ms": replay_ms,
+                         "capture_no_warm_up_ms": cold_ms,
+                         "eager_ms": eager_ms, "keys": len(new)}
     batches = [(len(probs), probs[0].poses.device.type)
                for (_, probs, *_), _, _ in solves.calls]
     n = len(col.kfs)
@@ -1933,14 +2188,17 @@ def run_ba(seq, dev):
     print(f"offline: {n} keyframes (reference {r['keyframes']}), {n_win} "
           f"windows solved as one batch {batches}, ATE VO {ate_off} m "
           f"(reference {r['ate_vo']}), ATE refined {ate_ref} m (reference "
-          f"{r['ate_refined']})", flush=True)
-    if (batches != [(n_win, dev.type)] or n_win < 2
+          f"{r['ate_refined']}); refine_trajectory ms (host clock to a "
+          f"synchronize), trajectories equal bit for bit: "
+          f"{json.dumps(report['offline'])}", flush=True)
+    if (batches != [(n_win, dev.type)] or n_win < 2 or len(new) != 1
             or not ate_ref <= 2 * r["ate_refined"]):
         raise AssertionError("offline refinement: not one batch of >= 2 "
                              "windows on the card, or ATE past its bound")
     (_, probs, *_), kw, _ = solves.calls[0]
     RUNS["offline"] = {"keyframes": n, "windows": n_win, "ate_vo": ate_off,
                        "ate_refined": ate_ref, "problems": (probs, kw)}
+    print(f"phase 9 report: {json.dumps(report)}", flush=True)
     print(f"phase 9 (bundle adjustment) took {time.perf_counter() - t_phase} "
           "s", flush=True)
     return launches
@@ -2395,6 +2653,16 @@ def _to_cpu(result):
     return type(result)(*(t.cpu() for t in result))
 
 
+def _lm_loop_iterations(n_iters: int, max_iters: int) -> int:
+    """The iterations the LM loop ran for a solve of n_iters (two
+    all_reduces each on a mesh): whole blocks of LM_BLOCK, up to the block
+    that stopped it."""
+    from rso_torch.ba.ba import LM_BLOCK
+
+    b = min(LM_BLOCK, max_iters)
+    return b * min(-(-n_iters // b), -(-max_iters // b))
+
+
 def _all_reduce_ms(group, n: int, dev) -> float:
     """ms per all_reduce of n float32 on the group (host clock to a
     synchronize around N_ALL_REDUCE calls, after 5)."""
@@ -2619,7 +2887,7 @@ def run_mesh(seq, dev, smi: str) -> dict:
                     f"{N_MESH_RANKS} ranks vs one", ours, ref, parted,
                     cost_at)
         _same_bits(f"mesh (b) rank {r} vs rank 0", ours, ranks[0]["ba"][0])
-        n = int(ours.n_iters)
+        n = _lm_loop_iterations(int(ours.n_iters), 15)
         expect = {"solve lmk": 1 + 2 * n, "gather lmk": 1}
         if o["ba_collectives"] != expect:
             raise AssertionError(f"mesh (b) rank {r}: collectives "

@@ -19,9 +19,14 @@ XLA's and results differ from the reference by rounding
 (tests/test_torch_ba.py states the tolerances).  No TPU kernel runs here:
 the reference's solve is XLA ops too.
 
-The LM loop is a bounded Python loop that reads one flag back to the host
-per iteration (whether any window is still iterating), in place of the
-reference's lax.while_loop.
+The reference's jax.jit + lax.while_loop becomes blocks of LM_BLOCK masked
+LM iterations (an iteration after the stop changes nothing, so any block
+size gives the same bits) with one read of the stop flag (whether any
+window is still iterating) per block but the last; `solve_lm` captures the
+loop as CUDA graphs (pre, one block replayed, tail) per shape and per the
+Python scalars the graphs bake in, through rso_torch.graphs.CompiledStep.
+The mesh forms run the same loop eagerly: their collectives (gloo's run on
+the host) are not captured.
 """
 from __future__ import annotations
 
@@ -33,6 +38,19 @@ import torch
 from rso_torch.engine import _device
 from rso_torch.geometry.rotations import rodrigues, rodrigues_with_grad
 from rso_torch.geometry.stereo_camera import StereoCamera
+from rso_torch.graphs import CompiledStep
+from rso_torch.solver.robust_gn import eager_blocks
+
+# masked LM iterations between two reads of the loop's stop flag.  On an
+# H100 (chip_smoke.py's LM_BLOCK_SWEEP of 1, 2, 3, 4, 5, 8 and 15, on the
+# bench problem at tol 1e-5 and on the 8 solves of the VOWithBA run) a
+# replayed iteration costs ~1-1.6 ms and a read ~0.04, so the sizes that
+# divide max_iters (1, 3, 5, 15) tie and the others pay a masked iteration
+# (bench 14.8-15.2 ms against 15.8-16.0); 15 loses where solves stop early
+# (VOWithBA 189-197 ms against 160-166).  5 divides every max_iters the
+# port passes (15, 20, 25, 75) and reads the flag 1.9 times a VOWithBA
+# solve, against 12.1 at 1
+LM_BLOCK = 5
 
 
 class BAProblem(NamedTuple):
@@ -280,7 +298,11 @@ def _schur_solve(g_p, g_l, H_pp, H_ll, H_pl, lm_lambda, fix_first: bool,
     Returns (dpose [P,6], dlmk [L,3]).  lm_lambda is a number or a tensor
     of the batch shape.  The [6P,6P] solve is torch.linalg.solve_ex with
     its status ignored: a singular system gives non-finite steps, which the
-    LM loop rejects, as it does the reference's jnp.linalg.solve.
+    LM loop rejects, as it does the reference's jnp.linalg.solve.  On an
+    H100 with torch 2.11 PyTorch's default backend choice takes cuSOLVER's
+    getrf + trsv for one window and cuBLAS's batched getrf + trsm for a
+    batch; both run in a CUDA graph capture (no host sync), so the eager
+    loop and the graphs run the same kernels.
 
     reduce: None on one device; with the landmarks sharded over a mesh,
     the sum over the shards of (g_p, H_pp, the Schur cross term, W g_l),
@@ -344,21 +366,40 @@ def _all_finite(x, n_dims: int):
     return torch.isfinite(x).flatten(-n_dims).all(-1)
 
 
+class LMCarry(NamedTuple):
+    """The LM loop's carry: the reference's while-loop state, with one loop
+    count `n` for the batch and each window's own count `it`."""
+
+    n: torch.Tensor        # int32 iterations the loop has run
+    it: torch.Tensor       # [...] int32 iterations each window took
+    poses: torch.Tensor
+    lmks: torch.Tensor
+    lam: torch.Tensor      # [...] damping
+    cost: torch.Tensor     # [...]
+    done: torch.Tensor     # [...] bool: converged, or a padding slot
+
+    def stop_flag(self):
+        """(HOST_READS site, device flag that is true while the loop runs)."""
+        return "lm", (~self.done).any()
+
+
 def levenberg_marquardt(cam: StereoCamera, prob: BAProblem, max_iters: int,
                         kernel_param: float, use_robust: bool,
                         fix_first: bool, init_lambda: float, tol: float,
                         rel_meas=None, rel_w_rot: float = 0.0,
                         rel_w_trans: float = 0.0, marg_prior=None,
-                        reduce=None, active=None) -> BAResult:
+                        reduce=None, active=None,
+                        loop=eager_blocks) -> BAResult:
     """The LM loop over a problem with leading batch dimensions (none for
-    one window).
+    one window), eagerly unless `loop` captures it (solve_lm).
 
     A window whose step is accepted and shorter than `tol`, or that has run
     `max_iters` iterations, keeps its whole carry (iteration count
     included) while the others go on, as the reference's vmapped
     while_loop does; the loop ends when no window is left.  `tol=0` runs
     exactly `max_iters` iterations.  A window where `active` (batch shape)
-    is False starts done: a padding slot.
+    is False starts done: a padding slot.  The iterations run in blocks of
+    LM_BLOCK, `loop` reading the stop flag after each block but the last.
 
     reduce: None on one device.  Where `prob` holds this rank's shard of
     the landmarks, reduce(*tensors) returns each tensor summed over the
@@ -406,14 +447,9 @@ def levenberg_marquardt(cam: StereoCamera, prob: BAProblem, max_iters: int,
         return cost, *extra
 
     tol32 = _f32(tol)
-    poses, lmks = prob.poses, prob.lmks
-    batch = poses.shape[:-2]
-    it = torch.zeros(batch, dtype=torch.int32, device=dev)
-    done = (torch.zeros(batch, dtype=torch.bool, device=dev) if active is None
-            else ~active)
-    lam = torch.full(batch, _f32(init_lambda), dtype=torch.float32, device=dev)
-    cost, = eval_cost(poses, lmks)
-    for n in range(max_iters):
+
+    def iteration(c: LMCarry) -> LMCarry:
+        poses, lmks = c.poses, c.lmks
         p = prob._replace(poses=poses, lmks=lmks)
         _c, g_p, g_l, H_pp, H_ll, H_pl, _r2, _m = ba_normal_equations(
             cam, p, kernel_param, use_robust)
@@ -427,7 +463,7 @@ def levenberg_marquardt(cam: StereoCamera, prob: BAProblem, max_iters: int,
             g_m = (mbf - Hdx).reshape(poses.shape)
             prior = (mH, g_m) if prior is None else (prior[0] + mH,
                                                      prior[1] + g_m)
-        dpose, dlmk = _schur_solve(g_p, g_l, H_pp, H_ll, H_pl, lam,
+        dpose, dlmk = _schur_solve(g_p, g_l, H_pp, H_ll, H_pl, c.lam,
                                    fix_first, lmk_valid, prior=prior,
                                    reduce=reduce)
         new_poses = poses + dpose
@@ -435,24 +471,90 @@ def levenberg_marquardt(cam: StereoCamera, prob: BAProblem, max_iters: int,
         n_bad = (~torch.isfinite(new_lmks)).flatten(-2).sum(
             -1, dtype=torch.float32)
         new_cost, n_bad = eval_cost(new_poses, new_lmks, n_bad)
-        accept = ((new_cost < cost) & torch.isfinite(new_cost)
+        accept = ((new_cost < c.cost) & torch.isfinite(new_cost)
                   & _all_finite(new_poses, 2) & (n_bad == 0))
         step = torch.sqrt(torch.sum(dpose ** 2, dim=(-2, -1)))
 
-        live = ~done                # windows still iterating take the step
+        # windows still iterating take the step; an iteration past the
+        # stop, or past max_iters, changes nothing
+        live = ~c.done & (c.n < max_iters)
         take = live & accept
-        poses = torch.where(take[..., None, None], new_poses, poses)
-        lmks = torch.where(take[..., None, None], new_lmks, lmks)
-        new_lam = torch.where(accept, torch.clamp(lam * 0.3, min=1e-9),
-                              torch.clamp(lam * 8.0, max=1e6))
-        lam = torch.where(live, new_lam, lam)
-        cost = torch.where(take, new_cost, cost)
-        it = it + live.to(torch.int32)
-        done = done | (take & (step < tol32))
-        if n + 1 < max_iters and not bool((~done).any()):  # the one sync
-            break
-    return BAResult(poses=poses, lmks=lmks, cost=cost, n_iters=it,
-                    converged=done)
+        new_lam = torch.where(accept, torch.clamp(c.lam * 0.3, min=1e-9),
+                              torch.clamp(c.lam * 8.0, max=1e6))
+        return LMCarry(
+            n=c.n + 1,
+            it=c.it + live.to(torch.int32),
+            poses=torch.where(take[..., None, None], new_poses, poses),
+            lmks=torch.where(take[..., None, None], new_lmks, lmks),
+            lam=torch.where(live, new_lam, c.lam),
+            cost=torch.where(take, new_cost, c.cost),
+            done=c.done | (take & (step < tol32)))
+
+    B = min(LM_BLOCK, max_iters)
+
+    def block(c: LMCarry) -> LMCarry:
+        for _ in range(B):
+            c = iteration(c)
+        return c
+
+    batch = prob.poses.shape[:-2]
+    cost, = eval_cost(prob.poses, prob.lmks)
+    carry = LMCarry(
+        n=torch.zeros((), dtype=torch.int32, device=dev),
+        it=torch.zeros(batch, dtype=torch.int32, device=dev),
+        poses=prob.poses, lmks=prob.lmks,
+        lam=torch.full(batch, _f32(init_lambda), dtype=torch.float32,
+                       device=dev),
+        cost=cost,
+        done=(torch.zeros(batch, dtype=torch.bool, device=dev)
+              if active is None else ~active))
+    c = loop(block, carry, -(-max_iters // B) if max_iters > 0 else 0)
+    return BAResult(poses=c.poses, lmks=c.lmks, cost=c.cost, n_iters=c.it,
+                    converged=c.done)
+
+
+# the compiled LM solves of this process, by the values their graphs bake in
+# (the counterpart of rso's jit cache of bundle_adjust)
+_SOLVES: dict = {}
+
+
+def solve_lm(cam: StereoCamera, prob: BAProblem, max_iters: int,
+             kernel_param: float, use_robust: bool, fix_first: bool,
+             init_lambda: float, tol: float, rel_meas=None,
+             rel_w_rot: float = 0.0, rel_w_trans: float = 0.0,
+             marg_prior=None, active=None) -> BAResult:
+    """levenberg_marquardt on one device as a compiled solve, the
+    counterpart of rso's jax.jit + lax.while_loop: a CompiledStep per
+    (device, Python scalars, LM_BLOCK, the optional inputs given), which
+    keys its static buffers and graphs by the inputs' shapes.  On the GPU
+    the loop runs as CUDA graphs (pre, one block of LM_BLOCK iterations
+    replayed until the stop flag is false, tail), captured at the first call
+    of each key and shape after an eager warm-up that is that call's
+    answer; on the CPU the same object runs eagerly through the same
+    buffers.  The inputs are copied into the static buffers and the result
+    out of them, so a later solve never changes an earlier result.  Any
+    block size gives the same bits (an iteration past the stop changes
+    nothing).  A capture that fails raises."""
+    dev = prob.poses.device
+    key = (dev, max_iters, float(kernel_param), bool(use_robust),
+           bool(fix_first), float(init_lambda), float(tol), float(rel_w_rot),
+           float(rel_w_trans), LM_BLOCK,
+           tuple(x is None for x in (rel_meas, marg_prior, active,
+                                     prob.lmk_weight)))
+    solve = _SOLVES.get(key)
+    if solve is None:
+        def fn(_state, cam, prob, rel_meas, marg_prior, active, *, loop):
+            return None, levenberg_marquardt(
+                cam, prob, max_iters, kernel_param, use_robust, fix_first,
+                init_lambda, tol, rel_meas, rel_w_rot, rel_w_trans,
+                marg_prior, active=active, loop=loop)
+
+        solve = _SOLVES[key] = CompiledStep(fn, capture=dev.type == "cuda")
+    if marg_prior is not None:
+        # host arrays reach the device here, outside any graph
+        marg_prior = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                           for a in marg_prior)
+    return solve(None, cam.to(dev), prob, rel_meas, marg_prior, active)[1]
 
 
 def bundle_adjust(
@@ -469,7 +571,8 @@ def bundle_adjust(
     rel_w_trans: float = 0.0,
     marg_prior=None,
 ) -> BAResult:
-    """Levenberg-Marquardt BA over one window, on the device of `prob`.
+    """Levenberg-Marquardt BA over one window, on the device of `prob`, as
+    a compiled solve (solve_lm: CUDA graphs on the GPU).
 
     rel_meas [P-1,6] + rel_w_rot/rel_w_trans enable the odometry prior: each
     consecutive keyframe pair is softly anchored to its VO-measured relative
@@ -483,9 +586,8 @@ def bundle_adjust(
     system, its gradient b - H dx to the reduced gradient.
     """
     dev = prob.poses.device
-    cam = cam.to(dev)
     if rel_meas is not None:
         rel_meas = torch.as_tensor(rel_meas, dtype=torch.float32, device=dev)
-    return levenberg_marquardt(cam, prob, max_iters, kernel_param,
-                               use_robust, fix_first, init_lambda, tol,
-                               rel_meas, rel_w_rot, rel_w_trans, marg_prior)
+    return solve_lm(cam, prob, max_iters, kernel_param, use_robust, fix_first,
+                    init_lambda, tol, rel_meas, rel_w_rot, rel_w_trans,
+                    marg_prior)

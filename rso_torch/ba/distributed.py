@@ -8,7 +8,11 @@ back-substitution is local to each shard.  The loop is rso_torch.ba.ba's
 levenberg_marquardt with its `reduce` seam: where the reference runs six
 psums an LM iteration, the port packs them into two all_reduces, one for
 the system (g_p, H_pp, the Schur cross term, W g_l: P*P*36 + P*42 floats)
-and one for the cost with the count of non-finite landmarks.
+and one for the cost with the count of non-finite landmarks.  The loop runs
+eagerly, reading its stop flag once per block of LM iterations (every rank
+takes the same decisions, so every rank runs the same blocks and
+collectives): collectives are not captured in CUDA graphs here, and gloo's
+run on the host.
 
 SPMD: one process per device (rso_torch.ba.multihost), every rank calling
 with the whole problem, as each process does in the reference's

@@ -6,7 +6,8 @@ VO -> keyframe policy (driven by the reference's tracked-since-KF counters)
 correction propagated to the running pose.  The engine and the solve run
 on the GPU unless the caller passes device="cpu".  A frame reads the step's
 result back to the host once, a keyframe its observations once more; a BA
-solve then reads one stop flag per LM iteration.
+solve then reads one stop flag per block of LM iterations (on one device
+the solve replays CUDA graphs: rso_torch.ba.ba.solve_lm).
 """
 from __future__ import annotations
 

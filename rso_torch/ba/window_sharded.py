@@ -13,7 +13,10 @@ comes back on every rank at the end, as the reference's out_specs return
 them.
 
 mesh=None solves the windows as one batch on the device of their tensors,
-with no padding: the reference's make_win_mesh(1, 1) on one device.
+with no padding: the reference's make_win_mesh(1, 1) on one device, as a
+compiled solve (rso_torch.ba.ba.solve_lm: CUDA graphs on the GPU).  On a
+mesh the loop runs eagerly, one stop-flag read per LM block: its
+collectives are not captured.
 
 split_into_windows and stitch_window_poses are the reference's host code.
 """
@@ -24,7 +27,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from rso_torch.ba.ba import BAProblem, BAResult, levenberg_marquardt
+from rso_torch.ba.ba import BAProblem, BAResult, levenberg_marquardt, solve_lm
 from rso_torch.ba.distributed import shard_problem
 from rso_torch.geometry.stereo_camera import StereoCamera
 from rso_torch.mesh import (
@@ -103,8 +106,7 @@ def window_sharded_bundle_adjust(
                           device=dev)
     args = (max_iters, kernel_param, use_robust, fix_first, init_lambda, tol)
     if mesh is None:
-        out = levenberg_marquardt(cam.to(dev), stacked, *args, rel,
-                                  rel_w_rot, rel_w_trans)
+        out = solve_lm(cam, stacked, *args, rel, rel_w_rot, rel_w_trans)
         return [BAResult(*(t[w] for t in out)) for w in range(W)]
 
     check_mesh(mesh, ("win", "lmk"))

@@ -85,17 +85,19 @@ def ba_slope(cam, prob, iters=BA_SLOPE_ITERS, reps=BA_REPS,
              solve=None) -> dict:
     """BA iterations/s as the slope of the solve's call time between
     `iters` LM iterations at tol=0, best of `reps` calls each, the two
-    counts in turns.  solve(cam, prob, max_iters=, tol=) is bundle_adjust
-    unless the caller passes another (e.g. the distributed solve, bound to
-    its mesh).  `ms_per_iter` and `iters_per_sec` are None when the slope
-    is not positive."""
+    counts in turns, after a call of each (the compiled solve captures
+    its graphs per max_iters).  solve(cam, prob, max_iters=, tol=) is
+    bundle_adjust unless the caller passes another (e.g. the distributed
+    solve, bound to its mesh).  `ms_per_iter` and `iters_per_sec` are None
+    when the slope is not positive."""
     from rso_torch.ba import bundle_adjust
 
     solve = solve or bundle_adjust
     dev = prob.poses.device
     lo, hi = iters
     best = {lo: float("inf"), hi: float("inf")}
-    solve(cam, prob, max_iters=lo, tol=0.0)                # warm-up
+    for n in (lo, hi):       # warm-up: the first call of each count captures
+        solve(cam, prob, max_iters=n, tol=0.0)
     for _ in range(reps):
         for n in (lo, hi):
             ms, out = _call_ms(dev, lambda n=n: solve(

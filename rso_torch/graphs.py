@@ -36,6 +36,12 @@ in place as a replay does.
 A replay runs no Python wrapper: each segment's kernel launches are
 recorded at capture (and taken back out of LAUNCHES, since a capture
 launches nothing) and added to LAUNCHES on every replay.
+
+Bundle adjustment's LM solve (rso_torch.ba.ba.solve_lm) is a CompiledStep
+too, of a function without state (state None): pre (the carry and the
+first cost), one block of LM_BLOCK masked LM iterations replayed until its
+stop flag is false, and tail (the result).  Its carry names its own flag
+and HOST_READS site (`stop_flag`), as GNCarry does.
 """
 from __future__ import annotations
 
@@ -204,7 +210,8 @@ class _Variant:
 
 class CompiledStep:
     """step(state, *inputs) -> (state', result) through static buffers and,
-    with `capture`, CUDA graphs (the module docstring).
+    with `capture`, CUDA graphs (the module docstring).  `state` may be
+    None, for a function without state.
 
     fn(state, *inputs, loop=runner[, do_detect=branch]) is the eager step;
     `branch(state) -> bool`, where given, picks the step's branch before
@@ -253,15 +260,22 @@ class CompiledStep:
         if segments is not None:
             _replay(segments)
             return
-        if self._stream is None:
-            self._stream = torch.cuda.Stream()
         # the warm-up on a side stream is this frame's answer
-        self._stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.stream(self._side_stream()):
             self._call_fn(v, in_place_blocks, branch)
         torch.cuda.synchronize()
+        self._capture(v, branch)
+
+    def _side_stream(self) -> torch.cuda.Stream:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+        self._stream.wait_stream(torch.cuda.current_stream())
+        return self._stream
+
+    def _capture(self, v: _Variant, branch) -> None:
+        """Capture v's graph segments of `branch` (recorded, not run)."""
         cap = _Capture()
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.stream(self._side_stream()):
             cap.begin()
             try:
                 self._call_fn(v, cap, branch)

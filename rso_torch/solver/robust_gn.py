@@ -50,9 +50,10 @@ _F32_MAX = torch.finfo(torch.float32).max
 # frame against 6.7-7.45 at 1
 GN_BLOCK = 2
 
-# host reads of the step's device flags, by site: "gn" (the stop flag,
-# once per GN block but the last) and "detect_every" (the engine's choice
-# between detecting and propagating)
+# host reads of device flags, by site: "gn" (the pose solver's stop flag,
+# once per GN block but the last), "lm" (bundle adjustment's, once per LM
+# block but the last: rso_torch.ba.ba) and "detect_every" (the engine's
+# choice between detecting and propagating)
 HOST_READS: collections.Counter = collections.Counter()
 
 
@@ -153,18 +154,23 @@ class GNCarry(NamedTuple):
     ec: torch.Tensor          # int32 VOEC_*
     lam: torch.Tensor | None  # LM damping (None without LM)
 
+    def stop_flag(self):
+        """(HOST_READS site, device flag that is true while the loop runs)."""
+        return "gn", self.active
 
-def stops_after(carry: GNCarry, b: int, n_blocks: int) -> bool:
+
+def stops_after(carry, b: int, n_blocks: int) -> bool:
     """Whether the loop ends after block b: at its last block, else where
-    the stop flag, read back to the host (the loop's one read a block),
-    says so."""
+    the carry's stop flag, read back to the host (the loop's one read a
+    block), says so."""
     if b + 1 == n_blocks:
         return True
-    HOST_READS["gn"] += 1
-    return not bool(carry.active)
+    site, running = carry.stop_flag()
+    HOST_READS[site] += 1
+    return not bool(running)
 
 
-def eager_blocks(block, carry: GNCarry, n_blocks: int) -> GNCarry:
+def eager_blocks(block, carry, n_blocks: int):
     """Run up to `n_blocks` blocks of the loop."""
     for b in range(n_blocks):
         carry = block(carry)

@@ -505,6 +505,111 @@ def test_cuda_window_solve_matches_the_cpu(cuda):
                            poses=p, lmks=l)], 0)[0].cost)
 
 
+# ---- the compiled BA solve: CUDA graphs against the eager LM loop -----------
+
+def _marg_prior(poses, seed):
+    """A float64 PSD marginalization prior over the window (H [P,6,P,6],
+    b [P,6], lin [P,6]), as SlidingWindow.prior_terms lays it out."""
+    r = np.random.default_rng(seed)
+    P = poses.shape[0]
+    A = r.normal(0, 10.0, (P * 6, P * 6))
+    H = A @ A.T / (P * 6) + 100.0 * np.eye(P * 6)
+    lin = poses.cpu().numpy().astype(np.float64) + r.normal(0, 1e-3, (P, 6))
+    return H.reshape(P, 6, P, 6), r.normal(0, 1.0, (P, 6)), lin
+
+
+def _graph_cases(dev):
+    """name -> (camera, BAProblem on dev, bundle_adjust keyword arguments):
+    the bench problem at tol 0 and 1e-5, and a VOWithBA-shaped window (P =
+    5, 1024 landmark slots, 2-view weights) with both priors."""
+    bench_cam = StereoCamera.make(fx_l=718.856, fy_l=718.856, cx_l=620.5,
+                                  cy_l=188.0, baseline=0.5371).to(dev)
+    bench = CS._bench_ba_problem(bench_cam, dev)
+    win = CS._problem_to(_ba_problem(31, P=5, L=1024), dev)
+    win = win._replace(lmk_weight=torch.where(
+        torch.arange(1024, device=dev) % 3 == 0, 0.2, 1.0))
+    rel = np.random.default_rng(32).normal(0, 1e-3, (4, 6)).astype(np.float32)
+    both = dict(rel_meas=rel, rel_w_rot=4e2, rel_w_trans=25.0,
+                marg_prior=_marg_prior(win.poses, 33), max_iters=15)
+    return {"bench_tol0": (bench_cam, bench, {"max_iters": 25, "tol": 0.0}),
+            "bench_tol1e-5": (bench_cam, bench, {"max_iters": 15}),
+            "window_both_priors": (BA_CAM.to(dev), win, both)}
+
+
+@pytest.mark.gpu
+def test_cuda_graph_ba_equals_the_eager_loop(cuda):
+    """bundle_adjust's graphs (the first call: the warm-up's answer; then
+    replays) against levenberg_marquardt's eager loop, bit for bit, with
+    the same flag reads; each case replayed again after the others (other
+    shapes and keys in between)."""
+    from rso_torch.ba import bundle_adjust
+    from rso_torch.solver.robust_gn import HOST_READS
+
+    cases = _graph_cases(cuda)
+    want = {}
+    for name, (cam, prob, kw) in cases.items():
+        HOST_READS.clear()
+        want[name] = CS._eager_ba(cam, prob, **kw)
+        reads = HOST_READS["lm"]
+        for call in ("warm-up", "replay"):
+            HOST_READS.clear()
+            _same_result(bundle_adjust(cam, prob, **kw), want[name],
+                         f"{name} {call}")
+            assert HOST_READS["lm"] == reads, (name, call)
+    for name, (cam, prob, kw) in cases.items():
+        _same_result(bundle_adjust(cam, prob, **kw), want[name],
+                     f"{name} after the other cases")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prior", [False, True])
+def test_cuda_graph_window_batch_equals_the_eager_loop(cuda, prior):
+    """Three windows as one batch (window_sharded_bundle_adjust, mesh=None)
+    in graphs against the eager loop on the stacked problem, window by
+    window bit for bit, twice; plain at tol 1e-4 (the windows stop at
+    different iterations: at 1e-5 the card runs all three to max_iters)
+    and with the odometry prior."""
+    from rso_torch.ba import window_sharded_bundle_adjust
+    from rso_torch.ba.window_sharded import stack_problems
+
+    probs = [CS._problem_to(_ba_problem(s, noise=n), cuda)
+             for s, n in ((21, 0.2), (22, 0.2), (23, 0.0))]
+    rel = [np.random.default_rng(s).normal(0, 1e-3, (7, 6)).astype(np.float32)
+           for s in range(3)]
+    kw = (dict(max_iters=15, rel_w_rot=4e2, rel_w_trans=25.0) if prior
+          else dict(max_iters=15, tol=1e-4))
+    want = CS._eager_ba(BA_CAM, stack_problems(probs),
+                        rel_meas=np.stack(rel), **kw)
+    if not prior:
+        assert len(set(want.n_iters.tolist())) > 1, want.n_iters
+    for call in ("warm-up", "replay"):
+        got = window_sharded_bundle_adjust(BA_CAM.to(cuda), probs,
+                                           rel_meas=rel, **kw)
+        for w in range(3):
+            _same_result(got[w], type(want)(*(t[w] for t in want)),
+                         f"window {w} {call}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("changed", ["tol", "kernel_param", "max_iters"])
+def test_cuda_graph_ba_a_changed_scalar_gets_its_own_graphs(cuda, changed):
+    """The stale-graph guard on the card: calls on one problem that differ
+    in one Python scalar the graphs bake in, in turns; every replay equals
+    its own eager answer."""
+    from rso_torch.ba import bundle_adjust
+
+    cam = BA_CAM.to(cuda)
+    prob = CS._problem_to(_ba_problem(41), cuda)
+    other = {"tol": {"tol": 1e-2}, "kernel_param": {"kernel_param": 1.0},
+             "max_iters": {"max_iters": 2}}[changed]
+    kws = [{"max_iters": 15}, dict({"max_iters": 15}, **other)]
+    want = [CS._eager_ba(cam, prob, **kw) for kw in kws]
+    assert not torch.equal(want[0].poses, want[1].poses)
+    for turn in range(3):
+        for kw, w in zip(kws, want):
+            _same_result(bundle_adjust(cam, prob, **kw), w, f"{kw} {turn}")
+
+
 # ---- the compiled step: CUDA graphs against the eager step ------------------
 
 def _eager_run(cfg, cam, frames, hw, dev):
