@@ -83,6 +83,10 @@ __global__ void hamming_kernel(const unsigned* __restrict__ a,
                                const unsigned* __restrict__ b, int Ka, int Kb,
                                int W, float* __restrict__ out) {
   extern __shared__ unsigned s_words[];
+  const size_t seq = blockIdx.z;   // the sequence (lane) of a batched launch
+  a += seq * Ka * W;
+  b += seq * Kb * W;
+  out += seq * Ka * Kb;
   unsigned* s_a = s_words;                 // [kTile][W]
   unsigned* s_b = s_words + kTile * W;     // [kTile][W + 1]
   const int row0 = blockIdx.y * kTile;
@@ -139,6 +143,10 @@ template <int kTiles>
 __global__ void __launch_bounds__(32) hamming_kernel(
     const uint2* __restrict__ a, const uint2* __restrict__ b, int Ka, int Kb,
     bool vec_out, float* __restrict__ out) {
+  const size_t seq = blockIdx.z;   // the sequence (lane) of a batched launch
+  a += seq * Ka * 4;
+  b += seq * Kb * 4;
+  out += seq * Ka * Kb;
   const int g = threadIdx.x >> 2, t = threadIdx.x & 3;
   const int r0 = blockIdx.y * kMmaRows;
   const int c0 = blockIdx.x * kMmaCols * kTiles;
@@ -193,10 +201,10 @@ bool aligned16(const void* p) {
 }
 
 template <int kTiles>
-void launch_hamming_w8(const unsigned* a, const unsigned* b, int Ka, int Kb,
-                       float* out, cudaStream_t stream) {
+void launch_hamming_w8(const unsigned* a, const unsigned* b, int B, int Ka,
+                       int Kb, float* out, cudaStream_t stream) {
   const dim3 grid((Kb + kMmaCols * kTiles - 1) / (kMmaCols * kTiles),
-                  (Ka + kMmaRows - 1) / kMmaRows);
+                  (Ka + kMmaRows - 1) / kMmaRows, B);
   hamming_kernel<kTiles><<<grid, 32, 0, stream>>>(
       reinterpret_cast<const uint2*>(a), reinterpret_cast<const uint2*>(b), Ka,
       Kb, Kb % 4 == 0 && aligned16(out), out);
@@ -220,6 +228,10 @@ __global__ void __launch_bounds__(kSadThreads) sad_kernel(
     const float* __restrict__ a, const float* __restrict__ b, int Ka, int Kb,
     int P, float* __restrict__ out) {
   extern __shared__ float4 s_vec[];        // 16-byte aligned
+  const size_t seq = blockIdx.z;   // the sequence (lane) of a batched launch
+  a += seq * Ka * P;
+  b += seq * Kb * P;
+  out += seq * Ka * Kb;
   const int P4 = (P + 3) & ~3;
   const int S = sad_stride(P4);
   float* s_a = reinterpret_cast<float*>(s_vec);   // [kTile][S]
@@ -305,35 +317,41 @@ __global__ void __launch_bounds__(kSadThreads) sad_kernel(
   }
 }
 
-dim3 tiles(int Ka, int Kb) {
-  return dim3((Kb + kTile - 1) / kTile, (Ka + kTile - 1) / kTile);
+dim3 tiles(int B, int Ka, int Kb) {
+  return dim3((Kb + kTile - 1) / kTile, (Ka + kTile - 1) / kTile, B);
 }
 
 }  // namespace
 
-extern "C" int rso_hamming_matrix(const unsigned* a, const unsigned* b, int Ka,
-                                  int Kb, int W, float* out, void* stream) {
+// Both entries take B lanes (sequences) in one launch, the grid's z axis:
+// a [B][Ka][.], b [B][Kb][.] and out [B][Ka][Kb], lanes contiguous.
+extern "C" int rso_hamming_matrix(const unsigned* a, const unsigned* b, int B,
+                                  int Ka, int Kb, int W, float* out,
+                                  void* stream) {
+  if (B < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (W == kWords && aligned16(a) && aligned16(b)) {
     const long rows = (Ka + kMmaRows - 1) / kMmaRows;
-    if (rows * ((Kb + 8 * kMmaCols - 1) / (8 * kMmaCols)) >= kHamMinWarps) {
-      launch_hamming_w8<8>(a, b, Ka, Kb, out, s);
+    if (B * rows * ((Kb + 8 * kMmaCols - 1) / (8 * kMmaCols)) >=
+        kHamMinWarps) {
+      launch_hamming_w8<8>(a, b, B, Ka, Kb, out, s);
     } else {
-      launch_hamming_w8<2>(a, b, Ka, Kb, out, s);
+      launch_hamming_w8<2>(a, b, B, Ka, Kb, out, s);
     }
   } else {
     const size_t smem = (size_t)kTile * (2 * W + 1) * sizeof(unsigned);
-    hamming_kernel<<<tiles(Ka, Kb), dim3(kTile, kThreadsY), smem, s>>>(
+    hamming_kernel<<<tiles(B, Ka, Kb), dim3(kTile, kThreadsY), smem, s>>>(
         a, b, Ka, Kb, W, out);
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int rso_sad_matrix(const float* a, const float* b, int Ka, int Kb,
-                              int P, float* out, void* stream) {
+extern "C" int rso_sad_matrix(const float* a, const float* b, int B, int Ka,
+                              int Kb, int P, float* out, void* stream) {
+  if (B < 1) return (int)cudaErrorInvalidValue;
   const size_t smem =
       (size_t)2 * kTile * sad_stride((P + 3) & ~3) * sizeof(float);
-  sad_kernel<<<tiles(Ka, Kb), kSadThreads, smem, (cudaStream_t)stream>>>(
+  sad_kernel<<<tiles(B, Ka, Kb), kSadThreads, smem, (cudaStream_t)stream>>>(
       a, b, Ka, Kb, P, out);
   return (int)cudaGetLastError();
 }

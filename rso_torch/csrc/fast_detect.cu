@@ -188,6 +188,10 @@ __global__ void __launch_bounds__(kThreads) corner_response_kernel(
     const float* __restrict__ img, const int* __restrict__ threshold,
     float* __restrict__ out, int H, int W, int arc, int win_arg) {
   extern __shared__ float smem[];
+  // the sequence (lane) of a batched launch: its image, threshold and output
+  const size_t seq = blockIdx.z;
+  img += seq * H * W;
+  out += seq * H * W;
   const int win = WIN > 0 ? WIN : win_arg;
   const Tile T(win);
   const int N = 2 * win + 1;
@@ -197,7 +201,7 @@ __global__ void __launch_bounds__(kThreads) corner_response_kernel(
   const int plane = T.ph * T.pw, col_plane = kTileH * T.pw;
   const int tid = threadIdx.x;
   const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
-  const float t = (float)threshold[0];
+  const float t = (float)threshold[seq];
 
   // kBatch loads of the tile go out before their stores to shared memory:
   // one memory latency a batch.  An index past the end re-reads the last
@@ -300,6 +304,9 @@ __global__ void __launch_bounds__(kWideW * kWideH) corner_colsum_kernel(
   const int x = blockIdx.x * kWideW + threadIdx.x;
   const int y = blockIdx.y * kWideH + threadIdx.y;
   if (x >= W || y >= H) return;
+  const size_t seq = blockIdx.z;
+  img += seq * H * W;
+  colsum += seq * 3 * H * W;
   const int xl = x == 0 ? W - 1 : x - 1, xr = x == W - 1 ? 0 : x + 1;
   float a = 0.f, b = 0.f, d = 0.f;
   for (int dy = 0; dy <= 2 * win; ++dy) {
@@ -330,6 +337,10 @@ __global__ void __launch_bounds__(kWideW * kWideH) corner_wide_kernel(
   const int x = blockIdx.x * kWideW + threadIdx.x;
   const int y = blockIdx.y * kWideH + threadIdx.y;
   if (x >= W || y >= H) return;
+  const size_t seq = blockIdx.z;
+  img += seq * H * W;
+  colsum += seq * 3 * H * W;
+  out += seq * H * W;
   const size_t plane = (size_t)H * W;
   const float* row = colsum + (size_t)y * W;
   float sxx = 0.f, syy = 0.f, sxy = 0.f;
@@ -349,7 +360,7 @@ __global__ void __launch_bounds__(kWideW * kWideH) corner_wide_kernel(
   const float resp = shi_tomasi(sxx, syy, sxy, __fdiv_rn(1.0f, (float)(n * n)));
   const bool corner = x >= 3 && x < W - 3 && y >= 3 && y < H - 3 &&
                       fast_corner(img + (size_t)y * W + x, W,
-                                  (float)threshold[0], arc);
+                                  (float)threshold[seq], arc);
   out[(size_t)y * W + x] = corner ? resp : -INFINITY;
 }
 
@@ -365,11 +376,11 @@ cudaError_t smem_optin(size_t* bytes) {
 }
 
 int launch_wide(const float* img, const int* threshold, float* colsum,
-                float* out, int H, int W, int arc, int win,
+                float* out, int B, int H, int W, int arc, int win,
                 cudaStream_t stream) {
   if (colsum == nullptr) return (int)cudaErrorInvalidValue;
   const dim3 block(kWideW, kWideH);
-  const dim3 grid((W + kWideW - 1) / kWideW, (H + kWideH - 1) / kWideH);
+  const dim3 grid((W + kWideW - 1) / kWideW, (H + kWideH - 1) / kWideH, B);
   corner_colsum_kernel<<<grid, block, 0, stream>>>(img, colsum, H, W, win);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -390,19 +401,21 @@ extern "C" int rso_corner_tile_fits(int win) {
   return Tile(win).floats() * sizeof(float) <= optin ? 1 : 0;
 }
 
-// `colsum`: 3*H*W floats of scratch for the wide path, which this entry
-// takes where the window's tile does not fit (NULL where it does).
+// B lanes (sequences) in one launch, the grid's z axis: img and out
+// [B][H][W], one threshold a lane.  `colsum`: B*3*H*W floats of scratch
+// for the wide path, which this entry takes where the window's tile does
+// not fit (NULL where it does).
 extern "C" int rso_corner_response(const float* img, const int* threshold,
-                                   float* out, float* colsum, int H, int W,
-                                   int arc, int win, void* stream) {
-  if (win < 1) return (int)cudaErrorInvalidValue;
+                                   float* out, float* colsum, int B, int H,
+                                   int W, int arc, int win, void* stream) {
+  if (win < 1 || B < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = Tile(win).floats() * sizeof(float);
   if (smem > (size_t)kSmemDefault) {
     size_t optin = 0;
     const cudaError_t e = smem_optin(&optin);
     if (e != cudaSuccess) return (int)e;
     if (smem > optin)   // the tile does not fit: the wide path
-      return launch_wide(img, threshold, colsum, out, H, W, arc, win,
+      return launch_wide(img, threshold, colsum, out, B, H, W, arc, win,
                          (cudaStream_t)stream);
   }
   const auto kernel = win == 4 ? corner_response_kernel<4>
@@ -414,7 +427,7 @@ extern "C" int rso_corner_response(const float* img, const int* threshold,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH);
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(img, threshold, out,
                                                          H, W, arc, win);
   return (int)cudaGetLastError();

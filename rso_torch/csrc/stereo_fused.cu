@@ -217,11 +217,22 @@ __global__ void __launch_bounds__(kStereoWarps * 32) stereo_sad_kernel(
     const float* __restrict__ pl, const float* __restrict__ pr,
     const float* __restrict__ xyl, const float* __restrict__ xyr,
     const unsigned char* __restrict__ okl, const unsigned char* __restrict__ okr,
-    int Kr, int P, float max_y_diff, float max_disp, float max_distance,
-    int* __restrict__ best_r, float* __restrict__ best_d,
+    int Kl, int Kr, int P, float max_y_diff, float max_disp,
+    float max_distance, int* __restrict__ best_r, float* __restrict__ best_d,
     float* __restrict__ second_d) {
   __shared__ Top2 s_top[kStereoWarps];
   const int row = blockIdx.x;
+  // the sequence (lane) of a batched launch: its operands and outputs
+  const size_t seq = blockIdx.y;
+  pl += seq * Kl * P;
+  pr += seq * Kr * P;
+  xyl += seq * Kl * 2;
+  xyr += seq * Kr * 2;
+  okl += seq * Kl;
+  okr += seq * Kr;
+  best_r += seq * Kl;
+  best_d += seq * Kl;
+  second_d += seq * Kl;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float xl = xyl[2 * row];
   const float ryl = rintf(xyl[2 * row + 1]);   // round half to even
@@ -286,13 +297,27 @@ __global__ void __launch_bounds__(kTrackWarps * 32) track_sad_kernel(
     const float* __restrict__ p_xy, const float* __restrict__ c_xy,
     const float* __restrict__ p_rx, const float* __restrict__ c_rx,
     const unsigned char* __restrict__ ok_p,
-    const unsigned char* __restrict__ ok_c, int Kc, int P, float win_row,
-    float win_col, float sad_max, int* __restrict__ best_c,
+    const unsigned char* __restrict__ ok_c, int Kp, int Kc, int P,
+    float win_row, float win_col, float sad_max, int* __restrict__ best_c,
     float* __restrict__ best_d) {
   extern __shared__ float s_patch[];   // [2P]: prev-left, prev-right
   __shared__ float s_best[kTrackWarps];
   __shared__ int s_idx[kTrackWarps];
   const int row = blockIdx.x;
+  // the sequence (lane) of a batched launch: its operands and outputs
+  const size_t seq = blockIdx.y;
+  p_left += seq * Kp * P;
+  p_right += seq * Kp * P;
+  c_left += seq * Kc * P;
+  c_right += seq * Kc * P;
+  p_xy += seq * Kp * 2;
+  c_xy += seq * Kc * 2;
+  p_rx += seq * Kp;
+  c_rx += seq * Kc;
+  ok_p += seq * Kp;
+  ok_c += seq * Kc;
+  best_c += seq * Kp;
+  best_d += seq * Kp;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (ok_p[row] == 0) {
     // the twin's argmin over a row of 1e9: index 0
@@ -346,14 +371,18 @@ __global__ void __launch_bounds__(kTrackWarps * 32) track_sad_kernel(
 
 }  // namespace
 
+// Both entries take B lanes (sequences) in one launch, the grid's y axis:
+// every operand and output with a leading [B] axis, lanes contiguous.
 extern "C" int rso_stereo_sad_fused(
     const float* pl, const float* pr, const float* xyl, const float* xyr,
-    const unsigned char* okl, const unsigned char* okr, int Kl, int Kr, int P,
-    float max_y_diff, float max_disp, float max_distance, int* best_r,
+    const unsigned char* okl, const unsigned char* okr, int B, int Kl, int Kr,
+    int P, float max_y_diff, float max_disp, float max_distance, int* best_r,
     float* best_d, float* second_d, void* stream) {
-  stereo_sad_kernel<<<Kl, kStereoWarps * 32, 0, (cudaStream_t)stream>>>(
-      pl, pr, xyl, xyr, okl, okr, Kr, P, max_y_diff, max_disp, max_distance,
-      best_r, best_d, second_d);
+  if (B < 1) return (int)cudaErrorInvalidValue;
+  stereo_sad_kernel<<<dim3(Kl, B), kStereoWarps * 32, 0,
+                      (cudaStream_t)stream>>>(
+      pl, pr, xyl, xyr, okl, okr, Kl, Kr, P, max_y_diff, max_disp,
+      max_distance, best_r, best_d, second_d);
   return (int)cudaGetLastError();
 }
 
@@ -361,11 +390,12 @@ extern "C" int rso_track_sad_fused(
     const float* p_left, const float* c_left, const float* p_right,
     const float* c_right, const float* p_xy, const float* c_xy,
     const float* p_rx, const float* c_rx, const unsigned char* ok_p,
-    const unsigned char* ok_c, int Kp, int Kc, int P, float win_row,
+    const unsigned char* ok_c, int B, int Kp, int Kc, int P, float win_row,
     float win_col, float sad_max, int* best_c, float* best_d, void* stream) {
-  track_sad_kernel<<<Kp, kTrackWarps * 32, 2 * P * sizeof(float),
+  if (B < 1) return (int)cudaErrorInvalidValue;
+  track_sad_kernel<<<dim3(Kp, B), kTrackWarps * 32, 2 * P * sizeof(float),
                      (cudaStream_t)stream>>>(
-      p_left, c_left, p_right, c_right, p_xy, c_xy, p_rx, c_rx, ok_p, ok_c, Kc,
-      P, win_row, win_col, sad_max, best_c, best_d);
+      p_left, c_left, p_right, c_right, p_xy, c_xy, p_rx, c_rx, ok_p, ok_c, Kp,
+      Kc, P, win_row, win_col, sad_max, best_c, best_d);
   return (int)cudaGetLastError();
 }

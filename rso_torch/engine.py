@@ -148,20 +148,42 @@ def _empty_octave(k: int, device) -> OctaveData:
     )
 
 
-def detects_this_frame(cfg: RSOConfig, state: EngineState) -> bool:
-    """detect_every's choice (the reference's lax.cond, rso/engine.py:454):
-    detect on the first frame, every detect_every-th frame, when too few
-    stereo pairs are left to propagate, and after a recovery.  One host
-    read where detect_every > 1; always True otherwise."""
+def detect_flag(cfg: RSOConfig, state: EngineState) -> torch.Tensor:
+    """detect_every's choice as a device flag (the predicate of the
+    reference's lax.cond, rso/engine.py:454): detect on the first frame,
+    every detect_every-th frame, when too few stereo pairs are left to
+    propagate, and after a recovery.  Per lane under vmap."""
     every = max(1, int(cfg.tpu.detect_every))
-    if every == 1:
-        return True
     prev_pairs = sum(oc.matches.valid.sum(dtype=torch.int32)
                      for oc in state.prev.octaves)
+    return (~state.have_prev | (state.since_detect + 1 >= every)
+            | (prev_pairs < cfg.tpu.propagate_min_matches)
+            | (state.err_streak > 0))
+
+
+def detects_this_frame(cfg: RSOConfig, state: EngineState) -> bool:
+    """`detect_flag` read back to the host: one read where detect_every
+    > 1; always True otherwise."""
+    if max(1, int(cfg.tpu.detect_every)) == 1:
+        return True
     HOST_READS["detect_every"] += 1
-    return bool(~state.have_prev | (state.since_detect + 1 >= every)
-                | (prev_pairs < cfg.tpu.propagate_min_matches)
-                | (state.err_streak > 0))
+    return bool(detect_flag(cfg, state))
+
+
+def lanes_detect(cfg: RSOConfig, states: EngineState):
+    """The branch of a batched step (states with a leading lanes' axis):
+    True where every lane detects, False where none does, MIXED where they
+    differ; one host read where detect_every > 1."""
+    if max(1, int(cfg.tpu.detect_every)) == 1:
+        return True
+    HOST_READS["detect_every"] += 1
+    flags = torch.func.vmap(lambda st: detect_flag(cfg, st))(states).tolist()
+    return flags[0] if len(set(flags)) == 1 else MIXED
+
+
+# the branch of a step whose lanes differ: both branches run and each lane
+# takes its own (the reference's lax.cond under vmap)
+MIXED = "mixed"
 
 
 def _keeps_pyramids(cfg: RSOConfig) -> bool:
@@ -291,7 +313,8 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
     step(state, left_img, right_img) -> (state', StepResult), run eagerly.
     Every step also takes `loop`, the runner of the pose solver's GN blocks
     (robust_gn.eager_blocks), and the image step `do_detect`, the branch
-    of detect_every (None: detects_this_frame's host read).
+    of detect_every (None: detects_this_frame's host read; MIXED: both
+    branches, each lane taking the one its `detect_flag` picks).
 
     rectify_maps: optional ((mlx, mly), (mrx, mry)) float32 [H,W] sample
         maps (rso_torch.io.calib.compute_rectify_maps), applied before the
@@ -469,14 +492,26 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
             # the reference's lax.cond becomes a host branch: one read a frame
             do_detect = detects_this_frame(cfg, state)
         pyr_l, pyr_r = _stage_1(left_img, right_img)
-        if do_detect:
+
+        def detect_branch():
             octs, new_fast_th, detected = _stage_2(state, pyr_l, pyr_r)
             cur_octs, n_matches = _stage_3(octs)
-        else:
+            return cur_octs, n_matches, detected, new_fast_th
+
+        def propagate_branch():
             cur_octs, n_matches, detected = _propagate(state, pyr_l, pyr_r)
-            new_fast_th = [state.fast_th[o] for o in range(O)]
-        return _tail(state, pyr_l, pyr_r, cur_octs, n_matches, detected,
-                     new_fast_th, loop, did_detect=do_detect)
+            return (cur_octs, n_matches, detected,
+                    [state.fast_th[o] for o in range(O)])
+
+        if do_detect is MIXED:
+            # lanes that differ: both branches, each lane its own
+            do_detect = detect_flag(cfg, state)
+            both = [tuple(b) for b in (detect_branch(), propagate_branch())]
+            out = _tree_map(lambda d, p: torch.where(do_detect, d, p), *both)
+        else:
+            out = detect_branch() if do_detect else propagate_branch()
+        return _tail(state, pyr_l, pyr_r, *map(list, out), loop,
+                     did_detect=do_detect)
 
     def _tail(state, pyr_l, pyr_r, cur_octs, n_matches, detected, new_fast_th,
               loop, did_detect=True):
@@ -644,7 +679,9 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
                              and not ls.use_custom_initial_pose)
         # a kept-prev (recovery) frame leaves the OLD features in state, so
         # it never counts as a fresh detection whichever branch ran
-        new_since = torch.where(keep_prev | (not did_detect),
+        propagated = (~did_detect if isinstance(did_detect, torch.Tensor)
+                      else not did_detect)
+        new_since = torch.where(keep_prev | propagated,
                                 state.since_detect + 1,
                                 torch.zeros_like(state.since_detect))
         new_state = EngineState(

@@ -72,8 +72,8 @@ def fast_corner_mask(img: torch.Tensor, threshold, arc: int = 12) -> torch.Tenso
     dark = torch.zeros_like(bright)
     for i, (dx, dy) in enumerate(_FAST_OFFSETS):
         n = _shift2d(img, dx, dy)
-        bright |= (n > hi).to(torch.int32) << i
-        dark |= (n < lo).to(torch.int32) << i
+        bright = bright | ((n > hi).to(torch.int32) << i)
+        dark = dark | ((n < lo).to(torch.int32) << i)
 
     def rotl16(b, s):
         s %= 16
@@ -180,8 +180,8 @@ def adaptive_nms_select(xy: torch.Tensor, resp: torch.Tensor,
     radius = d2.amin(dim=1)
     radius = torch.where(valid, radius, torch.full_like(radius, -torch.inf))
     order = torch.argsort(-radius, stable=True)          # descending radius
-    rank = torch.empty_like(order).scatter_(
-        0, order, torch.arange(K, device=xy.device))
+    rank = torch.scatter(torch.empty_like(order), 0, order,
+                         torch.arange(K, device=xy.device))
     return valid & (rank < num_out) & (radius > min_radius * min_radius)
 
 
@@ -469,7 +469,8 @@ def _detect_orb_multilevel(img: torch.Tensor, params: DetectParams,
         resp = torch.where(corner, harris_response(lvl),
                            torch.full_like(lvl, -torch.inf))
         keep = nms_grid(resp, params.min_distance) & corner
-        keep &= _inside((Hl, Wl), _PATCH_R + 1 if need_desc else 5, img.device)
+        keep = keep & _inside((Hl, Wl), _PATCH_R + 1 if need_desc else 5,
+                              img.device)
         xy, resp_k, valid = select_topk(resp, keep, k,
                                         params.minimum_ORB_response)
         xy = torch.where(valid[:, None], xy, torch.zeros_like(xy))

@@ -123,14 +123,16 @@ def match_left_right(left: Features, right: Features,
     cand_ok = best_d < BIG
     if method == StereoMatchMethod.SAD:
         ratio = best_d / torch.clamp(second_d, min=_f32(1e-6))
-        cand_ok &= (second_d >= BIG) | (ratio <= _f32(params.sad_max_ratio))
+        cand_ok = cand_ok & ((second_d >= BIG)
+                             | (ratio <= _f32(params.sad_max_ratio)))
 
     # z-gate as a post-filter on the winning match's disparity
     if fx_baseline is not None:
         best_disp = xl - xr[torch.clamp(best_r.to(torch.int64), 0, K - 1)]
         min_disp_z = _f32(fx_baseline / params.max_z)
         max_disp_z = _f32(fx_baseline / max(params.min_z, 1e-6))
-        cand_ok &= (best_disp >= min_disp_z) & (best_disp <= max_disp_z)
+        cand_ok = (cand_ok & (best_disp >= min_disp_z)
+                   & (best_disp <= max_disp_z))
 
     survive = _arbitrate_right(best_r, best_d, cand_ok, K,
                                keep_best=params.enable_robust_1to1_match)

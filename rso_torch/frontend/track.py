@@ -95,7 +95,7 @@ def track_interframe(prev_left: Features, prev_right: Features,
         sad_l = sad_matrix_auto(prev_left.patch, cur_left.patch)
         sad_r = sad_matrix_auto(pR_patch, cR_patch)
         sad_max = _f32(params.sad_max_distance)
-        pair_ok &= (sad_l <= sad_max) & (sad_r <= sad_max)
+        pair_ok = pair_ok & (sad_l <= sad_max) & (sad_r <= sad_max)
         cost = sad_l + sad_r
     else:   # DESC_WIN
         cost = hamming_matrix_auto(prev_left.desc, cur_left.desc)
@@ -104,7 +104,7 @@ def track_interframe(prev_left: Features, prev_right: Features,
     dy = torch.abs(prev_left.xy[:, 1][:, None] - cur_left.xy[:, 1][None, :])
     dxl = torch.abs(prev_left.xy[:, 0][:, None] - cur_left.xy[:, 0][None, :])
     dxr = torch.abs(pR_xy[:, 0][:, None] - cR_xy[:, 0][None, :])
-    pair_ok &= (dy <= win_row) & (dxl <= win_col) & (dxr <= win_col)
+    pair_ok = pair_ok & (dy <= win_row) & (dxl <= win_col) & (dxr <= win_col)
     best_c, best_d, _ = _best_second(
         torch.where(pair_ok, cost, torch.full_like(cost, BIG)))
     return finish(best_c, _arbitrate_right(best_c, best_d, best_d < BIG, K,

@@ -19,11 +19,13 @@ The graphs are split where the pose solver reads its stop flag:
 
 A block's carry is cloned at the end of the segment before it, and each
 block writes its output back into that clone, so a replayed block reads what
-the last replay wrote.  The first frame of each (signature, branch) runs the
-step eagerly on a side stream, the warm-up PyTorch's graph rules ask for (it
-builds the kernels, initialises cuBLAS and cuSOLVER and fills the cached
-tables), and that run is the frame's answer; the capture then records the
-step without running it.  A host read or a copy from pageable memory inside
+the last replay wrote; the block's graph also computes the carry's stop
+flag into a buffer of its own, which the host reads between replays.  The
+first frame of each (signature, branch) runs the step eagerly on a side
+stream, the warm-up PyTorch's graph rules ask for (it builds the kernels,
+initialises cuBLAS and cuSOLVER and fills the cached tables), and that run
+is the frame's answer; the capture then records the step without running
+it.  A host read or a copy from pageable memory inside
 the step makes the capture raise; nothing falls back to eager.
 
 The caller's state is copied into the static buffers before each frame and
@@ -36,6 +38,15 @@ in place as a replay does.
 A replay runs no Python wrapper: each segment's kernel launches are
 recorded at capture (and taken back out of LAUNCHES, since a capture
 launches nothing) and added to LAUNCHES on every replay.
+
+The step may be a torch.func.vmap of the engine's step over a leading
+lanes' axis (rso_torch.parallel.BatchEngine: rso's jax.vmap).  Its static
+buffers then hold every lane, the kernels launch once for all of them
+(their vmap rules), and the block's flag is `any_lane`'s: one flag for all
+lanes, with no lanes' axis.  The carry's leaves are vmap's wrappers, which
+die when the step returns, so nothing but that flag is kept of them; the
+carry's copies inside the step are per-leaf `copy_` (vmap has no rule for
+the batched `_foreach_copy_`).
 
 Bundle adjustment's LM solve (rso_torch.ba.ba.solve_lm) is a CompiledStep
 too, of a function without state (state None): pre (the carry and the
@@ -52,7 +63,7 @@ from typing import NamedTuple
 import torch
 
 from rso_torch.kernels._lib import LAUNCHES
-from rso_torch.solver.robust_gn import stops_after
+from rso_torch.solver.robust_gn import read_flag, stops_after
 
 
 def tree_map(fn, *trees):
@@ -81,6 +92,13 @@ def _copy(dst: list, src: list) -> None:
         torch._foreach_copy_(dst, src)
 
 
+def _copy_leaves(dst, src) -> None:
+    """Copy tree src into tree dst leaf by leaf (inside a step, where the
+    leaves may be vmap's wrappers)."""
+    for d, t in zip(leaves(dst), leaves(src)):
+        d.copy_(t)
+
+
 def tree_clone(tree):
     """Fresh tensors with the tree's values (one batched copy)."""
     out = tree_map(torch.empty_like, tree)
@@ -88,39 +106,34 @@ def tree_clone(tree):
     return out
 
 
+def _carry_clone(tree):
+    """tree_clone inside a step (vmap's wrappers allowed)."""
+    return tree_map(torch.clone, tree)
+
+
 def _signature(tree) -> tuple:
     return tuple((tuple(t.shape), t.dtype, t.device) for t in leaves(tree))
 
 
 def _check_disjoint(dst: list, src: list) -> None:
-    """dst[i] may be src[i] itself, but no other source may share memory
-    with a destination: the batched copy would read what it overwrote."""
+    """src[i] may be dst[i] itself (or a view of exactly its memory, as
+    vmap returns it), but no other source may share memory with a
+    destination: the batched copy would read what it overwrote."""
     def span(t):
         if t.numel() == 0:
             return None
         lo = t.data_ptr()
-        return lo, lo + t.element_size() * t.numel()
+        last = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+        return lo, lo + t.element_size() * (last + 1)
 
     spans = [span(d) for d in dst]
     for j, s in enumerate(src):
         b = span(s)
         for i, a in enumerate(spans):
-            if (a and b and i != j and s is not dst[i]
+            if (a and b and i != j and s is not dst[i] and b != spans[j]
                     and a[0] < b[1] and b[0] < a[1]):
                 raise RuntimeError("compiled step: an output shares memory "
                                    "with another static buffer")
-
-
-def _blocks(block, carry, n_blocks: int, replay=None):
-    """Run (or, with `replay`, replay) up to n_blocks blocks in place on
-    `carry`."""
-    for b in range(n_blocks):
-        if replay is None:
-            _copy(leaves(carry), leaves(block(carry)))
-        else:
-            replay()
-        if stops_after(carry, b, n_blocks):
-            break
 
 
 def in_place_blocks(block, carry, n_blocks: int):
@@ -128,15 +141,18 @@ def in_place_blocks(block, carry, n_blocks: int):
     each block writes its output back into the clone, as a replay does."""
     if n_blocks == 0:
         return carry
-    carry = tree_clone(carry)
-    _blocks(block, carry, n_blocks)
+    carry = _carry_clone(carry)
+    for b in range(n_blocks):
+        _copy_leaves(carry, block(carry))
+        if stops_after(carry, b, n_blocks):
+            break
     return carry
 
 
 class _Segment(NamedTuple):
     graph: torch.cuda.CUDAGraph
     launches: collections.Counter   # kernel launches of one replay
-    loop: tuple | None              # (carry, n_blocks) for a GN block
+    loop: tuple | None              # (site, flag, n_blocks) for a GN block
 
 
 class _Capture:
@@ -175,25 +191,24 @@ class _Capture:
     def __call__(self, block, carry, n_blocks: int):
         if n_blocks == 0:
             return carry
-        carry = tree_clone(carry)
+        carry = _carry_clone(carry)
         self.end()
         self.begin()
-        _copy(leaves(carry), leaves(block(carry)))
-        self.end(loop=(carry, n_blocks))
+        _copy_leaves(carry, block(carry))
+        site, flag = carry.stop_flag()
+        self.end(loop=(site, flag, n_blocks))
         self.begin()
         return carry
 
 
 def _replay(segments) -> None:
     for seg in segments:
-        def once(seg=seg):
+        n_blocks = 1 if seg.loop is None else seg.loop[2]
+        for b in range(n_blocks):
             seg.graph.replay()
             LAUNCHES.update(seg.launches)
-        if seg.loop is None:
-            once()
-        else:
-            carry, n_blocks = seg.loop
-            _blocks(None, carry, n_blocks, replay=once)
+            if b + 1 == n_blocks or not read_flag(*seg.loop[:2]):
+                break
 
 
 class _Variant:

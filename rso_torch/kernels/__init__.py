@@ -2,9 +2,11 @@
 
 Each module holds `<name>_torch` (the twin, used for CPU tensors),
 `<name>_cuda` (the kernel wrapper) and `<name>_auto` (the dispatcher).
-`LAUNCHES` counts kernel launches by name.  `cost_volume` is the exception:
-the reference's windowed SAD search is plain XLA, not a Pallas kernel, so
-its counterpart is plain PyTorch.
+`LAUNCHES` counts kernel launches by name.  Each `<name>_cuda` is a
+`torch.library.custom_op` with a vmap rule: under torch.func.vmap (the
+batched engine step) one launch covers every lane.  `cost_volume` is the
+exception: the reference's windowed SAD search is plain XLA, not a Pallas
+kernel, so its counterpart is plain PyTorch.
 """
 from rso_torch.kernels._lib import LAUNCHES
 from rso_torch.kernels.cost_volume import WindowedSearchResult, windowed_sad_search

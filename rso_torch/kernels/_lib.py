@@ -11,6 +11,14 @@ Each C entry point launches one kernel on the stream it is given and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code and counts the
 launch.  `LAUNCHES` is how a run shows that its main path went through the
 kernels.
+
+Every entry but the null vectors' takes a lane count B: B independent
+problems (the sequences of a batched step) in one launch, a grid axis over
+the lanes, each operand [B, ...] with its lanes contiguous.  A batched
+launch counts once, as a replayed one does, so the launches a frame show
+that the lanes share them.  The wrappers are custom ops whose vmap rules
+(`lanes` below gives their operands) make that one launch, as vmap over a
+`pallas_call` adds a grid axis in the reference.
 """
 from __future__ import annotations
 
@@ -39,15 +47,15 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: every pointer (and the stream) is a c_void_p
 _SIGNATURES = {
-    "rso_corner_response": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rso_corner_response": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rso_corner_tile_fits": [_I],
-    "rso_stereo_sad_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+    "rso_stereo_sad_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _F, _F, _F, _P, _P, _P, _P],
     "rso_track_sad_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                            _I, _F, _F, _F, _P, _P, _P],
+                            _I, _I, _F, _F, _F, _P, _P, _P],
     "rso_nullvec9": [_P, _P, _I, _P],
-    "rso_hamming_matrix": [_P, _P, _I, _I, _I, _P, _P],
-    "rso_sad_matrix": [_P, _P, _I, _I, _I, _P, _P],
+    "rso_hamming_matrix": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "rso_sad_matrix": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -148,6 +156,14 @@ def tile_fits(win: int) -> bool:
     return _tile_fits(torch.cuda.current_device(), win)
 
 
+def require_cuda(name: str, t: torch.Tensor) -> None:
+    """Build and load the library, and raise unless `t` is on a CUDA
+    device (a wrapper never falls back to its twin)."""
+    load()
+    if not t.is_cuda:
+        raise ValueError(f"{name}: operands on {t.device}")
+
+
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
           device: torch.device) -> int:
     """Validate a kernel operand and return its data pointer."""
@@ -160,3 +176,12 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
     return t.data_ptr()
+
+
+def lanes(batch_size: int, in_dims, tensors) -> list:
+    """The operands of one batched launch, from a vmap rule's arguments:
+    each tensor with its batch dimension (`in_dims`) moved first, or, where
+    it has none, repeated over the batch_size lanes; all contiguous."""
+    return [(t.movedim(d, 0) if d is not None
+             else t.expand(batch_size, *t.shape)).contiguous()
+            for t, d in zip(tensors, in_dims)]

@@ -6,7 +6,9 @@ and the design).  The descriptor modes call the Hamming matrix, the dense
 SAD path (`use_fused_match=False`) the SAD matrix.  Both twins compute exact
 values: Hamming distances are integer counts, and the SAD of the port's
 patches (multiples of 1/16 below 256) is an exact f32 sum, so kernel and
-twin agree bit for bit.
+twin agree bit for bit.  The `*_cuda` wrappers are custom ops with vmap
+rules: under torch.func.vmap one launch covers every lane (the grid's z
+axis).
 """
 from __future__ import annotations
 
@@ -41,37 +43,70 @@ def sad_matrix_torch(patches_a: torch.Tensor,
     return _sad(patches_a.float(), patches_b.float())
 
 
-def _operands(name, a, b, dtype, max_width):
-    _lib.load()
+def _matrix_launch(name, a, b, dtype, max_width) -> torch.Tensor:
+    """One launch of C entry `rso_<name>` over B lanes: a [B,Ka,w],
+    b [B,Kb,w] -> [B,Ka,Kb] f32."""
     dev = a.device
-    if not a.is_cuda:
-        raise ValueError(f"{name}: operands on {dev}")
-    Ka, width = a.shape
-    Kb = b.shape[0]
+    B, Ka, width = a.shape
+    Kb = b.shape[1]
     if Ka == 0 or Kb == 0:
-        raise ValueError(f"{name}: empty slot set")
+        raise ValueError(f"{name}_cuda: empty slot set")
     if not 1 <= width <= max_width:
-        raise ValueError(f"{name}: row width {width} outside 1..{max_width}")
-    return (_lib.check(a, "a", dtype, (Ka, width), dev),
-            _lib.check(b, "b", dtype, (Kb, width), dev), Ka, Kb, width)
+        raise ValueError(f"{name}_cuda: row width {width} outside "
+                         f"1..{max_width}")
+    pa = _lib.check(a, "a", dtype, (B, Ka, width), dev)
+    pb = _lib.check(b, "b", dtype, (B, Kb, width), dev)
+    out = torch.empty((B, Ka, Kb), dtype=torch.float32, device=dev)
+    _lib.launch(name, pa, pb, B, Ka, Kb, width, out.data_ptr())
+    return out
+
+
+def _hamming_launch(a, b):
+    return _matrix_launch("hamming_matrix", a, b, torch.int32, 64)
+
+
+def _sad_launch(a, b):
+    return _matrix_launch("sad_matrix", a, b, torch.float32, _MAX_P)
+
+
+@torch.library.custom_op("rso_torch::hamming_matrix", mutates_args=(),
+                         device_types="cuda",
+                         schema="(Tensor a, Tensor b) -> Tensor")
+def _hamming_op(a, b):
+    return _hamming_launch(a[None], b[None])[0]
+
+
+@torch.library.custom_op("rso_torch::sad_matrix", mutates_args=(),
+                         device_types="cuda",
+                         schema="(Tensor a, Tensor b) -> Tensor")
+def _sad_op(a, b):
+    return _sad_launch(a[None], b[None])[0]
+
+
+@torch.library.register_vmap("rso_torch::hamming_matrix")
+def _hamming_lanes(info, in_dims, a, b):
+    """vmap: one launch for every lane (the grid's z axis)."""
+    return _hamming_launch(*_lib.lanes(info.batch_size, in_dims, (a, b))), 0
+
+
+@torch.library.register_vmap("rso_torch::sad_matrix")
+def _sad_lanes(info, in_dims, a, b):
+    """vmap: one launch for every lane (the grid's z axis)."""
+    return _sad_launch(*_lib.lanes(info.batch_size, in_dims, (a, b))), 0
 
 
 def hamming_matrix_cuda(desc_a: torch.Tensor,
                         desc_b: torch.Tensor) -> torch.Tensor:
-    pa, pb, Ka, Kb, W = _operands("hamming_matrix_cuda", desc_a, desc_b,
-                                  torch.int32, 64)
-    out = torch.empty((Ka, Kb), dtype=torch.float32, device=desc_a.device)
-    _lib.launch("hamming_matrix", pa, pb, Ka, Kb, W, out.data_ptr())
-    return out
+    """The CUDA kernel (custom op `rso_torch::hamming_matrix`)."""
+    _lib.require_cuda("hamming_matrix_cuda", desc_a)
+    return _hamming_op(desc_a, desc_b)
 
 
 def sad_matrix_cuda(patches_a: torch.Tensor,
                     patches_b: torch.Tensor) -> torch.Tensor:
-    pa, pb, Ka, Kb, P = _operands("sad_matrix_cuda", patches_a, patches_b,
-                                  torch.float32, _MAX_P)
-    out = torch.empty((Ka, Kb), dtype=torch.float32, device=patches_a.device)
-    _lib.launch("sad_matrix", pa, pb, Ka, Kb, P, out.data_ptr())
-    return out
+    """The CUDA kernel (custom op `rso_torch::sad_matrix`)."""
+    _lib.require_cuda("sad_matrix_cuda", patches_a)
+    return _sad_op(patches_a, patches_b)
 
 
 def hamming_matrix_auto(desc_a: torch.Tensor,

@@ -54,11 +54,7 @@ def _cho_solve_unrolled(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(xs, dim=-1)
 
 
-def nullvec9_cuda(M: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: one hypothesis per thread, LDL^T in registers."""
-    _lib.load()
-    if not M.is_cuda:
-        raise ValueError(f"nullvec9_cuda: M on {M.device}")
+def _launch(M: torch.Tensor) -> torch.Tensor:
     B = M.shape[0]
     if B == 0:
         raise ValueError("nullvec9_cuda: empty batch")
@@ -66,6 +62,30 @@ def nullvec9_cuda(M: torch.Tensor) -> torch.Tensor:
     out = torch.empty(B, _N, dtype=torch.float32, device=M.device)
     _lib.launch("nullvec9", m, out.data_ptr(), B)
     return out
+
+
+@torch.library.custom_op("rso_torch::nullvec9", mutates_args=(),
+                         device_types="cuda", schema="(Tensor M) -> Tensor")
+def _nullvec9_op(M):
+    return _launch(M)
+
+
+@torch.library.register_vmap("rso_torch::nullvec9")
+def _nullvec9_lanes(info, in_dims, M):
+    """vmap: every lane's matrices [lanes, b, 9, 9] as one batch of
+    lanes * b, one launch."""
+    (M,) = _lib.lanes(info.batch_size, in_dims, (M,))
+    return _launch(M.reshape(-1, _N, _N)).reshape(M.shape[:-1]), 0
+
+
+def nullvec9_cuda(M: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel: one hypothesis per thread, LDL^T in registers (the
+    custom op `rso_torch::nullvec9`; under torch.func.vmap one launch takes
+    every lane's matrices)."""
+    _lib.load()
+    if not M.is_cuda:
+        raise ValueError(f"nullvec9_cuda: M on {M.device}")
+    return _nullvec9_op(M)
 
 
 def nullvec9_auto(M: torch.Tensor) -> torch.Tensor:

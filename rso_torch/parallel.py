@@ -2,42 +2,67 @@
 
 Within a sequence, frame t depends on t-1 (the previous-frame state and the
 pose warm start), so parallelism runs across *sequences*: offline benchmark
-sweeps (KITTI 00-10) go through one BatchEngine.  The reference vmaps its
-jitted step over a batch of engine states sharded over a 'seq' mesh.  Here
-each rank of a 'seq' DeviceMesh (one process per device, SPMD) takes the
-global [B,...] inputs and steps its contiguous B/n sequences, one after
-another through one step from make_step, so each sequence's results are
-those of an Engine running that sequence alone, bit for bit.  The steps
-need no collective; `gather` collects host summaries through the mesh's
-group (gloo's runs on the host, so several ranks can share one card).  One
-step launch per kernel for all of a rank's sequences is later work.
+sweeps (KITTI 00-10) go through one BatchEngine.  The reference runs
+`jax.jit(jax.vmap(step))` over a batch of engine states sharded over a
+'seq' mesh, and `lax.scan` of it for a chunk.  Here the same: the B
+sequences step as one batched step a frame, `torch.func.vmap` of
+make_step's step over a leading sequence axis of the state and the images,
+run through one `rso_torch.graphs.CompiledStep`, so on the GPU as CUDA
+graphs captured once and replayed (process_chunk replays them N times, the
+scan).  Each CUDA kernel launches once for all sequences, the sequence axis
+a grid axis of its launch (the kernels' vmap rules, as vmap over a
+`pallas_call` adds a grid axis in the reference).
+
+The pose solver's GN loop runs while any sequence's runs (its flag reduced
+over the lanes by `robust_gn.any_lane`: rso's vmap of `lax.while_loop`),
+and with detect_every > 1 the step's branch is read once a frame for all
+sequences: the detect or the propagate graph set where they agree, else a
+third set that runs both branches and gives each sequence its own (rso's
+`lax.cond` under vmap).  On the CPU, and with the eigh solve backend, the
+same batched step runs eagerly through the same buffers, as Engine decides.
+
+Each rank of a 'seq' DeviceMesh (one process per device, SPMD) takes the
+global [B,...] inputs and steps its contiguous B/n sequences, batched.  The
+steps need no collective; `gather` collects host summaries through the
+mesh's group (gloo's runs on the host, so several ranks can share one card).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from rso_torch.config import RSOConfig
-from rso_torch.engine import StepResult, _device, init_state, make_step
+from rso_torch.engine import (StepResult, _device, init_state, lanes_detect,
+                              make_step)
 from rso_torch.geometry.stereo_camera import StereoCamera
+from rso_torch.graphs import CompiledStep, tree_map
 from rso_torch.mesh import check_mesh
 
 
-def _stack(results, dim: int = 0) -> StepResult:
-    return StepResult(*(torch.stack(v, dim) for v in zip(*results)))
+def batched_step(step):
+    """The batched form of an image step of make_step: (states, lefts,
+    rights) with a leading lanes' axis on every leaf -> (states', results),
+    all lanes in one vmapped call."""
+    def run(states, lefts, rights, *, loop, do_detect=None):
+        one = functools.partial(step, loop=loop, do_detect=do_detect)
+        return torch.func.vmap(one)(states, lefts, rights)
+    return run
 
 
 class BatchEngine:
-    """Run B independent sequences through one step (on the GPU unless the
-    caller passes device="cpu"; raises without CUDA).
+    """Run B independent sequences through one batched step (on the GPU
+    unless the caller passes device="cpu"; raises without CUDA).
 
     mesh: None for every sequence in this process, or a 'seq' DeviceMesh,
     every rank of which builds a BatchEngine with the same arguments and
     steps `sequences`, its contiguous share; where B does not divide over
     the mesh, the reference's rule runs all B on its first rank
     (`mesh_devices` says how many ranks step) and the others hold none.
-    `states` holds this rank's engine states.
+    `states` is this rank's batched EngineState (every leaf [b, ...], None
+    where it holds none), as the reference's is.
     """
 
     def __init__(self, cfg: RSOConfig, cam: StereoCamera, batch: int,
@@ -61,10 +86,20 @@ class BatchEngine:
         maps = None if rectify_maps is None else tuple(
             tuple(torch.as_tensor(m, dtype=torch.float32, device=self.device)
                   for m in eye) for eye in rectify_maps)
-        self._step = make_step(cfg, cam.to(self.device), img_h, img_w,
-                               rectify_maps=maps)
-        self.states = [init_state(cfg, (img_h, img_w), self.device)
-                       for _ in self.sequences]
+        step = make_step(cfg, cam.to(self.device), img_h, img_w,
+                         rectify_maps=maps)
+        branch = None
+        if cfg.tpu.detect_every > 1:
+            branch = functools.partial(lanes_detect, cfg)
+        # as Engine._get_step: graphs on the GPU but for the eigh backend
+        self._step = CompiledStep(
+            batched_step(step), branch=branch,
+            capture=(self.device.type == "cuda"
+                     and cfg.least_squares.solve_backend != "eigh"))
+        b = len(self.sequences)
+        self.states = None if b == 0 else tree_map(
+            lambda x: x.expand(b, *x.shape).clone(),
+            init_state(cfg, (img_h, img_w), self.device))
 
     def gather(self, obj) -> list:
         """Every rank's `obj` (a host object) in mesh order, on every rank,
@@ -83,30 +118,25 @@ class BatchEngine:
             imgs = torch.from_numpy(np.ascontiguousarray(imgs))
         return imgs.to(self.device)
 
-    def _frames(self, lefts, rights) -> StepResult:
-        """One frame of this rank's sequences: lefts/rights [b,H,W] on the
-        device."""
-        out = []
-        for b in range(len(self.sequences)):
-            self.states[b], res = self._step(self.states[b], lefts[b],
-                                             rights[b])
-            out.append(res)
-        return _stack(out)
-
     def process_frames(self, lefts, rights) -> StepResult | None:
         """lefts/rights: [B,H,W] u8, one frame per sequence -> results of
         this rank's sequences with a leading [b] axis (None where it holds
         none)."""
         if not self.sequences:
             return None
-        return self._frames(self._images(lefts), self._images(rights))
+        self.states, results = self._step(self.states, self._images(lefts),
+                                          self._images(rights))
+        return results
 
     def process_chunk(self, lefts, rights) -> StepResult | None:
         """lefts/rights: [B,N,H,W] u8, N frames of each sequence -> results
         of this rank's sequences stacked [N,b,...] along the frame axis, as
-        the reference's scan returns them (None where it holds none)."""
+        the reference's scan returns them (None where it holds none): the
+        batched step's graphs replayed N times, the states kept in its
+        buffers between frames."""
         if not self.sequences:
             return None
         lefts, rights = self._images(lefts), self._images(rights)
-        return _stack([self._frames(lefts[:, n], rights[:, n])
-                       for n in range(lefts.shape[1])])
+        self.states, results = self._step.chunk(
+            self.states, lefts.unbind(1), rights.unbind(1))
+        return results

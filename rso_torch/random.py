@@ -70,6 +70,9 @@ def uniform(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     for s in shape:
         n *= s
     b1, b2 = _iota_bits(key, n)
-    bits = (((b1 ^ b2) >> 9) | 0x3F800000).to(torch.int32)
-    floats = bits.view(torch.float32) - 1.0
+    # jax's float in [1, 2) from the top 23 bits, less 1: that is exactly
+    # the 23-bit mantissa m times 2^-23 (both steps exact in float32), taken
+    # here without a dtype view of the bits (vmap has no rule for one)
+    mantissa = ((b1 ^ b2) >> 9).to(torch.float32)
+    floats = mantissa * (1.0 / (1 << 23))
     return floats.reshape(*key.shape[:-1], *shape)

@@ -26,6 +26,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from rso_torch import random as rrandom
 from rso_torch.kernels.smallchol import nullvec9_auto
@@ -40,14 +41,38 @@ class RansacResult(NamedTuple):
     ok: torch.Tensor         # [...] bool: >= 8 inliers and >= 25% of the set
 
 
+def _pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis as a tree of elementwise adds (zero-padded to a
+    power of two, halved until one value is left): the order of the adds
+    is fixed by the axis's length alone, so the sum has the same bits
+    whatever the leading axes, under vmap too."""
+    n = x.shape[-1]
+    x = F.pad(x, (0, (1 << max(n - 1, 0).bit_length()) - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def _sum_points(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over the points axis `dim` with the same bits whatever the
+    leading axes, so that a lane of the batched step (torch.func.vmap) sums
+    as a lone step does.  On the CPU that is torch's sum (the reference's
+    bits on the repo's scenes); on the GPU CUDA's reduction kernel picks
+    its order from the number of outputs, so there a `_pairwise_sum`."""
+    if x.device.type == "cpu":
+        return x.sum(dim)
+    return _pairwise_sum(x.movedim(dim, -1))
+
+
 def _normalize_pts(pts: torch.Tensor, mask: torch.Tensor):
     """Hartley normalisation of [...,N,2] (masked): zero mean, mean distance
     sqrt(2).  Returns (normalised points, T [...,3,3])."""
     w = mask.to(pts.dtype)
-    n = torch.clamp(w.sum(-1), min=1.0)
-    mean = (pts * w[..., None]).sum(-2) / n[..., None]
+    n = torch.clamp(w.sum(-1), min=1.0)          # a count: exact in any order
+    mean = _sum_points(pts * w[..., None], -2) / n[..., None]
     d = torch.sqrt(((pts - mean[..., None, :]) ** 2).sum(-1))
-    scale = math.sqrt(2.0) / torch.clamp((d * w).sum(-1) / n, min=1e-9)
+    scale = math.sqrt(2.0) / torch.clamp(_sum_points(d * w, -1) / n, min=1e-9)
     zero = torch.zeros_like(scale)
     T = torch.stack([
         torch.stack([scale, zero, -scale * mean[..., 0]], dim=-1),

@@ -14,6 +14,13 @@ loop's whatever the block size.  The stop flag is read back once per block,
 and not after the last one.  A `loop` runner runs the blocks:
 `eager_blocks` here, or the engine's compiled step, which captures one
 block as a CUDA graph and replays it, reading the flag between replays.
+
+Under torch.func.vmap (the batched engine step) the solve runs for every
+lane at once, and the flag passes through `any_lane`, whose vmap rule
+reduces it over the lanes: the loop runs while any lane runs, as rso's vmap
+of `lax.while_loop` does, and a lane that has stopped is left unchanged by
+the masked iterations.  The carry is made from the observations
+(`*_like`), so under vmap every leaf has the lanes' axis from the start.
 """
 from __future__ import annotations
 
@@ -106,8 +113,7 @@ def _eval_rgn(cam: StereoCamera, lmks, obs, mask, delta_pose,
         # `info` instead of raising (and syncing); it becomes NaN, as
         # jnp.linalg.cholesky reports it, so the guard below flags bad_cond.
         L, info = torch.linalg.cholesky_ex(H)
-        eye6 = torch.eye(6, dtype=H.dtype, device=H.device)
-        Hinv = torch.cholesky_solve(eye6, L)
+        Hinv = cho_inverse(L)
         Hinv = torch.where(info == 0, Hinv, torch.full_like(Hinv, torch.nan))
         dx = Hinv @ g
         cond = H.abs().sum(0).amax() * Hinv.abs().sum(0).amax()
@@ -140,6 +146,28 @@ def _eval_rgn(cam: StereoCamera, lmks, obs, mask, delta_pose,
     return dx, cost, s_out, bad_cond
 
 
+@torch.library.custom_op("rso_torch::cho_inverse", mutates_args=(),
+                         schema="(Tensor L) -> Tensor")
+def cho_inverse(L: torch.Tensor) -> torch.Tensor:
+    """(L L^T)^-1 from a [6,6] Cholesky factor L: `cholesky_solve` of the
+    identity.  Under torch.func.vmap (its rule) two batched triangular
+    solves instead, cuBLAS trsm on the GPU, which a CUDA graph captures,
+    where the batched cholesky_solve (MAGMA) cannot be captured; on the CPU
+    both are LAPACK's triangular solves, the same bits."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return torch.cholesky_solve(eye, L)
+
+
+@torch.library.register_vmap("rso_torch::cho_inverse")
+def _cho_inverse_lanes(info, in_dims, L):
+    if in_dims[0] is None:
+        return cho_inverse(L), None
+    L = L.movedim(in_dims[0], 0)
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    lower = torch.linalg.solve_triangular(L, eye, upper=False)
+    return torch.linalg.solve_triangular(L.mT, lower, upper=True), 0
+
+
 class GNCarry(NamedTuple):
     """The GN loop's carry: the reference's while-loop state plus `active`,
     the loop's condition (it < max_iters, not done, not aborted)."""
@@ -155,19 +183,39 @@ class GNCarry(NamedTuple):
     lam: torch.Tensor | None  # LM damping (None without LM)
 
     def stop_flag(self):
-        """(HOST_READS site, device flag that is true while the loop runs)."""
-        return "gn", self.active
+        """(HOST_READS site, device flag that is true while the loop runs,
+        for every lane under vmap)."""
+        return "gn", any_lane(self.active)
+
+
+@torch.library.custom_op("rso_torch::any_lane", mutates_args=(),
+                         schema="(Tensor flag) -> Tensor")
+def any_lane(flag: torch.Tensor) -> torch.Tensor:
+    """A loop's stop flag for all lanes: outside vmap a copy of `flag`;
+    under torch.func.vmap (its rule) whether any lane's flag is set, as one
+    flag with no lanes' axis, which the host can read."""
+    return flag.clone()
+
+
+@torch.library.register_vmap("rso_torch::any_lane")
+def _any_lane_lanes(info, in_dims, flag):
+    d = in_dims[0]
+    return (flag.clone() if d is None else flag.any(dim=d)), None
+
+
+def read_flag(site: str, running: torch.Tensor) -> bool:
+    """A loop's stop flag read back to the host (the loop's one read a
+    block), counted under its HOST_READS site."""
+    HOST_READS[site] += 1
+    return bool(running)
 
 
 def stops_after(carry, b: int, n_blocks: int) -> bool:
     """Whether the loop ends after block b: at its last block, else where
-    the carry's stop flag, read back to the host (the loop's one read a
-    block), says so."""
+    the carry's stop flag says so."""
     if b + 1 == n_blocks:
         return True
-    site, running = carry.stop_flag()
-    HOST_READS[site] += 1
-    return not bool(running)
+    return not read_flag(*carry.stop_flag())
 
 
 def eager_blocks(block, carry, n_blocks: int):
@@ -185,7 +233,6 @@ def _gn_phase(cam, lmks, obs, mask, delta_pose0, max_iters: int, times_inc0,
     """One of the two GN loops (reference :549-598 and :650-700); with
     `params.use_lm` the LM loop (:160-213), whose lambda halves after a
     step that did not raise the cost and quadruples after one that did."""
-    dev = obs.device
 
     def iteration(c: GNCarry) -> GNCarry:
         dx, c_cost, res, bad_cond = _eval_rgn(cam, lmks, obs, mask, c.dp,
@@ -220,19 +267,22 @@ def _gn_phase(cam, lmks, obs, mask, delta_pose0, max_iters: int, times_inc0,
             c = iteration(c)
         return c
 
+    # every leaf from the observations, so that under vmap each has the
+    # lanes' axis that the blocks' in-place writes need
+    zero = torch.zeros_like(obs[0, 0])
     carry = GNCarry(
-        it=torch.zeros((), dtype=torch.int32, device=dev),
-        active=torch.full((), max_iters > 0, dtype=torch.bool, device=dev),
-        dp=delta_pose0,
-        cost=torch.zeros((), dtype=torch.float32, device=dev),
+        it=torch.zeros_like(zero, dtype=torch.int32),
+        active=torch.full_like(zero, max_iters > 0, dtype=torch.bool),
+        dp=torch.where(torch.ones_like(zero, dtype=torch.bool), delta_pose0,
+                       zero),
+        cost=zero,
         times_inc=(times_inc0 if isinstance(times_inc0, torch.Tensor) else
-                   torch.full((), times_inc0, dtype=torch.int32, device=dev)),
-        abort=torch.zeros((), dtype=torch.bool, device=dev),
-        res=torch.full((obs.shape[0],), _F32_MAX, dtype=torch.float32,
-                       device=dev),
-        ec=torch.full((), VOEC_NONE, dtype=torch.int32, device=dev),
-        lam=(torch.full((), params.lm_init_lambda, dtype=torch.float32,
-                        device=dev) if params.use_lm else None))
+                   torch.full_like(zero, times_inc0, dtype=torch.int32)),
+        abort=torch.zeros_like(zero, dtype=torch.bool),
+        res=torch.full_like(obs[:, 0], _F32_MAX),
+        ec=torch.full_like(zero, VOEC_NONE, dtype=torch.int32),
+        lam=(torch.full_like(zero, params.lm_init_lambda)
+             if params.use_lm else None))
     c = loop(block, carry, -(-max_iters // B) if max_iters > 0 else 0)
     return c.it, c.dp, c.times_inc, c.abort, c.res, c.ec, c.cost
 

@@ -16,10 +16,12 @@ Port-only, exact (torch.equal, or equal bytes of the files the demo
 writes): --chunk equals the per-frame run; --ba equals a direct VOWithBA
 run and --ba-offline a direct KeyframeCollector + refine_trajectory; a
 --save-state / --load-state round trip; --watch equals --img-dir on the
-same pairs; --ba --ba-distributed (a one-rank mesh) equals --ba;
-BatchEngine equals one Engine per sequence, and rso-fleet's sequence 0 the
-demo's trajectory; run_bench returns the reference's keys; rso-stages
-prints the reference's span names; every entry point raises without CUDA.
+same pairs; --ba --ba-distributed (a one-rank mesh) equals --ba; run_bench
+returns the reference's keys; rso-stages prints the reference's span
+names; every entry point raises without CUDA.  BatchEngine equals one
+Engine per sequence and rso-fleet's sequence 0 the demo's trajectory,
+integers exactly and floats within BATCH_POSE_ATOL (the batched step's
+sums, test_batch_engine).
 """
 import contextlib
 import io
@@ -271,7 +273,14 @@ def test_ba_distributed_exits_2(ba_run, tmp_path):
 def test_batch_engine():
     """BatchEngine(B=2): process_frames ([B,...]) and process_chunk
     ([N,B,...]) equal one Engine per sequence, field by field and state by
-    state; a mesh that is not a torch DeviceMesh raises (the 'seq' mesh:
+    state: integer fields exactly, floats within BATCH_POSE_ATOL (pose,
+    state) and BATCH_RES_ATOL (residuals, cost), since the batched step (one
+    torch.func.vmap for both lanes) sums in another order than a lone step
+    where its operations are batched (the GN gradient's einsum, H^-1 g and
+    the batched triangular solves, tests/test_torch_batch.py); measured
+    here (tests/_torch_batch_gaps.py): pose <= 3.1e-7, residuals <=
+    1.8e-4, cost <= 6.5e-5.  A mesh that
+    is not a torch DeviceMesh raises (the 'seq' mesh:
     tests/test_torch_mesh.py)."""
     seqs = [make_sequence(n_frames=4, n_points=2000, seed=s)
             for s in range(2)]
@@ -290,13 +299,35 @@ def test_batch_engine():
         batched = [_at(first, b)] + [_at(chunk, b, n) for n in range(3)]
         for n, (a, g) in enumerate(zip(alone, batched)):
             for field, x, y in zip(a._fields, a, g):
-                assert torch.equal(x, y), f"sequence {b} frame {n} {field}"
-        for x, y in zip(_leaves(eng.state), _leaves(be.states[b])):
-            assert torch.equal(x, y)
+                _batch_close(x, y, field, f"sequence {b} frame {n} {field}")
+        lane = type(be.states)(*(_lane_of(t, b) for t in be.states))
+        for x, y in zip(_leaves(eng.state), _leaves(lane)):
+            _batch_close(x, y, "state", f"sequence {b} state")
     assert bool(chunk.valid.all())
     with pytest.raises(ValueError):
         BatchEngine(cfg, cam, batch=2, img_h=H, img_w=W, mesh=object(),
                     device="cpu")
+
+
+# a batched lane against a lone Engine (test_batch_engine)
+BATCH_POSE_ATOL = 1e-5      # rso's own batch test, tests/test_parallel.py
+BATCH_RES_ATOL = 5e-3       # the engine tolerances, tests/test_torch_engine.py
+
+
+def _lane_of(tree, b):
+    """Lane b of a batched tree (tuples of tensors)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[b]
+    return type(tree)(*(_lane_of(t, b) for t in tree)) if hasattr(
+        tree, "_fields") else tuple(_lane_of(t, b) for t in tree)
+
+
+def _batch_close(x, y, field, what):
+    if not x.dtype.is_floating_point:
+        assert torch.equal(x, y), what
+        return
+    atol = BATCH_RES_ATOL if field in ("residuals", "cost") else BATCH_POSE_ATOL
+    torch.testing.assert_close(y, x, atol=atol, rtol=0, msg=what)
 
 
 def _at(res, b, n=None):
@@ -313,8 +344,10 @@ def test_fleet_sequence_0_is_the_demo(runs, tmp_path):
     summary = json.loads(out.splitlines()[-1])
     assert list(summary) == FLEET_KEYS
     assert summary["mesh_devices"] == 1 and summary["total_frames"] == 8
-    assert ((tmp_path / "seq_synthetic_0.txt").read_bytes()
-            == (d / "port.txt").read_bytes())
+    # the fleet's lanes step batched: within BATCH_POSE_ATOL (test_batch_engine)
+    np.testing.assert_allclose(np.loadtxt(tmp_path / "seq_synthetic_0.txt"),
+                               np.loadtxt(d / "port.txt"),
+                               atol=BATCH_POSE_ATOL, rtol=0)
 
 
 def _stdout(fn, *a, **kw):

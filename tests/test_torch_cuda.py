@@ -15,7 +15,12 @@ the twin on the card and exactly against the twin on the CPU; null
 vectors up to sign (|cos| > 1 - 1e-3, unit norm to 1e-4): the kernel is
 LDL^T, the twin regularised Cholesky (bit for bit against the kernel's
 earlier design: tests/_torch_kernel_ab.py); Hamming and SAD matrices
-bit-exact (integer counts, and exact f32 sums of 1/16-multiples).
+bit-exact (integer counts, and exact f32 sums of 1/16-multiples).  Under
+torch.func.vmap each kernel launches once for all lanes, each lane bit for
+bit its twin's (kernel 4: the unbatched kernel's bits); the batched engine
+step (rso_torch.parallel.BatchEngine) gives each lane an Engine's integer
+fields, its floats within rso's own batch test's pose bound (1e-5) and the
+engine tolerances.
 """
 import numpy as np
 import pytest
@@ -712,3 +717,131 @@ def test_cuda_eigh_backend_runs_the_eager_step(cuda):
         _same_result(eng.process_frame(left, right), eager[i][0], f"frame {i}")
     step = eng._get_step(160, 240)
     assert not step.capture and step.n_graphs == 0
+
+
+# ---- the batched kernels and the batched step (rso_torch.parallel) --------
+
+def _one_launch(name, fn):
+    """fn() under a fresh launch count: it launched `name` once."""
+    K.LAUNCHES.clear()
+    out = fn()
+    assert dict(K.LAUNCHES) == {name: 1}, dict(K.LAUNCHES)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("win", [4, 7, 46])
+def test_cuda_batched_corner_response(cuda, win):
+    """vmap over three octave-sized images with a threshold each: one
+    launch (the one-tile path at win 4 and 7, the wide path at 46, counted
+    under its name), each lane bit for bit the twin's."""
+    seq = make_sequence(n_frames=3, n_points=2000, H=376, W=1241)
+    imgs = torch.stack([to_grayscale(torch.from_numpy(l)) for l, _ in
+                        seq.frames]).to(cuda)
+    th = torch.tensor([10, 20, 25], dtype=torch.int32, device=cuda)
+    name = "corner_response" if win <= 45 else "corner_response_wide"
+    out = _one_launch(name, lambda: torch.func.vmap(
+        lambda i, t: K.corner_response_cuda(i, t, win=win))(imgs, th))
+    for b in range(3):
+        assert torch.equal(out[b], K.corner_response_torch(imgs[b], th[b],
+                                                           win=win))
+
+
+@pytest.mark.gpu
+def test_cuda_batched_stereo_and_track_sad_fused(cuda):
+    """Kernels 2 and 3 under vmap over three lanes (their own slot sets):
+    one launch each, every lane bit for bit the twin's."""
+    lanes = [_stereo_case(257, seed, cuda) for seed in range(3)]
+    stacked = [torch.stack(x) for x in zip(*lanes)]
+    kw = dict(max_y_diff=2.0, max_disp=60.0, max_distance=1e4)
+    out = _one_launch("stereo_sad_fused", lambda: torch.func.vmap(
+        lambda *a: K.stereo_sad_fused_cuda(*a, **kw))(*stacked))
+    for b, case in enumerate(lanes):
+        want = K.stereo_sad_fused_torch(*case, **kw)
+        assert all(torch.equal(o[b], w) for o, w in zip(out, want))
+    pl, pr, xl, xr, okl, okr = stacked
+    tr = (pl, pr, pr, pl, xl, xr, xl[..., 0], xr[..., 0], okl, okr)
+    kw = dict(win_row=20.0, win_col=30.0, sad_max=1e4)
+    out = _one_launch("track_sad_fused", lambda: torch.func.vmap(
+        lambda *a: K.track_sad_fused_cuda(*a, **kw))(*tr))
+    for b in range(3):
+        want = K.track_sad_fused_torch(*(t[b] for t in tr), **kw)
+        assert all(torch.equal(o[b], w) for o, w in zip(out, want))
+
+
+@pytest.mark.gpu
+def test_cuda_batched_nullvec9(cuda):
+    """Kernel 4's vmap rule folds the lanes into its batch: one launch,
+    each lane the unbatched kernel's bits and the twin's up to sign."""
+    rng = np.random.default_rng(5)
+    M = torch.stack([CS.rank8_matrices(rng, 256, cuda) for _ in range(3)])
+    out = _one_launch("nullvec9", lambda: torch.func.vmap(K.nullvec9_cuda)(M))
+    for b in range(3):
+        assert torch.equal(out[b], K.nullvec9_cuda(M[b]))
+        cos = (out[b] * K.nullvec9_torch(M[b])).sum(-1).abs()
+        assert bool((cos > 1 - 1e-3).all())
+
+
+@pytest.mark.gpu
+def test_cuda_batched_hamming_and_sad_matrices(cuda):
+    """Kernels 5 and 6 under vmap over three lanes: one launch each, bit
+    for bit the twins'."""
+    g = torch.Generator().manual_seed(9)
+    d = torch.randint(-2 ** 31, 2 ** 31 - 1, (3, 300, 8), generator=g,
+                      dtype=torch.int64).to(torch.int32).to(cuda)
+    out = _one_launch("hamming_matrix", lambda: torch.func.vmap(
+        K.hamming_matrix_cuda)(d, d.flip(1)))
+    for b in range(3):
+        assert torch.equal(out[b], K.hamming_matrix_torch(d[b], d[b].flip(0)))
+    p = (torch.randint(0, 256 * 16, (3, 257, 64), generator=g) / 16.0).to(cuda)
+    q = p.roll(1, dims=1)
+    out = _one_launch("sad_matrix", lambda: torch.func.vmap(
+        K.sad_matrix_cuda)(p, q))
+    for b in range(3):
+        assert torch.equal(out[b], K.sad_matrix_torch(p[b], q[b]))
+
+
+@pytest.mark.gpu
+def test_cuda_batch_engine_lanes_equal_lone_engines(cuda):
+    """BatchEngine(B = 3) on the bench size: CUDA graphs replayed, 6/3/3/2
+    launches a frame for all lanes, each lane's integer fields equal to an
+    Engine's alone, its floats within the batch bounds (the batched GN
+    sums: tests/test_torch_batch.py), and process_chunk equal to
+    process_frames bit for bit."""
+    from rso_torch.parallel import BatchEngine
+    from rso_torch.synthetic import synthetic_config
+
+    cfg = synthetic_config()
+    seqs = [make_sequence(n_frames=5, n_points=2000, H=376, W=1241, seed=s)
+            for s in range(3)]
+    lefts = torch.stack([torch.stack([torch.from_numpy(l) for l, _ in
+                                      s.frames]) for s in seqs]).to(cuda)
+    rights = torch.stack([torch.stack([torch.from_numpy(r) for _, r in
+                                       s.frames]) for s in seqs]).to(cuda)
+    be = BatchEngine(cfg, seqs[0].cam, batch=3, img_h=376, img_w=1241,
+                     device=cuda)
+    be.process_frames(lefts[:, 0], rights[:, 0])        # warm-up, capture
+    n_graphs = be._step.n_graphs
+    assert n_graphs == 5
+    be = BatchEngine(cfg, seqs[0].cam, batch=3, img_h=376, img_w=1241,
+                     device=cuda)
+    K.LAUNCHES.clear()
+    frames = [be.process_frames(lefts[:, n], rights[:, n]) for n in range(5)]
+    assert dict(K.LAUNCHES) == {"corner_response": 30, "stereo_sad_fused": 15,
+                                "track_sad_fused": 15, "nullvec9": 10}
+    for b, s in enumerate(seqs):
+        eng = Engine(cfg, s.cam, device=cuda)
+        for n in range(5):
+            alone = eng.process_frame(lefts[b, n], rights[b, n])
+            for field, x, y in zip(alone._fields, alone, frames[n]):
+                what = f"lane {b} frame {n} {field}"
+                if not x.dtype.is_floating_point:
+                    assert torch.equal(x, y[b]), what
+                else:
+                    atol = 5e-3 if field in ("residuals", "cost") else 1e-5
+                    torch.testing.assert_close(y[b], x, atol=atol, rtol=0,
+                                               msg=what)
+    chunk = BatchEngine(cfg, seqs[0].cam, batch=3, img_h=376, img_w=1241,
+                        device=cuda).process_chunk(lefts, rights)
+    for n in range(5):
+        _same_result(StepResultAt(chunk, n), frames[n], f"chunk frame {n}")

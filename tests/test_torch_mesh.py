@@ -27,11 +27,17 @@ below and writes each rank's results; the tests compare them.
     on the reference's HLO.  On a one-rank (1,1) mesh it equals the batch
     bit for bit.
   * BatchEngine on a 2-rank 'seq' mesh: each rank's sequence equal to an
-    Engine alone, bit for bit; B = 2 on 4 ranks runs on one (the
+    Engine alone, integer fields exactly and floats within BATCH_POSE_ATOL
+    / BATCH_RES_ATOL (a rank's step is a torch.func.vmap over its one lane,
+    whose batched einsum, H^-1 g and triangular solves sum in another order
+    than a lone step's; measured by tests/_torch_batch_gaps.py: pose <=
+    4.3e-7, residuals <= 3.8e-5); B = 2 on 4 ranks runs on one (the
     reference's rule).
   * initialize_multihost: False in one process, True in two, with a
     2-rank global_landmark_mesh; rso-fleet over those two ranks writes the
-    one-process run's trajectories and reports mesh_devices 2.
+    one-process run's counts and reports mesh_devices 2; its trajectories
+    and ATEs within BATCH_POSE_ATOL of the one-process run's (two lanes
+    there against one a rank: the batched sums above).
 """
 import contextlib
 import io
@@ -71,6 +77,10 @@ LMK_ATOL = 3e-3
 COST_RTOL = 2e-5
 FLOOR_RTOL = 2e-5
 PRIOR = dict(rel_w_rot=4e2, rel_w_trans=25.0)
+# a batched lane against a lone Engine: rso's own batch test's pose bound
+# (tests/test_parallel.py) and the engine tolerances
+BATCH_POSE_ATOL = 1e-5
+BATCH_RES_ATOL = 5e-3
 CAM_KW = dict(fx_l=500.0, fy_l=500.0, cx_l=320.0, cy_l=240.0, baseline=0.5)
 TCAM = StereoCamera.make(**CAM_KW)
 
@@ -338,8 +348,15 @@ def test_batch_engine_on_a_seq_mesh(ranks, rank):
                                                    got["frames"])):
         alone = numpy_tree(eng.process_frame(left, right))
         for field, a in alone.items():
-            np.testing.assert_array_equal(frame[field][0], a,
-                                          err_msg=f"frame {n} {field}")
+            what = f"frame {n} {field}"
+            if a.dtype.kind in "biu":
+                np.testing.assert_array_equal(frame[field][0], a,
+                                              err_msg=what)
+            else:
+                atol = (BATCH_RES_ATOL if field in ("residuals", "cost")
+                        else BATCH_POSE_ATOL)
+                np.testing.assert_allclose(frame[field][0], a, atol=atol,
+                                           rtol=0, err_msg=what)
 
 
 def test_batch_engine_reference_rule(ranks):
@@ -375,9 +392,12 @@ def test_fleet_over_two_ranks(ranks, tmp_path):
     summary = json.loads(r0["fleet_stdout"].splitlines()[-1])
     assert list(summary) == list(alone)
     assert summary["mesh_devices"] == 2
-    for k in ("sequences", "frames_per_seq", "total_frames", "valid_frac",
-              "ate_rmse_m"):
+    for k in ("sequences", "frames_per_seq", "total_frames", "valid_frac"):
         assert summary[k] == alone[k], k
+    np.testing.assert_allclose(summary["ate_rmse_m"], alone["ate_rmse_m"],
+                               atol=BATCH_POSE_ATOL, rtol=0)
     for i in range(2):
         name = f"seq_synthetic_{i}.txt"
-        assert (d / "fleet" / name).read_bytes() == (tmp_path / name).read_bytes()
+        np.testing.assert_allclose(np.loadtxt(d / "fleet" / name),
+                                   np.loadtxt(tmp_path / name),
+                                   atol=BATCH_POSE_ATOL, rtol=0, err_msg=name)
