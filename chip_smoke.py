@@ -30,9 +30,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
      one-tile path), 46 and 64 (its two-pass wide path, reported as
      `corner_response_wide`) on every octave, bit for bit with the twin on
      the card and on the CPU, each window's launch counted under its path;
+     and the port's seventh kernel, eigh6 (the GN's 6x6 eigensolver on the
+     eigh backend; rso's is XLA's eigh, no Pallas kernel), against its twin
+     at B = 1, 11 and 4096 (bit for bit expected, within 1e-6 of |w[5]|
+     and 1e-5 held) and against torch.linalg.eigh, its library call;
  3b. batched kernels: each kernel under torch.func.vmap over N_BATCH = 11
      lanes (lane b: bench frame b at octave 0; tracking b to b + 1; kernel
-     4: 512 matrices a lane), as the batched step launches it: one launch
+     4: 512 matrices a lane; eigh6: one normal matrix a lane), as the
+     batched step launches it: one launch
      for all lanes (kernel 1 also on its wide path), each lane bit for bit
      its twin (kernel 4: the unbatched kernel's bits, the twin's up to
      sign); each batched launch timed beside the single one, its bound
@@ -42,10 +47,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
      Engine(synthetic_config()) on the card, with every kernel's launch
      counter reset just before and read just after; then the first 5 steps
      again on the CPU (the plain path) from the same states, held to the
-     GPU's counts, error codes and poses.  Engine runs its step as CUDA
-     graphs (rso_torch.graphs; the eigh backend eagerly), captured in each
-     phase's warm-up, so phases 4-11 drive the graphs; each engine run also
-     prints its host reads a frame and its graphs;
+     GPU's counts, error codes and poses.  Engine runs its step as one
+     composed CUDA graph a frame (rso_torch.graphs: the GN loops as
+     conditional WHILE nodes, detect_every's branch as IF nodes, every
+     solve backend), captured in each phase's warm-up, so phases 4-11 drive
+     the graphs; each engine run holds every frame to no host read and one
+     graph launch, and prints them and the graphs captured;
   5. engine, descriptor path: FAST_ORB + DESC_RBR + DESC_WIN with oriented
      descriptors (3 octaves, K = 512/256/128), 30 bench frames; the valid
      count and ATE held to bounds set from the reference's own CPU run; 3
@@ -70,7 +77,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
                      kernel 4 on flow's per-octave RANSAC);
        detect_every  detect_every=3, 21 bench frames (kernels 1 and 2 on the
                      detect frames only);
-       eigh_lm       the eigh solve with LM damping, 10 bench frames;
+       eigh_lm       the eigh solve with LM damping, 10 bench frames (eigh6
+                     in the GN loops);
      then the seams: precomputed features and matches against the full step
      (3 frames, equal results), a checkpoint round trip on the card,
      reset_ids, and a repeat after a chunk; then
@@ -82,18 +90,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the valid count within 3 frames and the ATE within a factor 2 of the
      reference's, either way;
  8b. the compiled step: for the default, kitti, textured, flow,
-     detect_every and descriptor paths, the eager make_step loop and
-     Engine's CUDA graphs from the same first state on the same frames (20;
-     detect_every 21), every field of every frame equal (torch.equal) and
-     the same launches a frame; per path each form's median step ms (CUDA
-     events) and wall ms a frame, the flag reads a frame, the GN iteration
-     distribution and the graphs; on default and kitti the graphs again at
-     each GN_BLOCK of GN_BLOCK_SWEEP, all captured first and then timed in
-     turns, twice (what GN_BLOCK was chosen from);
+     detect_every, descriptor and eigh_lm paths, the eager make_step loop
+     and Engine's composed CUDA graph from the same first state on the same
+     frames (20; detect_every 21, eigh_lm 10), every field of every frame
+     equal (torch.equal), the same launches over the run, and in the graph
+     no host read and one graph launch a frame; per path each form's
+     median step ms (CUDA events) and wall ms a frame, the flag reads a
+     frame, the GN iteration distribution and the graphs; eigh_lm's eager
+     step also against the same step with cuSOLVER's eigh (pose within
+     EIGH_POSE_ATOL where the counts agree, frames that part named and held
+     to LANE_GN_*) and the condition numbers its normal matrices reached;
+     on default and kitti the graph again at each GN_BLOCK of
+     GN_BLOCK_SWEEP, all captured first and then timed in turns, twice
+     (what GN_BLOCK was chosen from);
  8c. the batched step (rso_torch.parallel.BatchEngine: torch.func.vmap of
      the step over the sequences, CUDA graphs): (a) N_BATCH = 11 sequences
      of the bench scene (seeds 0-10) at 1241x376, 20 frames: 6/3/3/2
-     launches a frame for all lanes, 5 graphs, flag reads a frame, each
+     launches a frame for all lanes, 5 graphs captured, no host read and
+     one graph launch a frame, each
      lane's valid count and ATE held to phase 4's bounds and each lane
      frame to an Engine alone's (`_lane_vs_alone`: the counts equal; every
      integer field too and floats within LANE_POSE_ATOL and LANE_RES_ATOL
@@ -101,12 +115,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
      printed), frames/s of all lanes batched, as 11 Engines in turn
      (graphs) and as the eager step lane after lane; (b) 3 lanes on the
      kitti (20 frames), detect_every (21; lane 1 forced to detect where the
-     others propagate, so the mixed graph set runs) and eigh_lm (10, eager)
-     paths: launches a call site a frame, every lane against an Engine
-     alone, lane 0 within PATH_REF;
+     others propagate, so the mixed body runs: the frames each branch body
+     ran, counted on the device) and eigh_lm (10) paths, each after a
+     warm-up frame: no host read and one graph launch a frame, launches a
+     call site a frame, every lane against an Engine alone, lane 0 within
+     PATH_REF;
   9. bundle adjustment (rso_torch.ba; no kernel of its own: its products
      are cuBLAS GEMMs and one cuSOLVER or batched cuBLAS LU solve an LM
-     iteration), its LM loop as CUDA graphs (rso_torch.ba.ba.solve_lm),
+     iteration; on the card the step is an LU solve of the identity times
+     b), its LM loop as a conditional WHILE node of one CUDA graph a solve
+     (rso_torch.ba.ba.solve_lm; a replayed solve: no host read, one graph
+     launch),
      every graph solve equal to the eager loop bit for bit (poses,
      landmarks, cost, n_iters, converged); bounds from the reference's own
      CPU run (`tests/_torch_ba.py`):
@@ -300,7 +319,13 @@ N_WIDE_FRAMES = 3
 # The compiled step: frames per path (detect_every: N_EVERY_FRAMES), and
 # the GN block sizes timed on the default and kitti paths.
 N_COMPILED_FRAMES = 20
-GN_BLOCK_SWEEP = (1, 2, 3, 4, 6, 10)
+GN_BLOCK_SWEEP = (1, 2, 4)
+# eigh_lm's step with the eigh6 kernel against the same step with
+# cuSOLVER's eigh (torch.linalg.eigh, eager on the card): the pose within
+# EIGH_POSE_ATOL where the GN ran the same iterations (two f32 eigensolvers
+# of one H, ~1e-6 apart on the bench scene's normal matrices); frames whose
+# integer fields part are named and held to LANE_GN_*
+EIGH_POSE_ATOL = 1e-5
 # Phase 8c, the batched step: KITTI 00-10's count of sequences, frames each,
 # frames of the eager lane-after-lane form (the slowest, timed on fewer),
 # and the lanes of the kitti, detect_every and eigh_lm runs.  A lane against
@@ -363,7 +388,7 @@ BA_SYM_RTOL = 1e-12
 BA_WARM_FRAMES = 10
 # The LM block sizes timed on the bench problem and on the VOWithBA run's
 # solves (what rso_torch.ba.ba.LM_BLOCK was chosen from).
-LM_BLOCK_SWEEP = (1, 2, 3, 4, 5, 8, 15)
+LM_BLOCK_SWEEP = (1, 2, 5)
 # Peak rates of the H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
 # outside the tensor cores, counted for every scalar operation of the
 # kernels (integer ones included), and device memory.
@@ -1042,7 +1067,94 @@ def check_kernels(seq, dev):
                lambda a=a, b=b: K.sad_matrix_cuda(a, b), k * k * P * 3,
                (2 * k * P + k * k) * 4, [k, k, P])
 
+    # ---- eigh6 (the port's, no Pallas counterpart): 6x6 normal matrices ----
+    report["eigh6"] = check_eigh6(dev, entry)
     return report, timed
+
+
+def gn_normal_matrices(rng, B, cond, dev):
+    """[B,6,6] f32 symmetric PSD matrices with eigenvalues log-uniform over
+    `cond` (its ends included; cond 0: rank 3), scaled by 1e2-1e8 as the
+    GN's are."""
+    import numpy as np
+    import torch
+
+    Q, _ = np.linalg.qr(rng.standard_normal((B, 6, 6)))
+    if cond == 0:
+        ev = np.concatenate([np.zeros((B, 3)), rng.uniform(1, 10, (B, 3))], 1)
+    else:
+        ev = np.exp(rng.uniform(0, np.log(cond), (B, 6)))
+        ev[:, 0], ev[:, -1] = 1.0, cond
+    ev = ev * 10.0 ** rng.uniform(2, 8, (B, 1))
+    H = (Q * ev[:, None, :]) @ Q.transpose(0, 2, 1)
+    return torch.tensor((H + H.transpose(0, 2, 1)) / 2, dtype=torch.float32,
+                        device=dev)
+
+
+# eigh6 per matrix: SWEEPS x 15 rotations of ~77 operations (the count
+# for rotations skipped at an exact zero too), 144 bytes in, 168 out
+EIGH6_OPS_PER_ROTATION = 77
+EIGH6_BYTES = 144 + 24 + 144
+# w[0] of eigh6 and of torch.linalg.eigh, f32 both, part by up to about
+# 2.6e-7 cond relative (the twin against LAPACK's f32 eigh on the CPU, 4096
+# gn_normal_matrices at cond 1e1-1e5: 3.4e-6, 2.7e-4, 2.6e-2); the bound
+# allows 1e-6 cond + 1e-5, which a w[0] off by 10x fails up to cond 1e5
+EIGH6_W0_RTOL = 1e-6
+
+
+def check_eigh6(dev, entry) -> dict:
+    """eigh6 against its twin at B = 1 (Engine's GN), N_BATCH (a batched
+    step's lanes) and 4096, at condition numbers 1e1-1e7: bit for bit (the
+    same correctly rounded operations in the same order); and against
+    torch.linalg.eigh (cuSOLVER): w within 1e-5 of |w[5]|, and w[0], which
+    decides the GN's cond and bad_cond, within EIGH6_W0_RTOL relative where
+    cond <= 1e5.  Timed at B = 1, beside the twin and torch.linalg.eigh."""
+    import numpy as np
+    import torch
+
+    from rso_torch.kernels.eigh6 import SWEEPS, eigh6_cuda, eigh6_torch
+
+    r = np.random.default_rng(9)
+    lib_rel, w0_rel = 0.0, {}
+    for B in (1, N_BATCH, 4096):
+        for cond in (1e1, 1e3, 1e5, 1e7):
+            H = gn_normal_matrices(r, B, cond, dev)
+            w, V = eigh6_cuda(H)
+            tw, tV = eigh6_torch(H)
+            lw, _ = torch.linalg.eigh(H)
+            torch.cuda.synchronize()
+            if not (torch.equal(w, tw) and torch.equal(V, tV)):
+                raise AssertionError(
+                    f"eigh6 B={B} cond {cond}: not its twin's bits (w "
+                    f"{(w - tw).abs().max().item()}, V "
+                    f"{(V - tV).abs().max().item()} max abs)")
+            scale = w.abs().amax(-1, keepdim=True)
+            rel = ((w - lw).abs() / scale).max().item()
+            lib_rel = max(lib_rel, rel)
+            if rel > 1e-5:
+                raise AssertionError(f"eigh6 B={B} cond {cond}: w {rel} of "
+                                     f"|w[5]| from torch.linalg.eigh")
+            if cond <= 1e5:
+                r0 = ((w[..., 0] - lw[..., 0]).abs()
+                      / lw[..., 0].abs()).max().item()
+                w0_rel[cond] = max(w0_rel.get(cond, 0.0), r0)
+                if r0 > EIGH6_W0_RTOL * cond + 1e-5:
+                    raise AssertionError(
+                        f"eigh6 B={B} cond {cond}: w[0] {r0} relative from "
+                        f"torch.linalg.eigh's, over {EIGH6_W0_RTOL} cond "
+                        f"+ 1e-5")
+    print(f"kernel eigh6: bit for bit its twin at B = 1, {N_BATCH}, 4096 and "
+          f"cond 1e1-1e7; against torch.linalg.eigh w {lib_rel} of |w[5]|, "
+          f"w[0] relative {w0_rel} by cond", flush=True)
+    H1 = gn_normal_matrices(r, 1, 1e5, dev)
+    out = entry(0.0, lambda: eigh6_cuda(H1), "eigh6_kernel",
+                lambda: eigh6_torch(H1), lambda: torch.linalg.eigh(H1),
+                SWEEPS * 15 * EIGH6_OPS_PER_ROTATION, EIGH6_BYTES, [1, 6, 6],
+                note="torch.linalg.eigh (cuSOLVER syevd, which reads its "
+                     "status on the host)")
+    out.update(bit_exact=True, library_w_rel_err=lib_rel,
+               library_w0_rel_err={f"{c:g}": v for c, v in w0_rel.items()})
+    return out
 
 
 def check_batched_kernels(seq, dev, report, timed) -> None:
@@ -1171,6 +1283,19 @@ def check_batched_kernels(seq, dev, report, timed) -> None:
         if cos.min() < 1 - 1e-3:
             raise AssertionError(f"batched nullvec9 lane {b}: min|cos| "
                                  f"{cos.min().item()}")
+    # eigh6: one normal matrix a lane (the GN's [6,6] under vmap)
+    from rso_torch.kernels.eigh6 import SWEEPS, eigh6_cuda
+
+    Hl = gn_normal_matrices(np.random.default_rng(10), B, 1e5, dev)
+    run_e = lambda: vmap(eigh6_cuda)(Hl)  # noqa: E731
+    w, V = one_launch("eigh6", run_e)
+    for b in range(B):
+        wb, Vb = eigh6_cuda(Hl[b])
+        if not (torch.equal(w[b], wb) and torch.equal(V[b], Vb)):
+            raise AssertionError(f"batched eigh6 lane {b} != the kernel")
+    lanes("eigh6", "eigh6_kernel", run_e,
+          B * SWEEPS * 15 * EIGH6_OPS_PER_ROTATION, B * EIGH6_BYTES,
+          [B, 6, 6])
     lanes("nullvec9", "nullvec9_kernel", run, B * 512 * 900,
           B * 512 * (81 + 9) * 4, list(M.shape))
 
@@ -1243,7 +1368,8 @@ def drive(name, cfg, seq, dev, n_frames, maps=None):
     import torch
 
     from rso_torch.engine import Engine
-    from rso_torch.kernels import LAUNCHES
+    from rso_torch.graphs import GRAPH_LAUNCHES
+    from rso_torch.graphs import reset_launches, settle_launches
     from rso_torch.solver.robust_gn import HOST_READS
 
     lefts = [torch.from_numpy(l).to(dev) for l, _ in seq.frames[:n_frames]]
@@ -1256,8 +1382,9 @@ def drive(name, cfg, seq, dev, n_frames, maps=None):
     eng.reset()
     torch.cuda.synchronize()
 
-    LAUNCHES.clear()
+    reset_launches()
     HOST_READS.clear()
+    GRAPH_LAUNCHES.clear()
     results, states, step_ms = [], [], []
     t0 = time.perf_counter()
     for i in range(n_frames):
@@ -1270,9 +1397,14 @@ def drive(name, cfg, seq, dev, n_frames, maps=None):
         step_ms.append((a, b))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    launches = dict(settle_launches())
     reads = {k: v / n_frames for k, v in HOST_READS.items()}
     n_graphs = eng._get_step(*lefts[0].shape[:2]).n_graphs
+    graph_launches = GRAPH_LAUNCHES["step"] / n_frames
+    # every frame after the warm-up's capture: one graph launch, no read
+    if sum(reads.values()) != 0 or graph_launches != 1:
+        raise AssertionError(f"{name}: host reads a frame {reads}, graph "
+                             f"launches a frame {graph_launches}")
 
     # the card is deterministic: the warm-up's steps ran the same frames
     # from the same states
@@ -1295,7 +1427,8 @@ def drive(name, cfg, seq, dev, n_frames, maps=None):
     print(f"engine {name}: {n_frames} frames, valid {n_valid}/{n_frames}, "
           f"ATE {ate} m, median step {med} ms ({1e3 / med} frames/s), wall "
           f"{n_frames / wall} frames/s, launches {launches}, host reads a "
-          f"frame {reads}, CUDA graphs {n_graphs}", flush=True)
+          f"frame {sum(reads.values())}, graph launches a frame "
+          f"{graph_launches}, CUDA graphs captured {n_graphs}", flush=True)
     return states, results, launches, ate
 
 
@@ -1590,7 +1723,7 @@ def run_seams(seq, dev, n_frames=4):
     from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
     from rso_torch.io import load_state, save_state
     from rso_torch.io.checkpoint import _leaves
-    from rso_torch.kernels import LAUNCHES
+    from rso_torch.graphs import reset_launches, settle_launches
     from rso_torch.synthetic import synthetic_config
 
     cfg = synthetic_config()
@@ -1607,7 +1740,7 @@ def run_seams(seq, dev, n_frames=4):
             if not torch.equal(x, y):
                 raise AssertionError(f"seams: {what} {field} differs")
 
-    LAUNCHES.clear()
+    reset_launches()
     for i, (l, r) in enumerate(frames[:3]):
         st = full.state if full.state is not None else init_state(cfg, (H, W))
         octs = []
@@ -1628,7 +1761,7 @@ def run_seams(seq, dev, n_frames=4):
         got = match_eng.process_precomputed(left, right, matches=m,
                                             img_hw=(H, W))
         same(got, want, f"precomputed matches frame {i}")
-    launches = dict(LAUNCHES)
+    launches = dict(settle_launches())
     print(f"seams: 3 frames of precomputed features and of precomputed "
           f"matches equal to the full step's results, launches {launches}",
           flush=True)
@@ -1750,33 +1883,51 @@ def run_textured(dev):
 
 
 def _timed_frames(run, frames):
-    """Each frame through run(left, right) -> StepResult: the results, each
-    frame's launches and host reads, the median step ms after frame 0
-    (CUDA events around each call) and the wall ms a frame (host clock to
-    a synchronize)."""
+    """Each frame through run(left, right) -> StepResult: the results, the
+    launches of the run (read after it: the composed graphs count the
+    launches inside their conditional nodes on the device), each frame's
+    host reads and graph launches, the median step ms after frame 0 (CUDA
+    events around each call) and the wall ms a frame (host clock to a
+    synchronize)."""
     import torch
 
-    from rso_torch.kernels import LAUNCHES
+    from rso_torch.graphs import GRAPH_LAUNCHES
+    from rso_torch.graphs import reset_launches, settle_launches
     from rso_torch.solver.robust_gn import HOST_READS
 
-    out, launches, reads, events = [], [], [], []
+    out, reads, events = [], [], []
     torch.cuda.synchronize()
+    reset_launches()
     t0 = time.perf_counter()
     for left, right in frames:
-        LAUNCHES.clear()
         HOST_READS.clear()
+        GRAPH_LAUNCHES.clear()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         out.append(run(left, right))
         b.record()
-        launches.append(dict(LAUNCHES))
-        reads.append(dict(HOST_READS))
+        reads.append(dict(HOST_READS, graph_launches=GRAPH_LAUNCHES["step"]))
         events.append((a, b))
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / len(frames)
+    launches = dict(settle_launches())
     times = sorted(a.elapsed_time(b) for a, b in events[1:])
     return out, launches, reads, times[len(times) // 2], wall
+
+
+def _frame_launches(run, frames):
+    """Each frame through run(left, right) -> StepResult: the results and
+    each frame's launches, the composed graphs' device counts settled after
+    every frame (a synchronize a frame, so not a timed pass)."""
+    from rso_torch.graphs import reset_launches, settle_launches
+
+    out, launches = [], []
+    for left, right in frames:
+        reset_launches()
+        out.append(run(left, right))
+        launches.append(dict(settle_launches()))
+    return out, launches
 
 
 def _same_frames(what, got, want):
@@ -1789,12 +1940,16 @@ def _same_frames(what, got, want):
 
 
 def compiled_path(name, cfg, seq, dev, n_frames, sweep=False) -> dict:
-    """The eager make_step loop and Engine's CUDA graphs from the same first
-    state on the same frames: every field of every frame equal, the same
-    launches a frame; each form's median step ms and wall ms a frame, the
-    flag reads a frame, the GN iteration distribution, the graphs.  With
-    `sweep`, the graphs again at each GN_BLOCK of GN_BLOCK_SWEEP, every
-    block size captured first and then timed in turns, twice."""
+    """The eager make_step loop and Engine's composed CUDA graph from the
+    same first state on the same frames: every field of every frame equal
+    and the same launches frame by frame (an untimed pass), then again over
+    a timed run; in the graph, no host read and one graph launch a frame;
+    each form's median step ms and wall ms a frame,
+    the flag reads a frame, the GN iteration distribution, the graphs.
+    With `sweep`, the graph again at each GN_BLOCK of GN_BLOCK_SWEEP, every
+    block size captured first and then timed in turns, twice.  The eigh
+    backend's run is also held to the same step with cuSOLVER's eigh
+    (`eigh_against_the_library`)."""
     import torch
 
     import rso_torch.solver.robust_gn as G
@@ -1814,20 +1969,35 @@ def compiled_path(name, cfg, seq, dev, n_frames, sweep=False) -> dict:
     for left, right in frames[:2]:
         eager(left, right)
     st[0] = init_state(cfg, hw, dev)
-    for left, right in frames:      # captures every graph set it meets
+    for left, right in frames[:2]:      # the warm-up and the capture
         eng.process_frame(left, right)
     eng.reset()
-    want, e_launch, e_reads, e_ms, e_wall = _timed_frames(eager, frames)
+    want, e_frames = _frame_launches(eager, frames)
+    got, g_frames = _frame_launches(eng.process_frame, frames)
+    _same_frames(f"compiled {name}", got, want)
+    bad = [(i, g, e) for i, (g, e) in enumerate(zip(g_frames, e_frames))
+           if g != e]
+    if bad:
+        raise AssertionError(f"compiled {name}: (frame, graph, eager) "
+                             f"launches {bad}")
+    st[0] = init_state(cfg, hw, dev)
+    eng.reset()
+    timed, e_launch, e_reads, e_ms, e_wall = _timed_frames(eager, frames)
+    _same_frames(f"compiled {name} timed eager", timed, want)
     got, g_launch, g_reads, g_ms, g_wall = _timed_frames(eng.process_frame,
                                                          frames)
-    _same_frames(f"compiled {name}", got, want)
-    for i, (a, b) in enumerate(zip(g_launch, e_launch)):
-        if a != b:
-            raise AssertionError(f"compiled {name}: frame {i} launches {a} "
-                                 f"in the graphs, {b} eager")
+    _same_frames(f"compiled {name} timed", got, want)
+    if g_launch != e_launch:
+        raise AssertionError(f"compiled {name}: launches {g_launch} in the "
+                             f"graph, {e_launch} eager")
+    bad = [i for i, r in enumerate(g_reads)
+           if r.pop("graph_launches") != 1 or sum(r.values()) != 0]
+    if bad:
+        raise AssertionError(f"compiled {name}: frames {bad} read the host "
+                             f"or launched other than one graph: {g_reads}")
     n_graphs = eng._get_step(*hw).n_graphs
     sets = 2 if cfg.tpu.detect_every > 1 else 1
-    if n_graphs < 3 * sets:
+    if n_graphs < 3 * sets or eng._get_step(*hw).n_composed != 1:
         raise AssertionError(f"compiled {name}: {n_graphs} graphs")
     mean = lambda rs, k: sum(r.get(k, 0) for r in rs) / len(rs)  # noqa: E731
     report = {
@@ -1835,14 +2005,17 @@ def compiled_path(name, cfg, seq, dev, n_frames, sweep=False) -> dict:
         "eager_wall_ms": e_wall, "graph_wall_ms": g_wall,
         "gn_reads_per_frame": {"eager": mean(e_reads, "gn"),
                                "graph": mean(g_reads, "gn")},
-        "detect_reads_per_frame": mean(g_reads, "detect_every"),
+        "detect_reads_per_frame": {"eager": mean(e_reads, "detect_every"),
+                                   "graph": mean(g_reads, "detect_every")},
+        "graph_launches_per_frame": 1,
         "num_it": dict(sorted(collections.Counter(
             int(r.num_it) for r in want).items())),
         "num_it_final": dict(sorted(collections.Counter(
             int(r.num_it_final) for r in want).items())),
-        "graphs": n_graphs, "gn_block": G.GN_BLOCK,
-        "launches": {k: sum(x.get(k, 0) for x in g_launch)
-                     for k in sorted({k for x in g_launch for k in x})}}
+        "graphs": n_graphs, "gn_block": G.GN_BLOCK, "launches": g_launch}
+    if cfg.least_squares.solve_backend == "eigh":
+        report["against_cusolver"] = eigh_against_the_library(
+            name, cfg, eng.cam, frames, want, dev)
     if sweep:
         engines = {}
         try:
@@ -1863,15 +2036,70 @@ def compiled_path(name, cfg, seq, dev, n_frames, sweep=False) -> dict:
                 ms[b].append({"ms": b_ms, "wall_ms": b_wall,
                               "gn_reads_per_frame": mean(reads, "gn")})
         report["gn_block_sweep"] = dict(ms)
-    print(f"compiled {name}: graphs equal the eager step on {n_frames} "
-          f"frames, launches equal a frame; {json.dumps(report)}", flush=True)
+    print(f"compiled {name}: the graph equals the eager step on {n_frames} "
+          f"frames, launches equal frame by frame; 0 host reads and 1 graph "
+          f"launch a frame; "
+          f"{json.dumps(report)}", flush=True)
     return report
 
 
+def eigh_against_the_library(name, cfg, cam, frames, want, dev) -> dict:
+    """The eigh backend's eager step with the eigh6 kernel (`want`) against
+    the same step with cuSOLVER's eigh (torch.linalg.eigh) on the same
+    frames, each from its own states: where the integer fields agree the
+    pose within EIGH_POSE_ATOL; frames where they part are named and held
+    to LANE_GN_*.  Also the condition number w[5] / w[0] of every normal
+    matrix the kernel's run factored, against the GN's _COND_MAX (1e7; the
+    LM solve aborts only on a non-finite one)."""
+    import torch
+
+    import rso_torch.solver.robust_gn as G
+    from rso_torch.engine import init_state, make_step
+    from rso_torch.kernels.eigh6 import eigh6_cuda
+
+    conds = []
+
+    def recording(H):
+        w, V = eigh6_cuda(H)
+        conds.append(w[..., 5] / w[..., 0])
+        return w, V
+
+    hw = tuple(frames[0][0].shape[:2])
+    runs = {}
+    for form, fn in (("kernel", recording), ("cusolver", torch.linalg.eigh)):
+        saved, G._eigh = G._eigh, fn
+        try:
+            step = make_step(cfg, cam, *hw)
+            st, out = init_state(cfg, hw, dev), []
+            for left, right in frames:
+                st, res = step(st, left, right)
+                out.append(res)
+        finally:
+            G._eigh = saved
+        runs[form] = out
+    _same_frames(f"{name}: eager with eigh6 again", runs["kernel"], want)
+    worst, parted = {}, []
+    for i, (k, c) in enumerate(zip(runs["kernel"], runs["cusolver"])):
+        _lane_vs_alone(f"{name} frame {i} (eigh6 vs cuSOLVER)", c, k, worst,
+                       parted, pose_atol=EIGH_POSE_ATOL)
+    c = torch.stack([x.reshape(()) for x in conds]).cpu()
+    fin = c[torch.isfinite(c)]
+    out = {"frames_parted": parted, "worst": worst, "eigensolves": len(conds),
+           "cond_max": float(fin.max()) if fin.numel() else None,
+           "cond_median": float(fin.median()) if fin.numel() else None,
+           "cond_max_over_limit": (float(fin.max()) / G._COND_MAX
+                                   if fin.numel() else None),
+           "non_finite": int((~torch.isfinite(c)).sum())}
+    print(f"{name}: eigh6 against cuSOLVER's eigh, {len(frames)} frames: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
 def run_compiled(seq, dev) -> dict:
-    """The compiled step: the graphs held to the eager step on the default,
-    kitti, textured, flow, detect_every and descriptor paths; the GN block
-    size swept on default and kitti.  Returns the graph runs' launches."""
+    """The compiled step: the graph held to the eager step on the default,
+    kitti, textured, flow, detect_every, descriptor and eigh_lm paths; the
+    GN block size swept on default and kitti.  Returns the graph runs'
+    launches."""
     import dataclasses
 
     from rso_torch.config import load_config
@@ -1891,6 +2119,9 @@ def run_compiled(seq, dev) -> dict:
          N_EVERY_FRAMES, False),
         ("fast_orb_rbr_win", mode_config("fast_orb_rbr_win", upright=False),
          seq, N_COMPILED_FRAMES, False),
+        ("eigh_lm", base.replace(least_squares=rep(
+            base.least_squares, solve_backend="eigh", use_lm=True)), seq,
+         N_SOLVE_FRAMES, False),
     ]
     launches = collections.Counter()
     for name, cfg, s, n, sweep in paths:
@@ -1912,7 +2143,8 @@ PRE_SOLVE = ("detected_feats", "stereo_matches", "tracked_feats_from_last_frame"
 GN_COUNTS = ("num_it", "num_it_final")
 
 
-def _lane_vs_alone(what, alone, lane, worst, parted) -> None:
+def _lane_vs_alone(what, alone, lane, worst, parted,
+                   pose_atol=LANE_POSE_ATOL) -> None:
     """A lane of the batched step against an Engine running its sequence
     alone.  The fields fixed before the pose solve are equal.  Where the GN
     ran the same iterations, every integer field is equal and the floats
@@ -1939,7 +2171,7 @@ def _lane_vs_alone(what, alone, lane, worst, parted) -> None:
             d = (x - y).abs().max().item() if x.numel() else 0.0
             worst[field] = max(worst.get(field, 0.0), d)
             if d > (LANE_RES_ATOL if field in ("residuals", "cost")
-                    else LANE_POSE_ATOL):
+                    else pose_atol):
                 raise AssertionError(f"{what} {field}: batched and alone "
                                      f"differ by {d}")
         return
@@ -1965,7 +2197,8 @@ def _batched_run(name, cfg, seqs, dev, n_frames, edit=None, warm=0):
     ms a step (CUDA events), frames/s of all lanes, the engine)."""
     import torch
 
-    from rso_torch.kernels import LAUNCHES
+    from rso_torch.graphs import GRAPH_LAUNCHES
+    from rso_torch.graphs import reset_launches, settle_launches
     from rso_torch.parallel import BatchEngine
     from rso_torch.solver.robust_gn import HOST_READS
 
@@ -1982,8 +2215,9 @@ def _batched_run(name, cfg, seqs, dev, n_frames, edit=None, warm=0):
         warm_res.append(be.process_frames(lefts[:, i], rights[:, i]))
     be.states = start
     torch.cuda.synchronize()
-    LAUNCHES.clear()
+    reset_launches()
     HOST_READS.clear()
+    GRAPH_LAUNCHES.clear()
     results, states, events = [], [], []
     t0 = time.perf_counter()
     for i in range(n_frames):
@@ -1998,8 +2232,16 @@ def _batched_run(name, cfg, seqs, dev, n_frames, edit=None, warm=0):
         events.append((a, b))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    launches = dict(settle_launches())
     reads = {k: v / n_frames for k, v in HOST_READS.items()}
+    reads["graph_launches"] = GRAPH_LAUNCHES["step"] / n_frames
+    # the batched step was captured in an earlier frame (the warm-up's, or
+    # frame 0): every frame one graph launch and no host read, unless the
+    # run's first frame captured
+    if warm and (sum(v for k, v in reads.items() if k != "graph_launches")
+                 or reads["graph_launches"] != 1):
+        raise AssertionError(f"{name}: reads and graph launches a frame "
+                             f"{reads}")
     _same_frames(f"{name}: the warm-up's frames again", results[:warm],
                  warm_res)
     times = sorted(a.elapsed_time(b) for a, b in events[1:])
@@ -2092,8 +2334,9 @@ def run_batched(seq, dev, smi) -> dict:
     per_frame = {k: v / N_BATCH_FRAMES for k, v in launches.items()}
     print(f"batched (a) {N_BATCH} sequences x {N_BATCH_FRAMES} frames at "
           f"{W}x{H} on {smi}: launches a frame {per_frame} (one per call site"
-          f" for all lanes), CUDA graphs {n_graphs}, flag reads a frame "
-          f"{reads}; median batched step {step_ms} ms", flush=True)
+          f" for all lanes), CUDA graphs captured {n_graphs}, reads and "
+          f"graph launches a frame {reads}; median batched step {step_ms} ms",
+          flush=True)
     print(f"batched (a) valid per lane {valid}, ATE per lane {ates} m; every "
           f"lane's counts equal to an Engine alone's; where the GN ran the "
           f"same iterations all its integer fields, floats apart by at most "
@@ -2137,7 +2380,9 @@ def run_batched(seq, dev, smi) -> dict:
     pseqs = seqs[:N_BATCH_PATH]
     for name, pcfg, n, edit, edit_alone in paths:
         (res, states, launches, reads, step_ms, fps, be,
-         frames) = _batched_run(f"batched {name}", pcfg, pseqs, dev, n, edit)
+         frames) = _batched_run(f"batched {name}", pcfg, pseqs, dev, n, edit,
+                                warm=1)
+        taken = {str(k): v for k, v in be._step.taken().items()}
         total.update(launches)
         # a call site launches once a frame for all lanes; kernels 1 and 2
         # on frames where any lane detects
@@ -2158,12 +2403,14 @@ def run_batched(seq, dev, smi) -> dict:
         n_valid, ate = sum(bool(r.valid) for r in lane0), _ate(lane0, pseqs[0].poses)
         within_reference(f"batched {name} lane 0", n_valid, ate, PATH_REF[name])
         sets = sorted(map(str, next(iter(be._step._variants.values())).graphs))
-        if name == "detect_every" and str(MIXED) not in sets:
-            raise AssertionError("batched detect_every: no mixed graph set")
+        if name == "detect_every" and not taken.get(str(MIXED)):
+            raise AssertionError(f"batched detect_every: the mixed body never "
+                                 f"ran: {taken}")
         print(f"batched (b) {name}, {N_BATCH_PATH} lanes x {n} frames on "
               f"{smi}: launches {launches} ({detects} frames detect in some "
-              f"lane), flag reads a frame {reads}, graph sets {sets}, "
-              f"CUDA graphs {be._step.n_graphs}; lane 0 valid {n_valid}, ATE "
+              f"lane), reads and graph launches a frame {reads}, branch "
+              f"bodies {sets}, frames each ran {taken}, CUDA graphs "
+              f"captured {be._step.n_graphs}; lane 0 valid {n_valid}, ATE "
               f"{ate} (reference {PATH_REF[name]}); every lane's counts equal "
               f"to an Engine alone's, floats apart by at most {worst} where "
               f"the GN ran the same iterations; frames where it parted: "
@@ -2328,7 +2575,8 @@ def _vo_with_ba(cfg, cam, frames, **kw):
     import rso_torch.ba.pipeline as pipeline
     import rso_torch.ba.window as window_mod
     from rso_torch.ba import VOWithBA
-    from rso_torch.kernels import LAUNCHES
+    from rso_torch.graphs import GRAPH_LAUNCHES
+    from rso_torch.graphs import reset_launches, settle_launches
     from rso_torch.solver.robust_gn import HOST_READS
 
     vo = VOWithBA(cfg, cam, **kw)
@@ -2336,8 +2584,9 @@ def _vo_with_ba(cfg, cam, frames, **kw):
               (window_mod.SlidingWindow, "build_problem", "build_problem"),
               (window_mod.SlidingWindow, "apply_result", "apply_result")]
     torch.cuda.synchronize()
-    LAUNCHES.clear()
+    reset_launches()
     HOST_READS.clear()
+    GRAPH_LAUNCHES.clear()
     outs, ms, vo_poses = [], [], []
     with _SolveLog(pipeline, "bundle_adjust") as log, \
             StageTimer(stages) as st:
@@ -2355,8 +2604,9 @@ def _vo_with_ba(cfg, cam, frames, **kw):
                 for k, ev in st.events.items()}
     stage_ms["solve"] = [s["ms"] for s in solves]
     return types.SimpleNamespace(
-        vo=vo, outs=outs, vo_poses=vo_poses, launches=dict(LAUNCHES),
-        lm_reads=HOST_READS["lm"], calls=log.calls, solves=solves,
+        vo=vo, outs=outs, vo_poses=vo_poses, launches=dict(settle_launches()),
+        lm_reads=HOST_READS["lm"], reads=sum(HOST_READS.values()),
+        graph_launches=dict(GRAPH_LAUNCHES), calls=log.calls, solves=solves,
         stage_ms=stage_ms,
         ms_without=_median(without), ms_with=_median(with_s),
         stall=(None if not with_s else _median(with_s) - _median(without)),
@@ -2410,8 +2660,9 @@ def _lm_block_sweep(name, calls) -> dict:
 
 
 def run_ba(seq, dev):
-    """Phase 9: bundle adjustment on the card, the LM loop as CUDA graphs
-    (rso_torch.ba.ba.solve_lm) held to the eager loop.  Returns the
+    """Phase 9: bundle adjustment on the card, the LM loop as a WHILE node
+    of one CUDA graph a solve (rso_torch.ba.ba.solve_lm) held to the eager
+    loop.  Returns the
     launches of the first VOWithBA run."""
     import numpy as np
     import torch
@@ -2424,7 +2675,7 @@ def run_ba(seq, dev):
     from rso_torch.cli.bench import BA_REPS, BA_SLOPE_ITERS, ba_slope
     from rso_torch.engine import Engine
     from rso_torch.geometry import pose_matrix
-    from rso_torch.graphs import CompiledStep, _replay
+    from rso_torch.graphs import GRAPH_LAUNCHES, CompiledStep
     from rso_torch.solver.robust_gn import HOST_READS
     from rso_torch.synthetic import synthetic_config
 
@@ -2443,8 +2694,14 @@ def run_ba(seq, dev):
     if card.poses.device.type != dev.type:
         raise AssertionError(f"bundle_adjust ran on {card.poses.device}")
     HOST_READS.clear()
+    GRAPH_LAUNCHES.clear()
     replay = bundle_adjust(cam, prob, max_iters=15)
     report["bench_lm_reads"] = HOST_READS["lm"]
+    report["bench_graph_launches"] = GRAPH_LAUNCHES["lm"]
+    if report["bench_lm_reads"] != 0 or report["bench_graph_launches"] != 1:
+        raise AssertionError(f"ba bench problem: a replayed solve read the "
+                             f"host {report['bench_lm_reads']} times, "
+                             f"{report['bench_graph_launches']} graph launches")
     eager = _eager_ba(cam, prob, max_iters=15)
     _same_bits("ba bench problem: the first graph solve vs eager", card, eager)
     _same_bits("ba bench problem: a replay vs eager", replay, eager)
@@ -2470,8 +2727,9 @@ def run_ba(seq, dev):
           f"iteration; calls {rate['ms']} ms), eager "
           f"{eager_rate['iters_per_sec']} ({eager_rate['ms_per_iter']} ms; "
           f"calls {eager_rate['ms']} ms); graphs equal eager bit for bit; "
-          f"{report['bench_lm_reads']} flag reads in 15 iterations at "
-          f"LM_BLOCK {B.LM_BLOCK}", flush=True)
+          f"a replayed solve of 15 iterations at LM_BLOCK {B.LM_BLOCK}: "
+          f"{report['bench_lm_reads']} flag reads, "
+          f"{report['bench_graph_launches']} graph launch", flush=True)
     report["bench_sweep"] = _lm_block_sweep(
         "ba bench problem", [((cam, prob), {"max_iters": 15}, eager)])
     print(f"ba bench problem LM_BLOCK sweep (15 iterations at tol=1e-5): "
@@ -2518,6 +2776,15 @@ def run_ba(seq, dev):
                                              for s in second.solves):
         raise AssertionError("vo_with_ba run 2 captured graphs: its solves "
                              "are not run 1's shapes")
+    # run 2's solves replay: one graph launch each, no read; its Engine is
+    # new, so its first frame is the step's warm-up and capture
+    if (second.lm_reads != 0
+            or second.graph_launches.get("lm") != len(second.solves)
+            or second.graph_launches.get("step") != len(frames) - 1):
+        raise AssertionError(f"vo_with_ba run 2: {second.lm_reads} LM reads, "
+                             f"graph launches {second.graph_launches} for "
+                             f"{len(frames)} frames and {len(second.solves)} "
+                             "solves")
     for i, (a, b) in enumerate(zip(first.outs, second.outs)):
         if not (np.array_equal(a.pose_wc, b.pose_wc)
                 and a.ba_cost == b.ba_cost):
@@ -2530,6 +2797,8 @@ def run_ba(seq, dev):
                "stall": run.stall, "frames_with": run.n_with,
                "frames_without": run.n_without,
                "lm_reads_per_solve": run.lm_reads / len(run.solves),
+               "host_reads": run.reads,
+               "graph_launches": run.graph_launches,
                "solves": run.solves,
                "stage_ms_total": {k: sum(v) for k, v in run.stage_ms.items()},
                "stage_ms_median": {k: _median(v)
@@ -2622,9 +2891,9 @@ def run_ba(seq, dev):
 
     class NoWarmUp(CompiledStep):
         def _run(self, v):
-            if None not in v.graphs:
-                self._capture(v, None)
-            _replay(v.graphs[None])
+            if v.composed is None:
+                self._capture(v)
+            v.composed.launch()
 
     B._SOLVES[new[0]] = NoWarmUp(saved.fn)
     try:
@@ -2726,11 +2995,11 @@ def _entry(main, argv, record=False):
 
     import rso_torch.ba.pipeline as pipeline
     from rso_torch.engine import Engine
-    from rso_torch.kernels import LAUNCHES
+    from rso_torch.graphs import reset_launches, settle_launches
 
     buf = io.StringIO()
     torch.cuda.synchronize()
-    LAUNCHES.clear()
+    reset_launches()
     with contextlib.ExitStack() as stack:
         stack.enter_context(contextlib.redirect_stdout(buf))
         rec = ba = None
@@ -2739,7 +3008,7 @@ def _entry(main, argv, record=False):
             ba = stack.enter_context(CallRecorder(pipeline, "bundle_adjust"))
         rc = main(argv)
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    launches = dict(settle_launches())
     results = [out for _, _, out in rec.calls] if record else []
     return rc, buf.getvalue().splitlines(), launches, results, (
         ba.calls if record else [])
@@ -3178,7 +3447,8 @@ def mesh_rank(rank: int, world: int, work: Path) -> None:
     from rso_torch.cli import fleet
     from rso_torch.cli.bench import ba_slope
     from rso_torch.engine import Engine
-    from rso_torch.kernels import LAUNCHES, _lib
+    from rso_torch.graphs import reset_launches, settle_launches
+    from rso_torch.kernels import _lib
     from rso_torch.mesh import COLLECTIVES, make_device_mesh
     from rso_torch.parallel import BatchEngine
     from rso_torch.synthetic import synthetic_config
@@ -3240,12 +3510,12 @@ def mesh_rank(rank: int, world: int, work: Path) -> None:
                          img_w=W, mesh=make_device_mesh((N_SEQ_RANKS,),
                                                         ("seq",)))
         torch.cuda.synchronize()
-        LAUNCHES.clear()
+        reset_launches()
         t0 = time.perf_counter()
         chunk = be.process_chunk(lefts, rights)
         torch.cuda.synchronize()
         out["seq_ms"] = (time.perf_counter() - t0) * 1e3 / N_SEQ_FRAMES
-        out["seq_launches"] = dict(LAUNCHES)
+        out["seq_launches"] = dict(settle_launches())
         eng = Engine(cfg, seqs[rank].cam)
         out["seq_sequences"] = list(be.sequences)
         worst, parted = {}, []
@@ -3257,13 +3527,13 @@ def mesh_rank(rank: int, world: int, work: Path) -> None:
         out["seq_equal"] = dict(worst=worst, gn_parted=parted)
         buf = io.StringIO()
         torch.cuda.synchronize()
-        LAUNCHES.clear()
+        reset_launches()
         with contextlib.redirect_stdout(buf):
             out["fleet_rc"] = fleet.main([
                 "--synthetic", "2", "--frames", str(N_DEMO_FRAMES), "--chunk",
                 str(DEMO_CHUNK), "--out-dir", str(work / "fleet")])
         torch.cuda.synchronize()
-        out["fleet_launches"] = dict(LAUNCHES)
+        out["fleet_launches"] = dict(settle_launches())
         out["fleet_stdout"] = buf.getvalue()
         dist.destroy_process_group()
     torch.save(out, work / f"rank{rank}.pt")
@@ -3557,9 +3827,12 @@ def main() -> int:
         "nullvec9": ("smallchol.cu", "rso/kernels/smallchol.py:136", "default"),
         "hamming_matrix": ("distance.cu", "rso/kernels/distance.py:157", "fast_orb_rbr_win"),
         "sad_matrix": ("distance.cu", "rso/kernels/distance.py:123", "sad_dense"),
+        # no Pallas kernel: rso's eigh backend calls XLA's jnp.linalg.eigh
+        "eigh6": ("eigh6.cu", "rso/solver/robust_gn.py:133", "eigh_lm"),
     }
     frames = {"default": N_FRAMES, "fast_orb_rbr_win": N_FRAMES,
-              "sad_dense": N_DENSE_FRAMES, "wide_window": N_WIDE_FRAMES}
+              "sad_dense": N_DENSE_FRAMES, "wide_window": N_WIDE_FRAMES,
+              "eigh_lm": N_SOLVE_FRAMES}
     floor_us = report["floor"]["device_us"]
     for x in [report["hamming_matrix"]] + report["hamming_matrix"]["octaves"]:
         x["write_us"] = x.pop("write")["device_us"]

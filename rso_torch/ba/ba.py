@@ -21,10 +21,12 @@ the reference's solve is XLA ops too.
 
 The reference's jax.jit + lax.while_loop becomes blocks of LM_BLOCK masked
 LM iterations (an iteration after the stop changes nothing, so any block
-size gives the same bits) with one read of the stop flag (whether any
-window is still iterating) per block but the last; `solve_lm` captures the
-loop as CUDA graphs (pre, one block replayed, tail) per shape and per the
-Python scalars the graphs bake in, through rso_torch.graphs.CompiledStep.
+size gives the same bits).  The eager loop reads the stop flag (a window
+is still iterating and the loop is under max_iters) once per block but the
+last; `solve_lm` captures the loop as one CUDA graph (pre, one block in a
+conditional WHILE node that tests the flag on the device, tail) per shape
+and per the Python scalars the graph bakes in, through
+rso_torch.graphs.CompiledStep: no host read.
 The mesh forms run the same loop eagerly: their collectives (gloo's run on
 the host) are not captured.
 """
@@ -41,15 +43,14 @@ from rso_torch.geometry.stereo_camera import StereoCamera
 from rso_torch.graphs import CompiledStep
 from rso_torch.solver.robust_gn import eager_blocks
 
-# masked LM iterations between two reads of the loop's stop flag.  On an
-# H100 (chip_smoke.py's LM_BLOCK_SWEEP of 1, 2, 3, 4, 5, 8 and 15, on the
-# bench problem at tol 1e-5 and on the 8 solves of the VOWithBA run) a
-# replayed iteration costs ~1-1.6 ms and a read ~0.04, so the sizes that
-# divide max_iters (1, 3, 5, 15) tie and the others pay a masked iteration
-# (bench 14.8-15.2 ms against 15.8-16.0); 15 loses where solves stop early
-# (VOWithBA 189-197 ms against 160-166).  5 divides every max_iters the
-# port passes (15, 20, 25, 75) and reads the flag 1.9 times a VOWithBA
-# solve, against 12.1 at 1
+# masked LM iterations a block: one run of a WHILE node's body in the
+# graph, one flag read in the eager form.  On an H100 (chip_smoke.py's
+# LM_BLOCK_SWEEP in the one-launch graph, two calls): 5 wins on the bench
+# problem's 15 iterations (15.22-15.41 ms a solve against 15.54-15.86 at 1
+# and 16.37-17.05 at 2) and 1 on the 8 VOWithBA solves, which stop
+# mid-block (148.2-168.7 ms against 170.9-176.7 at 5, its two passes in
+# one call 20 ms apart); 5 stays, dividing every max_iters the port passes
+# (15, 20, 25, 75)
 LM_BLOCK = 5
 
 
@@ -296,13 +297,13 @@ def _schur_solve(g_p, g_l, H_pp, H_ll, H_pl, lm_lambda, fix_first: bool,
     """Schur-complement reduced camera solve + landmark back-substitution.
 
     Returns (dpose [P,6], dlmk [L,3]).  lm_lambda is a number or a tensor
-    of the batch shape.  The [6P,6P] solve is torch.linalg.solve_ex with
-    its status ignored: a singular system gives non-finite steps, which the
+    of the batch shape.  The [6P,6P] solve is an LU factorisation
+    (torch.linalg.lu_factor_ex) with its status ignored: a singular system gives non-finite steps, which the
     LM loop rejects, as it does the reference's jnp.linalg.solve.  On an
-    H100 with torch 2.11 PyTorch's default backend choice takes cuSOLVER's
-    getrf + trsv for one window and cuBLAS's batched getrf + trsm for a
-    batch; both run in a CUDA graph capture (no host sync), so the eager
-    loop and the graphs run the same kernels.
+    H100 with torch 2.11 the LU factorisation takes cuSOLVER's getrf for
+    one window and cuBLAS's batched getrf for a batch, then two triangular
+    solves (below).  All of it runs in a CUDA graph capture (no host sync,
+    no memory node), so the eager loop and the graph run the same kernels.
 
     reduce: None on one device; with the landmarks sharded over a mesh,
     the sum over the shards of (g_p, H_pp, the Schur cross term, W g_l),
@@ -352,9 +353,20 @@ def _schur_solve(g_p, g_l, H_pp, H_ll, H_pl, lm_lambda, fix_first: bool,
 
     Sd = S.transpose(-3, -2).reshape(*S.shape[:-4], P * 6, P * 6)
     A = Sd + 1e-8 * torch.eye(P * 6, dtype=dt, device=dev)
-    dpose = torch.linalg.solve_ex(A, b.reshape(*b.shape[:-2], P * 6, 1),
-                                  check_errors=False).result
-    dpose = dpose.reshape(b.shape)
+    # A = P L U, and dpose = U^-1 L^-1 P^T b by two triangular solves of b
+    # beside a zero column.  torch.linalg.solve's own solve of few
+    # right-hand sides takes cuSOLVER's getrs, whose cuBLAS trsv may
+    # allocate its scratch with cudaMallocAsync, recorded by a capture as
+    # memory nodes that no conditional node's body takes; cuBLAS's trsm of
+    # two columns does not
+    LU, piv, _ = torch.linalg.lu_factor_ex(A)
+    perm = torch.lu_unpack(LU, piv, unpack_data=False)[0].argmax(-2)
+    rhs = b.reshape(*b.shape[:-2], P * 6).gather(-1, perm)[..., None]
+    rhs = torch.cat([rhs, torch.zeros_like(rhs)], -1)
+    rhs = torch.linalg.solve_triangular(LU, rhs, upper=False,
+                                        unitriangular=True)
+    dpose = torch.linalg.solve_triangular(LU, rhs, upper=True)
+    dpose = dpose[..., 0].reshape(b.shape)
 
     # back-substitution: dlmk = H_ll^-1 (g_l - sum_p H_pl^T dpose_p)
     rhs = g_l - (H_pl * dpose[..., :, None, :, None]).sum((-4, -2))
@@ -368,7 +380,8 @@ def _all_finite(x, n_dims: int):
 
 class LMCarry(NamedTuple):
     """The LM loop's carry: the reference's while-loop state, with one loop
-    count `n` for the batch and each window's own count `it`."""
+    count `n` for the batch, each window's own count `it`, and the cap
+    `n_max` (max_iters) that the loop's flag holds."""
 
     n: torch.Tensor        # int32 iterations the loop has run
     it: torch.Tensor       # [...] int32 iterations each window took
@@ -377,10 +390,13 @@ class LMCarry(NamedTuple):
     lam: torch.Tensor      # [...] damping
     cost: torch.Tensor     # [...]
     done: torch.Tensor     # [...] bool: converged, or a padding slot
+    n_max: torch.Tensor    # int32 max_iters
 
     def stop_flag(self):
-        """(HOST_READS site, device flag that is true while the loop runs)."""
-        return "lm", (~self.done).any()
+        """(HOST_READS site, device flag that is true while the loop runs:
+        a window is left and the loop is under its cap, so that a loop
+        tested only on the device stops where the eager one does)."""
+        return "lm", (~self.done).any() & (self.n < self.n_max)
 
 
 def levenberg_marquardt(cam: StereoCamera, prob: BAProblem, max_iters: int,
@@ -488,7 +504,8 @@ def levenberg_marquardt(cam: StereoCamera, prob: BAProblem, max_iters: int,
             lmks=torch.where(take[..., None, None], new_lmks, lmks),
             lam=torch.where(live, new_lam, c.lam),
             cost=torch.where(take, new_cost, c.cost),
-            done=c.done | (take & (step < tol32)))
+            done=c.done | (take & (step < tol32)),
+            n_max=c.n_max)
 
     B = min(LM_BLOCK, max_iters)
 
@@ -507,7 +524,8 @@ def levenberg_marquardt(cam: StereoCamera, prob: BAProblem, max_iters: int,
                        device=dev),
         cost=cost,
         done=(torch.zeros(batch, dtype=torch.bool, device=dev)
-              if active is None else ~active))
+              if active is None else ~active),
+        n_max=torch.full((), max_iters, dtype=torch.int32, device=dev))
     c = loop(block, carry, -(-max_iters // B) if max_iters > 0 else 0)
     return BAResult(poses=c.poses, lmks=c.lmks, cost=c.cost, n_iters=c.it,
                     converged=c.done)
@@ -527,14 +545,14 @@ def solve_lm(cam: StereoCamera, prob: BAProblem, max_iters: int,
     counterpart of rso's jax.jit + lax.while_loop: a CompiledStep per
     (device, Python scalars, LM_BLOCK, the optional inputs given), which
     keys its static buffers and graphs by the inputs' shapes.  On the GPU
-    the loop runs as CUDA graphs (pre, one block of LM_BLOCK iterations
-    replayed until the stop flag is false, tail), captured at the first call
-    of each key and shape after an eager warm-up that is that call's
-    answer; on the CPU the same object runs eagerly through the same
-    buffers.  The inputs are copied into the static buffers and the result
-    out of them, so a later solve never changes an earlier result.  Any
-    block size gives the same bits (an iteration past the stop changes
-    nothing).  A capture that fails raises."""
+    the solve is one CUDA graph launch (pre, one block of LM_BLOCK
+    iterations in a WHILE node run while the stop flag is true, tail),
+    captured at the first call of each key and shape after an eager warm-up
+    that is that call's answer; on the CPU the same object runs eagerly
+    through the same buffers.  The inputs are copied into the static
+    buffers and the result out of them, so a later solve never changes an
+    earlier result.  Any block size gives the same bits (an iteration past
+    the stop changes nothing).  A capture that fails raises."""
     dev = prob.poses.device
     key = (dev, max_iters, float(kernel_param), bool(use_robust),
            bool(fix_first), float(init_lambda), float(tol), float(rel_w_rot),
@@ -549,7 +567,8 @@ def solve_lm(cam: StereoCamera, prob: BAProblem, max_iters: int,
                 init_lambda, tol, rel_meas, rel_w_rot, rel_w_trans,
                 marg_prior, active=active, loop=loop)
 
-        solve = _SOLVES[key] = CompiledStep(fn, capture=dev.type == "cuda")
+        solve = _SOLVES[key] = CompiledStep(fn, capture=dev.type == "cuda",
+                                            site="lm")
     if marg_prior is not None:
         # host arrays reach the device here, outside any graph
         marg_prior = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)

@@ -17,16 +17,18 @@ kernels (the default) or the dense SAD matrices for stages 3 and 4.
 `make_step` is the eager step: PyTorch on the state's device, with the six
 CUDA kernels under it.  `Engine` runs it as the reference runs its jitted
 step: one `rso_torch.graphs.CompiledStep` per (h, w, precomputed), which on
-the GPU captures the step as CUDA graphs once and replays them on every
+the GPU captures the step once and launches it as one CUDA graph on every
 frame, through static buffers that the caller's states and results never
-alias.  The state lives on the device between frames, and a frame reads
-back to the host only the pose solver's stop flag, once per block of
-GN_BLOCK iterations, and, with detect_every > 1, the choice between
-detecting and propagating (one read a frame, which picks one of the two
-graph sets).  The eigh solve backend's cuSOLVER call checks its result on
-the host, so that configuration runs the eager step through the same
-buffers.  The entry points run on the GPU unless the caller passes
-device="cpu", and raise where CUDA is absent.
+alias.  The state lives on the device between frames, and a frame is one
+CUDA graph launch with no host read: the pose solver's GN loops are
+conditional WHILE nodes and, with detect_every > 1, the choice between
+detecting and propagating is a pair of IF nodes (`engine_branches`), as
+the reference's lax.while_loop and lax.cond run on its device.  Every
+solve backend runs so, eigh included (its eigensolver is the eigh6 kernel
+on the GPU).  On the CPU the same object runs the eager step, which reads
+the branch and the loops' flags on the host.  The entry points run on the
+GPU unless the caller passes device="cpu", and raise where CUDA is
+absent.
 """
 from __future__ import annotations
 
@@ -59,7 +61,7 @@ from rso_torch.frontend.stereo_match import StereoMatches, match_left_right
 from rso_torch.frontend.track import (TrackResult, track_interframe,
                                       track_optical_flow)
 from rso_torch.geometry.stereo_camera import StereoCamera
-from rso_torch.graphs import CompiledStep
+from rso_torch.graphs import Branches, CompiledStep
 from rso_torch.graphs import tree_map as _tree_map
 from rso_torch.solver.ransac import ransac_fundamental
 from rso_torch.solver.robust_gn import (
@@ -184,6 +186,17 @@ def lanes_detect(cfg: RSOConfig, states: EngineState):
 # the branch of a step whose lanes differ: both branches run and each lane
 # takes its own (the reference's lax.cond under vmap)
 MIXED = "mixed"
+
+
+def engine_branches(cfg: RSOConfig) -> Branches:
+    """detect_every's branches of a step: (detect, propagate), read on the
+    host by detects_this_frame, on the device as [detect, propagate]."""
+    def flags(state):
+        f = detect_flag(cfg, state)
+        return torch.stack([f, ~f])
+
+    return Branches(keys=(True, False),
+                    read=lambda st: detects_this_frame(cfg, st), flags=flags)
 
 
 def _keeps_pyramids(cfg: RSOConfig) -> bool:
@@ -738,23 +751,19 @@ class Engine:
     def _get_step(self, h: int, w: int,
                   precomputed: str | None = None) -> CompiledStep:
         """The compiled step of (h, w, precomputed), made at first use (the
-        reference's jit cache, rso/engine.py:737-758).  On the GPU it runs
-        as CUDA graphs, except with the eigh solve backend, whose cuSOLVER
-        call reads its status on the host: that configuration runs the
-        eager step through the same buffers."""
+        reference's jit cache, rso/engine.py:737-758): on the GPU one CUDA
+        graph launch a frame, for every solve backend."""
         key = (h, w, precomputed)
         if key not in self._step_cache:
             cfg = self.cfg
             step = make_step(cfg, self.cam, h, w,
                              rectify_maps=self.rectify_maps,
                              precomputed=precomputed)
-            branch = None
+            branches = None
             if precomputed is None and cfg.tpu.detect_every > 1:
-                branch = lambda st: detects_this_frame(cfg, st)  # noqa: E731
+                branches = engine_branches(cfg)
             self._step_cache[key] = CompiledStep(
-                step, branch=branch,
-                capture=(self.device.type == "cuda"
-                         and cfg.least_squares.solve_backend != "eigh"))
+                step, branches=branches, capture=self.device.type == "cuda")
         return self._step_cache[key]
 
     def _image(self, img) -> torch.Tensor:
@@ -781,10 +790,11 @@ class Engine:
 
     def process_chunk(self, left_imgs, right_imgs) -> StepResult:
         """N consecutive frames; results stacked along a leading frame axis
-        (the reference's lax.scan): the compiled step's graphs replayed N
-        times, the state kept in its buffers between frames and each result
-        written into [N, ...] buffers.  Same math and state evolution as N
-        process_frame calls; a later `repeat` re-runs against the state
+        (the reference's lax.scan): the compiled step's graph launched N
+        times with no read between them, the state kept in its buffers
+        between frames and each result written into [N, ...] buffers.
+        Same math and state evolution as N process_frame calls; a later
+        `repeat` re-runs against the state
         before the chunk, as the reference's one-dispatch chunk leaves it."""
         lefts = [self._image(l) for l in left_imgs]
         rights = [self._image(r) for r in right_imgs]

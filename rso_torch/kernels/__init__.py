@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels (csrc/*.cu, sm_90a) with plain PyTorch twins.
 
 Each module holds `<name>_torch` (the twin, used for CPU tensors),
-`<name>_cuda` (the kernel wrapper) and `<name>_auto` (the dispatcher).
+`<name>_cuda` (the kernel wrapper) and `<name>_auto` (the dispatcher);
+`eigh6`, the pose solver's 6x6 eigensolver on the GPU, has no dispatcher:
+on the CPU the solver keeps LAPACK's eigh (rso_torch.solver.robust_gn).
 `LAUNCHES` counts kernel launches by name.  Each `<name>_cuda` is a
 `torch.library.custom_op` with a vmap rule: under torch.func.vmap (the
 batched engine step) one launch covers every lane.  `cost_volume` is the
@@ -18,6 +20,7 @@ from rso_torch.kernels.distance import (
     sad_matrix_cuda,
     sad_matrix_torch,
 )
+from rso_torch.kernels.eigh6 import eigh6_cuda, eigh6_torch
 from rso_torch.kernels.fast_detect import (
     corner_response_auto,
     corner_response_cuda,
@@ -39,6 +42,8 @@ __all__ = [
     "corner_response_auto",
     "corner_response_cuda",
     "corner_response_torch",
+    "eigh6_cuda",
+    "eigh6_torch",
     "hamming_matrix_auto",
     "hamming_matrix_cuda",
     "hamming_matrix_torch",

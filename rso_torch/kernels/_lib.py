@@ -10,7 +10,11 @@ this module builds nothing and needs no toolkit.
 Each C entry point launches one kernel on the stream it is given and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code and counts the
 launch.  `LAUNCHES` is how a run shows that its main path went through the
-kernels.
+kernels.  While a CUDA graph is captured, nothing launches: the launches go
+to the capture's own record (`record_begin`), and rso_torch.graphs adds them to
+LAUNCHES each time it launches the graph; those inside the graph's
+conditional nodes (a loop's blocks, a branch) are counted on the device and
+added by rso_torch.graphs.settle_launches.
 
 Every entry but the null vectors' takes a lane count B: B independent
 problems (the sequences of a batched step) in one launch, a grid axis over
@@ -39,12 +43,39 @@ _BUILD_ROOT = _PKG.parent / "build" / "rso_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
+
 # launches per kernel name, incremented only where a kernel is launched
 LAUNCHES: collections.Counter = collections.Counter()
+# the launch records of the captures in progress (innermost last)
+_RECORDS: list = []
+
+
+def record_begin() -> collections.Counter:
+    """From now until record_end, count launches in the Counter returned
+    instead of LAUNCHES: a CUDA graph capture, which launches nothing."""
+    rec = collections.Counter()
+    _RECORDS.append(rec)
+    return rec
+
+
+def record_end(rec: collections.Counter) -> None:
+    _RECORDS.remove(rec)
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel `name`: in the innermost record, else in
+    LAUNCHES."""
+    if _RECORDS:
+        _RECORDS[-1][name] += 1
+    else:
+        LAUNCHES[name] += 1
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_PU = ctypes.POINTER(ctypes.c_ulonglong)
 # C signatures: every pointer (and the stream) is a c_void_p
 _SIGNATURES = {
     "rso_corner_response": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -56,6 +87,18 @@ _SIGNATURES = {
     "rso_nullvec9": [_P, _P, _I, _P],
     "rso_hamming_matrix": [_P, _P, _I, _I, _I, _I, _P, _P],
     "rso_sad_matrix": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "rso_eigh6": [_P, _P, _P, _I, _P],
+    # csrc/graph_cond.cu: composing and launching CUDA graphs
+    "rso_graph_create": [_PP],
+    "rso_graph_destroy": [_P],
+    "rso_graph_add_child": [_P, _P, _P, _PP],
+    "rso_graph_add_handle": [_P, _PU],
+    "rso_graph_add_cond": [_P, _P, ctypes.c_ulonglong, _I, _PP, _PP],
+    "rso_graph_add_set": [_P, _P, ctypes.c_ulonglong, _P, _P, _P, _I, _PP],
+    "rso_graph_instantiate": [_P, _PP],
+    "rso_graph_exec_destroy": [_P],
+    "rso_graph_launch": [_P, _P],
+    "rso_graph_node_types": [_P, ctypes.POINTER(ctypes.c_int), _I],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -139,7 +182,14 @@ def launch(name: str, *args, counted_as: str | None = None) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel rso_{name} failed to launch: "
                            f"cudaError {rc}")
-    LAUNCHES[counted_as or name] += 1
+    count_launch(counted_as or name)
+
+
+def call(name: str, *args) -> None:
+    """Call C entry `rso_<name>` (no stream, no count); raise on error."""
+    rc = getattr(load(), f"rso_{name}")(*args)
+    if rc != 0:
+        raise RuntimeError(f"rso_{name} failed: cudaError {rc}")
 
 
 @functools.cache

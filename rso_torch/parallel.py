@@ -7,19 +7,22 @@ sweeps (KITTI 00-10) go through one BatchEngine.  The reference runs
 'seq' mesh, and `lax.scan` of it for a chunk.  Here the same: the B
 sequences step as one batched step a frame, `torch.func.vmap` of
 make_step's step over a leading sequence axis of the state and the images,
-run through one `rso_torch.graphs.CompiledStep`, so on the GPU as CUDA
-graphs captured once and replayed (process_chunk replays them N times, the
-scan).  Each CUDA kernel launches once for all sequences, the sequence axis
-a grid axis of its launch (the kernels' vmap rules, as vmap over a
-`pallas_call` adds a grid axis in the reference).
+run through one `rso_torch.graphs.CompiledStep`, so on the GPU as one CUDA
+graph captured once and launched once a frame (process_chunk launches it N
+times with no read between them, the scan).  Each CUDA kernel launches
+once for all sequences, the sequence axis a grid axis of its launch (the
+kernels' vmap rules, as vmap over a `pallas_call` adds a grid axis in the
+reference).
 
 The pose solver's GN loop runs while any sequence's runs (its flag reduced
-over the lanes by `robust_gn.any_lane`: rso's vmap of `lax.while_loop`),
-and with detect_every > 1 the step's branch is read once a frame for all
-sequences: the detect or the propagate graph set where they agree, else a
-third set that runs both branches and gives each sequence its own (rso's
-`lax.cond` under vmap).  On the CPU, and with the eigh solve backend, the
-same batched step runs eagerly through the same buffers, as Engine decides.
+over the lanes by `robust_gn.any_lane`, tested on the device by the graph's
+WHILE node: rso's vmap of `lax.while_loop`), and with detect_every > 1 the
+step's branch is chosen on the device for all sequences
+(`lanes_branches`): the detect or the propagate body where they agree,
+else a third that runs both branches and gives each sequence its own
+(rso's `lax.cond` under vmap).  On the CPU the same batched step runs
+eagerly through the same buffers, reading the branch and the flags on the
+host, as Engine does.
 
 Each rank of a 'seq' DeviceMesh (one process per device, SPMD) takes the
 global [B,...] inputs and steps its contiguous B/n sequences, batched.  The
@@ -35,10 +38,10 @@ import torch
 import torch.distributed as dist
 
 from rso_torch.config import RSOConfig
-from rso_torch.engine import (StepResult, _device, init_state, lanes_detect,
-                              make_step)
+from rso_torch.engine import (MIXED, StepResult, _device, detect_flag,
+                              init_state, lanes_detect, make_step)
 from rso_torch.geometry.stereo_camera import StereoCamera
-from rso_torch.graphs import CompiledStep, tree_map
+from rso_torch.graphs import Branches, CompiledStep, tree_map
 from rso_torch.mesh import check_mesh
 
 
@@ -50,6 +53,19 @@ def batched_step(step):
         one = functools.partial(step, loop=loop, do_detect=do_detect)
         return torch.func.vmap(one)(states, lefts, rights)
     return run
+
+
+def lanes_branches(cfg: RSOConfig) -> Branches:
+    """The branches of a batched step: (all lanes detect, none does,
+    MIXED), read on the host by lanes_detect, on the device from every
+    lane's detect_flag."""
+    def flags(states):
+        f = torch.func.vmap(lambda st: detect_flag(cfg, st))(states)
+        every, some = f.all(), f.any()
+        return torch.stack([every, ~some, some & ~every])
+
+    return Branches(keys=(True, False, MIXED),
+                    read=lambda sts: lanes_detect(cfg, sts), flags=flags)
 
 
 class BatchEngine:
@@ -88,14 +104,10 @@ class BatchEngine:
                   for m in eye) for eye in rectify_maps)
         step = make_step(cfg, cam.to(self.device), img_h, img_w,
                          rectify_maps=maps)
-        branch = None
-        if cfg.tpu.detect_every > 1:
-            branch = functools.partial(lanes_detect, cfg)
-        # as Engine._get_step: graphs on the GPU but for the eigh backend
-        self._step = CompiledStep(
-            batched_step(step), branch=branch,
-            capture=(self.device.type == "cuda"
-                     and cfg.least_squares.solve_backend != "eigh"))
+        branches = lanes_branches(cfg) if cfg.tpu.detect_every > 1 else None
+        # as Engine._get_step: one graph launch a frame on the GPU
+        self._step = CompiledStep(batched_step(step), branches=branches,
+                                  capture=self.device.type == "cuda")
         b = len(self.sequences)
         self.states = None if b == 0 else tree_map(
             lambda x: x.expand(b, *x.shape).clone(),
@@ -132,7 +144,7 @@ class BatchEngine:
         """lefts/rights: [B,N,H,W] u8, N frames of each sequence -> results
         of this rank's sequences stacked [N,b,...] along the frame axis, as
         the reference's scan returns them (None where it holds none): the
-        batched step's graphs replayed N times, the states kept in its
+        batched step's graph launched N times, the states kept in its
         buffers between frames."""
         if not self.sequences:
             return None

@@ -10,10 +10,12 @@ the reference's JacobiSVD semantics) and Levenberg-Marquardt damping
 The reference's `lax.while_loop` becomes blocks of GN_BLOCK masked
 iterations: an iteration after the stop (converged, aborted or out of
 iterations) changes nothing, so the counts and the answer are the while
-loop's whatever the block size.  The stop flag is read back once per block,
-and not after the last one.  A `loop` runner runs the blocks:
-`eager_blocks` here, or the engine's compiled step, which captures one
-block as a CUDA graph and replays it, reading the flag between replays.
+loop's whatever the block size.  A `loop` runner runs the blocks:
+`eager_blocks` here, which reads the stop flag back once per block and not
+after the last one, or the engine's compiled step, which captures one block
+as the body of a CUDA graph's conditional WHILE node that tests the flag on
+the device (rso_torch.graphs).  The flag (`active`) already holds the
+iteration cap, so it is false after the last block.
 
 Under torch.func.vmap (the batched engine step) the solve runs for every
 lane at once, and the flag passes through `any_lane`, whose vmap rule
@@ -36,6 +38,7 @@ from rso_torch.geometry.stereo_camera import (
     project_stereo_with_jacobian,
     triangulate,
 )
+from rso_torch.kernels.eigh6 import eigh6_cuda
 
 # VOErrorCode (reference libstereo-odometry.h:142) + the rso extension 6
 VOEC_NONE = 0
@@ -49,13 +52,14 @@ VOEC_TOO_FEW_INLIERS = 6
 _COND_MAX = 1e7
 _F32_MAX = torch.finfo(torch.float32).max
 
-# masked GN iterations between two reads of the loop's stop flag.  On an
-# H100 (chip_smoke.py's GN_BLOCK_SWEEP on the default and kitti paths)
-# phase 1 runs 1-10 iterations and phase 2 mostly 2-3; a replayed
-# iteration costs ~0.46 ms and a read ~0.08, so blocks of 1 and 2 tie on
-# step time and larger blocks lose: 2 reads the flag 3.75-4.1 times a
-# frame against 6.7-7.45 at 1
-GN_BLOCK = 2
+# masked GN iterations a block: one run of a WHILE node's body in the
+# graph, one flag read in the eager form.  On an H100 (chip_smoke.py's
+# GN_BLOCK_SWEEP, default and kitti paths, in the one-launch graph with no
+# read to save): blocks of 1 and 2 tie (7.21 / 7.24 ms a default step,
+# 9.63 / 9.65 kitti) and 4 loses (8.12, 11.27), its masked iterations
+# costing more than the fewer WHILE iterations save; 1 also wins on wall
+# time (7.53 against 7.94 ms) and runs no masked iteration
+GN_BLOCK = 1
 
 # host reads of device flags, by site: "gn" (the pose solver's stop flag,
 # once per GN block but the last), "lm" (bundle adjustment's, once per LM
@@ -123,14 +127,14 @@ def _eval_rgn(cam: StereoCamera, lmks, obs, mask, delta_pose,
         dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
     else:
         # symmetric eigendecomposition (the reference's JacobiSVD spectrum,
-        # :375-388).  LAPACK and cuSOLVER reject a non-finite matrix where
+        # :375-388; `_eigh`).  LAPACK rejects a non-finite matrix where
         # jnp.linalg.eigh returns NaN: such an H is swapped for the identity
         # and its condition number set to NaN, which flags bad_cond as NaN
         # eigenvalues do in the reference.  Eigenvector signs may differ
         # from the reference's; dx does not depend on them.
         finite = torch.isfinite(H).all()
         eye6 = torch.eye(6, dtype=H.dtype, device=H.device)
-        w, V = torch.linalg.eigh(torch.where(finite, H, eye6))   # ascending
+        w, V = _eigh(torch.where(finite, H, eye6))   # ascending
         cond = w[5] / torch.where(w[0] <= 0.0, torch.nan, w[0])
         cond = torch.where(finite, cond, torch.nan)
         # LM handles ill-conditioning by damping and aborts only on NaN
@@ -146,26 +150,26 @@ def _eval_rgn(cam: StereoCamera, lmks, obs, mask, delta_pose,
     return dx, cost, s_out, bad_cond
 
 
-@torch.library.custom_op("rso_torch::cho_inverse", mutates_args=(),
-                         schema="(Tensor L) -> Tensor")
+def _eigh(H: torch.Tensor):
+    """(w ascending, V) of a symmetric 6x6 H: LAPACK's eigh on the CPU, the
+    routine the reference's jnp.linalg.eigh runs there; on the GPU the
+    eigh6 kernel (cyclic Jacobi), since cuSOLVER's eigh reads its status on
+    the host and so cannot run inside the step's CUDA graph."""
+    if H.device.type == "cpu":
+        return torch.linalg.eigh(H)
+    return eigh6_cuda(H)
+
+
 def cho_inverse(L: torch.Tensor) -> torch.Tensor:
-    """(L L^T)^-1 from a [6,6] Cholesky factor L: `cholesky_solve` of the
-    identity.  Under torch.func.vmap (its rule) two batched triangular
-    solves instead, cuBLAS trsm on the GPU, which a CUDA graph captures,
-    where the batched cholesky_solve (MAGMA) cannot be captured; on the CPU
-    both are LAPACK's triangular solves, the same bits."""
-    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
-    return torch.cholesky_solve(eye, L)
-
-
-@torch.library.register_vmap("rso_torch::cho_inverse")
-def _cho_inverse_lanes(info, in_dims, L):
-    if in_dims[0] is None:
-        return cho_inverse(L), None
-    L = L.movedim(in_dims[0], 0)
+    """(L L^T)^-1 from a [..., 6, 6] Cholesky factor L: two triangular
+    solves of the identity (LAPACK's trsm on the CPU, cuBLAS's on the GPU).
+    Unlike cholesky_solve, they run in a CUDA graph capture (cuSOLVER's
+    potrs allocates with cudaMallocAsync, recorded as memory nodes that no
+    conditional node's body takes; the batched form, MAGMA, cannot be
+    captured at all), and they batch under torch.func.vmap."""
     eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
     lower = torch.linalg.solve_triangular(L, eye, upper=False)
-    return torch.linalg.solve_triangular(L.mT, lower, upper=True), 0
+    return torch.linalg.solve_triangular(L.mT, lower, upper=True)
 
 
 class GNCarry(NamedTuple):

@@ -14,7 +14,7 @@ a frame (rso's `jax.jit(jax.vmap(step))`).  Held here:
     process_chunk give each lane's integer fields exactly and its floats
     within BATCH_POSE_ATOL / BATCH_RES_ATOL, and process_chunk equals
     process_frames bit for bit;
-  * the vmap code itself: `any_lane` and its rule, `cho_inverse`'s rule,
+  * the vmap code itself: `any_lane` and its rule, `cho_inverse` batched,
     `_pairwise_sum`, and that the step runs once a frame for all lanes.
 
 Where a lane parts from a lone Engine: on the CPU the batched step's floats
@@ -296,8 +296,8 @@ def test_any_lane():
 
 
 def test_cho_inverse_rule_equals_the_plain_op():
-    """cho_inverse's vmap rule (two batched triangular solves) gives the
-    plain op's bits lane by lane on the CPU."""
+    """cho_inverse under vmap (two batched triangular solves) gives the
+    lone call's bits lane by lane on the CPU."""
     g = torch.Generator().manual_seed(3)
     A = torch.randn(5, 30, 6, generator=g) * 40
     L, info = torch.linalg.cholesky_ex(A.mT @ A)

@@ -22,6 +22,8 @@ step (rso_torch.parallel.BatchEngine) gives each lane an Engine's integer
 fields, its floats within rso's own batch test's pose bound (1e-5) and the
 engine tolerances.
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +35,7 @@ from rso_torch import kernels as K
 from rso_torch.engine import Engine
 from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
 from rso_torch.geometry import StereoCamera
+from rso_torch.graphs import reset_launches, settle_launches
 from rso_torch.synthetic import MODES, make_sequence, mode_config
 
 
@@ -106,7 +109,7 @@ def test_cuda_corner_response_at_any_window(cuda, win):
     launches the one-tile path, 46 and 64 the wide path."""
     seq = make_sequence(n_frames=1, n_points=2000, H=376, W=1241)
     img = to_grayscale(torch.from_numpy(seq.frames[0][0]).to(cuda))
-    K.LAUNCHES.clear()
+    reset_launches()
     for octave in build_pyramid(img, 3):
         out = K.corner_response_cuda(octave, 20, win=win)
         assert torch.isfinite(out).any()
@@ -288,7 +291,7 @@ def test_cuda_sad_matrix_ragged(cuda, ka, kb, p):
 
 @pytest.mark.gpu
 def test_cuda_wrappers_count_launches_and_check_operands(cuda):
-    K.LAUNCHES.clear()
+    reset_launches()
     img = torch.zeros((32, 48), device=cuda)
     K.corner_response_cuda(img, 20)
     assert K.LAUNCHES["corner_response"] == 1
@@ -325,7 +328,7 @@ def test_cuda_engine_modes_match_the_cpu(cuda, mode):
     seq = make_sequence(n_frames=3, n_points=1800, H=160, W=240)
     cfg = mode_config(mode)
     gpu, cpu = Engine(cfg, seq.cam, device=cuda), Engine(cfg, seq.cam, device="cpu")
-    K.LAUNCHES.clear()
+    reset_launches()
     for left, right in seq.frames:
         rg, rc = gpu.process_frame(left, right), cpu.process_frame(left, right)
         assert torch.equal(rg.detected_feats.cpu(), rc.detected_feats)
@@ -542,14 +545,17 @@ def _graph_cases(dev):
 
 
 @pytest.mark.gpu
-def test_cuda_graph_ba_equals_the_eager_loop(cuda):
-    """bundle_adjust's graphs (the first call: the warm-up's answer; then
-    replays) against levenberg_marquardt's eager loop, bit for bit, with
-    the same flag reads; each case replayed again after the others (other
-    shapes and keys in between)."""
+def test_cuda_graph_ba_equals_the_eager_loop(cuda, monkeypatch):
+    """bundle_adjust's graphs (the first call: the warm-up's answer, with
+    the eager loop's flag reads; then one graph launch with none) against
+    levenberg_marquardt's eager loop, bit for bit; each case replayed again
+    after the others (other shapes and keys in between)."""
+    import rso_torch.ba.ba as B
     from rso_torch.ba import bundle_adjust
+    from rso_torch.graphs import GRAPH_LAUNCHES
     from rso_torch.solver.robust_gn import HOST_READS
 
+    monkeypatch.setattr(B, "_SOLVES", {})   # no solve captured before
     cases = _graph_cases(cuda)
     want = {}
     for name, (cam, prob, kw) in cases.items():
@@ -558,9 +564,14 @@ def test_cuda_graph_ba_equals_the_eager_loop(cuda):
         reads = HOST_READS["lm"]
         for call in ("warm-up", "replay"):
             HOST_READS.clear()
+            GRAPH_LAUNCHES.clear()
             _same_result(bundle_adjust(cam, prob, **kw), want[name],
                          f"{name} {call}")
-            assert HOST_READS["lm"] == reads, (name, call)
+            # the warm-up is the eager loop; a replay is one graph launch
+            # whose LM loop reads nothing back
+            assert HOST_READS["lm"] == (reads if call == "warm-up" else 0), (
+                name, call)
+            assert GRAPH_LAUNCHES["lm"] == (call == "replay"), (name, call)
     for name, (cam, prob, kw) in cases.items():
         _same_result(bundle_adjust(cam, prob, **kw), want[name],
                      f"{name} after the other cases")
@@ -626,9 +637,9 @@ def _eager_run(cfg, cam, frames, hw, dev):
     st = init_state(cfg, hw, dev)
     out = []
     for left, right in frames:
-        K.LAUNCHES.clear()
+        reset_launches()
         st, res = step(st, left, right)
-        out.append((res, dict(K.LAUNCHES)))
+        out.append((res, dict(settle_launches())))
     return out
 
 
@@ -637,18 +648,38 @@ def _same_result(a, b, what):
         assert torch.equal(x, y), f"{what}: {field} differs"
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("every", [1, 3])
-def test_cuda_graphs_equal_the_eager_step(cuda, every):
-    """Engine's CUDA graphs against the eager step on the bench scene:
-    every field of every frame bit for bit and the same launches a frame,
-    frame by frame (detect_every 3: both graph sets) and as one chunk."""
+def _path_config(path):
     import dataclasses
 
+    from rso_torch.config import load_config
     from rso_torch.synthetic import synthetic_config
 
+    rep = dataclasses.replace
     cfg = synthetic_config()
-    cfg = cfg.replace(tpu=dataclasses.replace(cfg.tpu, detect_every=every))
+    if path == "kitti":
+        return load_config(str(CS.REPO / "configs" / "kitti.ini"))
+    if path == "descriptor":
+        return mode_config("fast_orb_rbr_win", upright=False)
+    return cfg.replace(**{
+        "default": {},
+        "every": {"tpu": rep(cfg.tpu, detect_every=3)},
+        "flow": {"if_match": rep(cfg.if_match, ifm_method=3)},
+        "eigh_lm": {"least_squares": rep(cfg.least_squares,
+                                         solve_backend="eigh", use_lm=True)},
+    }[path])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("every", [1, 3, "kitti", "descriptor", "flow"])
+def test_cuda_graphs_equal_the_eager_step(cuda, every):
+    """Engine's composed CUDA graph against the eager step on the bench
+    scene: every field of every frame bit for bit and the same launches a
+    frame, frame by frame (detect_every 3: both IF bodies) and as one
+    chunk, each frame after the first one graph launch with no host read."""
+    from rso_torch.graphs import GRAPH_LAUNCHES
+    from rso_torch.solver.robust_gn import HOST_READS
+
+    cfg = _path_config({1: "default", 3: "every"}.get(every, every))
     seq = make_sequence(n_frames=7, n_points=2000, H=376, W=1241)
     frames = [(torch.from_numpy(l).to(cuda), torch.from_numpy(r).to(cuda))
               for l, r in seq.frames]
@@ -657,13 +688,18 @@ def test_cuda_graphs_equal_the_eager_step(cuda, every):
     for left, right in frames:            # captures every graph set
         eng.process_frame(left, right)
     n_graphs = eng._get_step(376, 1241).n_graphs
-    assert n_graphs >= (10 if every > 1 else 5)
+    assert n_graphs >= (11 if every == 3 else 5)
+    assert eng._get_step(376, 1241).n_composed == 1
     eng.reset()
     for i, (left, right) in enumerate(frames):
-        K.LAUNCHES.clear()
+        reset_launches()
+        HOST_READS.clear()
+        GRAPH_LAUNCHES.clear()
         got = eng.process_frame(left, right)
         _same_result(got, eager[i][0], f"frame {i}")
-        assert dict(K.LAUNCHES) == eager[i][1], f"frame {i} launches"
+        assert dict(settle_launches()) == eager[i][1], f"frame {i} launches"
+        assert sum(HOST_READS.values()) == 0, dict(HOST_READS)
+        assert dict(GRAPH_LAUNCHES) == {"step": 1}
     eng.reset()
     chunk = eng.process_chunk([f[0] for f in frames], [f[1] for f in frames])
     for i, (want, _) in enumerate(eager):
@@ -698,34 +734,194 @@ def test_cuda_graph_capture_raises_on_a_host_read(cuda):
 
 @pytest.mark.gpu
 def test_cuda_eigh_backend_runs_the_eager_step(cuda):
-    """torch.linalg.eigh reads its status on the host, so the eigh backend
-    captures no graph: Engine runs the eager step through the compiled
-    step's buffers, equal to the plain loop."""
-    import dataclasses
+    """The eigh backend's eigensolver on the card is the eigh6 kernel, which
+    reads nothing back, so Engine captures that step too: its graph gives
+    the eager step's results bit for bit, one graph launch a frame with no
+    host read, eigh6 launched in the GN loops as often as eagerly."""
+    from rso_torch.graphs import GRAPH_LAUNCHES
+    from rso_torch.solver.robust_gn import HOST_READS
 
-    from rso_torch.synthetic import synthetic_config
-
-    cfg = synthetic_config()
-    cfg = cfg.replace(least_squares=dataclasses.replace(
-        cfg.least_squares, solve_backend="eigh", use_lm=True))
-    seq = make_sequence(n_frames=3, n_points=1800, H=160, W=240)
+    cfg = _path_config("eigh_lm")
+    seq = make_sequence(n_frames=4, n_points=2000, H=376, W=1241)
     frames = [(torch.from_numpy(l).to(cuda), torch.from_numpy(r).to(cuda))
               for l, r in seq.frames]
     eng = Engine(cfg, seq.cam, device=cuda)
-    eager = _eager_run(cfg, eng.cam, frames, (160, 240), cuda)
+    eager = _eager_run(cfg, eng.cam, frames, (376, 1241), cuda)
+    assert all(launches["eigh6"] > 0 for _, launches in eager[1:])
     for i, (left, right) in enumerate(frames):
+        reset_launches()
+        HOST_READS.clear()
+        GRAPH_LAUNCHES.clear()
         _same_result(eng.process_frame(left, right), eager[i][0], f"frame {i}")
-    step = eng._get_step(160, 240)
-    assert not step.capture and step.n_graphs == 0
+        if i > 0:
+            assert dict(settle_launches()) == eager[i][1], f"frame {i} launches"
+            assert sum(HOST_READS.values()) == 0 and dict(GRAPH_LAUNCHES) == {
+                "step": 1}
+    step = eng._get_step(376, 1241)
+    assert step.capture and step.n_graphs == 5 and step.n_composed == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 11, 4096])
+@pytest.mark.parametrize("cond", [10.0, 1e3, 1e7, 0])
+def test_cuda_eigh6(cuda, B, cond):
+    """eigh6 against its twin on the card: bit for bit (the same correctly
+    rounded operations in the same order); against torch.linalg.eigh
+    (cuSOLVER): eigenvalues within 1e-5 of |w[5]|, w[0] within
+    chip_smoke.EIGH6_W0_RTOL cond + 1e-5 relative where cond <= 1e5, and
+    the GN step V diag(1/w) V^T g of both within 1e-6 cond + 1e-5 relative
+    where cond <= 1e3 (an f32 solve's perturbation grows with the condition
+    number; 4096 matrices at cond 1e3 reached 3e-4; beyond 1e3 both solve
+    an ill-posed system)."""
+    from rso_torch.kernels.eigh6 import eigh6_cuda, eigh6_torch
+
+    rng = np.random.default_rng(B + int(cond))
+    H = CS.gn_normal_matrices(rng, B, cond, cuda)
+    reset_launches()
+    w, V = eigh6_cuda(H)
+    assert dict(settle_launches()) == {"eigh6": 1}
+    tw, tV = eigh6_torch(H)
+    assert torch.equal(w, tw) and torch.equal(V, tV)
+    scale = w.abs().amax(-1, keepdim=True)
+    lw, lV = torch.linalg.eigh(H)
+    assert ((w - lw).abs() <= 1e-5 * scale).all()
+    if 0 < cond <= 1e5:
+        rel0 = (w[..., 0] - lw[..., 0]).abs() / lw[..., 0].abs()
+        assert rel0.max() <= CS.EIGH6_W0_RTOL * cond + 1e-5, rel0.max()
+    if 0 < cond <= 1e3:
+        g = torch.tensor(rng.standard_normal((B, 6)), dtype=torch.float32,
+                         device=cuda)
+        def step(w, V):
+            return (V @ ((V.mT @ g[..., None]) / w[..., None]))[..., 0]
+
+        want = step(lw, lV)
+        got = step(w, V)
+        rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
+        assert rel.max() <= 1e-6 * cond + 1e-5, rel.max()
+
+
+@pytest.mark.gpu
+def test_cuda_batched_eigh6(cuda):
+    """eigh6 under torch.func.vmap: one launch for every lane, each lane
+    bit for bit the unbatched kernel's."""
+    from rso_torch.kernels.eigh6 import eigh6_cuda
+
+    H = CS.gn_normal_matrices(np.random.default_rng(5), 11, 1e4, cuda)
+    w, V = _one_launch("eigh6", lambda: torch.func.vmap(eigh6_cuda)(H))
+    for b in range(11):
+        wb, Vb = eigh6_cuda(H[b])
+        assert torch.equal(w[b], wb) and torch.equal(V[b], Vb)
+
+
+def _gn_inputs(seed, dev, n=300):
+    """Stereo correspondences of a random cloud under a small motion, with
+    outliers: (camera, prev_obs, cur_obs, mask)."""
+    from rso_torch.geometry.stereo_camera import project_stereo
+
+    cam = BA_CAM.to(dev)
+    r = np.random.default_rng(seed)
+    pts = np.stack([r.uniform(-8, 8, n), r.uniform(-2, 2, n),
+                    r.uniform(4, 40, n)], -1).astype(np.float32)
+    pose = np.array([0.01, -0.02, 0.005, 0.1, -0.05, 0.4], np.float32)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    prev = project_stereo(cam, f(pts), torch.zeros(6, device=dev))
+    cur = project_stereo(cam, f(pts), f(pose))
+    cur = cur + f(r.normal(0, 0.3, cur.shape))
+    bad = r.random(n) < 0.15
+    cur[f(bad).bool()] += 25.0
+    return cam, prev, cur, torch.from_numpy(r.random(n) > 0.05).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gn_block", [1, 2, 4])
+@pytest.mark.parametrize("backend", ["chol", "eigh_lm"])
+def test_cuda_composed_gn_loops_equal_the_eager_loops(cuda, gn_block,
+                                                      backend, monkeypatch):
+    """solve_pose as a CompiledStep (two GN loops as WHILE nodes) against
+    the eager blocks on several inputs of one shape: bit for bit, the
+    eager loop's launches, no host read and one graph launch a solve."""
+    import dataclasses
+
+    import rso_torch.solver.robust_gn as G
+    from rso_torch.config import LeastSquaresParams
+    from rso_torch.graphs import GRAPH_LAUNCHES, CompiledStep
+
+    monkeypatch.setattr(G, "GN_BLOCK", gn_block)
+    ls = LeastSquaresParams()
+    if backend == "eigh_lm":
+        ls = dataclasses.replace(ls, solve_backend="eigh", use_lm=True)
+
+    def fn(_state, cam, prev, cur, mask, *, loop):
+        return None, G.solve_pose(cam, prev, cur, mask, ls, loop=loop)
+
+    cs = CompiledStep(fn)
+    for seed in range(4):
+        args = _gn_inputs(seed, cuda)
+        reset_launches()
+        want = G.solve_pose(*args, ls)
+        want_launches = dict(settle_launches())
+        reset_launches()
+        G.HOST_READS.clear()
+        GRAPH_LAUNCHES.clear()
+        got = cs(None, *args)[1]
+        _same_result(got, want, f"seed {seed}")
+        assert dict(settle_launches()) == want_launches, seed
+        if seed > 0:
+            assert sum(G.HOST_READS.values()) == 0
+            assert dict(GRAPH_LAUNCHES) == {"step": 1}
+    assert cs.n_composed == 1
+
+
+@pytest.mark.gpu
+def test_cuda_composed_branches_follow_the_device_predicate(cuda):
+    """A step with two branches as IF nodes: each frame takes the branch
+    the predicate computes on the device from the state, equal to the
+    eager step, the branches' launches counted where they ran."""
+    from rso_torch.graphs import Branches, CompiledStep
+    from rso_torch.kernels.eigh6 import eigh6_cuda
+
+    H = CS.gn_normal_matrices(np.random.default_rng(9), 2, 1e2, cuda)
+
+    def fn(state, x, *, loop, do_detect):
+        if do_detect:
+            w, _ = eigh6_cuda(H)
+            return state + 1, x + w.sum()
+        return state + 2, x * 2.0
+
+    def flags(state):
+        f = state % 3 == 0
+        return torch.stack([f, ~f])
+
+    branches = Branches(keys=(True, False), read=lambda st: bool(st % 3 == 0),
+                        flags=flags)
+    cs = CompiledStep(fn, branches=branches)
+    plain = CompiledStep(fn, branches=branches, capture=False)
+    x = torch.ones(4, device=cuda)
+    state, _ = cs(torch.zeros((), dtype=torch.int32, device=cuda), x)
+    pstate, _ = plain(torch.zeros((), dtype=torch.int32, device=cuda), x)
+    reset_launches()
+    detects, launches = 0, collections.Counter()
+    for _ in range(6):                    # states 1, 3, 4, 6, 7, 9
+        detects += int(pstate) % 3 == 0
+        reset_launches()
+        state, out = cs(state, x)
+        launches.update(settle_launches())
+        pstate, want = plain(pstate, x)
+        assert torch.equal(state, pstate) and torch.equal(out, want)
+    assert dict(launches) == {"eigh6": detects} and detects == 3
+    reset_launches()
+    for _ in range(3):                    # states 10, 12, 13
+        state, _ = cs(state, x)
+    assert cs.taken() == {True: 1, False: 2}
 
 
 # ---- the batched kernels and the batched step (rso_torch.parallel) --------
 
 def _one_launch(name, fn):
     """fn() under a fresh launch count: it launched `name` once."""
-    K.LAUNCHES.clear()
+    reset_launches()
     out = fn()
-    assert dict(K.LAUNCHES) == {name: 1}, dict(K.LAUNCHES)
+    assert dict(settle_launches()) == {name: 1}, dict(settle_launches())
     return out
 
 
@@ -825,9 +1021,9 @@ def test_cuda_batch_engine_lanes_equal_lone_engines(cuda):
     assert n_graphs == 5
     be = BatchEngine(cfg, seqs[0].cam, batch=3, img_h=376, img_w=1241,
                      device=cuda)
-    K.LAUNCHES.clear()
+    reset_launches()
     frames = [be.process_frames(lefts[:, n], rights[:, n]) for n in range(5)]
-    assert dict(K.LAUNCHES) == {"corner_response": 30, "stereo_sad_fused": 15,
+    assert dict(settle_launches()) == {"corner_response": 30, "stereo_sad_fused": 15,
                                 "track_sad_fused": 15, "nullvec9": 10}
     for b, s in enumerate(seqs):
         eng = Engine(cfg, s.cam, device=cuda)
