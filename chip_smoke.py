@@ -33,7 +33,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      and the port's seventh kernel, eigh6 (the GN's 6x6 eigensolver on the
      eigh backend; rso's is XLA's eigh, no Pallas kernel), against its twin
      at B = 1, 11 and 4096 (bit for bit expected, within 1e-6 of |w[5]|
-     and 1e-5 held) and against torch.linalg.eigh, its library call;
+     and 1e-5 held) and against torch.linalg.eigh, its library call, and
+     its w[0] against float64 eigvalsh on the cases of
+     tests/test_torch_eigh6.py (cond 1e3-1e7, graded GN matrices): median
+     and max error no more than LAPACK f32's on the same matrices;
  3b. batched kernels: each kernel under torch.func.vmap over N_BATCH = 11
      lanes (lane b: bench frame b at octave 0; tracking b to b + 1; kernel
      4: 512 matrices a lane; eigh6: one normal matrix a lane), as the
@@ -189,12 +192,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
      card, so (a) and (d) run one NCCL rank in this process and (b)-(c)
      run ranks of this script (`--mesh-rank`) that share the card through
      gloo, which stages CUDA tensors through the host:
-       (a) one NCCL rank: distributed_bundle_adjust on 9a's problem equals
-           bundle_adjust bit for bit (two all_reduces an iteration and one
-           before the loop); BA iterations/s as 9a's slope, beside
-           bundle_adjust's in the same call;
-       (b) 4 gloo ranks: the same problem with its landmarks split four
-           ways, and 9d's offline windows on a (2,2) ('win','lmk') mesh,
+       (a) one NCCL rank: distributed_bundle_adjust on 9a's problem as a
+           compiled solve (its all_reduces and landmark gather in one CUDA
+           graph) equals the eager mesh loop and bundle_adjust bit for
+           bit, at its first call and at a replay, which is one graph
+           launch with no LM host read and counts two all_reduces an
+           iteration, one before the loop and one gather; BA iterations/s
+           as 9a's slope for the compiled solve, the eager mesh loop and
+           bundle_adjust in the same call;
+       (b) 4 gloo ranks (gloo's collectives run on the host, so the
+           compiled solve runs eagerly there, by rule: no graph launch,
+           a flag read a block): the same problem with its landmarks split
+           four ways, and 9d's offline windows on a (2,2) ('win','lmk') mesh,
            each held to the one-device solve with phase 9's bounds; the
            collectives of each group counted (none on 'win' inside the
            loop); iterations/s as (a)'s slope, ms per all_reduce of the
@@ -207,6 +216,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
            trajectories within TRAJ_ATOL of 10e's;
        (d) rso-demo --ba --ba-distributed on 10c's layout at one rank:
            trajectory, keyframes and every solve equal to 10c's --ba run;
+           each solve after the first of its window size one graph launch
+           with no LM host read;
        (e) rso_torch.native built with g++; kernel 1's FAST mask on bench
            frame 0 at the default threshold equals the C++ FAST-12 as a
            set, kernels 5 and 6 at K = 512 equal the C++ matrices, and
@@ -228,6 +239,7 @@ the card's name and power limit, and the JSON result line
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import subprocess
 import sys
@@ -1091,6 +1103,64 @@ def gn_normal_matrices(rng, B, cond, dev):
                         device=dev)
 
 
+def graded_gn_matrices(rng, B, dev, n_points=300):
+    """[B,6,6] f32 J^T J of the GN's kind: J the stereo reprojection
+    Jacobians (left and right eye, the bench camera) of n_points points 5-40
+    m deep with respect to a small rotation and a translation, so that
+    rows and columns are graded (rotation ~f px/rad, translation ~f/Z
+    px/m)."""
+    import numpy as np
+    import torch
+
+    f, baseline = 718.856, 0.5371
+    P = np.stack([rng.uniform(-10, 10, (B, n_points)),
+                  rng.uniform(-3, 3, (B, n_points)),
+                  rng.uniform(5, 40, (B, n_points))], -1)
+    X, Y, Z = np.moveaxis(P, -1, 0)
+    # d(point)/d(rotation vector) = -[P]x, the same for both eyes
+    zero = np.zeros_like(X)
+    neg_hat = -np.stack([np.stack([zero, -Z, Y], -1),
+                         np.stack([Z, zero, -X], -1),
+                         np.stack([-Y, X, zero], -1)], -2)
+    rows = []
+    for Xe in (X, X - baseline):
+        Jt = np.stack([np.stack([f / Z, zero, -f * Xe / Z**2], -1),
+                       np.stack([zero, f / Z, -f * Y / Z**2], -1)], -2)
+        rows.append(np.concatenate([Jt @ neg_hat, Jt], -1))
+    J = np.concatenate(rows, 1).reshape(B, -1, 6)
+    return torch.tensor(J.transpose(0, 2, 1) @ J, dtype=torch.float32,
+                        device=dev)
+
+
+def w0_rel_err_f64(H, w) -> "np.ndarray":
+    """|w[0] - w0| / |w0| a matrix, w0 the smallest eigenvalue of H in
+    float64 (np.linalg.eigvalsh of the f32 matrices)."""
+    import numpy as np
+
+    ref = np.linalg.eigvalsh(H.double().cpu().numpy())[:, 0]
+    return np.abs(w[:, 0].double().cpu().numpy() - ref) / np.abs(ref)
+
+
+# eigh6's w[0] against float64: 256 matrices a case, the cases of
+# tests/test_torch_eigh6.py (gn_normal_matrices at each cond, then
+# graded_gn_matrices, from one default_rng(EIGH6_F64_SEED)); the error's
+# median and max no more than LAPACK f32's (torch.linalg.eigh on the CPU,
+# the reference's routine there) on the same matrices
+EIGH6_F64_CASES = (1e3, 1e5, 1e6, 1e7, "graded")
+EIGH6_F64_B = 256
+EIGH6_F64_SEED = 16
+
+
+def eigh6_f64_cases(dev):
+    """case -> the [EIGH6_F64_B,6,6] f32 matrices of EIGH6_F64_CASES."""
+    import numpy as np
+
+    r = np.random.default_rng(EIGH6_F64_SEED)
+    return {c: (graded_gn_matrices(r, EIGH6_F64_B, dev) if c == "graded"
+                else gn_normal_matrices(r, EIGH6_F64_B, c, dev))
+            for c in EIGH6_F64_CASES}
+
+
 # eigh6 per matrix: SWEEPS x 15 rotations of ~77 operations (the count
 # for rotations skipped at an exact zero too), 144 bytes in, 168 out
 EIGH6_OPS_PER_ROTATION = 77
@@ -1146,6 +1216,21 @@ def check_eigh6(dev, entry) -> dict:
     print(f"kernel eigh6: bit for bit its twin at B = 1, {N_BATCH}, 4096 and "
           f"cond 1e1-1e7; against torch.linalg.eigh w {lib_rel} of |w[5]|, "
           f"w[0] relative {w0_rel} by cond", flush=True)
+    f64 = {}
+    for case, H in eigh6_f64_cases(dev).items():
+        errs = {"eigh6": w0_rel_err_f64(H, eigh6_cuda(H)[0]),
+                "lapack_f32": w0_rel_err_f64(H, torch.linalg.eigh(H.cpu())[0]),
+                "cusolver_f32": w0_rel_err_f64(H, torch.linalg.eigh(H)[0])}
+        f64[str(case)] = {k: [float(np.median(e)), float(e.max())]
+                          for k, e in errs.items()}
+        got, lapack = f64[str(case)]["eigh6"], f64[str(case)]["lapack_f32"]
+        if got[0] > lapack[0] or got[1] > lapack[1]:
+            raise AssertionError(f"eigh6 {case}: w[0] error against float64 "
+                                 f"(median, max) {got}, over LAPACK f32's "
+                                 f"{lapack}")
+    print(f"kernel eigh6: w[0] relative error against float64 eigvalsh "
+          f"(median, max) of {EIGH6_F64_B} matrices a case, the kernel's "
+          f"no more than LAPACK f32's: {f64}", flush=True)
     H1 = gn_normal_matrices(r, 1, 1e5, dev)
     out = entry(0.0, lambda: eigh6_cuda(H1), "eigh6_kernel",
                 lambda: eigh6_torch(H1), lambda: torch.linalg.eigh(H1),
@@ -1153,7 +1238,8 @@ def check_eigh6(dev, entry) -> dict:
                 note="torch.linalg.eigh (cuSOLVER syevd, which reads its "
                      "status on the host)")
     out.update(bit_exact=True, library_w_rel_err=lib_rel,
-               library_w0_rel_err={f"{c:g}": v for c, v in w0_rel.items()})
+               library_w0_rel_err={f"{c:g}": v for c, v in w0_rel.items()},
+               w0_rel_err_f64=f64)
     return out
 
 
@@ -2484,6 +2570,63 @@ def _eager_ba(cam, prob, max_iters=20, kernel_param=3.0, use_robust=True,
                                rel_meas, rel_w_rot, rel_w_trans, marg_prior)
 
 
+@contextlib.contextmanager
+def eager_mesh_solves():
+    """The mesh forms' solves as they ran before they were compiled:
+    levenberg_marquardt's eager loop (one flag read a block) on the shard,
+    then the landmarks gathered over the reduce's axis; what the captured
+    mesh solve must equal bit for bit."""
+    import rso_torch.ba.distributed as D
+    import rso_torch.ba.window_sharded as WS
+    from rso_torch.ba.ba import levenberg_marquardt
+
+    def solve(cam, prob, *args, reduce, **kw):
+        out = levenberg_marquardt(cam, prob, *args, reduce=reduce, **kw)
+        return out._replace(lmks=reduce.gather(out.lmks, -2))
+
+    compiled = D.solve_lm, WS.solve_lm
+    D.solve_lm = WS.solve_lm = solve
+    try:
+        yield
+    finally:
+        D.solve_lm, WS.solve_lm = compiled
+
+
+def counted_solve(solve):
+    """solve() with the counters zeroed just before and read just after:
+    (result, {graph_launches, lm_reads: the "lm" site's, collectives,
+    launches})."""
+    import torch
+
+    from rso_torch.graphs import GRAPH_LAUNCHES, reset_launches, settle_launches
+    from rso_torch.mesh import COLLECTIVES
+    from rso_torch.solver.robust_gn import HOST_READS
+
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    reset_launches()
+    HOST_READS.clear()
+    GRAPH_LAUNCHES.clear()
+    out = solve()
+    launches = dict(settle_launches())
+    return out, dict(graph_launches=GRAPH_LAUNCHES["lm"],
+                     lm_reads=HOST_READS["lm"], collectives=dict(COLLECTIVES),
+                     launches=launches)
+
+
+def mesh_solve_forms(B) -> list:
+    """(form, node types of each segment) of every captured mesh solve
+    (the keys of rso_torch.ba.ba._SOLVES that name a group): `_Composed`,
+    one launch with WHILE nodes, or `_Blocks`, a launch a segment and a
+    block."""
+    from rso_torch.graphs import node_types
+
+    return [(type(v.composed).__name__,
+             [node_types(seg.graph.raw_cuda_graph()) for seg in segs])
+            for key, solve in B._SOLVES.items() if key[-1] is not None
+            for v in solve._variants.values() for segs in v.graphs.values()]
+
+
 def _problem_to(prob, dev):
     return type(prob)(*(None if t is None else t.to(dev) for t in prob))
 
@@ -2520,8 +2663,9 @@ def _trajectory_ate(poses, gt):
 
 class _SolveLog(CallRecorder):
     """A CallRecorder of a BA solve that also keeps each call's ms (CUDA
-    events around it) and whether it captured graphs (the first solve of
-    its key and shape: warm-up and capture) or replayed."""
+    events around it), whether it captured graphs (the first solve of its
+    key and shape: warm-up and capture) or replayed, and its graph
+    launches and LM host reads."""
 
     def __init__(self, module, attribute):
         super().__init__(module, attribute)
@@ -2531,14 +2675,19 @@ class _SolveLog(CallRecorder):
         import torch
 
         import rso_torch.ba.ba as B
+        from rso_torch.graphs import GRAPH_LAUNCHES
+        from rso_torch.solver.robust_gn import HOST_READS
 
         n = _n_solve_graphs(B)
+        counts = GRAPH_LAUNCHES["lm"], HOST_READS["lm"]
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         out = super()._call(args, kw)
         b.record()
-        self.timing.append((a, b, _n_solve_graphs(B) > n))
+        self.timing.append((a, b, _n_solve_graphs(B) > n,
+                            GRAPH_LAUNCHES["lm"] - counts[0],
+                            HOST_READS["lm"] - counts[1]))
         return out
 
     def summary(self) -> list:
@@ -2548,8 +2697,9 @@ class _SolveLog(CallRecorder):
         return [{"P": args[1].poses.shape[-2],
                  "marg_prior": kw.get("marg_prior") is not None,
                  "captured": captured, "n_iters": int(out.n_iters),
-                 "ms": a.elapsed_time(b)}
-                for (args, kw, out), (a, b, captured)
+                 "ms": a.elapsed_time(b), "graph_launches": launches,
+                 "lm_reads": reads}
+                for (args, kw, out), (a, b, captured, launches, reads)
                 in zip(self.calls, self.timing)]
 
 
@@ -3447,10 +3597,11 @@ def mesh_rank(rank: int, world: int, work: Path) -> None:
     from rso_torch.cli import fleet
     from rso_torch.cli.bench import ba_slope
     from rso_torch.engine import Engine
-    from rso_torch.graphs import reset_launches, settle_launches
+    from rso_torch.graphs import GRAPH_LAUNCHES, reset_launches, settle_launches
     from rso_torch.kernels import _lib
     from rso_torch.mesh import COLLECTIVES, make_device_mesh
     from rso_torch.parallel import BatchEngine
+    from rso_torch.solver.robust_gn import HOST_READS
     from rso_torch.synthetic import synthetic_config
 
     _lib.load()
@@ -3463,8 +3614,13 @@ def mesh_rank(rank: int, world: int, work: Path) -> None:
     prob = _bench_ba_problem(cam, dev)
     mesh = make_mesh()
     COLLECTIVES.clear()
+    HOST_READS.clear()
+    GRAPH_LAUNCHES.clear()
     got = distributed_bundle_adjust(cam, prob, mesh, max_iters=15)
     out["ba_collectives"] = dict(COLLECTIVES)
+    # gloo's collectives run on the host: the solve runs eagerly, by rule
+    out["ba_eager"] = dict(graph_launches=GRAPH_LAUNCHES["lm"],
+                           lm_reads=HOST_READS["lm"])
     one = bundle_adjust(cam, prob, max_iters=15)
     k = _parted_at(got, one)
     out["ba"] = [_to_cpu(got), _to_cpu(one)] + ([] if k is None else [
@@ -3581,6 +3737,7 @@ def run_mesh(seq, dev, smi: str) -> dict:
     import torch
     import torch.distributed as dist
 
+    import rso_torch.ba.ba as B
     import rso_torch.ba.pipeline as pipeline
     from rso_torch import native
     from rso_torch.ba import bundle_adjust, distributed_bundle_adjust, make_mesh
@@ -3588,35 +3745,62 @@ def run_mesh(seq, dev, smi: str) -> dict:
     from rso_torch.cli.bench import ba_slope
     from rso_torch.config import RSOConfig
     from rso_torch.frontend.detect import extract_patches
-    from rso_torch.kernels import (LAUNCHES, corner_response_cuda,
-                                   hamming_matrix_cuda, sad_matrix_cuda,
-                                   windowed_sad_search)
-    from rso_torch.mesh import COLLECTIVES
+    from rso_torch.kernels import (corner_response_cuda, hamming_matrix_cuda,
+                                   sad_matrix_cuda, windowed_sad_search)
 
     t_phase = time.perf_counter()
     total = collections.Counter()
     cam = seq.cam.to(dev)
 
-    # (a) one NCCL rank: the all_reduce is a copy
+    # (a) one NCCL rank (the all_reduce is a copy): the compiled mesh solve,
+    # its all_reduces and landmark gather inside one graph
     mesh = make_mesh()
+    if dist.get_backend() != "nccl":
+        raise AssertionError("mesh (a): no NCCL group")
     prob = _bench_ba_problem(cam, dev)
     one = bundle_adjust(cam, prob, max_iters=15)
-    COLLECTIVES.clear()
-    got = distributed_bundle_adjust(cam, prob, mesh, max_iters=15)
-    _same_bits("mesh (a) distributed_bundle_adjust on one NCCL rank", got, one)
-    coll = dict(COLLECTIVES)
+    with eager_mesh_solves():
+        eager = distributed_bundle_adjust(cam, prob, mesh, max_iters=15)
+    _same_bits("mesh (a) the eager mesh loop on one NCCL rank vs "
+               "bundle_adjust", eager, one)
+    n_graphs = _n_solve_graphs(B)
+    first = distributed_bundle_adjust(cam, prob, mesh, max_iters=15)
+    _same_bits("mesh (a) the compiled mesh solve's warm-up vs the eager mesh "
+               "loop", first, eager)
+    captured = _n_solve_graphs(B) - n_graphs
+    forms = mesh_solve_forms(B)
+    got, replay = counted_solve(
+        lambda: distributed_bundle_adjust(cam, prob, mesh, max_iters=15))
+    _same_bits("mesh (a) the compiled mesh solve's replay vs the eager mesh "
+               "loop", got, eager)
+    n = _lm_loop_iterations(int(got.n_iters), 15)
+    expect = {"solve lmk": 1 + 2 * n, "gather lmk": 1}
+    if (replay["graph_launches"], replay["lm_reads"],
+            replay["collectives"]) != (1, 0, expect):
+        raise AssertionError(f"mesh (a): a replayed solve made {replay}, "
+                             f"expected 1 graph launch, 0 LM host reads and "
+                             f"collectives {expect}")
+    with eager_mesh_solves():
+        eager_rate = ba_slope(cam, prob, solve=lambda c, p, **kw:
+                              distributed_bundle_adjust(c, p, mesh, **kw))
     rate = ba_slope(cam, prob, solve=lambda c, p, **kw:
                     distributed_bundle_adjust(c, p, mesh, **kw))
     plain = ba_slope(cam, prob)
-    print(f"mesh (a) one {dist.get_backend()} rank: distributed_bundle_adjust "
-          f"(P=8, L=1024, 15 iterations) equals bundle_adjust bit for bit; "
-          f"{int(got.n_iters)} iterations, collectives {coll}; BA "
-          f"iterations/s (slope 25-75 at tol=0) {rate['iters_per_sec']} "
-          f"({rate['ms_per_iter']} ms an iteration), bundle_adjust's in the "
-          f"same call {plain['iters_per_sec']} ({plain['ms_per_iter']} ms) "
-          f"on {smi}", flush=True)
-    if rate["iters_per_sec"] is None or dist.get_backend() != "nccl":
-        raise AssertionError("mesh (a): no NCCL group, or no positive slope")
+    print(f"mesh (a) one {dist.get_backend()} rank (torch {torch.__version__},"
+          f" NCCL {torch.cuda.nccl.version()}): distributed_bundle_adjust "
+          f"(P=8, L=1024, 15 iterations) as a compiled solve ({captured} "
+          f"CUDA graphs captured at its first call; form and node types of "
+          f"the segments {forms}) equals the eager mesh "
+          f"loop and bundle_adjust bit for bit; {int(got.n_iters)} "
+          f"iterations; a replay: {replay}; BA "
+          f"iterations/s (slope 25-75 at tol=0): the compiled mesh solve "
+          f"{rate['iters_per_sec']} ({rate['ms_per_iter']} ms an iteration), "
+          f"the eager mesh loop {eager_rate['iters_per_sec']} "
+          f"({eager_rate['ms_per_iter']} ms), bundle_adjust "
+          f"{plain['iters_per_sec']} ({plain['ms_per_iter']} ms), in this "
+          f"call on {smi}", flush=True)
+    if None in (rate["iters_per_sec"], eager_rate["iters_per_sec"]):
+        raise AssertionError("mesh (a): no positive slope")
 
     # (b), (c): ranks sharing the card through gloo
     shutil.rmtree(MESH_DIR, ignore_errors=True)
@@ -3646,6 +3830,9 @@ def run_mesh(seq, dev, smi: str) -> dict:
         if o["ba_collectives"] != expect:
             raise AssertionError(f"mesh (b) rank {r}: collectives "
                                  f"{o['ba_collectives']}, expected {expect}")
+        if o["ba_eager"]["graph_launches"] or not o["ba_eager"]["lm_reads"]:
+            raise AssertionError(f"mesh (b) rank {r}: a gloo solve ran "
+                                 f"{o['ba_eager']}, not eagerly")
         for w, (ours, ref, *parted) in enumerate(o["win"]):
             _hold_solve(f"mesh (b) rank {r}: offline window {w} on the (2,"
                         f"{N_MESH_RANKS // 2}) mesh vs the batch", ours, ref,
@@ -3659,7 +3846,9 @@ def run_mesh(seq, dev, smi: str) -> dict:
                 "gather win") != 1 or c.get("gather lmk") != 1:
             raise AssertionError(f"mesh (b) rank {r}: window collectives {c}")
     r0 = ranks[0]
-    print(f"mesh (b) rank 0: collectives of the BA {r0['ba_collectives']}, "
+    print(f"mesh (b) rank 0: gloo groups run the compiled solve eagerly (its "
+          f"collectives run on the host): {r0['ba_eager']}; collectives of "
+          f"the BA {r0['ba_collectives']}, "
           f"of the windows {r0['win_collectives']} (none on 'win' in the "
           f"loop); BA iterations/s (slope 25-75 at tol=0) "
           f"{r0['ba_rate']['iters_per_sec']} ({r0['ba_rate']['ms_per_iter']} "
@@ -3696,7 +3885,7 @@ def run_mesh(seq, dev, smi: str) -> dict:
     # (d) rso-demo --ba --ba-distributed: phase 10c's run, at one rank
     ref = RUNS["demo_ba"]
     d_out = MESH_DIR / "d_ba.txt"
-    with CallRecorder(pipeline, "distributed_bundle_adjust") as solves:
+    with _SolveLog(pipeline, "distributed_bundle_adjust") as solves:
         rc, lines, launches, _, _ = _entry(demo.main, ref["argv"] + [
             "--ba-distributed", "--out", str(d_out)])
     total.update(launches)
@@ -3709,13 +3898,21 @@ def run_mesh(seq, dev, smi: str) -> dict:
     same_solves = len(outs) == len(ref["solves"]) and all(
         all(torch.equal(x, y) for x, y in zip(a, b))
         for a, b in zip(outs, ref["solves"]))
+    log = solves.summary()
+    replays = [(s["graph_launches"], s["lm_reads"]) for s in log
+               if not s["captured"]]
     print(f"mesh (d) rso-demo --ba --ba-distributed: rc {rc}, {n_kf} "
           f"keyframes and {len(outs)} solves (10c: {ref['keyframes']} and "
           f"{len(ref['solves'])}), trajectory equal to 10c's: {same_traj}, "
-          f"every solve equal to 10c's: {same_solves}; launches {launches}",
-          flush=True)
+          f"every solve equal to 10c's: {same_solves}; {len(log) - len(replays)}"
+          f" solves captured (the first of each window size), each replayed "
+          f"one (graph launches, LM host reads) {replays}, ms "
+          f"{[s['ms'] for s in log]}; launches {launches}", flush=True)
     if rc != 0 or not same_traj or not same_solves or n_kf != ref["keyframes"]:
         raise AssertionError("mesh (d): --ba-distributed is not --ba's run")
+    if not replays or any(r != (1, 0) for r in replays):
+        raise AssertionError("mesh (d): a replayed solve is not one graph "
+                             "launch without host reads")
     dist.destroy_process_group()
 
     # (e) the host oracles against kernels 1, 5 and 6 (not counted)

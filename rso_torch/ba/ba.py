@@ -26,9 +26,10 @@ is still iterating and the loop is under max_iters) once per block but the
 last; `solve_lm` captures the loop as one CUDA graph (pre, one block in a
 conditional WHILE node that tests the flag on the device, tail) per shape
 and per the Python scalars the graph bakes in, through
-rso_torch.graphs.CompiledStep: no host read.
-The mesh forms run the same loop eagerly: their collectives (gloo's run on
-the host) are not captured.
+rso_torch.graphs.CompiledStep: no host read.  The mesh forms run
+`solve_lm` with their `reduce`: on an NCCL group the graph holds the
+all_reduces too (rso's jax.jit(shard_map(lax.while_loop + lax.psum))); on a
+gloo group, whose collectives run on the host, the same solve runs eagerly.
 """
 from __future__ import annotations
 
@@ -540,35 +541,52 @@ def solve_lm(cam: StereoCamera, prob: BAProblem, max_iters: int,
              kernel_param: float, use_robust: bool, fix_first: bool,
              init_lambda: float, tol: float, rel_meas=None,
              rel_w_rot: float = 0.0, rel_w_trans: float = 0.0,
-             marg_prior=None, active=None) -> BAResult:
-    """levenberg_marquardt on one device as a compiled solve, the
-    counterpart of rso's jax.jit + lax.while_loop: a CompiledStep per
-    (device, Python scalars, LM_BLOCK, the optional inputs given), which
-    keys its static buffers and graphs by the inputs' shapes.  On the GPU
-    the solve is one CUDA graph launch (pre, one block of LM_BLOCK
+             marg_prior=None, active=None, reduce=None) -> BAResult:
+    """levenberg_marquardt as a compiled solve, the counterpart of rso's
+    jax.jit + lax.while_loop: a CompiledStep per (device, Python scalars,
+    LM_BLOCK, the optional inputs given, the group and axis of `reduce`),
+    which keys its static buffers and graphs by the inputs' shapes.  On the
+    GPU the solve is one CUDA graph launch (pre, one block of LM_BLOCK
     iterations in a WHILE node run while the stop flag is true, tail),
     captured at the first call of each key and shape after an eager warm-up
     that is that call's answer; on the CPU the same object runs eagerly
     through the same buffers.  The inputs are copied into the static
     buffers and the result out of them, so a later solve never changes an
     earlier result.  Any block size gives the same bits (an iteration past
-    the stop changes nothing).  A capture that fails raises."""
+    the stop changes nothing).  A capture that fails raises.
+
+    reduce: None on one device; on a mesh (rso_torch.mesh.AllReduce), the
+    landmark sums of the loop over the ranks holding `prob`'s shards, and
+    the result's landmarks gathered over them in the tail (every rank's
+    slice in rank order).  A captured all_reduce bakes in its group's
+    communicator, so the key names the group.  On an NCCL group the graph
+    holds the all_reduces (the warm-up has created the communicator); on a
+    gloo group, whose collectives run on the host and cannot be captured,
+    the solve runs eagerly through the same buffers, one stop-flag read a
+    block (`AllReduce.capturable`).  Every rank takes the loop's decisions
+    from reduced or replicated values, so every rank runs the same blocks
+    and collectives."""
     dev = prob.poses.device
     key = (dev, max_iters, float(kernel_param), bool(use_robust),
            bool(fix_first), float(init_lambda), float(tol), float(rel_w_rot),
            float(rel_w_trans), LM_BLOCK,
            tuple(x is None for x in (rel_meas, marg_prior, active,
-                                     prob.lmk_weight)))
+                                     prob.lmk_weight)),
+           None if reduce is None else (reduce.group, reduce.axis))
     solve = _SOLVES.get(key)
     if solve is None:
         def fn(_state, cam, prob, rel_meas, marg_prior, active, *, loop):
-            return None, levenberg_marquardt(
+            out = levenberg_marquardt(
                 cam, prob, max_iters, kernel_param, use_robust, fix_first,
                 init_lambda, tol, rel_meas, rel_w_rot, rel_w_trans,
-                marg_prior, active=active, loop=loop)
+                marg_prior, reduce=reduce, active=active, loop=loop)
+            if reduce is not None:
+                out = out._replace(lmks=reduce.gather(out.lmks, -2))
+            return None, out
 
-        solve = _SOLVES[key] = CompiledStep(fn, capture=dev.type == "cuda",
-                                            site="lm")
+        capture = dev.type == "cuda" and (reduce is None
+                                          or reduce.capturable)
+        solve = _SOLVES[key] = CompiledStep(fn, capture=capture, site="lm")
     if marg_prior is not None:
         # host arrays reach the device here, outside any graph
         marg_prior = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)

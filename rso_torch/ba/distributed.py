@@ -8,11 +8,14 @@ back-substitution is local to each shard.  The loop is rso_torch.ba.ba's
 levenberg_marquardt with its `reduce` seam: where the reference runs six
 psums an LM iteration, the port packs them into two all_reduces, one for
 the system (g_p, H_pp, the Schur cross term, W g_l: P*P*36 + P*42 floats)
-and one for the cost with the count of non-finite landmarks.  The loop runs
-eagerly, reading its stop flag once per block of LM iterations (every rank
-takes the same decisions, so every rank runs the same blocks and
-collectives): collectives are not captured in CUDA graphs here, and gloo's
-run on the host.
+and one for the cost with the count of non-finite landmarks.  It runs as
+rso_torch.ba.ba.solve_lm, the counterpart of the reference's
+jax.jit(shard_map(...)): on an NCCL group one CUDA graph launch a solve,
+the all_reduces and the landmark gather inside it and the loop's stop flag
+tested on the device (every rank takes the same decisions, so every rank
+runs the same iterations and collectives); on a gloo group, whose
+collectives run on the host, the same solve eagerly, one flag read a block
+of LM iterations.
 
 SPMD: one process per device (rso_torch.ba.multihost), every rank calling
 with the whole problem, as each process does in the reference's
@@ -24,15 +27,9 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from rso_torch.ba.ba import BAProblem, BAResult, levenberg_marquardt
+from rso_torch.ba.ba import BAProblem, BAResult, solve_lm
 from rso_torch.geometry.stereo_camera import StereoCamera
-from rso_torch.mesh import (
-    AllReduce,
-    check_mesh,
-    ensure_group,
-    gather_slices,
-    make_device_mesh,
-)
+from rso_torch.mesh import AllReduce, check_mesh, ensure_group, make_device_mesh
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "lmk",
@@ -105,7 +102,9 @@ def distributed_bundle_adjust(
     multiple of the shard count.  rel_meas/rel_w_* enable the odometry
     prior (see rso_torch.ba.ba.bundle_adjust); it is pose-only, so every
     rank computes it, after the reduction: no extra communication.  On a
-    one-rank mesh the result equals bundle_adjust's bit for bit.
+    one-rank mesh the result equals bundle_adjust's bit for bit.  A solve
+    on an NCCL group is one CUDA graph launch after the first of its
+    shapes; on a gloo group it runs eagerly (rso_torch.ba.ba.solve_lm).
     """
     check_mesh(mesh, ndim=1)
     axis = mesh.mesh_dim_names[0]
@@ -117,9 +116,7 @@ def distributed_bundle_adjust(
     dev = prob.poses.device
     if rel_meas is not None:
         rel_meas = torch.as_tensor(rel_meas, dtype=torch.float32, device=dev)
-    out = levenberg_marquardt(cam.to(dev), shard_problem(prob, start, n),
-                              max_iters, kernel_param, use_robust, fix_first,
-                              init_lambda, tol, rel_meas, rel_w_rot,
-                              rel_w_trans, reduce=AllReduce(mesh, axis))
-    lmks = gather_slices(out.lmks, 0, Lp, start, mesh, axis)
-    return out._replace(lmks=lmks)
+    return solve_lm(cam.to(dev), shard_problem(prob, start, n), max_iters,
+                    kernel_param, use_robust, fix_first, init_lambda, tol,
+                    rel_meas, rel_w_rot, rel_w_trans,
+                    reduce=AllReduce(mesh, axis))

@@ -13,10 +13,12 @@ comes back on every rank at the end, as the reference's out_specs return
 them.
 
 mesh=None solves the windows as one batch on the device of their tensors,
-with no padding: the reference's make_win_mesh(1, 1) on one device, as a
-compiled solve (rso_torch.ba.ba.solve_lm: CUDA graphs on the GPU).  On a
-mesh the loop runs eagerly, one stop-flag read per LM block: its
-collectives are not captured.
+with no padding: the reference's make_win_mesh(1, 1) on one device.  Either
+way the solve is rso_torch.ba.ba.solve_lm (CUDA graphs on the GPU): on a
+mesh over an NCCL group its graph holds the 'lmk' all_reduces and the
+landmark gather, and the 'win' gather of the rows' results follows it; on
+a gloo group, whose collectives run on the host, the solve runs eagerly,
+one stop-flag read per LM block.
 
 split_into_windows and stitch_window_poses are the reference's host code.
 """
@@ -27,7 +29,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from rso_torch.ba.ba import BAProblem, BAResult, levenberg_marquardt, solve_lm
+from rso_torch.ba.ba import BAProblem, BAResult, solve_lm
 from rso_torch.ba.distributed import shard_problem
 from rso_torch.geometry.stereo_camera import StereoCamera
 from rso_torch.mesh import (
@@ -136,17 +138,16 @@ def window_sharded_bundle_adjust(
     w0 = mesh.get_local_rank("win") * Wr
     l0 = mesh.get_local_rank("lmk") * Ls
     rows = BAProblem(*(t.narrow(0, w0, Wr) for t in padded))
-    out = levenberg_marquardt(
+    out = solve_lm(
         cam.to(dev), shard_problem(rows, l0, Ls), *args,
         rel.narrow(0, w0, Wr), rel_w_rot, rel_w_trans,
-        reduce=AllReduce(mesh, "lmk"), active=active.narrow(0, w0, Wr))
+        active=active.narrow(0, w0, Wr), reduce=AllReduce(mesh, "lmk"))
 
-    # every window on every rank: the landmarks over 'lmk', then all of a
-    # row's results over 'win' (after the loop)
-    lmks = gather_slices(out.lmks, 1, Lp, l0, mesh, "lmk")
-    parts = [out.poses.flatten(1), lmks.flatten(1), out.cost[:, None],
+    # every window on every rank: the landmarks came back whole over 'lmk'
+    # (in the solve), then all of a row's results over 'win'
+    parts = [out.poses.flatten(1), out.lmks.flatten(1), out.cost[:, None],
              out.n_iters[:, None].float(), out.converged[:, None].float()]
-    full = gather_slices(torch.cat(parts, 1), 0, Wp, w0, mesh, "win")
+    full = gather_slices(torch.cat(parts, 1), 0, mesh, "win")
     poses, lmks, cost, iters, done = full.split(
         [p.shape[1] for p in parts], 1)
     poses = poses.reshape(Wp, nP, 6)

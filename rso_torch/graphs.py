@@ -66,7 +66,19 @@ Bundle adjustment's LM solve (rso_torch.ba.ba.solve_lm) is a CompiledStep
 too, of a function without state (state None): pre (the carry and the
 first cost), one block of LM_BLOCK masked LM iterations in a WHILE node,
 and tail (the result).  Its carry names its own flag and HOST_READS site
-(`stop_flag`), as GNCarry does.
+(`stop_flag`), as GNCarry does.  On a mesh (an NCCL group) the solve's
+all_reduces are captured with the rest, inside the WHILE node's body: the
+counterpart of rso's jax.jit(shard_map(lax.while_loop + lax.psum)).
+COLLECTIVES counts them as LAUNCHES counts kernels: recorded at capture,
+added at each launch, and those inside the WHILE node by settle_launches.
+A conditional body takes kernel, memcpy, memset, child-graph, empty and
+conditional nodes only (`_BODY_TYPES`).  Where a loop's captured block
+holds any other node type (NCCL's all_reduce across ranks), the variant
+runs in the block form instead: each segment its own graph launch, the
+block launched again while its flag, read on the host once a block, says
+so.  The rule reads the captured graph's node types; it is no fallback
+from a failure, and a composition or instantiation that fails raises with
+the segments' node types.
 """
 from __future__ import annotations
 
@@ -80,7 +92,7 @@ import torch
 
 from rso_torch.kernels import _lib
 from rso_torch.kernels._lib import LAUNCHES
-from rso_torch.solver.robust_gn import stops_after
+from rso_torch.solver.robust_gn import read_flag, stops_after
 
 # launches of composed graphs, by CompiledStep site ("step", "lm")
 GRAPH_LAUNCHES: collections.Counter = collections.Counter()
@@ -89,21 +101,22 @@ _COMPOSED = weakref.WeakSet()
 
 
 def settle_launches() -> collections.Counter:
-    """Add to LAUNCHES the launches the composed graphs counted on the
-    device (inside their WHILE and IF nodes) since the last settle or
-    reset, and return LAUNCHES: one copy to the host, and so a synchronize,
-    a composed graph."""
+    """Add to LAUNCHES (and to COLLECTIVES) the launches (all_reduces) the
+    composed graphs counted on the device (inside their WHILE and IF nodes)
+    since the last settle or reset, and return LAUNCHES: one copy to the
+    host, and so a synchronize, a composed graph."""
     for c in list(_COMPOSED):
-        LAUNCHES.update(c.settle())
+        _lib.tally(c.settle())
     return LAUNCHES
 
 
 def reset_launches() -> None:
-    """Zero LAUNCHES, the composed graphs' device counters and their
-    branches' tallies (`CompiledStep.taken`)."""
+    """Zero LAUNCHES, COLLECTIVES, the composed graphs' device counters and
+    their branches' tallies (`CompiledStep.taken`)."""
     for c in list(_COMPOSED):
         c.discard()
     LAUNCHES.clear()
+    _lib.COLLECTIVES.clear()
 
 
 def tree_map(fn, *trees):
@@ -203,8 +216,9 @@ class Branches(NamedTuple):
 
 class _Segment(NamedTuple):
     graph: torch.cuda.CUDAGraph     # captured with keep_graph=True
-    launches: collections.Counter   # kernel launches of one run
-    loop: tuple | None              # (flag, n_blocks) for a loop's block
+    launches: collections.Counter   # kernel launches (all_reduces) of a run
+    loop: tuple | None              # (flag, n_blocks, HOST_READS site) for
+    #                                 a loop's block
 
 
 class _Capture:
@@ -248,8 +262,8 @@ class _Capture:
         self.end()
         self.begin()
         _copy_leaves(carry, block(carry))
-        _, flag = carry.stop_flag()
-        self.end(loop=(flag, n_blocks))
+        site, flag = carry.stop_flag()
+        self.end(loop=(flag, n_blocks, site))
         self.begin()
         return carry
 
@@ -263,6 +277,19 @@ def _graph() -> torch.cuda.CUDAGraph:
         raise RuntimeError(
             "compiled step: this PyTorch cannot keep a captured graph "
             "(CUDAGraph(keep_graph=True))") from e
+
+
+# the node types a conditional node's body takes (cudaGraphNodeType: kernel,
+# memcpy, memset, child graph, empty, conditional)
+_BODY_TYPES = frozenset({0, 1, 2, 4, 5, 13})
+
+
+def node_types(graph: int) -> dict:
+    """cudaGraphNodeType -> count of the nodes of cudaGraph_t `graph`, its
+    child graphs' included."""
+    counts = (ctypes.c_int * 16)()
+    _lib.call("graph_node_types", graph, counts, 16)
+    return {t: n for t, n in enumerate(counts) if n}
 
 
 class _Composer:
@@ -308,12 +335,10 @@ class _Composer:
         try:
             return self._out("graph_add_child", graph, dep, raw)
         except RuntimeError as e:
-            counts = (ctypes.c_int * 16)()
-            _lib.call("graph_node_types", raw, counts, 16)
-            types = {t: n for t, n in enumerate(counts) if n}
             raise RuntimeError(f"{e}: a captured segment with nodes of types "
-                               f"{types} (cudaGraphNodeType; 10 and 11, "
-                               "memory nodes, cannot be composed)") from None
+                               f"{node_types(raw)} (cudaGraphNodeType; 10 "
+                               "and 11, memory nodes, cannot be composed)"
+                               ) from None
 
     def segments(self, graph, dep, segments, fixed: collections.Counter):
         """Add segments to `graph` after `dep`: each a child node, each
@@ -325,7 +350,7 @@ class _Composer:
                 dep = self._child(graph, dep, seg)
                 fixed.update(seg.launches)
                 continue
-            flag, n_blocks = seg.loop
+            flag, n_blocks, _ = seg.loop
             slot, loop = self._slot(seg.launches), self.n_loops
             self.n_loops += 1
             h = self._handle(graph)
@@ -387,7 +412,14 @@ class _Composed:
         # the captured graphs own the memory the nodes address
         self._owned = (graphs, pred, flags)
         exec_ = ctypes.c_void_p()
-        _lib.call("graph_instantiate", b.graph, ctypes.byref(exec_))
+        try:
+            _lib.call("graph_instantiate", b.graph, ctypes.byref(exec_))
+        except RuntimeError as e:
+            _lib.call("graph_destroy", b.graph)
+            types = [node_types(seg.graph.raw_cuda_graph())
+                     for segs in graphs.values() for seg in segs]
+            raise RuntimeError(f"{e}: segments with nodes of types {types} "
+                               "(cudaGraphNodeType)") from None
         self.exec = exec_.value
         self.site = site
         # destroyed with the object; at exit the process's teardown frees it
@@ -399,7 +431,7 @@ class _Composed:
     def launch(self) -> None:
         _lib.call("graph_launch", self.exec,
                   torch.cuda.current_stream().cuda_stream)
-        LAUNCHES.update(self.fixed)
+        _lib.tally(self.fixed)
         GRAPH_LAUNCHES[self.site] += 1
 
     def settle(self) -> collections.Counter:
@@ -422,8 +454,39 @@ class _Composed:
 
     def taken(self) -> dict:
         """Frames each branch ran since the last reset_launches()."""
-        LAUNCHES.update(self.settle())
+        _lib.tally(self.settle())
         return dict(self._taken)
+
+
+class _Blocks:
+    """A variant whose loop's block holds nodes that no conditional body
+    takes (NCCL's all_reduce across ranks; `_BODY_TYPES`): each segment is
+    a graph launch of its own and a loop's block is launched again while
+    its flag, read on the host once a block, says so (the block form)."""
+
+    def __init__(self, graphs: dict, site: str):
+        if list(graphs) != [None]:
+            raise RuntimeError("compiled step: a step with branches whose "
+                               "loop no conditional body takes")
+        self.segments = graphs[None]
+        for seg in self.segments:
+            seg.graph.instantiate()
+        self.site = site
+
+    def launch(self) -> None:
+        for seg in self.segments:
+            n_blocks = 1 if seg.loop is None else seg.loop[1]
+            for b in range(n_blocks):
+                seg.graph.replay()
+                _lib.tally(seg.launches)
+                GRAPH_LAUNCHES[self.site] += 1
+                if seg.loop is not None and (b + 1 == n_blocks or not
+                                             read_flag(seg.loop[2],
+                                                       seg.loop[0])):
+                    break
+
+    def taken(self) -> dict:
+        return {}
 
 
 class _Variant:
@@ -558,6 +621,12 @@ class CompiledStep:
                     raise
                 v.pred = (cap.segments[0], flags)
         torch.cuda.synchronize()
+        blocks = [seg for segs in v.graphs.values() for seg in segs
+                  if seg.loop is not None]
+        if any(set(node_types(seg.graph.raw_cuda_graph())) - _BODY_TYPES
+               for seg in blocks):
+            v.composed = _Blocks(v.graphs, self.site)
+            return
         pred, flags = v.pred if v.pred is not None else (None, None)
         v.composed = _Composed(v.graphs, pred, flags, self.site)
 

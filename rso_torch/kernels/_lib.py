@@ -14,7 +14,10 @@ kernels.  While a CUDA graph is captured, nothing launches: the launches go
 to the capture's own record (`record_begin`), and rso_torch.graphs adds them to
 LAUNCHES each time it launches the graph; those inside the graph's
 conditional nodes (a loop's blocks, a branch) are counted on the device and
-added by rso_torch.graphs.settle_launches.
+added by rso_torch.graphs.settle_launches.  The mesh forms' all_reduces
+(`COLLECTIVES`, rso_torch.mesh) are counted the same way: a capture records
+them beside the launches (`count_collective`) and `tally` adds a record's
+counts to both counters.
 
 Every entry but the null vectors' takes a lane count B: B independent
 problems (the sequences of a batched step) in one launch, a grid axis over
@@ -46,13 +49,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launches per kernel name, incremented only where a kernel is launched
 LAUNCHES: collections.Counter = collections.Counter()
-# the launch records of the captures in progress (innermost last)
+# all_reduce calls by "<stage> <axes>": stage "solve" inside an LM loop,
+# "gather" for the result after it; axes the mesh dimensions of the group
+COLLECTIVES: collections.Counter = collections.Counter()
+# the launch records of the captures in progress (innermost last): kernel
+# names, and ("all_reduce", key) for a collective
 _RECORDS: list = []
 
 
 def record_begin() -> collections.Counter:
-    """From now until record_end, count launches in the Counter returned
-    instead of LAUNCHES: a CUDA graph capture, which launches nothing."""
+    """From now until record_end, count launches and collectives in the
+    Counter returned instead of LAUNCHES and COLLECTIVES: a CUDA graph
+    capture, which launches nothing."""
     rec = collections.Counter()
     _RECORDS.append(rec)
     return rec
@@ -69,6 +77,25 @@ def count_launch(name: str) -> None:
         _RECORDS[-1][name] += 1
     else:
         LAUNCHES[name] += 1
+
+
+def count_collective(key: str) -> None:
+    """One all_reduce under `key`: in the innermost record, else in
+    COLLECTIVES."""
+    if _RECORDS:
+        _RECORDS[-1][("all_reduce", key)] += 1
+    else:
+        COLLECTIVES[key] += 1
+
+
+def tally(record: collections.Counter) -> None:
+    """Add a record's counts to LAUNCHES and COLLECTIVES."""
+    for key, n in record.items():
+        if n:
+            if isinstance(key, tuple):
+                COLLECTIVES[key[1]] += n
+            else:
+                LAUNCHES[key] += n
 
 
 _P = ctypes.c_void_p

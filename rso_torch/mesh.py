@@ -12,10 +12,15 @@ rank per card.
 A process with no process group gets a one-rank group (through a
 HashStore, so no port is opened), as the reference's make_mesh works on one
 device: its all_reduce is a copy.
+
+On an NCCL group the all_reduces of an LM solve are captured in its CUDA
+graph (rso_torch.ba.ba.solve_lm), as rso's psums are compiled into its
+shard_map'd while loop.  gloo's collectives run on the host and cannot be
+captured: on a gloo group the solve runs eagerly, by that rule
+(`AllReduce.capturable`).
 """
 from __future__ import annotations
 
-import collections
 import math
 
 import torch
@@ -23,10 +28,10 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from rso_torch.engine import _device
+from rso_torch.kernels._lib import COLLECTIVES, count_collective
 
-# all_reduce calls by "<stage> <axes>": stage "solve" inside an LM loop,
-# "gather" for the result after it; axes the mesh dimensions of the group
-COLLECTIVES: collections.Counter = collections.Counter()
+__all__ = ["COLLECTIVES", "AllReduce", "check_mesh", "default_backend",
+           "ensure_group", "gather_slices", "make_device_mesh"]
 
 
 def default_backend(device) -> str:
@@ -81,31 +86,45 @@ def check_mesh(mesh, names: tuple | None = None, ndim: int | None = None
 class AllReduce:
     """Sum tensors over one axis of a mesh: one all_reduce of one flat
     buffer for all of them.  The sums are elementwise, so packing changes
-    no bit; on a one-rank axis the result is the input."""
+    no bit; on a one-rank axis the result is the input.
+
+    Counted in COLLECTIVES under "<stage> <axis>" where it runs, and in
+    the record of a CUDA graph capture where it is captured (a replay
+    counts it: rso_torch.graphs).  `capturable`: the group is NCCL's, whose
+    all_reduce a CUDA graph captures; gloo's runs on the host."""
 
     def __init__(self, mesh: DeviceMesh, axis: str, stage: str = "solve"):
+        self.mesh, self.axis = mesh, axis
         self.group = mesh.get_group(axis)
         self.key = f"{stage} {axis}"
+        # "nccl", or a CUDA tensor's backend in "cpu:gloo,cuda:nccl"
+        self.capturable = "nccl" in dist.get_backend(self.group)
 
     def __call__(self, *tensors: torch.Tensor) -> list[torch.Tensor]:
         flat = torch.cat([t.reshape(-1) for t in tensors])
         dist.all_reduce(flat, group=self.group)
-        COLLECTIVES[self.key] += 1
+        count_collective(self.key)
         out, off = [], 0
         for t in tensors:
             out.append(flat[off:off + t.numel()].view(t.shape))
             off += t.numel()
         return out
 
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """gather_slices of `x` over this axis, counted as "gather"."""
+        return gather_slices(x, dim, self.mesh, self.axis)
 
-def gather_slices(x: torch.Tensor, dim: int, total: int, start: int,
-                  mesh: DeviceMesh, axis: str) -> torch.Tensor:
-    """Every rank's slice `x` of a tensor `total` long along `dim`, put at
-    its `start`, summed over `axis` into the whole tensor: an all_reduce of
-    a zero-filled buffer (gloo has no all_gather for CUDA tensors).  x + 0
-    is x, so each slice keeps its bits."""
+
+def gather_slices(x: torch.Tensor, dim: int, mesh: DeviceMesh,
+                  axis: str) -> torch.Tensor:
+    """The whole tensor of which every rank along `axis` holds the slice
+    `x`, equal in size, in the order of the ranks along `dim`: an
+    all_reduce of a zero-filled buffer with each slice at its place (gloo
+    has no all_gather for CUDA tensors).  x + 0 is x, so each slice keeps
+    its bits."""
+    n = x.shape[dim]
     shape = list(x.shape)
-    shape[dim] = total
+    shape[dim] = n * mesh.size(mesh.mesh_dim_names.index(axis))
     full = x.new_zeros(shape)
-    full.narrow(dim, start, x.shape[dim]).copy_(x)
+    full.narrow(dim, mesh.get_local_rank(axis) * n, n).copy_(x)
     return AllReduce(mesh, axis, "gather")(full)[0]

@@ -18,6 +18,14 @@ the node types of each (cudaGraphNodeType: 0 kernel, 1 memcpy, 2 memset,
 allocation, 11 free) and the error code of adding it as a child-graph node
 to a graph's top level and to a WHILE node's body.  Exits non-zero without
 CUDA.
+
+    python3 tests/_torch_cond_probe.py --nccl
+
+prints NCCL's version and, on a one-rank NCCL group, captures an
+all_reduce between two kernels in each capture error mode, prints the
+segment's node types and child-node error codes as above, and runs it as
+the body of a composed WHILE node (ten iterations); then the same in a
+process started with NCCL_GRAPH_MIXING_SUPPORT=0.
 """
 from __future__ import annotations
 
@@ -39,6 +47,9 @@ def _run(cmd) -> str:
 
 def main() -> int:
     import torch
+
+    if sys.argv[1:2] == ["--nccl"]:
+        return _nccl(child=len(sys.argv) > 2)
 
     sys.path.insert(0, str(REPO))
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -270,6 +281,72 @@ def _segments() -> None:
         with torch.cuda.graph(g):
             op()
         _describe(name, [graphs._Segment(g, {}, None)])
+
+
+def _nccl(child: bool) -> int:
+    """The --nccl probe (module docstring); `child`: the run in the
+    process with NCCL_GRAPH_MIXING_SUPPORT=0."""
+    import collections
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    import rso_torch.graphs as graphs
+
+    label = ("NCCL_GRAPH_MIXING_SUPPORT="
+             f"{os.environ.get('NCCL_GRAPH_MIXING_SUPPORT', '(unset)')}")
+    print(f"[{label}] torch {torch.__version__}, cuda {torch.version.cuda}, "
+          f"nccl {torch.cuda.nccl.version()}", flush=True)
+    dev = torch.device("cuda")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    x = torch.zeros(1024, device=dev)
+    flag = torch.zeros(1, dtype=torch.bool, device=dev)
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    for mode in ("thread_local", "global", "relaxed"):
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        try:
+            with torch.cuda.stream(s):
+                g.capture_begin(capture_error_mode=mode)
+                try:
+                    x.add_(1.0)
+                    dist.all_reduce(x)
+                    torch.lt(x[:1], 10.0, out=flag)
+                finally:
+                    g.capture_end()
+        except Exception as e:  # noqa: BLE001 - the probe reports any failure
+            print(f"[{label}] mode {mode}: capture failed: {e!r}", flush=True)
+            continue
+        torch.cuda.synchronize()
+        _describe(f"[{label}] mode {mode}: x.add_; all_reduce; flag",
+                  [graphs._Segment(g, collections.Counter(), None)])
+        x.zero_()
+        try:
+            comp = graphs._Composed(
+                {None: [graphs._Segment(g, collections.Counter(),
+                                        (flag, 100, "probe"))]},
+                None, None, "probe")
+            comp.launch()
+            torch.cuda.synchronize()
+            print(f"[{label}] mode {mode}: composed WHILE ran, x[0] "
+                  f"{float(x[0])} (10 expected), blocks "
+                  f"{comp.counts.tolist()}", flush=True)
+        except Exception as e:  # noqa: BLE001
+            print(f"[{label}] mode {mode}: compose/launch failed: {e!r}",
+                  flush=True)
+    dist.destroy_process_group()
+    if not child:
+        env = dict(os.environ, NCCL_GRAPH_MIXING_SUPPORT="0")
+        out = subprocess.run([sys.executable, __file__, "--nccl", "child"],
+                             env=env, capture_output=True, text=True,
+                             timeout=300)
+        print(out.stdout + out.stderr[-3000:], flush=True)
+    return 0
 
 
 if __name__ == "__main__":

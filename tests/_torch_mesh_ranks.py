@@ -13,6 +13,10 @@ FileStore the ranks meet through.  Each rank, one torch thread:
   * window_sharded_bundle_adjust on a (2, WORLD/2) ('win','lmk') mesh,
     every window case, the results after 0..max_iters iterations, the
     collectives;
+  * for both, the mesh solve as it ran before it was a compiled solve
+    (levenberg_marquardt's eager loop, then the landmark gather:
+    chip_smoke.eager_mesh_solves)
+    and the stop flags the loop read with LM_BLOCK = 1, one an iteration;
   * BatchEngine on a 'seq' mesh of ranks 0 and 1: two sequences (seeds 0
     and 1) of SEQ_FRAMES frames at SEQ_H x SEQ_W, frame 0 through
     process_frames and the rest through process_chunk; and the reference's
@@ -35,6 +39,8 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+
+import chip_smoke as CS
 
 REPO = Path(__file__).resolve().parents[1]
 SEQ_FRAMES, SEQ_H, SEQ_W = 3, 160, 240
@@ -90,6 +96,26 @@ def _problem(arrays):
                        for a in arrays))
 
 
+@contextlib.contextmanager
+def _flags_read(flags: list):
+    """The stop flags the LM loop reads, one an iteration (LM_BLOCK 1),
+    appended to `flags`."""
+    import rso_torch.ba.ba as B
+    import rso_torch.solver.robust_gn as G
+
+    block, read = B.LM_BLOCK, G.read_flag
+
+    def record(site, running):
+        flags.append(read(site, running))
+        return flags[-1]
+
+    B.LM_BLOCK, G.read_flag = 1, record
+    try:
+        yield
+    finally:
+        B.LM_BLOCK, G.read_flag = block, read
+
+
 def _ba(cam, spec, world):
     from rso_torch.ba import distributed_bundle_adjust, make_mesh
     from rso_torch.mesh import COLLECTIVES
@@ -104,7 +130,13 @@ def _ba(cam, spec, world):
         trace = [numpy_tree(distributed_bundle_adjust(
             cam, prob, mesh, **dict(kw, max_iters=k)))
             for k in range(int(res.n_iters) + 1)]
-        out[case] = (numpy_tree(res), trace, coll)
+        with CS.eager_mesh_solves():
+            eager = numpy_tree(distributed_bundle_adjust(cam, prob, mesh,
+                                                         **kw))
+        flags = []
+        with _flags_read(flags):
+            distributed_bundle_adjust(cam, prob, mesh, **kw)
+        out[case] = (numpy_tree(res), trace, coll, eager, flags)
     return out
 
 
@@ -122,7 +154,13 @@ def _windows(cam, spec, world):
         trace = [[numpy_tree(r) for r in window_sharded_bundle_adjust(
             cam, probs, mesh, **dict(kw, max_iters=k))]
             for k in range(kw["max_iters"] + 1)]
-        out[case] = ([numpy_tree(r) for r in res], trace, coll)
+        with CS.eager_mesh_solves():
+            eager = [numpy_tree(r) for r in window_sharded_bundle_adjust(
+                cam, probs, mesh, **kw)]
+        flags = []
+        with _flags_read(flags):
+            window_sharded_bundle_adjust(cam, probs, mesh, **kw)
+        out[case] = ([numpy_tree(r) for r in res], trace, coll, eager, flags)
     return out
 
 

@@ -626,6 +626,129 @@ def test_cuda_graph_ba_a_changed_scalar_gets_its_own_graphs(cuda, changed):
             _same_result(bundle_adjust(cam, prob, **kw), w, f"{kw} {turn}")
 
 
+# ---- the mesh forms' solve on one NCCL rank: graphs holding the all_reduces -
+
+
+@pytest.fixture
+def nccl(cuda):
+    """A one-rank NCCL group (rso_torch.mesh.ensure_group), destroyed
+    afterwards if it was made here."""
+    import torch.distributed as dist
+
+    from rso_torch.mesh import ensure_group
+
+    made = not dist.is_initialized()
+    ensure_group("cuda")
+    assert dist.get_backend() == "nccl"
+    yield cuda
+    if made:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_cuda_graph_mesh_ba_equals_the_eager_mesh_loop(nccl, monkeypatch):
+    """distributed_bundle_adjust on a one-rank NCCL mesh as a compiled
+    solve (its all_reduces and landmark gather inside the graph) against
+    the eager mesh loop (chip_smoke.eager_mesh_solves) and bundle_adjust,
+    bit for bit, at the warm-up and at a replay; a replay is one graph
+    launch with no LM host read, and counts the all_reduces the eager loop
+    makes: one before the loop, two an iteration it ran (whole blocks),
+    one gather."""
+    import rso_torch.ba.ba as B
+    from rso_torch.ba import bundle_adjust, distributed_bundle_adjust, make_mesh
+
+    monkeypatch.setattr(B, "_SOLVES", {})
+    mesh = make_mesh()
+    for name, (cam, prob, kw) in _graph_cases(nccl).items():
+        kw = {k: v for k, v in kw.items() if k != "marg_prior"}
+        with CS.eager_mesh_solves():
+            want = distributed_bundle_adjust(cam, prob, mesh, **kw)
+        _same_result(bundle_adjust(cam, prob, **kw), want,
+                     f"{name} bundle_adjust")
+        for call in ("warm-up", "replay"):
+            got, counts = CS.counted_solve(
+                lambda: distributed_bundle_adjust(cam, prob, mesh, **kw))
+            _same_result(got, want, f"{name} {call}")
+            if call == "replay":
+                n = CS._lm_loop_iterations(int(got.n_iters), kw["max_iters"])
+                assert (counts["graph_launches"], counts["lm_reads"]) == (
+                    1, 0), name
+                assert counts["collectives"] == {
+                    "solve lmk": 1 + 2 * n, "gather lmk": 1}, (name, counts)
+
+
+@pytest.mark.gpu
+def test_cuda_graph_ba_block_form_equals_the_eager_loop(nccl, monkeypatch):
+    """The block form (rso_torch.graphs._Blocks: a graph launch a segment
+    and a block, a flag read a block), which a solve takes where its block
+    holds nodes no conditional body takes (NCCL's across ranks), forced
+    here by emptying graphs._BODY_TYPES: bundle_adjust and the one-rank
+    mesh solve equal the eager loop bit for bit at the first call and at a
+    replay, which makes the eager loop's flag reads, 2 + (blocks run)
+    graph launches and the eager loop's all_reduces."""
+    import rso_torch.ba.ba as B
+    import rso_torch.graphs as graphs
+    from rso_torch.ba import bundle_adjust, distributed_bundle_adjust, make_mesh
+    from rso_torch.solver.robust_gn import HOST_READS
+
+    monkeypatch.setattr(B, "_SOLVES", {})
+    monkeypatch.setattr(graphs, "_BODY_TYPES", frozenset())
+    mesh = make_mesh()
+    cam, prob, kw = _graph_cases(nccl)["bench_tol1e-5"]
+
+    def eager_mesh():
+        with CS.eager_mesh_solves():
+            return distributed_bundle_adjust(cam, prob, mesh, **kw)
+
+    solves = {"bundle_adjust": (lambda: CS._eager_ba(cam, prob, **kw),
+                                lambda: bundle_adjust(cam, prob, **kw)),
+              "mesh": (eager_mesh,
+                       lambda: distributed_bundle_adjust(cam, prob, mesh,
+                                                         **kw))}
+    for name, (eager, compiled) in solves.items():
+        HOST_READS.clear()
+        want = eager()
+        reads = HOST_READS["lm"]
+        for call in ("warm-up", "replay"):
+            got, counts = CS.counted_solve(compiled)
+            _same_result(got, want, f"{name} {call}")
+        n = CS._lm_loop_iterations(int(got.n_iters), kw["max_iters"])
+        assert (counts["graph_launches"], counts["lm_reads"]) == (
+            2 + n // B.LM_BLOCK, reads), (name, counts)
+        if name == "mesh":
+            assert counts["collectives"] == {"solve lmk": 1 + 2 * n,
+                                             "gather lmk": 1}, counts
+    assert {type(v.composed).__name__ for s in B._SOLVES.values()
+            for v in s._variants.values()} == {"_Blocks"}
+
+
+@pytest.mark.gpu
+def test_cuda_graph_one_rank_win_mesh_equals_the_batch(nccl):
+    """Three windows on a (1,1) ('win','lmk') NCCL mesh as a compiled
+    solve against the one-device batch, window by window bit for bit, at
+    the warm-up and at a replay (one graph launch, no LM host read); the
+    'win' gather follows the graph."""
+    from rso_torch.ba import make_win_mesh, window_sharded_bundle_adjust
+
+    probs = [CS._problem_to(_ba_problem(s, noise=n), nccl)
+             for s, n in ((21, 0.2), (22, 0.2), (23, 0.0))]
+    cam = BA_CAM.to(nccl)
+    kw = dict(max_iters=15, tol=1e-4)
+    want = window_sharded_bundle_adjust(cam, probs, **kw)
+    mesh = make_win_mesh(1, 1)
+    for call in ("warm-up", "replay"):
+        got, counts = CS.counted_solve(
+            lambda: window_sharded_bundle_adjust(cam, probs, mesh, **kw))
+        for w in range(3):
+            _same_result(got[w], want[w], f"window {w} {call}")
+        if call == "replay":
+            n = CS._lm_loop_iterations(max(int(g.n_iters) for g in got), 15)
+            assert (counts["graph_launches"], counts["lm_reads"]) == (1, 0)
+            assert counts["collectives"] == {
+                "solve lmk": 1 + 2 * n, "gather lmk": 1, "gather win": 1}, (
+                counts)
+
+
 # ---- the compiled step: CUDA graphs against the eager step ------------------
 
 def _eager_run(cfg, cam, frames, hw, dev):

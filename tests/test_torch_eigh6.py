@@ -15,7 +15,9 @@ determined and two solvers may pick any basis of their span; cond = w[5] /
 w[0] within 1e-3 relative where cond <= 1e3; the GN step dx within 1e-4
 relative and bad_cond exact on rso's own solver cases; the whole solve as
 tests/test_torch_solver.py holds it (counts, codes and inliers exact, the
-pose within 1e-5).
+pose within 1e-5).  w[0] against float64 (chip_smoke.EIGH6_F64_CASES: cond
+1e3-1e7 and graded GN matrices): the twin's error, median and max, no more
+than LAPACK f32's on the same matrices.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -66,6 +68,22 @@ def test_twin_against_jnp_eigh(cond):
     if 0 < cond <= 1e3:
         c_ref = w_ref[:, 5] / w_ref[:, 0]
         np.testing.assert_allclose(w[:, 5] / w[:, 0], c_ref, rtol=1e-3)
+
+
+@pytest.mark.parametrize("case", CS.EIGH6_F64_CASES)
+def test_twin_w0_against_float64(case):
+    """w[0], which sets the GN's cond, against np.linalg.eigvalsh of the
+    same f32 matrices in float64: the twin's relative error, median and
+    max over the case's matrices, no more than LAPACK f32's (torch's eigh
+    on the CPU, the reference's routine there).  At cond 1e6-1e7 both lose
+    most digits of w[0] (the f32 input's own conditioning); on graded GN
+    matrices the Jacobi twin keeps more than LAPACK."""
+    H = CS.eigh6_f64_cases("cpu")[case]
+    twin = CS.w0_rel_err_f64(H, eigh6_torch(H)[0])
+    lapack = CS.w0_rel_err_f64(H, torch.linalg.eigh(H)[0])
+    assert np.median(twin) <= np.median(lapack), (np.median(twin),
+                                                  np.median(lapack))
+    assert twin.max() <= lapack.max(), (twin.max(), lapack.max())
 
 
 def test_twin_reads_the_lower_triangle_and_keeps_identity():

@@ -18,7 +18,9 @@ below and writes each rank's results; the tests compare them.
     until both sit within FLOOR_RTOL of the converged cost, then the same
     tolerances; two all_reduces an iteration of the loop, which runs whole
     blocks of LM_BLOCK iterations (masked past the stop), and one before
-    it.  On a one-rank mesh it equals bundle_adjust bit for bit.
+    it.  Against the reference on 8 devices (the conftest's whole virtual
+    mesh: other shards, other sums) at the same tolerances.  On a
+    one-rank mesh it equals bundle_adjust bit for bit.
   * window_sharded_bundle_adjust on a (2,2) ('win','lmk') mesh, 3 windows
     of L = 63 (one padded window, one padded landmark), plain and with the
     odometry prior: against the reference's make_win_mesh(2, 2) and the
@@ -26,6 +28,12 @@ below and writes each rank's results; the tests compare them.
     loop (one 'win' gather after it), the check tools/eval_ba_comm.py makes
     on the reference's HLO.  On a one-rank (1,1) mesh it equals the batch
     bit for bit.
+  * Both as compiled solves (rso_torch.ba.ba.solve_lm with the mesh's
+    reduce; gloo groups run it eagerly) equal bit for bit on every rank
+    the mesh solve as it ran before (levenberg_marquardt's eager loop and
+    the landmark gather); the stop flags read one an iteration are equal
+    on every rank that shares the loop's collectives (every rank; a 'win'
+    row), true until the loop stops.
   * BatchEngine on a 2-rank 'seq' mesh: each rank's sequence equal to an
     Engine alone, integer fields exactly and floats within BATCH_POSE_ATOL
     / BATCH_RES_ATOL (a rank's step is a torch.func.vmap over its one lane,
@@ -222,8 +230,18 @@ def test_distributed_ba_against_the_reference(ranks, case):
     prob, kw = BA_CASES[case]
     ref = JD.distributed_bundle_adjust(CAM, prob, JD.make_mesh(WORLD),
                                        max_iters=MAX_ITERS, **kw)
-    ours, trace, _ = ranks[1][0]["ba"][case]
+    ours, trace, *_ = ranks[1][0]["ba"][case]
     assert ours["lmks"].shape == np.asarray(ref.lmks).shape == (64, 3)
+    _hold(ours, ref, trace, case)
+
+
+@pytest.mark.parametrize("case", BA_CASES)
+def test_distributed_ba_against_the_8_device_reference(ranks, case):
+    prob, kw = BA_CASES[case]
+    ref = JD.distributed_bundle_adjust(CAM, prob, JD.make_mesh(8),
+                                       max_iters=MAX_ITERS, **kw)
+    ours, trace, *_ = ranks[1][0]["ba"][case]
+    assert np.asarray(ref.lmks).shape == (64, 3)
     _hold(ours, ref, trace, case)
 
 
@@ -236,7 +254,7 @@ def test_distributed_ba_against_bundle_adjust(ranks, case):
     one_trace = [numpy_tree(TB.bundle_adjust(TCAM, tprob,
                                              **dict(tkw, max_iters=k)))
                  for k in range(int(one["n_iters"]) + 1)]
-    ours, trace, _ = ranks[1][0]["ba"][case]
+    ours, trace, *_ = ranks[1][0]["ba"][case]
     _decisions(trace, one_trace, case)
     ours = dict(ours, lmks=ours["lmks"][:L])
     _hold(ours, TB.BAResult(**one), trace, case)
@@ -245,7 +263,7 @@ def test_distributed_ba_against_bundle_adjust(ranks, case):
 @pytest.mark.parametrize("case", BA_CASES)
 def test_distributed_ba_two_all_reduces_an_iteration(ranks, case):
     for r in range(WORLD):
-        res, _, coll = ranks[1][r]["ba"][case]
+        res, _, coll, *_ = ranks[1][r]["ba"][case]
         n = _loop_iterations(int(res["n_iters"]))
         assert coll == {"solve lmk": 1 + 2 * n, "gather lmk": 1}, r
 
@@ -259,6 +277,48 @@ def test_one_rank_mesh_equals_bundle_adjust(group, case):
     for name, a, b in zip(got._fields, got,
                           TB.bundle_adjust(TCAM, tprob, **tkw)):
         assert torch.equal(a, b), name
+
+
+# ---- the compiled mesh solve against the eager one --------------------------
+
+
+def _flags_of(n_iters: int) -> list:
+    """The stop flags an LM loop of one iteration a block reads: after
+    each iteration but the last it may run, true until it stops."""
+    if n_iters < MAX_ITERS:
+        return [True] * (n_iters - 1) + [False]
+    return [True] * (MAX_ITERS - 1)
+
+
+MESH_CASES = [("ba", c) for c in BA_CASES] + [("win", c) for c in WIN_CASES]
+
+
+@pytest.mark.parametrize("case", MESH_CASES, ids="-".join)
+def test_solve_lm_equals_the_eager_mesh_solve(ranks, case):
+    form, name = case
+    for r in range(WORLD):
+        ours, _, _, eager, _ = ranks[1][r][form][name]
+        if form == "ba":
+            ours, eager = [ours], [eager]
+        for w, (a, b) in enumerate(zip(ours, eager)):
+            _same(a, b, f"rank {r} window {w}")
+
+
+@pytest.mark.parametrize("case", MESH_CASES, ids="-".join)
+def test_stop_flags_agree_across_ranks(ranks, case):
+    form, name = case
+    out = ranks[1]
+    for r in range(WORLD):
+        ours, _, _, _, flags = out[r][form][name]
+        if form == "ba":
+            n = int(ours["n_iters"])
+        else:
+            row = [0, 1] if r < 2 else [2]      # windows of the rank's row
+            n = max(int(ours[w]["n_iters"]) for w in row)
+        # the same loop on every rank of a 'win' row (every rank for "ba")
+        peer = 0 if form == "ba" or r < 2 else 2
+        assert flags == out[peer][form][name][4], (r, flags)
+        assert flags == _flags_of(n), (r, n, flags)
 
 
 # ---- window_sharded_bundle_adjust ------------------------------------------
@@ -278,7 +338,7 @@ def test_window_sharded_against_the_reference(ranks, case):
     probs, kw = WIN_CASES[case]
     refs = JS.window_sharded_bundle_adjust(CAM, probs, JS.make_win_mesh(2, 2),
                                            max_iters=MAX_ITERS, **kw)
-    ours, trace, _ = ranks[1][0]["win"][case]
+    ours, trace, *_ = ranks[1][0]["win"][case]
     assert len(ours) == len(refs) == 3
     for w, (o, r) in enumerate(zip(ours, refs)):
         assert o["lmks"].shape == (63, 3)
@@ -291,7 +351,7 @@ def test_window_sharded_against_the_batch(ranks, case):
     tkw = _torch_kw(_kw(kw))
     batch = TB.window_sharded_bundle_adjust(TCAM, [_port(p) for p in probs],
                                             **tkw)
-    ours, trace, _ = ranks[1][0]["win"][case]
+    ours, trace, *_ = ranks[1][0]["win"][case]
     for w, (o, b) in enumerate(zip(ours, batch)):
         _hold(o, b, [t[w] for t in trace], f"window {w}")
 
@@ -299,7 +359,7 @@ def test_window_sharded_against_the_batch(ranks, case):
 @pytest.mark.parametrize("case", WIN_CASES)
 def test_no_collective_on_win_in_the_loop(ranks, case):
     for r in range(WORLD):
-        res, _, coll = ranks[1][r]["win"][case]
+        res, _, coll, *_ = ranks[1][r]["win"][case]
         row = [0, 1] if r < 2 else [2]          # windows of the rank's row
         n = _loop_iterations(max(int(res[w]["n_iters"]) for w in row))
         assert coll == {"solve lmk": 1 + 2 * n, "gather lmk": 1,
