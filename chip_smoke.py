@@ -69,9 +69,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      held to the counts its states imply, its valid count and ATE held to
      bounds from the reference's own CPU run of the same frames
      (`tests/_torch_paths.py`), 3 steps again on the CPU, and the ms a
-     frame of the eager step's main stages (detection, stereo, tracking, RANSAC, the
-     pose solve) and of its new plain stages (remap, refine, LK levels, LK
-     seed) from CUDA events around their calls over 5 more frames:
+     frame of the compiled step's stages (rso_torch.metrics.profiler's
+     STAGES: stage 1 with the remap, detection, propagation, stereo,
+     tracking with refine or LK, RANSAC, the solve, its GN blocks, the
+     update) from its stage clock over 5 more frames:
        kitti         configs/kitti.ini (subpixel refine on), 20 bench frames;
        rectified     configs/euroc.ini through compute_rectify_maps on the
                      distorted rig of make_unrectified_sequence at EuRoC's
@@ -1705,48 +1706,41 @@ class StageTimer:
 
 
 def stage_ms(name, cfg, seq, dev, n_frames, maps=None) -> dict:
-    """ms a frame of the eager step's main stages (detection, stereo
-    matching, tracking, the RANSAC filter, the pose solve), of the plain
-    stages new in these paths (remap, refine, LK's levels and its coarse
-    seed) and of the whole step, over n_frames after a warm-up, with the
-    stage events on.  The eager step (make_step), since Engine's graphs
-    replay without calling the stages' Python functions."""
+    """ms a frame of each stage of the compiled step, from its stage clock
+    (rso_torch.metrics.profiler.STAGE_CLOCK: marks in the composed graph,
+    device time summed by stage on the device), and of the whole step
+    (CUDA events around each call), over n_frames after the frame that
+    captures the marked graph."""
     import torch
 
-    import rso_torch.engine as E
-    import rso_torch.frontend.optical_flow as OF
-    from rso_torch.engine import Engine, init_state, make_step
+    from rso_torch.engine import Engine
+    from rso_torch.metrics.profiler import STAGE_CLOCK
 
     frames = [(torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev))
-              for l, r in seq.frames[:n_frames]]
-    hw = tuple(frames[0][0].shape[:2])
+              for l, r in seq.frames[:n_frames + 1]]
     eng = Engine(cfg, seq.cam, rectify_maps=maps)
-    step = make_step(cfg, eng.cam, *hw, rectify_maps=eng.rectify_maps)
-    st = init_state(cfg, hw, dev)
-    for l, r in frames[:2]:
-        st, _ = step(st, l, r)
-    st = init_state(cfg, hw, dev)
-    targets = [(E, "bilinear_remap", "remap"), (E, "refine_positions", "refine"),
-               (OF, "_lk_level", "lk_level"), (OF, "_coarse_sad_seed", "lk_seed"),
-               (E, "detect_features", "detect"),
-               (E, "match_left_right", "stereo"),
-               (E, "track_interframe", "track"),
-               (E, "ransac_fundamental", "ransac"),
-               (E, "solve_pose", "solve")]
-    with StageTimer(targets) as t:
+    STAGE_CLOCK.on = True
+    try:
+        eng.process_frame(*frames[0])
+        STAGE_CLOCK.reset()
         steps = []
-        for l, r in frames:
+        for l, r in frames[1:]:
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            st, _ = step(st, l, r)
+            eng.process_frame(l, r)
             b.record()
             steps.append((a, b))
-        out = t.ms_per_frame(n_frames)
-    out["step"] = sum(a.elapsed_time(b) for a, b in steps) / n_frames
-    print(f"stages {name}: ms a frame of the eager step over {n_frames} "
-          f"frames (CUDA events around each call) {json.dumps(out)}",
-          flush=True)
+        ns = dict(STAGE_CLOCK.settle()[0])
+    finally:
+        STAGE_CLOCK.on = False
+        STAGE_CLOCK.reset()
+    n = len(steps)
+    out = {stage: v * 1e-6 / n for stage, v in ns.items()}
+    out["step"] = sum(a.elapsed_time(b) for a, b in steps) / n
+    print(f"stages {name}: ms a frame of the compiled step's stages over {n} "
+          f"frames (its stage clock; step: CUDA events around each call) "
+          f"{json.dumps(out)}", flush=True)
     return out
 
 

@@ -11,6 +11,11 @@ main raises where CUDA is absent.  --ba-distributed shards each BA solve's
 landmarks over a mesh of every rank (rso_torch.ba.distributed.make_mesh):
 under torchrun, one rank per card, each running the same demo; in a plain
 process, a one-rank mesh, whose solves equal --ba's bit for bit.
+--profile turns on the program's own tracers for the run
+(rso_torch.metrics.profiler): its host spans, reported at exit as the
+reference's CTimeLogger report, and the stage clock, whose marks in the
+step's graph give device ms a frame by stage over the frames after the
+first (which captures the marked graph).
 """
 from __future__ import annotations
 
@@ -75,7 +80,9 @@ def build_parser():
                         "seconds with no new pair")
     p.add_argument("--watch-idle", type=float, default=10.0, metavar="S",
                    help="--watch stream-over timeout (default 10 s)")
-    p.add_argument("--profile", action="store_true", help="print span profile at exit")
+    p.add_argument("--profile", action="store_true",
+                   help="print the program's host spans and device ms a "
+                        "frame by stage (its stage clock) at exit")
     p.add_argument("--chunk", type=int, default=0, metavar="N",
                    help="offline path: N frames per Engine.process_chunk "
                         "call instead of frame-at-a-time calls — same math "
@@ -217,13 +224,26 @@ class _KeyControl:
 
 def main(argv=None, device="cuda"):
     args = build_parser().parse_args(argv)
+    from rso_torch.metrics.profiler import PROFILER, STAGE_CLOCK
 
+    if not args.profile:
+        return _run(args, device)
+    PROFILER.clear()
+    STAGE_CLOCK.reset()
+    PROFILER.enabled = STAGE_CLOCK.on = True
+    try:
+        return _run(args, device)
+    finally:
+        PROFILER.enabled = STAGE_CLOCK.on = False
+
+
+def _run(args, device):
     from rso_torch.config import RSOConfig, load_config
     from rso_torch.engine import Engine, _device
     from rso_torch.geometry import pose_matrix
     from rso_torch.metrics.ate import ate_rmse, rpe
     from rso_torch.metrics.logging import VOLogger, error_name
-    from rso_torch.metrics.profiler import SpanProfiler
+    from rso_torch.metrics.profiler import PROFILER, STAGE_CLOCK
 
     device = _device(device)
 
@@ -293,7 +313,6 @@ def main(argv=None, device="cuda"):
     cam_on_robot = _cam_pose_from_args(args)
 
     logger = VOLogger(args.verbosity)
-    prof = SpanProfiler(args.profile)
     eng = Engine(cfg, cam, rectify_maps=rectify_maps, device=device)
     if args.load_state:
         from rso_torch.io.checkpoint import load_state
@@ -353,6 +372,7 @@ def main(argv=None, device="cuda"):
     n_frames = 0
     n_kf = 0
     last_delta = None
+    staged_from = None      # frames run before the stage clock's count
     t_start = time.time()
 
     if args.chunk > 0:
@@ -365,7 +385,7 @@ def main(argv=None, device="cuda"):
         buf_l, buf_r, buf_ts = [], [], []
 
         def flush():
-            nonlocal T, last_delta, n_frames
+            nonlocal T, last_delta, n_frames, staged_from
             if not buf_l:
                 return
             # the chunk's images go to the device in one copy per eye
@@ -394,53 +414,58 @@ def main(argv=None, device="cuda"):
                           f"{int(val.sum())}/{len(buf_l)} valid, "
                           f"pos={T[:3, 3].round(3).tolist()}")
             buf_l.clear(), buf_r.clear(), buf_ts.clear()
+            if args.profile and staged_from is None:
+                STAGE_CLOCK.reset()     # the first chunk captured the graph
+                staged_from = n_frames
 
-        with prof.span("processNewImagePair"):
-            # honor a start-paused run (--pause) BEFORE the first chunk is
-            # buffered/dispatched, matching per-frame mode's pause-before-
-            # frame-1 semantics
-            if not keys.wait_if_paused():
-                print("[rso] quit requested", file=sys.stderr)
-                frames = iter(())
-            for left, right, ts in frames:
-                buf_l.append(left)
-                buf_r.append(right)
-                buf_ts.append(ts)
-                if len(buf_l) == args.chunk:
-                    flush()
-                    # interactive controls (TTY or --live browser) act at
-                    # chunk boundaries: pause blocks here, quit stops
-                    if not keys.wait_if_paused():
-                        print("[rso] quit requested", file=sys.stderr)
-                        buf_l.clear(), buf_r.clear(), buf_ts.clear()
-                        break
-            flush()
+        # honor a start-paused run (--pause) BEFORE the first chunk is
+        # buffered/dispatched, matching per-frame mode's pause-before-
+        # frame-1 semantics
+        if not keys.wait_if_paused():
+            print("[rso] quit requested", file=sys.stderr)
+            frames = iter(())
+        for left, right, ts in frames:
+            buf_l.append(left)
+            buf_r.append(right)
+            buf_ts.append(ts)
+            if len(buf_l) == args.chunk:
+                flush()
+                # interactive controls (TTY or --live browser) act at
+                # chunk boundaries: pause blocks here, quit stops
+                if not keys.wait_if_paused():
+                    print("[rso] quit requested", file=sys.stderr)
+                    buf_l.clear(), buf_r.clear(), buf_ts.clear()
+                    break
+        flush()
         frames = ()  # per-frame loop below sees an exhausted source
 
     for left, right, ts in frames:
         if not keys.wait_if_paused():
             print("[rso] quit requested", file=sys.stderr)
             break
-        with prof.span("processNewImagePair"):
-            if ba is not None:
+        if ba is not None:
+            with PROFILER.span("ba.process_frame"):
                 out = ba.process_frame(left, right)
-                T = out.pose_wc
-                n_kf += int(out.is_keyframe)
-                valid = out.vo_valid
-            else:
-                res = eng.process_frame(left, right)
-                valid = bool(res.valid)
-                if valid:
-                    last_delta = pose_matrix(res.pose).cpu().numpy()
-                    T = T @ last_delta
-                elif args.coast and last_delta is not None:
-                    # constant-velocity coast: bridge invalid frames with
-                    # the last valid inter-frame motion (the engine reports
-                    # the gap via result.valid; the trajectory stays usable)
-                    T = T @ last_delta
+            T = out.pose_wc
+            n_kf += int(out.is_keyframe)
+            valid = out.vo_valid
+        else:
+            res = eng.process_frame(left, right)
+            valid = bool(res.valid)
+            if valid:
+                last_delta = pose_matrix(res.pose).cpu().numpy()
+                T = T @ last_delta
+            elif args.coast and last_delta is not None:
+                # constant-velocity coast: bridge invalid frames with
+                # the last valid inter-frame motion (the engine reports
+                # the gap via result.valid; the trajectory stays usable)
+                T = T @ last_delta
         poses.append(T.copy())
         times.append(ts)
         n_frames += 1
+        if args.profile and staged_from is None:
+            STAGE_CLOCK.reset()     # the first frame captured the graph
+            staged_from = n_frames
         if viewer is not None:
             cnt = {"fps": round(n_frames / max(time.time() - t_start,
                                                1e-9), 1)}
@@ -528,7 +553,11 @@ def main(argv=None, device="cuda"):
     if viewer is not None:
         viewer.stop()
     if args.profile:
-        prof.report()
+        PROFILER.report()
+        STAGE_CLOCK.settle()
+        print(f"\nstage clock over {n_frames - (staged_from or 0)} frames "
+              "after the first:")
+        print(STAGE_CLOCK.summary(n_frames - (staged_from or 0)))
     return 0
 
 

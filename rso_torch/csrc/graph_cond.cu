@@ -19,6 +19,16 @@
 // (not a step's control flow) to add the kernel launches inside the
 // conditional nodes to rso_torch.kernels.LAUNCHES.
 //
+// The graph's stage clock is here too: `stage_mark_kernel`, a one-thread
+// kernel that rso_torch.metrics.profiler.StageClock launches at the stage
+// boundaries of a step captured while marks are on (rso_torch.engine and
+// robust_gn name the stages).  A mark reads %globaltimer, charges the
+// nanoseconds since the previous mark to the previous mark's stage and
+// counts one for its own; the `end` mark (stage -1) charges the last
+// interval and opens nothing, so the time between two launches of the graph
+// is never charged.  A kernel node, it goes anywhere a kernel can: into a
+// WHILE node's body too, where an event-record node cannot.
+//
 // Needs CUDA 12.4 or later (conditional WHILE nodes, child graphs in a
 // conditional body) in the toolkit and in libcuda.  Every entry returns the
 // cudaError_t of its last call.  The graphs PyTorch captured are cudaGraph_t
@@ -52,6 +62,26 @@ __global__ void set_cond_kernel(cudaGraphConditionalHandle handle,
   }
   cudaGraphSetConditional(handle, value);
   if (count != nullptr && value != 0u) *count += 1ull;
+}
+
+// One mark of the stage clock.  clock is int64 [2, n + 1]: row 0 the
+// nanoseconds of each of the n stages, row 1 its marks; column n holds the
+// open stage's start (row 0, %globaltimer ns) and its index + 1 (row 1, 0
+// where none is open).  stage -1 is the `end` mark.
+__global__ void stage_mark_kernel(long long* clock, int n, int stage) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  long long* ns = clock;
+  long long* marks = clock + n + 1;
+  const long long open = marks[n];
+  if (open > 0) ns[open - 1] += static_cast<long long>(now) - ns[n];
+  if (stage >= 0) {
+    marks[stage] += 1;
+    ns[n] = static_cast<long long>(now);
+    marks[n] = stage + 1;
+  } else {
+    marks[n] = 0;
+  }
 }
 
 inline size_t n_deps(void* dep) { return dep == nullptr ? 0 : 1; }
@@ -153,6 +183,13 @@ int rso_graph_instantiate(void* graph, void** exec) {
       cudaGraphInstantiate(&x, static_cast<cudaGraph_t>(graph), 0);
   *exec = x;
   return result(e);
+}
+
+// one stage_mark_kernel on `stream` (recorded where the stream captures)
+int rso_stage_mark(void* clock, int n, int stage, void* stream) {
+  stage_mark_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(clock), n, stage);
+  return result(cudaGetLastError());
 }
 
 int rso_graph_exec_destroy(void* exec) {

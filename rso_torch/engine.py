@@ -29,6 +29,16 @@ on the GPU).  On the CPU the same object runs the eager step, which reads
 the branch and the loops' flags on the host.  The entry points run on the
 GPU unless the caller passes device="cpu", and raise where CUDA is
 absent.
+
+The step marks its stages for the stage clock
+(rso_torch.metrics.profiler.STAGE_CLOCK; nothing while its marks are off):
+`_stg1` at stage 1, `_stg2` at detection (`propagate` at detect_every's
+propagation), `_stg3` at stereo matching, `_stg4` at tracking and again at
+the ID propagation after RANSAC, `ransac` before the flat filter, `_stg5`
+at the stage-4.1 gate (the pose solver adds `gn_block` and `_stg5` marks),
+and `update` at the error codes, the result and the state shift.  Engine
+opens PROFILER's spans `processNewImagePair` and `process_chunk` around
+its entries, and `images_in` around the images' copies to the device.
 """
 from __future__ import annotations
 
@@ -63,6 +73,7 @@ from rso_torch.frontend.track import (TrackResult, track_interframe,
 from rso_torch.geometry.stereo_camera import StereoCamera
 from rso_torch.graphs import Branches, CompiledStep
 from rso_torch.graphs import tree_map as _tree_map
+from rso_torch.metrics.profiler import PROFILER, STAGE_CLOCK
 from rso_torch.solver.ransac import ransac_fundamental
 from rso_torch.solver.robust_gn import (
     HOST_READS,
@@ -384,7 +395,10 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
     ls = cfg.least_squares
     tpu = cfg.tpu
 
+    mark = STAGE_CLOCK.mark
+
     def _stage_1(left_img, right_img):
+        mark("_stg1", dev)
         gl = to_grayscale(left_img)
         gr = to_grayscale(right_img)
         if maps is not None:
@@ -393,6 +407,7 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
         return build_pyramid(gl, O), build_pyramid(gr, O)
 
     def _stage_2(state, pyr_l, pyr_r):
+        mark("_stg2", dev)
         octs, new_fast_th, detected = [], [], []
         for o in range(O):
             th = state.fast_th[o]
@@ -418,6 +433,7 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
         return torch.full((k,), -1, dtype=torch.int32, device=dev)
 
     def _stage_3(octs):
+        mark("_stg3", dev)
         cur_octs, n_matches = [], []
         for o in range(O):
             fl, fr = octs[o]
@@ -454,6 +470,7 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
         epipolar row (|dy| <= max(max_y_diff, 1)), a positive disparity and
         the stereo SAD threshold on fresh 8x8 patches.  Stage 4 then
         associates prev -> cur through the usual windowed tracker."""
+        mark("propagate", dev)
         cur_octs, n_matches, detected = [], [], []
         for o in range(O):
             p = state.prev.octaves[o]
@@ -528,6 +545,7 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
 
     def _tail(state, pyr_l, pyr_r, cur_octs, n_matches, detected, new_fast_th,
               loop, did_detect=True):
+        mark("_stg4", dev)
         key = rrandom.fold_in(rrandom.PRNGKey(7, dev), state.frame_idx)
 
         # ---- stage 4: inter-frame tracking ----------------------------------
@@ -598,6 +616,7 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
 
         # one flat fundamental-matrix filter over all octaves, both eyes
         if cfg.if_match.filter_fund_matrix and not flow:
+            mark("ransac", dev)
             keys = rrandom.split(rrandom.fold_in(key, 1000))
             res2 = ransac_fundamental(
                 torch.stack([prev_obs[:, :2], prev_obs[:, 2:4]]),
@@ -608,6 +627,7 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
             tmask = torch.where(res2.ok[0] & res2.ok[1], both, tmask)
 
         # ---- ID propagation with the post-filter tracks ----------------------
+        mark("_stg4", dev)
         n_tracked_total = tmask.sum(dtype=torch.int32)
         n_tracked_kf = _int(0, dev)
         last_id = state.last_match_id
@@ -634,6 +654,7 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
         cur_view = FrameView(octaves=tuple(final_octs))
 
         # ---- stage 4.1: robustness gate + stage 5 ---------------------------
+        mark("_stg5", dev)
         bad_tracking = state.have_prev & (n_tracked_total < ls.bad_tracking_th)
         smask = tmask & _stage5_nms(prev_obs[:, :2], resp, tmask,
                                     cfg.detect.min_distance)
@@ -649,6 +670,7 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
             for o in range(O)])
 
         # ---- error codes & result -------------------------------------------
+        mark("update", dev)
         first = ~state.have_prev
         error_code = torch.where(
             first, VOEC_FIRST_ITERATION,
@@ -777,15 +799,17 @@ class Engine:
 
         repeat=True re-runs against the same previous frame as the last call
         (the reference's request.repeat semantics)."""
-        left = self._image(left_img)
-        right = self._image(right_img)
-        h, w = left.shape[:2]
-        if self.state is None:
-            self.state = init_state(self.cfg, (h, w), self.device)
-        if repeat and self._state_before_last is not None:
-            self.state = self._state_before_last
-        self._state_before_last = self.state
-        self.state, result = self._get_step(h, w)(self.state, left, right)
+        with PROFILER.span("processNewImagePair"):
+            with PROFILER.span("images_in"):
+                left = self._image(left_img)
+                right = self._image(right_img)
+            h, w = left.shape[:2]
+            if self.state is None:
+                self.state = init_state(self.cfg, (h, w), self.device)
+            if repeat and self._state_before_last is not None:
+                self.state = self._state_before_last
+            self._state_before_last = self.state
+            self.state, result = self._get_step(h, w)(self.state, left, right)
         return result
 
     def process_chunk(self, left_imgs, right_imgs) -> StepResult:
@@ -796,15 +820,17 @@ class Engine:
         Same math and state evolution as N process_frame calls; a later
         `repeat` re-runs against the state
         before the chunk, as the reference's one-dispatch chunk leaves it."""
-        lefts = [self._image(l) for l in left_imgs]
-        rights = [self._image(r) for r in right_imgs]
-        h, w = lefts[0].shape[:2]
-        if self.state is None:
-            self.state = init_state(self.cfg, (h, w), self.device)
-        before = self.state
-        self.state, results = self._get_step(h, w).chunk(self.state, lefts,
-                                                          rights)
-        self._state_before_last = before
+        with PROFILER.span("process_chunk"):
+            with PROFILER.span("images_in"):
+                lefts = [self._image(l) for l in left_imgs]
+                rights = [self._image(r) for r in right_imgs]
+            h, w = lefts[0].shape[:2]
+            if self.state is None:
+                self.state = init_state(self.cfg, (h, w), self.device)
+            before = self.state
+            self.state, results = self._get_step(h, w).chunk(
+                self.state, lefts, rights)
+            self._state_before_last = before
         return results
 
     # ---- dynamic threshold accessors (reference h:529-541) ----------------

@@ -79,6 +79,17 @@ block launched again while its flag, read on the host once a block, says
 so.  The rule reads the captured graph's node types; it is no fallback
 from a failure, and a composition or instantiation that fails raises with
 the segments' node types.
+
+Both of the program's tracers (rso_torch.metrics.profiler) reach in here,
+and both are off by default.  PROFILER's host spans `<site>.copy_in`,
+`<site>.launch`, `<site>.copy_out` and `<site>.capture` time a step's
+copies into the static buffers, its launch (the eager step on the CPU),
+its copies out, and a signature's warm-up, capture and composition.
+STAGE_CLOCK's marks are kernels of the step itself: a variant captured
+while they are on (`STAGE_CLOCK.on` is part of the variant key) carries
+the marks the step's stages make and an `end` mark after its copies into
+the static buffers, and with them off the captured graph is the same node
+for node.  Marks do not count in LAUNCHES.
 """
 from __future__ import annotations
 
@@ -92,6 +103,7 @@ import torch
 
 from rso_torch.kernels import _lib
 from rso_torch.kernels._lib import LAUNCHES
+from rso_torch.metrics.profiler import PROFILER, STAGE_CLOCK
 from rso_torch.solver.robust_gn import read_flag, stops_after
 
 # launches of composed graphs, by CompiledStep site ("step", "lm")
@@ -520,6 +532,10 @@ class CompiledStep:
         self.site = site
         self._variants: dict = {}
         self._stream = None
+        # PROFILER's span names of this step
+        self._copy_in, self._launch, self._copy_out, self._capture_span = (
+            f"{site}.{s}" for s in ("copy_in", "launch", "copy_out",
+                                    "capture"))
 
     @property
     def n_graphs(self) -> int:
@@ -544,7 +560,7 @@ class CompiledStep:
         return dict(out)
 
     def _variant(self, state, inputs) -> _Variant:
-        key = (_signature(state), _signature(inputs))
+        key = (_signature(state), _signature(inputs), STAGE_CLOCK.on)
         v = self._variants.get(key)
         if v is None:
             v = self._variants[key] = _Variant(state, inputs)
@@ -561,20 +577,30 @@ class CompiledStep:
             _check_disjoint(dst, src)
             v.checked.add((branch, loop is in_place_blocks))
         _copy(dst, src)
+        STAGE_CLOCK.mark("end", dst[0].device)
 
     def _run(self, v: _Variant) -> None:
         """One frame from v.state and v.inputs; leaves the new state in
         v.state and the result in v.result."""
         if v.composed is not None:
-            v.composed.launch()
-            return
-        branch = None if self.branches is None else self.branches.read(v.state)
-        if not self.capture:
-            self._call_fn(v, in_place_blocks, branch)
-            return
-        # the warm-up on a side stream is this frame's answer; the branches
-        # it did not take are warmed from the same state, then the answer
-        # is put back
+            with PROFILER.span(self._launch):
+                v.composed.launch()
+        elif not self.capture:
+            with PROFILER.span(self._launch):
+                self._call_fn(v, in_place_blocks, self._branch(v))
+        else:
+            with PROFILER.span(self._capture_span):
+                self._warm_up(v)
+                self._capture(v)
+
+    def _branch(self, v: _Variant):
+        return None if self.branches is None else self.branches.read(v.state)
+
+    def _warm_up(self, v: _Variant) -> None:
+        """The warm-up on a side stream, which is this frame's answer; the
+        branches it did not take are warmed from the same state, then the
+        answer is put back."""
+        branch = self._branch(v)
         with torch.cuda.stream(self._side_stream()):
             before = tree_clone(v.state)
             self._call_fn(v, in_place_blocks, branch)
@@ -587,7 +613,6 @@ class CompiledStep:
                 _copy(leaves(v.state) + leaves(v.result),
                       leaves(answer[0]) + leaves(answer[1]))
         torch.cuda.synchronize()
-        self._capture(v)
 
     def _side_stream(self) -> torch.cuda.Stream:
         if self._stream is None:
@@ -632,10 +657,12 @@ class CompiledStep:
 
     def __call__(self, state, *inputs):
         v = self._variant(state, inputs)
-        _copy(leaves(v.state) + leaves(v.inputs),
-              leaves(state) + leaves(inputs))
+        with PROFILER.span(self._copy_in):
+            _copy(leaves(v.state) + leaves(v.inputs),
+                  leaves(state) + leaves(inputs))
         self._run(v)
-        return tree_clone(v.state), tree_clone(v.result)
+        with PROFILER.span(self._copy_out):
+            return tree_clone(v.state), tree_clone(v.result)
 
     def chunk(self, state, *input_seqs):
         """N frames (input_seqs: one sequence of N per input) from `state`:
@@ -646,17 +673,21 @@ class CompiledStep:
         v, stacked = None, None
         for i in range(n):
             inputs = tuple(seq[i] for seq in input_seqs)
-            if v is None:
-                v = self._variant(state, inputs)
-                _copy(leaves(v.state), leaves(state))
-            else:
-                prev, v = v, self._variant(v.state, inputs)
-                if v is not prev:
-                    _copy(leaves(v.state), leaves(prev.state))
-            _copy(leaves(v.inputs), leaves(inputs))
+            with PROFILER.span(self._copy_in):
+                if v is None:
+                    v = self._variant(state, inputs)
+                    _copy(leaves(v.state), leaves(state))
+                else:
+                    prev, v = v, self._variant(v.state, inputs)
+                    if v is not prev:
+                        _copy(leaves(v.state), leaves(prev.state))
+                _copy(leaves(v.inputs), leaves(inputs))
             self._run(v)
-            if stacked is None:
-                stacked = tree_map(lambda t: t.new_empty((n,) + t.shape),
-                                   v.result)
-            _copy([t[i] for t in leaves(stacked)], leaves(v.result))
-        return tree_clone(v.state), stacked
+            with PROFILER.span(self._copy_out):
+                if stacked is None:
+                    stacked = tree_map(lambda t: t.new_empty((n,) + t.shape),
+                                       v.result)
+                _copy([t[i] for t in leaves(stacked)], leaves(v.result))
+                if i + 1 == n:
+                    state = tree_clone(v.state)
+        return state, stacked

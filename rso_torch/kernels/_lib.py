@@ -115,7 +115,8 @@ _SIGNATURES = {
     "rso_hamming_matrix": [_P, _P, _I, _I, _I, _I, _P, _P],
     "rso_sad_matrix": [_P, _P, _I, _I, _I, _I, _P, _P],
     "rso_eigh6": [_P, _P, _P, _I, _P],
-    # csrc/graph_cond.cu: composing and launching CUDA graphs
+    # csrc/graph_cond.cu: composing and launching CUDA graphs, the stage
+    # clock's marks
     "rso_graph_create": [_PP],
     "rso_graph_destroy": [_P],
     "rso_graph_add_child": [_P, _P, _P, _PP],
@@ -126,6 +127,7 @@ _SIGNATURES = {
     "rso_graph_exec_destroy": [_P],
     "rso_graph_launch": [_P, _P],
     "rso_graph_node_types": [_P, ctypes.POINTER(ctypes.c_int), _I],
+    "rso_stage_mark": [_P, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -28,6 +28,9 @@ Each rank of a 'seq' DeviceMesh (one process per device, SPMD) takes the
 global [B,...] inputs and steps its contiguous B/n sequences, batched.  The
 steps need no collective; `gather` collects host summaries through the
 mesh's group (gloo's runs on the host, so several ranks can share one card).
+BatchEngine opens PROFILER's spans (rso_torch.metrics.profiler)
+`process_chunk` and `images_in`; under vmap the step's stage-clock marks
+launch once for all lanes.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from rso_torch.engine import (MIXED, StepResult, _device, detect_flag,
 from rso_torch.geometry.stereo_camera import StereoCamera
 from rso_torch.graphs import Branches, CompiledStep, tree_map
 from rso_torch.mesh import check_mesh
+from rso_torch.metrics.profiler import PROFILER
 
 
 def batched_step(step):
@@ -136,8 +140,9 @@ class BatchEngine:
         none)."""
         if not self.sequences:
             return None
-        self.states, results = self._step(self.states, self._images(lefts),
-                                          self._images(rights))
+        with PROFILER.span("images_in"):
+            lefts, rights = self._images(lefts), self._images(rights)
+        self.states, results = self._step(self.states, lefts, rights)
         return results
 
     def process_chunk(self, lefts, rights) -> StepResult | None:
@@ -148,7 +153,9 @@ class BatchEngine:
         buffers between frames."""
         if not self.sequences:
             return None
-        lefts, rights = self._images(lefts), self._images(rights)
-        self.states, results = self._step.chunk(
-            self.states, lefts.unbind(1), rights.unbind(1))
+        with PROFILER.span("process_chunk"):
+            with PROFILER.span("images_in"):
+                lefts, rights = self._images(lefts), self._images(rights)
+            self.states, results = self._step.chunk(
+                self.states, lefts.unbind(1), rights.unbind(1))
         return results

@@ -23,6 +23,11 @@ reduces it over the lanes: the loop runs while any lane runs, as rso's vmap
 of `lax.while_loop` does, and a lane that has stopped is left unchanged by
 the masked iterations.  The carry is made from the observations
 (`*_like`), so under vmap every leaf has the lanes' axis from the start.
+
+With the stage clock's marks on (rso_torch.metrics.profiler.STAGE_CLOCK),
+each block begins with a `gn_block` mark (the first node of the WHILE
+node's body: one a block run, so one an iteration at GN_BLOCK 1) and each
+phase's loop is followed by a `_stg5` mark.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from rso_torch.geometry.stereo_camera import (
     triangulate,
 )
 from rso_torch.kernels.eigh6 import eigh6_cuda
+from rso_torch.metrics.profiler import STAGE_CLOCK
 
 # VOErrorCode (reference libstereo-odometry.h:142) + the rso extension 6
 VOEC_NONE = 0
@@ -267,6 +273,8 @@ def _gn_phase(cam, lmks, obs, mask, delta_pose0, max_iters: int, times_inc0,
     B = min(GN_BLOCK, max_iters)
 
     def block(c: GNCarry) -> GNCarry:
+        # the first node of a WHILE node's body: one mark a block run
+        STAGE_CLOCK.mark("gn_block", obs.device)
         for _ in range(B):
             c = iteration(c)
         return c
@@ -288,6 +296,7 @@ def _gn_phase(cam, lmks, obs, mask, delta_pose0, max_iters: int, times_inc0,
         lam=(torch.full_like(zero, params.lm_init_lambda)
              if params.use_lm else None))
     c = loop(block, carry, -(-max_iters // B) if max_iters > 0 else 0)
+    STAGE_CLOCK.mark("_stg5", obs.device)
     return c.it, c.dp, c.times_inc, c.abort, c.res, c.ec, c.cost
 
 

@@ -1164,3 +1164,109 @@ def test_cuda_batch_engine_lanes_equal_lone_engines(cuda):
                         device=cuda).process_chunk(lefts, rights)
     for n in range(5):
         _same_result(StepResultAt(chunk, n), frames[n], f"chunk frame {n}")
+
+
+# ---- the stage clock (rso_torch.metrics.profiler.STAGE_CLOCK) -------------
+
+@pytest.fixture
+def stage_clock():
+    """STAGE_CLOCK zeroed, and its marks off again after the test."""
+    from rso_torch.metrics.profiler import STAGE_CLOCK
+
+    STAGE_CLOCK.on = False
+    STAGE_CLOCK.reset()
+    yield STAGE_CLOCK
+    STAGE_CLOCK.on = False
+    STAGE_CLOCK.reset()
+
+
+def _lanes_run(cfg, seqs, cam, n, dev):
+    """A 2-lane BatchEngine over n frames: results and launches a frame."""
+    from rso_torch.parallel import BatchEngine
+
+    be = BatchEngine(cfg, cam, batch=2, img_h=376, img_w=1241, device=dev)
+    out = []
+    for i in range(n):
+        reset_launches()
+        res = be.process_frames(np.stack([s.frames[i][0] for s in seqs]),
+                                np.stack([s.frames[i][1] for s in seqs]))
+        out.append((res, dict(settle_launches())))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["engine", "batch"])
+def test_cuda_marked_graph_equals_the_unmarked(cuda, stage_clock, entry):
+    """A step captured with marks on (Engine over 20 frames, a 2-lane
+    BatchEngine over 8) gives the unmarked graph's results bit for bit and
+    the same launches a frame (settle_launches: marks are counted in
+    neither); its clock charges every stage of the path, one gn_block mark
+    a GN block run (eager warm-up frame included): the iterations, for the
+    lanes the most of any lane."""
+    from rso_torch.metrics.profiler import STAGES
+    from rso_torch.synthetic import synthetic_config
+
+    cfg = synthetic_config()
+    n = 20 if entry == "engine" else 8
+    seqs = [make_sequence(n_frames=n, n_points=2000, H=376, W=1241, seed=s)
+            for s in range(2)]
+    runs = []
+    for on in (False, True):
+        stage_clock.on = on
+        if entry == "engine":
+            eng = Engine(cfg, seqs[0].cam, device=cuda)
+            runs.append([])
+            for left, right in seqs[0].frames:
+                reset_launches()
+                res = eng.process_frame(left, right)
+                runs[-1].append((res, dict(settle_launches())))
+        else:
+            runs.append(_lanes_run(cfg, seqs, seqs[0].cam, n, cuda))
+    stage_clock.on = False
+    for i, ((a, la), (b, lb)) in enumerate(zip(*runs)):
+        _same_result(b, a, f"frame {i}")
+        assert la == lb, f"frame {i} launches"
+    ns, marks = stage_clock.settle()
+    assert set(marks) == set(STAGES) - {"propagate"}
+    assert all(ns[name] > 0 for name in marks), dict(ns)
+    assert marks["_stg1"] == marks["update"] == n
+    blocks = sum(int(r.num_it.max()) + int(r.num_it_final.max())
+                 for r, _ in runs[1])
+    assert marks["gn_block"] == blocks
+
+
+@pytest.mark.gpu
+def test_cuda_marks_off_leave_the_captured_segments_as_they_were(
+        cuda, stage_clock):
+    """With marks off the step's captured segments (pre, the GN blocks,
+    mid, tail) have the nodes they had before marks were first on, and a
+    fresh engine's after them; the variant captured with marks on has 13
+    kernel nodes more: _stg1, _stg2, _stg3, two _stg4, ransac and _stg5 in
+    pre, a gn_block in each block, _stg5 in mid, and _stg5, update and end
+    in tail.  The composition around them does not depend on the marks."""
+    from rso_torch.graphs import node_types
+    from rso_torch.synthetic import synthetic_config
+
+    cfg = synthetic_config()
+    seq = make_sequence(n_frames=3, n_points=2000, H=376, W=1241)
+
+    def segments(eng, i):
+        v = list(eng._get_step(376, 1241)._variants.values())[i]
+        return [node_types(seg.graph.raw_cuda_graph()) for seg in v.graphs[None]]
+
+    eng = Engine(cfg, seq.cam, device=cuda)
+    eng.process_frame(*seq.frames[0])
+    plain = segments(eng, 0)
+    stage_clock.on = True
+    eng.process_frame(*seq.frames[1])
+    marked = segments(eng, 1)
+    stage_clock.on = False
+    eng.process_frame(*seq.frames[2])
+    assert len(eng._get_step(376, 1241)._variants) == 2
+    assert segments(eng, 0) == plain
+    fresh = Engine(cfg, seq.cam, device=cuda)
+    fresh.process_frame(*seq.frames[0])
+    assert segments(fresh, 0) == plain
+    extra = [{t: m.get(t, 0) - p.get(t, 0) for t in set(m) | set(p)
+              if m.get(t, 0) != p.get(t, 0)} for m, p in zip(marked, plain)]
+    assert extra == [{0: 7}, {0: 1}, {0: 1}, {0: 1}, {0: 3}]
