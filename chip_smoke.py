@@ -36,10 +36,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
      and 1e-5 held) and against torch.linalg.eigh, its library call, and
      its w[0] against float64 eigvalsh on the cases of
      tests/test_torch_eigh6.py (cond 1e3-1e7, graded GN matrices): median
-     and max error no more than LAPACK f32's on the same matrices;
+     and max error no more than LAPACK f32's on the same matrices; and the
+     eighth, gn_iter (one GN iteration, csrc/gn_iter.cu; rso's is plain
+     XLA), against its plain version (robust_gn.gn_iteration_torch) on
+     whole solves of kitti-shaped frames (T = 896, tests/_torch_gn_cases.py)
+     in every variant: integer fields exact, the pose within 1e-5, timed at
+     [1, 896] beside the plain iteration;
  3b. batched kernels: each kernel under torch.func.vmap over N_BATCH = 11
      lanes (lane b: bench frame b at octave 0; tracking b to b + 1; kernel
-     4: 512 matrices a lane; eigh6: one normal matrix a lane), as the
+     4: 512 matrices a lane; eigh6: one normal matrix a lane; gn_iter:
+     one frame's [896] slots and carry a lane), as the
      batched step launches it: one launch
      for all lanes (kernel 1 also on its wide path), each lane bit for bit
      its twin (kernel 4: the unbatched kernel's bits, the twin's up to
@@ -81,8 +87,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
                      kernel 4 on flow's per-octave RANSAC);
        detect_every  detect_every=3, 21 bench frames (kernels 1 and 2 on the
                      detect frames only);
-       eigh_lm       the eigh solve with LM damping, 10 bench frames (eigh6
-                     in the GN loops);
+       eigh_lm       the eigh solve with LM damping, 10 bench frames (eigh6's
+                     routine in the GN kernel);
      then the seams: precomputed features and matches against the full step
      (3 frames, equal results), a checkpoint round trip on the card,
      reset_ids, and a repeat after a chunk; then
@@ -101,9 +107,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      no host read and one graph launch a frame; per path each form's
      median step ms (CUDA events) and wall ms a frame, the flag reads a
      frame, the GN iteration distribution and the graphs; eigh_lm's eager
-     step also against the same step with cuSOLVER's eigh (pose within
+     step (the GN kernel, eigh6's routine inside) also against the same
+     step with the plain GN iterations on the eigh6 kernel, and that
+     against the plain iterations on cuSOLVER's eigh (pose within
      EIGH_POSE_ATOL where the counts agree, frames that part named and held
-     to LANE_GN_*) and the condition numbers its normal matrices reached;
+     to LANE_GN_*), and the condition numbers its normal matrices reached;
      on default and kitti the graph again at each GN_BLOCK of
      GN_BLOCK_SWEEP, all captured first and then timed in turns, twice
      (what GN_BLOCK was chosen from);
@@ -241,7 +249,9 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1082,6 +1092,8 @@ def check_kernels(seq, dev):
 
     # ---- eigh6 (the port's, no Pallas counterpart): 6x6 normal matrices ----
     report["eigh6"] = check_eigh6(dev, entry)
+    # ---- gn_iter (the port's, no Pallas counterpart): one GN iteration ----
+    report["gn_iter"] = check_gn_iter(dev, entry)
     return report, timed
 
 
@@ -1244,6 +1256,112 @@ def check_eigh6(dev, entry) -> dict:
     return out
 
 
+# gn_iter per slot, counted from the kernel's arithmetic (csrc/gn_iter.cu):
+# the rotation 18, the projection 16, dP 45, the Jacobian 120, residual and
+# its square 11, the robust weight 6, weight and cost 4, g 72, H's lower
+# triangle 252, the residual's select 1; bytes: the landmark 12, the
+# observation 16, the mask 1 and the weight 4 read, the residual 4 written
+GN_ITER_OPS_PER_SLOT = 545
+GN_ITER_BYTES_PER_SLOT = 37
+# the camera 36, the carry's scalars and increment 48 each way
+GN_ITER_FIXED_BYTES = 36 + 2 * 48
+# the frames (seeds) of check_gn_iter's solves, at the kitti frame's T
+N_GN_ITER_FRAMES = 4
+
+
+def gn_iter_bound(lanes: int, T: int):
+    return (lanes * T * GN_ITER_OPS_PER_SLOT,
+            lanes * (T * GN_ITER_BYTES_PER_SLOT + GN_ITER_FIXED_BYTES))
+
+
+def _gn_timing_params(params):
+    """`params` whose loop never stops, so that a launch timed again and
+    again always runs its lane."""
+    import dataclasses
+
+    return dataclasses.replace(params, min_mod_out_vector=0.0,
+                               max_incr_cost=1 << 30)
+
+
+def check_gn_iter(dev, entry) -> dict:
+    """The GN iteration kernel against its plain version
+    (robust_gn.gn_iteration_torch) on the card at a kitti frame's shape (T
+    = 896 in octaves of 512, 256 and 128, octave weights, outliers), in
+    every variant: whole two-phase solves with the integer fields exact,
+    the pose within 1e-5, the residuals within 5e-3 px^2 and the cost
+    within 5e-3 (relative above 1).  Timed at [1, 896] in the cells'
+    variant (robust kernel, IRLS, weights, chol), beside the plain
+    iteration."""
+    import torch
+
+    import rso_torch.solver.robust_gn as G
+    from rso_torch.kernels import gn_iter as GI
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import _torch_gn_cases as GC
+
+    cam = GC.camera(dev)
+    worst = {"pose": 0.0, "res": 0.0, "cost": 0.0}
+    iters = collections.Counter()
+    for variant in GC.VARIANTS:
+        p = GC.params(variant)
+        for seed in range(N_GN_ITER_FRAMES):
+            prev, cur, mask, w = GC.frame_inputs(seed, dev)
+            got = G.solve_pose(cam, prev, cur, mask, p, obs_weight=w)
+            saved = G.gn_iteration
+            G.gn_iteration = lambda *a: functools.partial(
+                G.gn_iteration_torch, *a)
+            try:
+                want = G.solve_pose(cam, prev, cur, mask, p, obs_weight=w)
+            finally:
+                G.gn_iteration = saved
+            for f in ("valid", "error_code", "num_it", "num_it_final",
+                      "inliers"):
+                if not torch.equal(getattr(got, f), getattr(want, f)):
+                    raise AssertionError(f"gn_iter {variant} frame {seed}: "
+                                         f"{f} differs from the plain solve")
+            fin = want.residuals < 1e30
+            if not torch.equal(fin, got.residuals < 1e30):
+                raise AssertionError(f"gn_iter {variant} frame {seed}: other "
+                                     "slots left out of the residuals")
+            worst["pose"] = max(worst["pose"], (got.pose - want.pose).abs()
+                                .max().item())
+            if fin.any():
+                worst["res"] = max(worst["res"], (
+                    got.residuals[fin] - want.residuals[fin]).abs()
+                    .max().item())
+            # relative above a cost of 1, absolute below (an aborted
+            # frame's second phase never runs: cost 0)
+            g, w_ = got.cost.item(), want.cost.item()
+            if not (math.isnan(g) and math.isnan(w_)):
+                worst["cost"] = max(worst["cost"],
+                                    abs(g - w_) / max(abs(w_), 1.0))
+            iters[variant] += int(got.num_it) + int(got.num_it_final)
+    if not (worst["pose"] <= 1e-5 and worst["res"] <= 5e-3
+            and worst["cost"] <= 5e-3):
+        raise AssertionError(f"gn_iter against the plain solve: {worst}")
+    print(f"kernel gn_iter: {N_GN_ITER_FRAMES} frame solves a variant "
+          f"(T = {sum(GC.FRAME_SLOTS)}) equal to the plain iterations' in "
+          f"every integer field; worst {worst}; iterations {dict(iters)}",
+          flush=True)
+    prev, cur, mask, w = GC.frame_inputs(0, dev)
+    T = len(mask)
+    p = _gn_timing_params(GC.params("robust"))
+    lmks = GC.landmarks(prev)
+    c = GC.carry(T, GC.DEFAULT_POSE, p, it=1, cost=1e9, device=dev)
+    step = GI.gn_iteration_cuda(cam, lmks, cur, mask, w, p, 1 << 30,
+                                G.VOEC_INCR_FUNC_COST_STG1,
+                                G.VOEC_BAD_COND_NUMBER)
+    plain = functools.partial(G.gn_iteration_torch, cam, lmks, cur, mask, w,
+                              p, 1 << 30, G.VOEC_INCR_FUNC_COST_STG1,
+                              GC.clone(c))
+    ops, n_bytes = gn_iter_bound(1, T)
+    out = entry(worst["pose"], lambda: step(c), "gn_iter_kernel", plain,
+                None, ops, n_bytes, [1, T])
+    out.update(worst, iterations=dict(iters))
+    return out
+
+
 def check_batched_kernels(seq, dev, report, timed) -> None:
     """Phase 3b: each kernel under torch.func.vmap over N_BATCH lanes, as
     the batched step launches it: one launch for all lanes (its vmap rule),
@@ -1289,12 +1407,12 @@ def check_batched_kernels(seq, dev, report, timed) -> None:
                                  f", expected one for {B} lanes")
         return out
 
-    def lanes(name, kernel, fn, ops, n_bytes, shape):
+    def lanes(name, kernel, fn, ops, n_bytes, shape, plain=None):
         bound_ms, bound_by = _bound(ops, n_bytes)
         d = dict(lanes=B, shape=shape, bound_ms=bound_ms, bound_by=bound_by,
                  label=f"{B} lanes {shape}")
         report[name]["batched"] = d
-        timed.append((d, kernel, fn, None, None))
+        timed.append((d, kernel, fn, plain, None))
         print(f"kernel {name}: one launch for {B} lanes {shape}, each lane "
               f"equal to its twin; bound {bound_ms} ms ({bound_by})",
               flush=True)
@@ -1383,6 +1501,7 @@ def check_batched_kernels(seq, dev, report, timed) -> None:
     lanes("eigh6", "eigh6_kernel", run_e,
           B * SWEEPS * 15 * EIGH6_OPS_PER_ROTATION, B * EIGH6_BYTES,
           [B, 6, 6])
+    check_batched_gn_iter(dev, B, one_launch, lanes)
     lanes("nullvec9", "nullvec9_kernel", run, B * 512 * 900,
           B * 512 * (81 + 9) * 4, list(M.shape))
 
@@ -1406,6 +1525,63 @@ def check_batched_kernels(seq, dev, report, timed) -> None:
     P = pa.shape[-1]
     lanes("sad_matrix", "sad_kernel", run, B * k0 * k0 * P * 3,
           B * (2 * k0 * P + k0 * k0) * 4, list(pa.shape))
+
+
+def check_batched_gn_iter(dev, B, one_launch, lanes) -> None:
+    """The GN iteration kernel under torch.func.vmap over B lanes of a
+    kitti frame's shape ([B, 896], frame b's inputs a lane): one launch,
+    each lane's carry bit for bit its lone launch's (a lane is one block
+    running the same code); timed beside the plain iteration's vmap."""
+    import torch
+
+    import rso_torch.solver.robust_gn as G
+    from rso_torch.kernels import gn_iter as GI
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import _torch_gn_cases as GC
+
+    cam = GC.camera(dev)
+    p = _gn_timing_params(GC.params("robust"))
+    ins = [GC.frame_inputs(b, dev) for b in range(B)]
+    lmks = torch.stack([GC.landmarks(x[0]) for x in ins])
+    cur, mask, w = (torch.stack([x[i] for x in ins]) for i in (1, 2, 3))
+    T = cur.shape[1]
+    starts = [GC.carry(T, GC.DEFAULT_POSE * (1 + 0.05 * b), p, it=1,
+                       cost=1e9, device=dev) for b in range(B)]
+    c = G.GNCarry(*(None if x[0] is None else torch.stack(x)
+                    for x in zip(*starts)))
+    lone = []
+    for b in range(B):
+        cb = GC.clone(starts[b])
+        GI.gn_iteration_cuda(cam, lmks[b], cur[b], mask[b], w[b], p, 1 << 30,
+                             G.VOEC_INCR_FUNC_COST_STG1,
+                             G.VOEC_BAD_COND_NUMBER)(cb)
+        lone.append(cb)
+
+    def one(lm, ob, ma, wt, *leaves):
+        carry = G.GNCarry(*leaves, None)
+        GI.gn_iteration_cuda(cam, lm, ob, ma, wt, p, 1 << 30,
+                             G.VOEC_INCR_FUNC_COST_STG1,
+                             G.VOEC_BAD_COND_NUMBER)(carry)
+        return carry.it
+
+    def plain_one(lm, ob, ma, wt, *leaves):
+        return G.gn_iteration_torch(cam, lm, ob, ma, wt, p, 1 << 30,
+                                    G.VOEC_INCR_FUNC_COST_STG1,
+                                    G.GNCarry(*leaves, None)).it
+
+    start = [x.clone() for x in c[:-1]]
+    plain = lambda: torch.func.vmap(plain_one)(lmks, cur, mask, w,  # noqa: E731
+                                               *start)
+    run = lambda: torch.func.vmap(one)(lmks, cur, mask, w, *c[:-1])  # noqa: E731
+    one_launch("gn_iter", run)
+    for b in range(B):
+        for f, x, y in zip(G.GNCarry._fields, c, lone[b]):
+            if x is not None and not torch.equal(x[b], y):
+                raise AssertionError(f"batched gn_iter lane {b}: {f} is not "
+                                     "its lone launch's")
+    ops, n_bytes = gn_iter_bound(B, T)
+    lanes("gn_iter", "gn_iter_kernel", run, ops, n_bytes, [B, T], plain)
 
 
 def time_kernels(timed) -> None:
@@ -2124,13 +2300,15 @@ def compiled_path(name, cfg, seq, dev, n_frames, sweep=False) -> dict:
 
 
 def eigh_against_the_library(name, cfg, cam, frames, want, dev) -> dict:
-    """The eigh backend's eager step with the eigh6 kernel (`want`) against
-    the same step with cuSOLVER's eigh (torch.linalg.eigh) on the same
-    frames, each from its own states: where the integer fields agree the
-    pose within EIGH_POSE_ATOL; frames where they part are named and held
-    to LANE_GN_*.  Also the condition number w[5] / w[0] of every normal
-    matrix the kernel's run factored, against the GN's _COND_MAX (1e7; the
-    LM solve aborts only on a non-finite one)."""
+    """The eigh backend's eager step with the GN iteration kernel (`want`,
+    eigh6's routine inside it) against the same step with the plain GN
+    iterations, once with the eigh6 kernel and once with cuSOLVER's eigh
+    (torch.linalg.eigh), on the same frames, each from its own states:
+    where the integer fields agree the pose within EIGH_POSE_ATOL; frames
+    where they part are named and held to LANE_GN_*.  Also the condition
+    number w[5] / w[0] of every normal matrix the plain eigh6 run
+    factored, against the GN's _COND_MAX (1e7; the LM solve aborts only on
+    a non-finite one)."""
     import torch
 
     import rso_torch.solver.robust_gn as G
@@ -2144,10 +2322,14 @@ def eigh_against_the_library(name, cfg, cam, frames, want, dev) -> dict:
         conds.append(w[..., 5] / w[..., 0])
         return w, V
 
+    def plain(*a):
+        return functools.partial(G.gn_iteration_torch, *a)
+
     hw = tuple(frames[0][0].shape[:2])
     runs = {}
-    for form, fn in (("kernel", recording), ("cusolver", torch.linalg.eigh)):
-        saved, G._eigh = G._eigh, fn
+    for form, fn in (("eigh6", recording), ("cusolver", torch.linalg.eigh)):
+        saved = G._eigh, G.gn_iteration
+        G._eigh, G.gn_iteration = fn, plain
         try:
             step = make_step(cfg, cam, *hw)
             st, out = init_state(cfg, hw, dev), []
@@ -2155,22 +2337,27 @@ def eigh_against_the_library(name, cfg, cam, frames, want, dev) -> dict:
                 st, res = step(st, left, right)
                 out.append(res)
         finally:
-            G._eigh = saved
+            G._eigh, G.gn_iteration = saved
         runs[form] = out
-    _same_frames(f"{name}: eager with eigh6 again", runs["kernel"], want)
-    worst, parted = {}, []
-    for i, (k, c) in enumerate(zip(runs["kernel"], runs["cusolver"])):
-        _lane_vs_alone(f"{name} frame {i} (eigh6 vs cuSOLVER)", c, k, worst,
-                       parted, pose_atol=EIGH_POSE_ATOL)
+    report = {}
+    for form, other in (("eigh6", "kernel"), ("cusolver", "eigh6")):
+        ref = want if other == "kernel" else runs[other]
+        worst, parted = {}, []
+        for i, (k, c) in enumerate(zip(ref, runs[form])):
+            _lane_vs_alone(f"{name} frame {i} ({other} vs {form})", c, k,
+                           worst, parted, pose_atol=EIGH_POSE_ATOL)
+        report[f"{other}_vs_{form}"] = {"frames_parted": parted,
+                                        "worst": worst}
     c = torch.stack([x.reshape(()) for x in conds]).cpu()
     fin = c[torch.isfinite(c)]
-    out = {"frames_parted": parted, "worst": worst, "eigensolves": len(conds),
+    out = {**report, "eigensolves": len(conds),
            "cond_max": float(fin.max()) if fin.numel() else None,
            "cond_median": float(fin.median()) if fin.numel() else None,
            "cond_max_over_limit": (float(fin.max()) / G._COND_MAX
                                    if fin.numel() else None),
            "non_finite": int((~torch.isfinite(c)).sum())}
-    print(f"{name}: eigh6 against cuSOLVER's eigh, {len(frames)} frames: "
+    print(f"{name}: the GN kernel against the plain iterations with eigh6, "
+          f"and those against cuSOLVER's eigh, {len(frames)} frames: "
           f"{json.dumps(out)}", flush=True)
     return out
 
@@ -4018,8 +4205,12 @@ def main() -> int:
         "nullvec9": ("smallchol.cu", "rso/kernels/smallchol.py:136", "default"),
         "hamming_matrix": ("distance.cu", "rso/kernels/distance.py:157", "fast_orb_rbr_win"),
         "sad_matrix": ("distance.cu", "rso/kernels/distance.py:123", "sad_dense"),
-        # no Pallas kernel: rso's eigh backend calls XLA's jnp.linalg.eigh
+        # no Pallas kernel: rso's eigh backend calls XLA's jnp.linalg.eigh;
+        # no path launches it since its routine runs inside gn_iter (0)
         "eigh6": ("eigh6.cu", "rso/solver/robust_gn.py:133", "eigh_lm"),
+        # no Pallas kernel: rso's GN iteration is plain XLA
+        "gn_iter": ("gn_iter.cu", "rso/solver/robust_gn.py:89 (_eval_rgn) "
+                    "and the GN loop's body", "default"),
     }
     frames = {"default": N_FRAMES, "fast_orb_rbr_win": N_FRAMES,
               "sad_dense": N_DENSE_FRAMES, "wide_window": N_WIDE_FRAMES,
@@ -4035,13 +4226,14 @@ def main() -> int:
         # the phase's path, which launches the kernel equally at each of its
         # shapes (an octave's, or nullvec9's B = 512 and B = 2)
         shapes = [r] + r.get("octaves", [])
-        over_us = (by_phase[phase][n] / frames[phase] / len(shapes)
+        n_launches = by_phase[phase].get(n, 0)
+        over_us = (n_launches / frames[phase] / len(shapes)
                    * sum(x["device_us"] - 1e3 * x["bound_ms"] for x in shapes))
         print(f"rank {n}: {over_us} us a frame over its bound on the {phase} "
               "path", flush=True)
         line.append({
             "name": n, "route": "cuda", "source": f"rso_torch/csrc/{src}",
-            "replaces": rep, "launches": by_phase[phase][n],
+            "replaces": rep, "launches": n_launches,
             "launches_phase": phase,
             "launches_by_phase": {p: c.get(n, 0) for p, c in by_phase.items()},
             # phase 8c (a): one launch a call site for all N_BATCH lanes

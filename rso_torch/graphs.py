@@ -96,6 +96,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import gc
 import weakref
 from typing import Callable, NamedTuple
 
@@ -278,6 +279,18 @@ class _Capture:
         self.end(loop=(flag, n_blocks, site))
         self.begin()
         return carry
+
+
+@contextlib.contextmanager
+def _no_gc():
+    """The cyclic garbage collector off inside the block."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _graph() -> torch.cuda.CUDAGraph:
@@ -622,9 +635,11 @@ class CompiledStep:
 
     def _capture(self, v: _Variant) -> None:
         """Capture every branch of v (recorded, not run) and compose v's
-        graph."""
+        graph.  The garbage collector waits until the capture ends: a dead
+        step's graphs freed inside a capture would call CUDA's graph
+        destroy there, which invalidates the capture."""
         keys = (None,) if self.branches is None else self.branches.keys
-        with torch.cuda.stream(self._side_stream()):
+        with torch.cuda.stream(self._side_stream()), _no_gc():
             for key in keys:
                 cap = _Capture()
                 cap.begin()

@@ -4,6 +4,9 @@ Each module holds `<name>_torch` (the twin, used for CPU tensors),
 `<name>_cuda` (the kernel wrapper) and `<name>_auto` (the dispatcher);
 `eigh6`, the pose solver's 6x6 eigensolver on the GPU, has no dispatcher:
 on the CPU the solver keeps LAPACK's eigh (rso_torch.solver.robust_gn).
+`gn_iter`, one iteration of the pose solver's GN loop, has neither twin
+nor dispatcher here: its plain version and the dispatch are the solver's
+(`robust_gn.gn_iteration_torch`, `robust_gn.gn_iteration`).
 `LAUNCHES` counts kernel launches by name.  Each `<name>_cuda` is a
 `torch.library.custom_op` with a vmap rule: under torch.func.vmap (the
 batched engine step) one launch covers every lane.  `cost_volume` is the

@@ -21,7 +21,8 @@ counts to both counters.
 
 Every entry but the null vectors' takes a lane count B: B independent
 problems (the sequences of a batched step) in one launch, a grid axis over
-the lanes, each operand [B, ...] with its lanes contiguous.  A batched
+the lanes, each operand [B, ...] with its lanes contiguous (the GN
+iteration's inputs may be one for every lane: a lanes' stride of 0).  A batched
 launch counts once, as a replayed one does, so the launches a frame show
 that the lanes share them.  The wrappers are custom ops whose vmap rules
 (`lanes` below gives their operands) make that one launch, as vmap over a
@@ -101,6 +102,7 @@ def tally(record: collections.Counter) -> None:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _PU = ctypes.POINTER(ctypes.c_ulonglong)
 # C signatures: every pointer (and the stream) is a c_void_p
@@ -115,6 +117,9 @@ _SIGNATURES = {
     "rso_hamming_matrix": [_P, _P, _I, _I, _I, _I, _P, _P],
     "rso_sad_matrix": [_P, _P, _I, _I, _I, _I, _P, _P],
     "rso_eigh6": [_P, _P, _P, _I, _P],
+    "rso_gn_iter": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _L,
+                    _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _I, _I, _I, _F, _F, _I, _I, _I, _I, _P],
     # csrc/graph_cond.cu: composing and launching CUDA graphs, the stage
     # clock's marks
     "rso_graph_create": [_PP],

@@ -17,6 +17,13 @@ as the body of a CUDA graph's conditional WHILE node that tests the flag on
 the device (rso_torch.graphs).  The flag (`active`) already holds the
 iteration cap, so it is false after the last block.
 
+An iteration (`gn_iteration`) is, for CUDA tensors, one launch of the
+gn_iter kernel (rso_torch/csrc/gn_iter.cu), which computes the whole
+iteration and writes the carry in place, and for CPU tensors
+`gn_iteration_torch`, its plain version in PyTorch (~470 small kernels an
+iteration were it run on the GPU).  The carry a loop writes is its own:
+`_gn_phase` makes it, and a runner that replays blocks clones it first.
+
 Under torch.func.vmap (the batched engine step) the solve runs for every
 lane at once, and the flag passes through `any_lane`, whose vmap rule
 reduces it over the lanes: the loop runs while any lane runs, as rso's vmap
@@ -32,6 +39,7 @@ phase's loop is followed by a `_stg5` mark.
 from __future__ import annotations
 
 import collections
+import functools
 from typing import NamedTuple
 
 import torch
@@ -44,6 +52,7 @@ from rso_torch.geometry.stereo_camera import (
     triangulate,
 )
 from rso_torch.kernels.eigh6 import eigh6_cuda
+from rso_torch.kernels.gn_iter import gn_iteration_cuda
 from rso_torch.metrics.profiler import STAGE_CLOCK
 
 # VOErrorCode (reference libstereo-odometry.h:142) + the rso extension 6
@@ -160,7 +169,8 @@ def _eigh(H: torch.Tensor):
     """(w ascending, V) of a symmetric 6x6 H: LAPACK's eigh on the CPU, the
     routine the reference's jnp.linalg.eigh runs there; on the GPU the
     eigh6 kernel (cyclic Jacobi), since cuSOLVER's eigh reads its status on
-    the host and so cannot run inside the step's CUDA graph."""
+    the host and so cannot run inside the step's CUDA graph (the plain
+    iteration's; the gn_iter kernel runs eigh6's routine itself)."""
     if H.device.type == "cpu":
         return torch.linalg.eigh(H)
     return eigh6_cuda(H)
@@ -237,39 +247,61 @@ def eager_blocks(block, carry, n_blocks: int):
     return carry
 
 
+def gn_iteration_torch(cam, lmks, obs, mask, obs_weight,
+                       params: LeastSquaresParams, max_iters: int,
+                       incr_cost_code: int, c: GNCarry) -> GNCarry:
+    """One masked iteration of a GN phase in PyTorch: the plain version of
+    the gn_iter kernel (rso_torch/csrc/gn_iter.cu), which the CPU runs.
+    An iteration after the stop changes nothing."""
+    dx, c_cost, res, bad_cond = _eval_rgn(cam, lmks, obs, mask, c.dp,
+                                          params, obs_weight,
+                                          lm_lambda=c.lam)
+    lam = c.lam
+    if lam is not None:
+        improved = (c.it == 0) | (c_cost <= c.cost)
+        lam = torch.where(improved, torch.clamp(lam * 0.5, min=1e-7),
+                          torch.clamp(lam * 4.0, max=1e3))
+    ec = torch.where(bad_cond, VOEC_BAD_COND_NUMBER, c.ec)
+    dp = torch.where(bad_cond, c.dp, c.dp + dx)
+    # ending conditions count from iteration 1 (reference :580-596)
+    later = c.it > 0
+    done = later & (torch.sqrt((dx * dx).sum()) < params.min_mod_out_vector)
+    times_inc = c.times_inc + (later & (c.cost < c_cost)).to(torch.int32)
+    too_many = times_inc > params.max_incr_cost
+    ec = torch.where(too_many & ~bad_cond, incr_cost_code, ec)
+    abort = bad_cond | too_many
+    it = c.it + c.active.to(torch.int32)
+    new = GNCarry(it=it, active=c.active & ~done & ~abort & (it < max_iters),
+                  dp=dp, cost=c_cost, times_inc=times_inc, abort=abort,
+                  res=res, ec=ec, lam=lam)
+    # an iteration after the stop changes nothing
+    return GNCarry(*(None if n is None else torch.where(c.active, n, o)
+                     for n, o in zip(new, c)))
+
+
+def gn_iteration(cam, lmks, obs, mask, obs_weight,
+                 params: LeastSquaresParams, max_iters: int,
+                 incr_cost_code: int):
+    """The iteration of one GN phase, a function of its carry: for CUDA
+    tensors the gn_iter kernel, one launch that writes the carry in place
+    (eager and captured alike; the carry is the loop's own); for CPU
+    tensors gn_iteration_torch."""
+    if obs.is_cuda:
+        return gn_iteration_cuda(cam, lmks, obs, mask, obs_weight, params,
+                                 max_iters, incr_cost_code,
+                                 VOEC_BAD_COND_NUMBER)
+    return functools.partial(gn_iteration_torch, cam, lmks, obs, mask,
+                             obs_weight, params, max_iters, incr_cost_code)
+
+
 def _gn_phase(cam, lmks, obs, mask, delta_pose0, max_iters: int, times_inc0,
               params: LeastSquaresParams, incr_cost_code: int,
               obs_weight=None, loop=eager_blocks):
     """One of the two GN loops (reference :549-598 and :650-700); with
     `params.use_lm` the LM loop (:160-213), whose lambda halves after a
     step that did not raise the cost and quadruples after one that did."""
-
-    def iteration(c: GNCarry) -> GNCarry:
-        dx, c_cost, res, bad_cond = _eval_rgn(cam, lmks, obs, mask, c.dp,
-                                              params, obs_weight,
-                                              lm_lambda=c.lam)
-        lam = c.lam
-        if lam is not None:
-            improved = (c.it == 0) | (c_cost <= c.cost)
-            lam = torch.where(improved, torch.clamp(lam * 0.5, min=1e-7),
-                              torch.clamp(lam * 4.0, max=1e3))
-        ec = torch.where(bad_cond, VOEC_BAD_COND_NUMBER, c.ec)
-        dp = torch.where(bad_cond, c.dp, c.dp + dx)
-        # ending conditions count from iteration 1 (reference :580-596)
-        later = c.it > 0
-        done = later & (torch.sqrt((dx * dx).sum()) < params.min_mod_out_vector)
-        times_inc = c.times_inc + (later & (c.cost < c_cost)).to(torch.int32)
-        too_many = times_inc > params.max_incr_cost
-        ec = torch.where(too_many & ~bad_cond, incr_cost_code, ec)
-        abort = bad_cond | too_many
-        it = c.it + c.active.to(torch.int32)
-        new = GNCarry(it=it, active=c.active & ~done & ~abort & (it < max_iters),
-                      dp=dp, cost=c_cost, times_inc=times_inc, abort=abort,
-                      res=res, ec=ec, lam=lam)
-        # an iteration after the stop changes nothing
-        return GNCarry(*(None if n is None else torch.where(c.active, n, o)
-                         for n, o in zip(new, c)))
-
+    iteration = gn_iteration(cam, lmks, obs, mask, obs_weight, params,
+                             max_iters, incr_cost_code)
     B = min(GN_BLOCK, max_iters)
 
     def block(c: GNCarry) -> GNCarry:

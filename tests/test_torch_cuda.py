@@ -857,10 +857,12 @@ def test_cuda_graph_capture_raises_on_a_host_read(cuda):
 
 @pytest.mark.gpu
 def test_cuda_eigh_backend_runs_the_eager_step(cuda):
-    """The eigh backend's eigensolver on the card is the eigh6 kernel, which
+    """The eigh backend's eigensolver on the card is eigh6's routine inside
+    the GN iteration kernel (csrc/eigh6.cuh in csrc/gn_iter.cu), which
     reads nothing back, so Engine captures that step too: its graph gives
     the eager step's results bit for bit, one graph launch a frame with no
-    host read, eigh6 launched in the GN loops as often as eagerly."""
+    host read, the GN kernel launched in the GN loops as often as
+    eagerly."""
     from rso_torch.graphs import GRAPH_LAUNCHES
     from rso_torch.solver.robust_gn import HOST_READS
 
@@ -870,7 +872,8 @@ def test_cuda_eigh_backend_runs_the_eager_step(cuda):
               for l, r in seq.frames]
     eng = Engine(cfg, seq.cam, device=cuda)
     eager = _eager_run(cfg, eng.cam, frames, (376, 1241), cuda)
-    assert all(launches["eigh6"] > 0 for _, launches in eager[1:])
+    assert all(launches["gn_iter"] > 0 and "eigh6" not in launches
+               for _, launches in eager[1:])
     for i, (left, right) in enumerate(frames):
         reset_launches()
         HOST_READS.clear()
@@ -1123,7 +1126,8 @@ def test_cuda_batched_hamming_and_sad_matrices(cuda):
 @pytest.mark.gpu
 def test_cuda_batch_engine_lanes_equal_lone_engines(cuda):
     """BatchEngine(B = 3) on the bench size: CUDA graphs replayed, 6/3/3/2
-    launches a frame for all lanes, each lane's integer fields equal to an
+    launches a frame for all lanes and one GN kernel launch a GN block,
+    each lane's integer fields equal to an
     Engine's alone, its floats within the batch bounds (the batched GN
     sums: tests/test_torch_batch.py), and process_chunk equal to
     process_frames bit for bit."""
@@ -1146,8 +1150,12 @@ def test_cuda_batch_engine_lanes_equal_lone_engines(cuda):
                      device=cuda)
     reset_launches()
     frames = [be.process_frames(lefts[:, n], rights[:, n]) for n in range(5)]
+    # the GN kernel: one launch a block for all lanes, the loops running to
+    # the slowest lane (GN_BLOCK 1)
+    gn = sum(int(f.num_it.max()) + int(f.num_it_final.max()) for f in frames)
     assert dict(settle_launches()) == {"corner_response": 30, "stereo_sad_fused": 15,
-                                "track_sad_fused": 15, "nullvec9": 10}
+                                "track_sad_fused": 15, "nullvec9": 10,
+                                "gn_iter": gn}
     for b, s in enumerate(seqs):
         eng = Engine(cfg, s.cam, device=cuda)
         for n in range(5):

@@ -210,3 +210,26 @@ def test_precomputed_steps_equal_the_plain_step(seq):
             plain.process_precomputed(lf, rf, matches=m, img_hw=(H, W)),
             f"matches frame {i}")
         _same(eng.state, plain.state, f"state after frame {i}")
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_the_collector_waits_while_a_step_is_captured(enabled):
+    """A capture runs with the cyclic garbage collector off (a dead step's
+    graphs destroyed inside it would invalidate it) and leaves the
+    collector as it found it, an exception included."""
+    import gc
+
+    from rso_torch import graphs
+
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        with graphs._no_gc():
+            assert not gc.isenabled()
+        assert gc.isenabled() == enabled
+        with pytest.raises(ValueError):
+            with graphs._no_gc():
+                raise ValueError
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()
