@@ -41,11 +41,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
      XLA), against its plain version (robust_gn.gn_iteration_torch) on
      whole solves of kitti-shaped frames (T = 896, tests/_torch_gn_cases.py)
      in every variant: integer fields exact, the pose within 1e-5, timed at
-     [1, 896] beside the plain iteration;
+     [1, 896] beside the plain iteration; and the ninth, lk_track
+     (pyramidal LK, csrc/lk_track.cu; rso's is plain XLA), against its
+     plain version (optical_flow.lk_track_torch) at kitti_flow's three
+     calls and on detect_every's propagation calls
+     (tests/_torch_lk_cases.py: positions and residuals within 2e-3 where
+     both track, on detect_every's calls where the slot also converged;
+     status apart only at a gate's edge, the seed bit for bit), timed at each octave's call, the plain
+     version beside octave 0's;
  3b. batched kernels: each kernel under torch.func.vmap over N_BATCH = 11
      lanes (lane b: bench frame b at octave 0; tracking b to b + 1; kernel
      4: 512 matrices a lane; eigh6: one normal matrix a lane; gn_iter:
-     one frame's [896] slots and carry a lane), as the
+     one frame's [896] slots and carry a lane; lk_track: octave 0's call
+     of frame b to b + 1 a lane), as the
      batched step launches it: one launch
      for all lanes (kernel 1 also on its wide path), each lane bit for bit
      its twin (kernel 4: the unbatched kernel's bits, the twin's up to
@@ -77,14 +85,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
      (`tests/_torch_paths.py`), 3 steps again on the CPU, and the ms a
      frame of the compiled step's stages (rso_torch.metrics.profiler's
      STAGES: stage 1 with the remap, detection, propagation, stereo,
-     tracking with refine or LK, RANSAC, the solve, its GN blocks, the
-     update) from its stage clock over 5 more frames:
+     tracking with refine or flow's association, flow's LK calls (`lk`),
+     RANSAC, the solve, its GN blocks, the update) from its stage clock
+     over 5 more frames:
        kitti         configs/kitti.ini (subpixel refine on), 20 bench frames;
        rectified     configs/euroc.ini through compute_rectify_maps on the
                      distorted rig of make_unrectified_sequence at EuRoC's
                      752x480, 20 frames;
        flow          OPTICAL_FLOW tracking, 20 bench frames (kernel 3 never,
-                     kernel 4 on flow's per-octave RANSAC);
+                     kernel 4 on flow's per-octave RANSAC, the LK kernel
+                     once an octave for both eyes);
        detect_every  detect_every=3, 21 bench frames (kernels 1 and 2 on the
                      detect frames only);
        eigh_lm       the eigh solve with LM damping, 10 bench frames (eigh6's
@@ -1094,6 +1104,8 @@ def check_kernels(seq, dev):
     report["eigh6"] = check_eigh6(dev, entry)
     # ---- gn_iter (the port's, no Pallas counterpart): one GN iteration ----
     report["gn_iter"] = check_gn_iter(dev, entry)
+    # ---- lk_track (the port's, no Pallas counterpart): pyramidal LK --------
+    report["lk_track"] = check_lk_track(seq, dev, entry, octave)
     return report, timed
 
 
@@ -1362,6 +1374,113 @@ def check_gn_iter(dev, entry) -> dict:
     return out
 
 
+# kitti_flow's LK: win 10 (21x21), 10 iterations, the seed over +-12 px
+LK_WIN, LK_ITERS, LK_SEED = 10, 10, 12
+
+
+def lk_bound(levels_hw, E: int, K: int):
+    """(operations, bytes) of one lk_track call: E eyes of K slots tracked
+    down the levels `levels_hw` ([(h, w)], octave o's first), counted as
+    vobench/roofline_lk.py counts them (a keypoint-level, a seed; each
+    level's two images read once, each slot's point and flag in, its
+    position, status and residual out)."""
+    from vobench.roofline_lk import keypoint_level_ops, seed_ops
+
+    ops = E * K * (len(levels_hw) * keypoint_level_ops(LK_WIN, LK_ITERS)
+                   + seed_ops(LK_SEED))
+    pixels = sum(h * w for h, w in levels_hw)
+    return ops, E * (2 * 4 * pixels + K * (8 + 1 + 8 + 1 + 4))
+
+
+def check_lk_track(seq, dev, entry, octave) -> dict:
+    """The LK kernel against its plain version
+    (optical_flow.lk_track_torch) on the card at kitti_flow's calls (both
+    eyes of [512] slots down 3 levels, [256] down 2, [128] down 1; win 10,
+    10 iterations, seed 12), with tests/_torch_lk_cases.py's inputs and
+    tolerances: positions and residuals within 2e-3 where both track,
+    status differences only at a gate's edge (listed), the seed bit for
+    bit; then on detect_every's own calls (the engine's propagation over
+    N_EVERY_FRAMES bench frames, each eye its own valid mask), each held
+    to the plain version on the same inputs where both track and the slot
+    converged (`converged`).  Timed at each octave's
+    call, the plain version beside octave 0's."""
+    import dataclasses
+
+    import torch
+
+    from rso_torch.frontend import optical_flow as OF
+    from rso_torch.kernels import LAUNCHES
+    from rso_torch.synthetic import synthetic_config
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import _torch_lk_cases as C
+
+    pyr = C.scene(dev)
+    kw = dict(win=LK_WIN, iters=LK_ITERS, seed_range=LK_SEED)
+    worst = {"pos": 0.0, "err": 0.0}
+    calls = []
+    for o in range(3):
+        prev, cur, pts, valid = C.octave_case(pyr, o, 10 * o)
+        LAUNCHES.clear()
+        got = OF.lk_track_eyes(prev, cur, pts, valid, **kw)
+        torch.cuda.synchronize()
+        if dict(LAUNCHES) != {"lk_track": 1}:
+            raise AssertionError(f"lk_track octave {o}: launches "
+                                 f"{dict(LAUNCHES)}, expected one")
+        rows, gaps, _, _, _ = C.agree(
+            got, C.plain(prev, cur, pts, valid, **kw), W >> o, H >> o)
+        worst = {"pos": max(worst["pos"], gaps[0]),
+                 "err": max(worst["err"], gaps[1])}
+        # the seed alone (no iteration, one level) bit for bit
+        img0, img1 = pyr[0][0][o], pyr[1][0][o]
+        p0, v0 = C.points(img0, C.SLOTS[o], o, spread=0.0)
+        p0 = torch.round(p0)
+        seed = OF.lk_track([img0], [img1], p0, v0, iters=0,
+                           seed_range=LK_SEED).pos - p0
+        if not torch.equal(seed, OF._coarse_sad_seed(img0, img1, p0,
+                                                     LK_SEED)):
+            raise AssertionError(f"lk_track octave {o}: the seed differs")
+        print(f"kernel lk_track octave {o} [2, {C.SLOTS[o]}] {3 - o} levels: "
+              f"status differs at {rows}; where both track, position gap "
+              f"{gaps[0]} px, residual gap {gaps[1]}; seed bit for bit",
+              flush=True)
+        calls.append((prev, cur, pts, valid,
+                      [tuple(x.shape) for x in prev[0]]))
+    base = synthetic_config()
+    cfg = base.replace(tpu=dataclasses.replace(base.tpu, detect_every=3))
+    prop, detected = C.propagate_calls(cfg, seq, dev, N_EVERY_FRAMES)
+    flips, prop_worst = [], {"pos": 0.0, "err": 0.0, "loose": 0.0}
+    n_both = n_loose = 0
+    for frame, o, got, want, conv, w, h in prop:
+        rows, gaps, n, n_l, loose_gap = C.agree(got, want, w, h, conv,
+                                                min_tracked=0.0)
+        flips += [(frame, o) + r for r in rows]
+        n_both, n_loose = n_both + n, n_loose + n_l
+        prop_worst = {"pos": max(prop_worst["pos"], gaps[0]),
+                      "err": max(prop_worst["err"], gaps[1]),
+                      "loose": max(prop_worst["loose"], loose_gap)}
+    print(f"kernel lk_track on detect_every's {len(prop)} propagation calls "
+          f"({N_EVERY_FRAMES} bench frames, detected at {detected}): status "
+          f"differs at (frame, octave, slot, err margin, border margin) "
+          f"{flips}; {n_loose} of {n_both} slots both track not converged; "
+          f"worst gaps {prop_worst}", flush=True)
+    timings = []
+    for o, (prev, cur, pts, valid, hw) in enumerate(calls):
+        fn = functools.partial(OF.lk_track_eyes, prev, cur, pts, valid, **kw)
+        ops, n_bytes = lk_bound(hw, 2, C.SLOTS[o])
+        timings.append((fn, ops, n_bytes, [2, C.SLOTS[o], len(hw)]))
+    fn, ops, n_bytes, shape = timings[0]
+    prev, cur, pts, valid, _ = calls[0]
+    out = entry(worst["pos"], fn, "lk_track_kernel",
+                functools.partial(C.plain, prev, cur, pts, valid, **kw), None,
+                ops, n_bytes, shape)
+    for fn, ops, n_bytes, shape in timings[1:]:
+        octave(out, "lk_track_kernel", fn, ops, n_bytes, shape)
+    out.update(worst_pos=worst["pos"], worst_err=worst["err"],
+               propagate_flips=flips, propagate_worst=prop_worst)
+    return out
+
+
 def check_batched_kernels(seq, dev, report, timed) -> None:
     """Phase 3b: each kernel under torch.func.vmap over N_BATCH lanes, as
     the batched step launches it: one launch for all lanes (its vmap rule),
@@ -1502,6 +1621,7 @@ def check_batched_kernels(seq, dev, report, timed) -> None:
           B * SWEEPS * 15 * EIGH6_OPS_PER_ROTATION, B * EIGH6_BYTES,
           [B, 6, 6])
     check_batched_gn_iter(dev, B, one_launch, lanes)
+    check_batched_lk_track(seq, dev, B, one_launch, lanes)
     lanes("nullvec9", "nullvec9_kernel", run, B * 512 * 900,
           B * 512 * (81 + 9) * 4, list(M.shape))
 
@@ -1582,6 +1702,45 @@ def check_batched_gn_iter(dev, B, one_launch, lanes) -> None:
                                      "its lone launch's")
     ops, n_bytes = gn_iter_bound(B, T)
     lanes("gn_iter", "gn_iter_kernel", run, ops, n_bytes, [B, T], plain)
+
+
+def check_batched_lk_track(seq, dev, B, one_launch, lanes) -> None:
+    """The LK kernel under torch.func.vmap over B lanes of octave 0's call
+    (lane b: bench frame b to b + 1, both eyes, [512] slots down 3 levels):
+    one launch, each lane bit for bit its lone launch (a lane is blocks
+    running the same code)."""
+    import torch
+
+    from rso_torch.frontend import optical_flow as OF
+    from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import _torch_lk_cases as C
+
+    kw = dict(win=LK_WIN, iters=LK_ITERS, seed_range=LK_SEED)
+    cases = []
+    for b in range(B):
+        pyr = [[build_pyramid(to_grayscale(torch.from_numpy(
+            seq.frames[f][e]).to(dev)), 3) for e in (0, 1)]
+            for f in (b, b + 1)]
+        cases.append(C.octave_case(pyr, 0, b))
+    lone = [OF.lk_track_eyes(*c, **kw) for c in cases]
+    pts, valid = (torch.stack([c[i] for c in cases]) for i in (2, 3))
+    prev, cur = ([[torch.stack([c[j][e][lvl] for c in cases])
+                   for lvl in range(3)] for e in (0, 1)] for j in (0, 1))
+    run = lambda: torch.func.vmap(  # noqa: E731
+        lambda p, c, x, v: OF.lk_track_eyes(p, c, x, v, **kw))(
+        prev, cur, pts, valid)
+    out = one_launch("lk_track", run)
+    for b, one in enumerate(lone):
+        for f, x, y in zip(one._fields, out, one):
+            if not torch.equal(x[b], y):
+                raise AssertionError(f"batched lk_track lane {b}: {f} is not "
+                                     "its lone launch's")
+    ops, n_bytes = lk_bound([tuple(x.shape) for x in cases[0][0][0]], 2,
+                            C.SLOTS[0])
+    lanes("lk_track", "lk_track_kernel", run, B * ops, B * n_bytes,
+          [B, 2, C.SLOTS[0]])
 
 
 def time_kernels(timed) -> None:
@@ -1925,7 +2084,9 @@ def _launch_counts(cfg, states, results, every=1):
     twice an octave (both eyes) and kernel 2 once an octave on each frame
     that detects; kernel 3 once an octave on every frame unless the path
     tracks by flow; kernel 4 twice (hypotheses and refit) for each RANSAC
-    call: the flat filter once a frame, or flow's per-octave filter."""
+    call: the flat filter once a frame, or flow's per-octave filter; the LK
+    kernel once an octave (both eyes in one launch) on every frame of flow
+    and on each frame that propagates."""
     O = cfg.n_octaves
     flow = cfg.if_match.ifm_method == 3
     n = len(results)
@@ -1944,6 +2105,7 @@ def _launch_counts(cfg, states, results, every=1):
     return {"corner_response": 2 * O * detects, "stereo_sad_fused": O * detects,
             "track_sad_fused": 0 if flow else O * n,
             "nullvec9": 2 * (O if flow else 1) * n,
+            "lk_track": O * (n if flow else n - detects),
             "hamming_matrix": 0, "sad_matrix": 0}, detects
 
 
@@ -4211,10 +4373,13 @@ def main() -> int:
         # no Pallas kernel: rso's GN iteration is plain XLA
         "gn_iter": ("gn_iter.cu", "rso/solver/robust_gn.py:89 (_eval_rgn) "
                     "and the GN loop's body", "default"),
+        # no Pallas kernel: rso's LK is plain XLA
+        "lk_track": ("lk_track.cu", "rso/frontend/optical_flow.py:203",
+                     "flow"),
     }
     frames = {"default": N_FRAMES, "fast_orb_rbr_win": N_FRAMES,
               "sad_dense": N_DENSE_FRAMES, "wide_window": N_WIDE_FRAMES,
-              "eigh_lm": N_SOLVE_FRAMES}
+              "eigh_lm": N_SOLVE_FRAMES, "flow": N_PATH_FRAMES}
     floor_us = report["floor"]["device_us"]
     for x in [report["hamming_matrix"]] + report["hamming_matrix"]["octaves"]:
         x["write_us"] = x.pop("write")["device_us"]

@@ -34,7 +34,8 @@ The step marks its stages for the stage clock
 (rso_torch.metrics.profiler.STAGE_CLOCK; nothing while its marks are off):
 `_stg1` at stage 1, `_stg2` at detection (`propagate` at detect_every's
 propagation), `_stg3` at stereo matching, `_stg4` at tracking and again at
-the ID propagation after RANSAC, `ransac` before the flat filter, `_stg5`
+the ID propagation after RANSAC (OPTICAL_FLOW's tracker brackets its LK
+call with `lk` and `_stg4`), `ransac` before the flat filter, `_stg5`
 at the stage-4.1 gate (the pose solver adds `gn_block` and `_stg5` marks),
 and `update` at the error codes, the result and the state shift.  Engine
 opens PROFILER's spans `processNewImagePair` and `process_chunk` around
@@ -63,7 +64,7 @@ from rso_torch.frontend.detect import (
     octave_k_slots,
     update_fast_threshold,
 )
-from rso_torch.frontend.optical_flow import lk_track
+from rso_torch.frontend.optical_flow import FlowResult, lk_track_eyes
 from rso_torch.frontend.pyramid import (bilinear_remap, build_pyramid,
                                         to_grayscale)
 from rso_torch.frontend.refine import refine_positions
@@ -478,9 +479,12 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
             pair_ok = p.matches.valid
             p_ridx = torch.clamp(p.matches.ridx.to(torch.int64), min=0)
             pR_xy = p.right.xy[p_ridx]
-            fl = lk_track(state.prev_pyr_l[o:], pyr_l[o:], p.left.xy,
-                          p.left.valid)
-            fr = lk_track(state.prev_pyr_r[o:], pyr_r[o:], pR_xy, pair_ok)
+            # both eyes in one LK call (one kernel launch on the GPU)
+            lk = lk_track_eyes([state.prev_pyr_l[o:], state.prev_pyr_r[o:]],
+                               [pyr_l[o:], pyr_r[o:]],
+                               torch.stack([p.left.xy, pR_xy]),
+                               torch.stack([p.left.valid, pair_ok]))
+            fl, fr = (FlowResult(*(f[e] for f in lk)) for e in range(2))
 
             new_lxy = torch.where(fl.status[:, None], fl.pos, p.left.xy)
             lpatch = extract_patches(pyr_l[o], new_lxy)

@@ -11,7 +11,10 @@ keypoint in the previous image, the search patch around the initial guess
 in the current one) with the detector's gather; every iteration then
 gathers its bilinear window from the search patch.  The reference cuts that
 window with one-hot row/column matmuls (a TPU form that avoids gathers);
-both pick the same pixels.
+both pick the same pixels.  That is the plain version (`lk_track_torch`),
+which CPU tensors take; CUDA tensors take one kernel launch a call
+(rso_torch/csrc/lk_track.cu, the same mathematics), which
+`lk_track_eyes` gives both eyes of a stereo pair at once.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 
 from rso_torch.frontend.detect import extract_patches_wide
 from rso_torch.frontend.refine import _bilinear
+from rso_torch.kernels.lk_track import lk_track_cuda
 
 
 class FlowResult(NamedTuple):
@@ -151,7 +155,33 @@ def lk_track(prev_pyr: list, cur_pyr: list, pts: torch.Tensor,
              max_err: float = 20.0, seed_range: int = 12) -> FlowResult:
     """Track pts [K,2] (octave-0 coords of the pyramids given) from prev to
     cur, coarse to fine.  The coarsest level starts from the SAD seed
-    (seed_range=0 turns it off); each finer one from the doubled flow."""
+    (seed_range=0 turns it off); each finer one from the doubled flow.
+    The plain version (`lk_track_torch`) on the CPU, the kernel
+    (rso_torch.kernels.lk_track, one launch) on the GPU."""
+    out = lk_track_eyes([prev_pyr], [cur_pyr], pts[None], valid[None], win,
+                        iters, max_err, seed_range)
+    return FlowResult(*(t[0] for t in out))
+
+
+def lk_track_eyes(prev_pyrs: list, cur_pyrs: list, pts: torch.Tensor,
+                  valid: torch.Tensor, win: int = 10, iters: int = 10,
+                  max_err: float = 20.0, seed_range: int = 12) -> FlowResult:
+    """`lk_track` of E eyes at once: one pyramid an eye in `prev_pyrs` and
+    `cur_pyrs`, pts [E,K,2], valid [E,K]; every field with a leading [E].
+    One kernel launch for all eyes on the GPU; each eye's plain version on
+    the CPU."""
+    if pts.device.type == "cpu":
+        outs = [lk_track_torch(p, c, x, v, win, iters, max_err, seed_range)
+                for p, c, x, v in zip(prev_pyrs, cur_pyrs, pts, valid)]
+        return FlowResult(*(torch.stack(f) for f in zip(*outs)))
+    return FlowResult(*lk_track_cuda(prev_pyrs, cur_pyrs, pts, valid, win,
+                                     iters, max_err, seed_range))
+
+
+def lk_track_torch(prev_pyr: list, cur_pyr: list, pts: torch.Tensor,
+                   valid: torch.Tensor, win: int = 10, iters: int = 10,
+                   max_err: float = 20.0, seed_range: int = 12) -> FlowResult:
+    """`lk_track` in plain PyTorch: the seed, then `_lk_level` a level."""
     L = len(prev_pyr)
     flow = torch.zeros_like(pts)
     ok_all = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)

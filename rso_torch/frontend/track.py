@@ -26,11 +26,14 @@ import torch
 from rso_torch import random as rrandom
 from rso_torch.config import IFMatchMethod, InterFrameMatchParams
 from rso_torch.frontend.detect import Features
-from rso_torch.frontend.optical_flow import flow_guided_association, lk_track
+from rso_torch.frontend.optical_flow import (FlowResult,
+                                             flow_guided_association,
+                                             lk_track_eyes)
 from rso_torch.frontend.stereo_match import StereoMatches, _arbitrate_right
 from rso_torch.kernels.distance import hamming_matrix_auto, sad_matrix_auto
 from rso_torch.kernels.stereo_fused import (BIG, _best_second, _f32,
                                            track_sad_fused_auto)
+from rso_torch.metrics.profiler import STAGE_CLOCK
 from rso_torch.solver.ransac import ransac_fundamental
 
 
@@ -146,10 +149,14 @@ def track_optical_flow(prev_pyr_l: list, prev_pyr_r: list, cur_pyr_l: list,
     p_ok = prev_matches.valid
     pR_xy, _, _ = _gather_right(prev_right, prev_matches.ridx)
     cR_xy, _, _ = _gather_right(cur_right, cur_matches.ridx)
-    fl = lk_track(prev_pyr_l, cur_pyr_l, prev_left.xy, p_ok, win=lk_win,
-                  iters=lk_iters)
-    fr = lk_track(prev_pyr_r, cur_pyr_r, pR_xy, p_ok, win=lk_win,
-                  iters=lk_iters)
+    # both eyes in one LK call (one kernel launch on the GPU), between the
+    # stage clock's `lk` mark and the mark back to `_stg4`
+    STAGE_CLOCK.mark("lk", p_ok.device)
+    lk = lk_track_eyes([prev_pyr_l, prev_pyr_r], [cur_pyr_l, cur_pyr_r],
+                       torch.stack([prev_left.xy, pR_xy]),
+                       torch.stack([p_ok, p_ok]), win=lk_win, iters=lk_iters)
+    STAGE_CLOCK.mark("_stg4", p_ok.device)
+    fl, fr = (FlowResult(*(f[e] for f in lk)) for e in range(2))
     epi_ok = (fl.pos[:, 1] - fr.pos[:, 1]).abs() <= 1.5
     pred_ok = fl.status & fr.status & epi_ok
     cur_idx, ok = flow_guided_association(fl.pos, pred_ok, cur_left.xy,

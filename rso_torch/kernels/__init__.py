@@ -6,7 +6,10 @@ Each module holds `<name>_torch` (the twin, used for CPU tensors),
 on the CPU the solver keeps LAPACK's eigh (rso_torch.solver.robust_gn).
 `gn_iter`, one iteration of the pose solver's GN loop, has neither twin
 nor dispatcher here: its plain version and the dispatch are the solver's
-(`robust_gn.gn_iteration_torch`, `robust_gn.gn_iteration`).
+(`robust_gn.gn_iteration_torch`, `robust_gn.gn_iteration`).  Nor has
+`lk_track`, a whole pyramidal-LK call: its plain version and the dispatch
+are the optical-flow module's (`optical_flow.lk_track_torch`,
+`optical_flow.lk_track`, `optical_flow.lk_track_eyes`).
 `LAUNCHES` counts kernel launches by name.  Each `<name>_cuda` is a
 `torch.library.custom_op` with a vmap rule: under torch.func.vmap (the
 batched engine step) one launch covers every lane.  `cost_volume` is the

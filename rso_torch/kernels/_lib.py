@@ -120,6 +120,8 @@ _SIGNATURES = {
     "rso_gn_iter": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _L,
                     _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _F, _F, _I, _I, _I, _I, _P],
+    "rso_lk_track": [_PP, _PP, ctypes.POINTER(ctypes.c_int), _I, _I, _I, _I,
+                     _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
     # csrc/graph_cond.cu: composing and launching CUDA graphs, the stage
     # clock's marks
     "rso_graph_create": [_PP],

@@ -127,11 +127,13 @@ class SpanProfiler:
 # the stage clock's stages, in a step's order: stage 1 (grayscale, remap,
 # pyramids), stage 2 (kernel 1, NMS, top-K), detect_every's propagation,
 # stage 3 (kernel 2), stage 4 (kernel 3, the gather, the subpixel refine,
-# the ID propagation), the RANSAC filter (kernel 4), stage 5 (NMS, the
-# solve's set-up, the cut between its phases), one GN block of the WHILE
-# node's body, and the error codes, the result and the state shift
-STAGES = ("_stg1", "_stg2", "propagate", "_stg3", "_stg4", "ransac", "_stg5",
-          "gn_block", "update")
+# the ID propagation; with OPTICAL_FLOW its association and per-octave
+# RANSAC), OPTICAL_FLOW's LK calls inside stage 4 (the lk_track kernel), the
+# RANSAC filter (kernel 4), stage 5 (NMS, the solve's set-up, the cut
+# between its phases), one GN block of the WHILE node's body, and the error
+# codes, the result and the state shift
+STAGES = ("_stg1", "_stg2", "propagate", "_stg3", "_stg4", "lk", "ransac",
+          "_stg5", "gn_block", "update")
 _INDEX = {name: i for i, name in enumerate(STAGES)}
 _INDEX["end"] = -1
 

@@ -1235,7 +1235,7 @@ def test_cuda_marked_graph_equals_the_unmarked(cuda, stage_clock, entry):
         _same_result(b, a, f"frame {i}")
         assert la == lb, f"frame {i} launches"
     ns, marks = stage_clock.settle()
-    assert set(marks) == set(STAGES) - {"propagate"}
+    assert set(marks) == set(STAGES) - {"propagate", "lk"}
     assert all(ns[name] > 0 for name in marks), dict(ns)
     assert marks["_stg1"] == marks["update"] == n
     blocks = sum(int(r.num_it.max()) + int(r.num_it_final.max())

@@ -480,4 +480,4 @@ def test_library_key_covers_every_source():
     assert path.parent.parent.name == "rso_torch"
     assert {p.name for p in _lib._CSRC.glob("*.cu")} == {
         "fast_detect.cu", "stereo_fused.cu", "smallchol.cu", "distance.cu",
-        "eigh6.cu", "graph_cond.cu", "gn_iter.cu"}
+        "eigh6.cu", "graph_cond.cu", "gn_iter.cu", "lk_track.cu"}

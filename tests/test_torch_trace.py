@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from rso_torch.config import IFMatchMethod
 from rso_torch.engine import Engine
 from rso_torch.metrics import profiler as P
 from rso_torch.metrics.profiler import PROFILER, STAGE_CLOCK, STAGES
@@ -159,7 +160,7 @@ def test_engine_stage_clock(seqs, tracers, every):
             assert torch.equal(getattr(off, field), getattr(on, field)), field
     ns, marks = STAGE_CLOCK.settle()
     ran = {"propagate"} if every == 1 else set()
-    assert set(marks) == set(STAGES) - ran
+    assert set(marks) == set(STAGES) - ran - {"lk"}     # lk: flow's alone
     assert all(ns[name] > 0 for name in marks)
     assert marks["_stg1"] == marks["update"] == N_FRAMES
     assert marks["propagate"] == (N_FRAMES // 2 if every == 2 else 0)
@@ -169,6 +170,30 @@ def test_engine_stage_clock(seqs, tracers, every):
     assert marks["_stg5"] == 3 * N_FRAMES
     # a second settle adds nothing; the tables were zeroed
     assert STAGE_CLOCK.settle()[1] == marks
+
+
+def test_flow_stage_clock_marks_lk(seqs, tracers):
+    """OPTICAL_FLOW: each octave's LK call (both eyes) is charged to `lk`
+    between its mark and the mark back to `_stg4`; the flow path has no
+    flat RANSAC; results bit for bit with marks off."""
+    cfg = synthetic_config()
+    cfg = cfg.replace(if_match=dataclasses.replace(
+        cfg.if_match, ifm_method=IFMatchMethod.OPTICAL_FLOW))
+    seq = seqs[0]
+    runs = []
+    for on in (False, True):
+        STAGE_CLOCK.on = on
+        eng = Engine(cfg, seq.cam, device="cpu")
+        runs.append([eng.process_frame(l, r) for l, r in seq.frames])
+    STAGE_CLOCK.on = False
+    for off, on in zip(*runs):
+        for field in ("pose", "valid", "num_it", "num_it_final", "error_code"):
+            assert torch.equal(getattr(off, field), getattr(on, field)), field
+    ns, marks = STAGE_CLOCK.settle()
+    assert set(marks) == set(STAGES) - {"propagate", "ransac"}
+    assert all(ns[name] > 0 for name in marks)
+    assert marks["lk"] == cfg.n_octaves * N_FRAMES
+    assert marks["_stg4"] == (2 + cfg.n_octaves) * N_FRAMES
 
 
 def test_marks_are_part_of_the_variant_key(seqs, tracers):
@@ -206,7 +231,7 @@ def test_batch_stage_clock(seqs, tracers):
         for field in ("pose", "valid", "num_it", "num_it_final"):
             assert torch.equal(getattr(off, field), getattr(on, field)), field
     ns, marks = STAGE_CLOCK.settle()
-    assert set(marks) == set(STAGES) - {"propagate"}
+    assert set(marks) == set(STAGES) - {"propagate", "lk"}
     assert marks["_stg1"] == N_FRAMES
     assert marks["gn_block"] == sum(int(r.num_it.max()) + int(r.num_it_final.max())
                                     for r in runs[1])
