@@ -987,9 +987,10 @@ def check_kernels(seq, dev):
               f"{resid.max().item()}, max|d| up to sign {d}", flush=True)
         err = max(err, d)
     # ~900 operations a matrix: LDL^T (~490), two inverse iterations
-    # (~380), the regularisation; 81 floats in, 9 out.  RANSAC launches it
-    # once at B = 512 (2 eyes x 256 hypotheses) and once at B = 2 (the
-    # refit of each eye's best): the second shape.  Both are timed on the
+    # (~380), the regularisation; 81 floats in, 9 out.  The plain RANSAC
+    # path launches it once at B = 512 (2 eyes x 256 hypotheses) and once at
+    # B = 2 (the refit of each eye's best): the second shape (the engine's
+    # RANSAC kernel runs its routine inline).  Both are timed on the
     # matrices checked above.
     M = Ms[512]
     report["nullvec9"] = entry(
@@ -1106,6 +1107,8 @@ def check_kernels(seq, dev):
     report["gn_iter"] = check_gn_iter(dev, entry)
     # ---- lk_track (the port's, no Pallas counterpart): pyramidal LK --------
     report["lk_track"] = check_lk_track(seq, dev, entry, octave)
+    # ---- ransac (the port's, no Pallas counterpart): a whole RANSAC call ----
+    report["ransac"] = check_ransac(dev, entry, octave)
     return report, timed
 
 
@@ -1481,6 +1484,112 @@ def check_lk_track(seq, dev, entry, octave) -> dict:
     return out
 
 
+# RANSAC's checks: (N, valid share) of the timed shapes, N = 896 (kitti's
+# flat filter) first; 256 hypotheses, both eyes
+RANSAC_SHAPES = ((896, "some"), (1024, "some"), (512, "some"), (256, "some"),
+                 (128, "some"))
+RANSAC_H = 256
+
+
+def ransac_bound(E: int, N: int, H: int, n_valid: int):
+    """(operations, bytes) of one RANSAC call, counted from its steps: a
+    hypothesis's 8 threefry draws (~120 integer operations each), its
+    normal matrix (45 entries x 8 multiply-adds), null vector (kernel 4's
+    ~900), de-normalisation (~90) and Sampson test of every valid point
+    (~32); the refit's test, row and 45 multiply-adds a valid point and
+    its null vector; the normalisation and the final mask (~52 a point).
+    Bytes: both views and the mask read once, the mask, F, the count and
+    ok written once."""
+    ops = E * (H * (8 * 120 + 2 * 45 * 8 + 900 + 90 + 32 * n_valid)
+               + n_valid * (32 + 8 + 2 * 45) + 900 + 52 * N)
+    return ops, E * N * (2 * 2 * 4 + 1) + N + E * (9 * 4 + 4 + 1)
+
+
+def check_ransac(dev, entry, octave) -> dict:
+    """The RANSAC kernel against the plain path
+    (ransac.ransac_fundamental_torch) on the card with
+    tests/_torch_ransac_cases.py's inputs and comparisons (draws, indices,
+    T1, T2 and null vectors bit for bit; count, F and mask within their
+    bounds) over its shapes, one launch a call; timed at RANSAC_SHAPES,
+    the plain path as its twin."""
+    import torch
+
+    from rso_torch.kernels import LAUNCHES
+    from rso_torch.kernels.ransac import ransac_probe
+    from rso_torch.solver import ransac as R
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import _torch_ransac_cases as C
+
+    worst = 0.0
+    for E, N, Hh, kind in C.SHAPES:
+        seed = N + Hh + E
+        p1, p2, mask = C.case(seed, E, N, kind, dev)
+        key = C.frame_keys(seed, dev)
+        LAUNCHES.clear()
+        got = R.ransac_fundamental(p1, p2, mask, key, n_iters=Hh)
+        torch.cuda.synchronize()
+        if dict(LAUNCHES) != {"ransac": 1}:
+            raise AssertionError(f"ransac {E}x{N} H {Hh}: launches "
+                                 f"{dict(LAUNCHES)}, expected one")
+        _, probe = ransac_probe(p1, p2, mask, key, n_iters=Hh)
+        want = R.ransac_fundamental_torch(p1, p2, mask, key, n_iters=Hh)
+        got_vs = C.compare(got, probe, want, p1, p2, mask, key.keys(E), Hh)
+        worst = max(worst, got_vs["F_rel"])
+        print(f"kernel ransac E {E} N {N} H {Hh} {kind}: {got_vs}", flush=True)
+    timings = []
+    for N, kind in RANSAC_SHAPES:
+        p1, p2, mask = C.case(N, 2, N, kind, dev)
+        key = C.frame_keys(3, dev)
+        ops, n_bytes = ransac_bound(2, N, RANSAC_H, int(mask.sum()))
+        timings.append((
+            lambda p1=p1, p2=p2, mask=mask, key=key: R.ransac_fundamental(
+                p1, p2, mask, key, n_iters=RANSAC_H),
+            lambda p1=p1, p2=p2, mask=mask, key=key: R.ransac_fundamental_torch(
+                p1, p2, mask, key, n_iters=RANSAC_H),
+            ops, n_bytes, [2, N, RANSAC_H]))
+    fn, plain, ops, n_bytes, shape = timings[0]
+    out = entry(worst, fn, "ransac_kernel", plain, None, ops, n_bytes, shape)
+    for fn, _, ops, n_bytes, shape in timings[1:]:
+        octave(out, "ransac_kernel", fn, ops, n_bytes, shape)
+    return out
+
+
+def check_batched_ransac(dev, B, one_launch, lanes) -> None:
+    """The RANSAC kernel under torch.func.vmap over B lanes of the flat
+    filter's call (N = 896, each lane its own points, mask and frame
+    index): one launch, each lane bit for bit its lone call."""
+    import torch
+
+    from rso_torch import random as rrandom
+    from rso_torch.solver import ransac as R
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import _torch_ransac_cases as C
+
+    N = RANSAC_SHAPES[0][0]
+    cases = [C.case(100 + b, 2, N, "some", dev) for b in range(B)]
+    p1, p2, mask = (torch.stack([c[i] for c in cases]) for i in range(3))
+    frame = torch.arange(B, dtype=torch.int32, device=dev) + 30
+
+    def call(a, b, m, f):
+        return tuple(R.ransac_fundamental(a, b, m, rrandom.FrameKeys(f, 1000),
+                                          n_iters=RANSAC_H))
+
+    run = lambda: torch.func.vmap(call)(p1, p2, mask, frame)  # noqa: E731
+    out = one_launch("ransac", run)
+    for b in range(B):
+        for x, y in zip(out, call(p1[b], p2[b], mask[b], frame[b])):
+            if not torch.equal(x[b], y):
+                raise AssertionError(f"batched ransac lane {b} is not its "
+                                     "lone call")
+    ops = n_bytes = 0
+    for b in range(B):
+        o, nb = ransac_bound(2, N, RANSAC_H, int(mask[b].sum()))
+        ops, n_bytes = ops + o, n_bytes + nb
+    lanes("ransac", "ransac_kernel", run, ops, n_bytes, [B, 2, N, RANSAC_H])
+
+
 def check_batched_kernels(seq, dev, report, timed) -> None:
     """Phase 3b: each kernel under torch.func.vmap over N_BATCH lanes, as
     the batched step launches it: one launch for all lanes (its vmap rule),
@@ -1622,6 +1731,7 @@ def check_batched_kernels(seq, dev, report, timed) -> None:
           [B, 6, 6])
     check_batched_gn_iter(dev, B, one_launch, lanes)
     check_batched_lk_track(seq, dev, B, one_launch, lanes)
+    check_batched_ransac(dev, B, one_launch, lanes)
     lanes("nullvec9", "nullvec9_kernel", run, B * 512 * 900,
           B * 512 * (81 + 9) * 4, list(M.shape))
 
@@ -1934,8 +2044,8 @@ def run_engines(seq, dev):
     cfg = synthetic_config()
     states, results, launches, ate = drive("default", cfg, seq, dev, N_FRAMES)
     expect_launches("default", launches, positive=(
-        "corner_response", "nullvec9") + fused,
-        zero=("hamming_matrix", "sad_matrix"))
+        "corner_response", "ransac") + fused,
+        zero=("hamming_matrix", "sad_matrix", "nullvec9"))
     if sum(bool(r.valid) for r in results) < N_FRAMES - 3 or not ate < 1.0:
         raise AssertionError(f"default path output wrong: ATE {ate}")
     cpu_rerun("default", cfg, seq, states, results, N_CPU_FRAMES)
@@ -1947,7 +2057,7 @@ def run_engines(seq, dev):
     states, results, launches, ate = drive("fast_orb_rbr_win", cfg, seq, dev,
                                            N_FRAMES)
     expect_launches("fast_orb_rbr_win", launches, positive=(
-        "corner_response", "nullvec9"), zero=fused + ("sad_matrix",),
+        "corner_response", "ransac"), zero=fused + ("sad_matrix", "nullvec9"),
         exact={"hamming_matrix": 6 * N_FRAMES})   # 3 octaves x (stereo + track)
     n_valid = sum(bool(r.valid) for r in results)
     within_reference("fast_orb_rbr_win", n_valid, ate,
@@ -1980,8 +2090,8 @@ def run_engines(seq, dev):
     cfg = mode_config("orb_bf_bf")
     states, results, launches, _ = drive("orb_bf_bf", cfg, seq, dev,
                                          N_MODE_FRAMES)
-    expect_launches("orb_bf_bf", launches, positive=("nullvec9",),
-                    zero=fused + ("sad_matrix", "corner_response"),
+    expect_launches("orb_bf_bf", launches, positive=("ransac",),
+                    zero=fused + ("sad_matrix", "corner_response", "nullvec9"),
                     exact={"hamming_matrix": 3 * N_MODE_FRAMES})
     cpu_rerun("orb_bf_bf", cfg, seq, states, results, N_MODE_FRAMES)
     out["orb_bf_bf"] = launches
@@ -1989,8 +2099,9 @@ def run_engines(seq, dev):
     cfg = mode_config("klt_sad_sad")
     states, results, launches, _ = drive("klt_sad_sad", cfg, seq, dev,
                                          N_MODE_FRAMES)
-    expect_launches("klt_sad_sad", launches, positive=("nullvec9",),
-                    zero=("hamming_matrix", "sad_matrix", "corner_response"),
+    expect_launches("klt_sad_sad", launches, positive=("ransac",),
+                    zero=("hamming_matrix", "sad_matrix", "corner_response",
+                          "nullvec9"),
                     exact={k: 3 * N_MODE_FRAMES for k in fused})
     cpu_rerun("klt_sad_sad", cfg, seq, states, results, N_MODE_FRAMES,
               track_slack=KLT_TRACK_SLACK)
@@ -2104,7 +2215,7 @@ def _launch_counts(cfg, states, results, every=1):
                         or int(st.err_streak) > 0)
     return {"corner_response": 2 * O * detects, "stereo_sad_fused": O * detects,
             "track_sad_fused": 0 if flow else O * n,
-            "nullvec9": 2 * (O if flow else 1) * n,
+            "ransac": (O if flow else 1) * n, "nullvec9": 0,
             "lk_track": O * (n if flow else n - detects),
             "hamming_matrix": 0, "sad_matrix": 0}, detects
 
@@ -2184,7 +2295,7 @@ def run_seams(seq, dev, n_frames=4):
           f"matches equal to the full step's results, launches {launches}",
           flush=True)
     expect_launches("seams", launches, positive=(
-        "corner_response", "stereo_sad_fused", "track_sad_fused", "nullvec9"))
+        "corner_response", "stereo_sad_fused", "track_sad_fused", "ransac"))
 
     # checkpoint round trip on the card, then one more step from each
     out_dir = REPO / "build" / "chip_smoke"
@@ -2820,7 +2931,8 @@ def run_batched(seq, dev, smi) -> dict:
         O = pcfg.n_octaves
         expect_launches(f"batched {name}", launches, exact={
             "corner_response": 2 * O * detects, "stereo_sad_fused": O * detects,
-            "track_sad_fused": O * n, "nullvec9": 2 * n, "hamming_matrix": 0,
+            "track_sad_fused": O * n, "ransac": n, "nullvec9": 0,
+            "hamming_matrix": 0,
             "sad_matrix": 0})
         alone, fps_alone = _alone(pcfg, pseqs, frames, dev, n, edit_alone)
         worst, parted = {}, []
@@ -3652,7 +3764,8 @@ def _traj_diff(a: Path, b: Path) -> float:
 def _per_frame(n: int, O: int = 3) -> dict:
     """The default path's launches over n frames (6/3/3/2 a frame)."""
     return {"corner_response": 2 * O * n, "stereo_sad_fused": O * n,
-            "track_sad_fused": O * n, "nullvec9": 2 * n, "hamming_matrix": 0,
+            "track_sad_fused": O * n, "ransac": n, "nullvec9": 0,
+            "hamming_matrix": 0,
             "sad_matrix": 0}
 
 
@@ -4376,6 +4489,9 @@ def main() -> int:
         # no Pallas kernel: rso's LK is plain XLA
         "lk_track": ("lk_track.cu", "rso/frontend/optical_flow.py:203",
                      "flow"),
+        # no Pallas kernel: rso's RANSAC is plain XLA around kernel 4
+        "ransac": ("ransac.cu", "rso/solver/ransac.py (ransac_fundamental)",
+                   "default"),
     }
     frames = {"default": N_FRAMES, "fast_orb_rbr_win": N_FRAMES,
               "sad_dense": N_DENSE_FRAMES, "wide_window": N_WIDE_FRAMES,

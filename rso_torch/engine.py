@@ -550,7 +550,6 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
     def _tail(state, pyr_l, pyr_r, cur_octs, n_matches, detected, new_fast_th,
               loop, did_detect=True):
         mark("_stg4", dev)
-        key = rrandom.fold_in(rrandom.PRNGKey(7, dev), state.frame_idx)
 
         # ---- stage 4: inter-frame tracking ----------------------------------
         tracks = []
@@ -562,7 +561,8 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
                 trk = track_optical_flow(
                     state.prev_pyr_l[o:], state.prev_pyr_r[o:], pyr_l[o:],
                     pyr_r[o:], p.left, p.right, p.matches, c.left, c.right,
-                    c.matches, cfg.if_match, rrandom.fold_in(key, o),
+                    c.matches, cfg.if_match,
+                    rrandom.FrameKeys(state.frame_idx, o),
                     ransac_iters=tpu.ransac_iters,
                     ransac_threshold=tpu.ransac_threshold)
             else:
@@ -621,7 +621,7 @@ def make_step(cfg: RSOConfig, cam: StereoCamera, img_h: int, img_w: int,
         # one flat fundamental-matrix filter over all octaves, both eyes
         if cfg.if_match.filter_fund_matrix and not flow:
             mark("ransac", dev)
-            keys = rrandom.split(rrandom.fold_in(key, 1000))
+            keys = rrandom.FrameKeys(state.frame_idx, 1000)
             res2 = ransac_fundamental(
                 torch.stack([prev_obs[:, :2], prev_obs[:, 2:4]]),
                 torch.stack([cur_obs[:, :2], cur_obs[:, 2:4]]),

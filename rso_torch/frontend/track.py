@@ -52,7 +52,8 @@ def _gather_right(feats_r: Features, ridx: torch.Tensor):
 def track_interframe(prev_left: Features, prev_right: Features,
                      prev_matches: StereoMatches, cur_left: Features,
                      cur_right: Features, cur_matches: StereoMatches,
-                     params: InterFrameMatchParams, key: torch.Tensor,
+                     params: InterFrameMatchParams,
+                     key: torch.Tensor | rrandom.FrameKeys,
                      ransac_iters: int = 64,
                      ransac_threshold: float = 1.0,
                      use_fused: bool = True) -> TrackResult:
@@ -119,11 +120,12 @@ def _finish(prev_left, pR_xy, cur_left, cR_xy, best_c, survive, params, key,
     """Fundamental-matrix filtering on both eyes + final packing."""
     if params.filter_fund_matrix:
         safe_c = torch.clamp(best_c.to(torch.int64), min=0)
-        k1, k2 = rrandom.split(key)
+        # one key an eye: split(key), or the engine's FrameKeys
+        keys = key if isinstance(key, rrandom.FrameKeys) else rrandom.split(key)
         res2 = ransac_fundamental(
             torch.stack([prev_left.xy, pR_xy]),
             torch.stack([cur_left.xy[safe_c], cR_xy[safe_c]]),
-            survive, torch.stack([k1, k2]), n_iters=ransac_iters,
+            survive, keys, n_iters=ransac_iters,
             threshold=ransac_threshold)
         # if either model is degenerate, pass through (reference :256-259)
         both = res2.inliers[0] & res2.inliers[1]
@@ -138,7 +140,8 @@ def track_optical_flow(prev_pyr_l: list, prev_pyr_r: list, cur_pyr_l: list,
                        prev_right: Features, prev_matches: StereoMatches,
                        cur_left: Features, cur_right: Features,
                        cur_matches: StereoMatches,
-                       params: InterFrameMatchParams, key: torch.Tensor,
+                       params: InterFrameMatchParams,
+                       key: torch.Tensor | rrandom.FrameKeys,
                        ransac_iters: int = 64, ransac_threshold: float = 1.0,
                        lk_win: int = 10, lk_iters: int = 10,
                        gate: float = 4.0) -> TrackResult:

@@ -9,7 +9,9 @@ nor dispatcher here: its plain version and the dispatch are the solver's
 (`robust_gn.gn_iteration_torch`, `robust_gn.gn_iteration`).  Nor has
 `lk_track`, a whole pyramidal-LK call: its plain version and the dispatch
 are the optical-flow module's (`optical_flow.lk_track_torch`,
-`optical_flow.lk_track`, `optical_flow.lk_track_eyes`).
+`optical_flow.lk_track`, `optical_flow.lk_track_eyes`).  Nor has `ransac`, a
+whole fundamental-matrix RANSAC call: its plain version and the dispatch are
+the solver's (`ransac.ransac_fundamental_torch`, `ransac.ransac_fundamental`).
 `LAUNCHES` counts kernel launches by name.  Each `<name>_cuda` is a
 `torch.library.custom_op` with a vmap rule: under torch.func.vmap (the
 batched engine step) one launch covers every lane.  `cost_volume` is the

@@ -22,7 +22,8 @@ counts to both counters.
 Every entry but the null vectors' takes a lane count B: B independent
 problems (the sequences of a batched step) in one launch, a grid axis over
 the lanes, each operand [B, ...] with its lanes contiguous (the GN
-iteration's inputs may be one for every lane: a lanes' stride of 0).  A batched
+iteration's and RANSAC's inputs may be one for every lane: a lanes' stride
+of 0).  A batched
 launch counts once, as a replayed one does, so the launches a frame show
 that the lanes share them.  The wrappers are custom ops whose vmap rules
 (`lanes` below gives their operands) make that one launch, as vmap over a
@@ -122,6 +123,9 @@ _SIGNATURES = {
                     _I, _I, _I, _F, _F, _I, _I, _I, _I, _P],
     "rso_lk_track": [_PP, _PP, ctypes.POINTER(ctypes.c_int), _I, _I, _I, _I,
                      _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
+    "rso_ransac_fits": [_I, _I],
+    "rso_ransac": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _I, _P, _L,
+                   _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _PP, _P],
     # csrc/graph_cond.cu: composing and launching CUDA graphs, the stage
     # clock's marks
     "rso_graph_create": [_PP],

@@ -6,9 +6,13 @@ generator itself: `PRNGKey`, `fold_in`, `split` and `uniform` of jax's
 default threefry implementation with `jax_threefry_partitionable=True`.
 Everything runs on the key's device with no host round trip.  torch's
 uint32 support is incomplete, so the 32-bit words live in int64 tensors
-masked to 32 bits.  A key is an int64 tensor [..., 2].
+masked to 32 bits.  A key is an int64 tensor [..., 2].  `FrameKeys`
+describes the engine's keys of a RANSAC call without computing them: the
+RANSAC kernel hashes them itself on the card (rso_torch/csrc/ransac.cu).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -76,3 +80,22 @@ def uniform(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     mantissa = ((b1 ^ b2) >> 9).to(torch.float32)
     floats = mantissa * (1.0 / (1 << 23))
     return floats.reshape(*key.shape[:-1], *shape)
+
+
+ENGINE_SEED = 7   # the engine's PRNGKey (rso/engine.py); csrc/ransac.cu's too
+
+
+class FrameKeys(NamedTuple):
+    """The eye keys of one RANSAC call of the engine, described: eye e's is
+    split(fold_in(fold_in(PRNGKey(ENGINE_SEED), frame), data))[e]
+    (rso/engine.py: `data` 1000 for the flat filter, the octave on the flow
+    path).  `frame` is the frame index, an integer tensor (a lane's own
+    under vmap).  `keys` computes them; the RANSAC kernel takes the frame
+    index and `data` instead, so no key is computed on the card."""
+    frame: torch.Tensor
+    data: int
+
+    def keys(self, num: int = 2) -> torch.Tensor:
+        """The first `num` eye keys, [..., num, 2]."""
+        key = fold_in(PRNGKey(ENGINE_SEED, self.frame.device), self.frame)
+        return split(fold_in(key, self.data), num)

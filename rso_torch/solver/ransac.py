@@ -11,6 +11,13 @@ Both eyes run in one call: points carry a leading eye axis [E,N,2] with one
 key per eye [E,2] and one shared mask [N], so the hypothesis solve is one
 [E*H,9,9] batch, as the reference's vmap over eyes makes it.
 
+On CUDA tensors `ransac_fundamental` is one launch of the RANSAC kernel
+(rso_torch/kernels/ransac.py, csrc/ransac.cu): the draws, indices and
+normalisation bit for bit as `ransac_fundamental_torch` makes them on the
+card, the hypotheses' sums in its own fixed order.  The CPU keeps
+`ransac_fundamental_torch`, the plain path described here.  A key is an
+explicit key or a rso_torch.random.FrameKeys (the engine's).
+
 The filter's own arithmetic (normalisation, normal equations,
 de-normalisation, Sampson scoring) runs in `PREC`; kernel 4 takes and
 returns float32.  `PREC` is float32, as in the reference, whose results the
@@ -29,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from rso_torch import random as rrandom
+from rso_torch.kernels.ransac import ransac_cuda
 from rso_torch.kernels.smallchol import nullvec9_auto
 
 PREC = torch.float32
@@ -115,38 +123,66 @@ def _sampson_sq(F: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor):
     return num / torch.clamp(den, min=1e-12)
 
 
-def ransac_fundamental(p1: torch.Tensor, p2: torch.Tensor, mask: torch.Tensor,
-                       key: torch.Tensor, n_iters: int = 64,
-                       threshold: float = 1.0,
-                       draws: torch.Tensor | None = None) -> RansacResult:
-    """Fixed-batch 8-point RANSAC, all hypotheses in parallel.
+def sample_indices(mask: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """One draw per rank stratum: 8 distinct valid indices per hypothesis
+    from the uniform draws u [..., H, 8] over mask [N]."""
+    N = mask.shape[-1]
+    c = torch.cumsum(mask.to(torch.int32), dim=0)
+    n_valid = torch.clamp(c[-1], min=1)
+    lanes = torch.arange(8, dtype=torch.int32, device=mask.device)
+    lo = (lanes * n_valid) // 8
+    hi = ((lanes + 1) * n_valid) // 8
+    width = torch.clamp(hi - lo, min=1).to(torch.float32)
+    ranks = lo + torch.floor(u * width).to(torch.int32)
+    ranks = torch.minimum(ranks, n_valid - 1)
+    idx = torch.searchsorted(c, ranks, right=True)
+    return torch.clamp(idx, max=N - 1)
 
-    p1, p2: [N,2] or [E,N,2]; mask: [N]; key: [2] or [E,2].  `draws`
-    ([..., n_iters, 8] in [0,1)) replaces the uniform draws from `key`.
+
+def ransac_fundamental(p1: torch.Tensor, p2: torch.Tensor, mask: torch.Tensor,
+                       key, n_iters: int = 64, threshold: float = 1.0,
+                       draws: torch.Tensor | None = None) -> RansacResult:
+    """Fixed-batch 8-point RANSAC, all hypotheses in parallel: one launch of
+    the RANSAC kernel on CUDA tensors, `ransac_fundamental_torch` on the
+    CPU.
+
+    p1, p2: [N,2] or [E,N,2]; mask: [N]; key: [2] or [E,2], or a
+    rso_torch.random.FrameKeys.  `draws` ([..., n_iters, 8] in [0,1))
+    replaces the uniform draws from `key`.
     """
+    if p1.device.type == "cpu":
+        return ransac_fundamental_torch(p1, p2, mask, key, n_iters, threshold,
+                                        draws)
     single = p1.ndim == 2
+    if single:
+        p1, p2 = p1[None], p2[None]
+        draws = None if draws is None else draws[None]
+    res = RansacResult(*ransac_cuda(p1, p2, mask, key, n_iters=n_iters,
+                                    threshold=threshold, draws=draws))
+    return RansacResult(*(t[0] for t in res)) if single else res
+
+
+def ransac_fundamental_torch(p1: torch.Tensor, p2: torch.Tensor,
+                             mask: torch.Tensor, key, n_iters: int = 64,
+                             threshold: float = 1.0,
+                             draws: torch.Tensor | None = None) -> RansacResult:
+    """The plain path of `ransac_fundamental`, on any device."""
+    single = p1.ndim == 2
+    if isinstance(key, rrandom.FrameKeys):
+        key = key.keys(1 if single else p1.shape[0])
+        key = key[0] if single else key
     if single:
         p1, p2, key = p1[None], p2[None], key[None]
         draws = None if draws is None else draws[None]
-    N = p1.shape[-2]
     p1 = p1.to(torch.float32).to(PREC)
     p2 = p2.to(torch.float32).to(PREC)
     thr2 = threshold * threshold
     p1n, T1 = _normalize_pts(p1, mask)
     p2n, T2 = _normalize_pts(p2, mask)
 
-    # one draw per rank stratum: 8 distinct valid indices per hypothesis
-    c = torch.cumsum(mask.to(torch.int32), dim=0)
-    n_valid = torch.clamp(c[-1], min=1)
-    lanes = torch.arange(8, dtype=torch.int32, device=p1.device)
-    lo = (lanes * n_valid) // 8
-    hi = ((lanes + 1) * n_valid) // 8
-    width = torch.clamp(hi - lo, min=1).to(torch.float32)
     u = rrandom.uniform(key, (n_iters, 8)) if draws is None else draws
-    ranks = lo + torch.floor(u * width).to(torch.int32)
-    ranks = torch.minimum(ranks, n_valid - 1)
-    idx = torch.searchsorted(c, ranks, right=True)
-    idx = torch.clamp(idx, max=N - 1)                          # [E,H,8]
+    idx = sample_indices(mask, u)                              # [E,H,8]
+    c = torch.cumsum(mask.to(torch.int32), dim=0)
 
     E = p1.shape[0]
     eye = torch.arange(E, device=p1.device)[:, None, None]

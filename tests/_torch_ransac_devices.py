@@ -13,9 +13,11 @@ frame it reports:
   * the first of the step's stage calls (pyramid, detection, stereo
     matching, tracking, the filter) whose outputs differ, and whether its
     inputs were equal;
-  * the filter on those inputs in six variants: arithmetic in float32 (the
+  * the filter on those inputs in seven variants: the plain path
+    (`ransac.ransac_fundamental_torch`) with arithmetic in float32 (the
     port's, `ransac.PREC`) or float64, null vectors from kernel 4 or from its
-    twin on the card, and the CPU.  Per variant: the winning hypothesis and
+    twin on the card, and the CPU; and the RANSAC kernel (float32, the
+    engine's filter on the card).  Per variant: the winning hypothesis and
     its inlier count per eye, how many of the 256 hypotheses reach that
     count, the refit's count, and the tracked count the filter leaves;
   * for the card's variants against the CPU's in the same arithmetic: how
@@ -42,6 +44,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from rso_torch import engine as E                          # noqa: E402
+from rso_torch import random as rrandom                    # noqa: E402
 from rso_torch import kernels as K                         # noqa: E402
 from rso_torch.solver import ransac as R                   # noqa: E402
 from rso_torch.synthetic import mode_config, synthetic_config  # noqa: E402
@@ -54,7 +57,9 @@ STAGES = ("build_pyramid", "detect_features", "match_left_right",
           "track_interframe", "ransac_fundamental")
 VARIANTS = [(prec, nv, dev) for prec in ("f32", "f64")
             for nv, dev in (("kernel", "cuda"), ("twin", "cuda"),
-                            ("twin", "cpu"))]
+                            ("twin", "cpu"))] + [("f32", "ransac", "cuda")]
+# the card's variants each arithmetic has
+CARD = {"f32": ("kernel", "twin", "ransac"), "f64": ("kernel", "twin")}
 
 
 def _config(mode):
@@ -64,12 +69,45 @@ def _config(mode):
     return mode_config(mode, upright=mode != "fast_orb_rbr_win")
 
 
+def _summary(scores, refit, res, mask):
+    best = scores.argmax(-1)
+    top = scores.max(-1).values
+    both = res.inliers[0] & res.inliers[1]
+    tracked = torch.where(res.ok[0] & res.ok[1], both, mask)
+    return dict(scores=scores.cpu(), best=best.tolist(), top=top.tolist(),
+                n_top=(scores == top[:, None]).sum(-1).tolist(),
+                refit=refit.tolist(), n_inliers=res.n_inliers.tolist(),
+                ok=res.ok.tolist(), tracked=int(tracked.sum()),
+                tracked_mask=tracked.cpu(), F=res.F.cpu())
+
+
+def _keys(keys, dev):
+    """The eyes' keys [2,2] on `dev` (the engine passes a FrameKeys)."""
+    if isinstance(keys, rrandom.FrameKeys):
+        keys = keys.keys(2)
+    return keys.to(dev)
+
+
+def _kernel(inp):
+    """The engine's filter call on `inp` through the RANSAC kernel (its
+    hypotheses' counts from the kernel's probe); returns its summary."""
+    from rso_torch.kernels.ransac import ransac_probe
+
+    (p1, p2, mask, keys), kw = inp
+    res, probe = ransac_probe(p1, p2, mask, _keys(keys, p1.device), **kw)
+    H = kw["n_iters"]
+    return _summary(probe["scores"][:, :H], probe["scores"][:, H],
+                    R.RansacResult(*res), mask)
+
+
 def _filter(inp, dev, prec, twin):
-    """The engine's filter call on `inp` moved to `dev`, in `prec`, with the
-    null vectors from the twin if `twin`; returns its summary."""
+    """The engine's filter call on `inp` moved to `dev`, the plain path in
+    `prec`, with the null vectors from the twin if `twin`; returns its
+    summary."""
     (p1, p2, mask, keys), kw = inp
     kw = dict(kw)
-    p1, p2, mask, keys = (t.to(dev) for t in (p1, p2, mask, keys))
+    p1, p2, mask = (t.to(dev) for t in (p1, p2, mask))
+    keys = _keys(keys, dev)
     seen = []
     sampson = R._sampson_sq
 
@@ -83,22 +121,14 @@ def _filter(inp, dev, prec, twin):
     R.nullvec9_auto = K.nullvec9_torch if twin else K.nullvec9_auto
     R._sampson_sq = spy
     try:
-        res = R.ransac_fundamental(p1, p2, mask, keys, **kw)
+        res = R.ransac_fundamental_torch(p1, p2, mask, keys, **kw)
     finally:
         R.PREC, R.nullvec9_auto, R._sampson_sq = saved
     d2h, d2r = seen                            # hypotheses, then the refit
     thr2 = kw["threshold"] ** 2
     scores = (mask & (d2h <= thr2)).sum(-1)    # [E,H]
-    best = scores.argmax(-1)
-    top = scores.max(-1).values
     score_r = (mask & (d2r <= thr2)).sum(-1)
-    both = res.inliers[0] & res.inliers[1]
-    tracked = torch.where(res.ok[0] & res.ok[1], both, mask)
-    return dict(scores=scores.cpu(), best=best.tolist(), top=top.tolist(),
-                n_top=(scores == top[:, None]).sum(-1).tolist(),
-                refit=score_r.tolist(), n_inliers=res.n_inliers.tolist(),
-                ok=res.ok.tolist(), tracked=int(tracked.sum()),
-                tracked_mask=tracked.cpu(), F=res.F.cpu())
+    return _summary(scores, score_r, res, mask)
 
 
 def _gate_error(inp, F):
@@ -227,13 +257,13 @@ def run(mode, seq, n_frames, card="cuda"):
                        fields_differ=_field_diffs(rg, rc),
                        card_repeat_equal=not _field_diffs(rg, rg2),
                        parts_at=_parting(log_g, log_c))
-            v = {f"{p}/{nv}/{d}": _filter(in_c if d == "cpu" else in_g,
-                                          cpu if d == "cpu" else cuda, p,
-                                          nv == "twin")
+            v = {f"{p}/{nv}/{d}": _kernel(in_g) if nv == "ransac" else
+                 _filter(in_c if d == "cpu" else in_g,
+                         cpu if d == "cpu" else cuda, p, nv == "twin")
                  for p, nv, d in VARIANTS}
             for p in ("f32", "f64"):
                 c = v[f"{p}/twin/cpu"]
-                for nv in ("kernel", "twin"):
+                for nv in CARD[p]:
                     g = v[f"{p}/{nv}/cuda"]
                     row[f"{p} {nv}: hypotheses differing from cpu"] = int(
                         (g["scores"] != c["scores"]).sum())
@@ -259,9 +289,10 @@ def run(mode, seq, n_frames, card="cuda"):
                   f"{row['tracked_cpu']} | parts at {row['parts_at']}"
                   f" | card repeat equal {row['card_repeat_equal']} | "
                   f"differ {row['fields_differ']} | filter {tr} | "
-                  f"hyp. differing f32 kernel/twin "
+                  f"hyp. differing f32 kernel/twin/ransac "
                   f"{row['f32 kernel: hypotheses differing from cpu']}/"
-                  f"{row['f32 twin: hypotheses differing from cpu']} f64 "
+                  f"{row['f32 twin: hypotheses differing from cpu']}/"
+                  f"{row['f32 ransac: hypotheses differing from cpu']} f64 "
                   f"{row['f64 kernel: hypotheses differing from cpu']}/"
                   f"{row['f64 twin: hypotheses differing from cpu']} | "
                   f"gate err {row['f32 gate error (n, max, median) px^2']}",
