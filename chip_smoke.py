@@ -6,59 +6,44 @@
 Phases, each of which raises (and so exits non-zero) on failure:
   1. device: CUDA must be available; prints the card's name and power limit;
   2. build: compiles rso_torch/csrc/*.cu with nvcc and loads the library;
-  3. kernels: each of the six CUDA kernels against its plain PyTorch twin on
-     the card, at the engine paths' shapes, with the tolerance stated beside
-     each check; per kernel, over 50 calls after 5 of warm-up: `ms`, the
-     median call time (CUDA events around the Python wrapper, so it includes
-     the host's work before the launch is queued: library lookup, operand
-     checks, output allocation, the ctypes call); `device_us`, the median of
-     the kernel's own duration on the card (torch.profiler's CUDA activity);
-     the same call times of the twin and, where one PyTorch call computes the
-     same function, of that call (all timed in phase 8); and the kernel's
-     bound, the least time the card could take for the same work.  The
-     stereo and tracking kernels' bounds count the SAD only on the pairs
-     their masks admit (their share is printed, and the all-pairs bound
-     beside it); both kernels are also checked and timed with the mask open
-     (1e4: every valid pair admitted, for stereo every one with a disparity
-     >= 1), and checked on the cases of tests/_torch_stereo_cases.py and
-     tests/_torch_track_cases.py; the SAD matrix also at ragged shapes and
-     widths; the Hamming matrix's library call is torch.cdist(p=0) on the
-     descriptors unpacked to 0/1 floats (checked equal once); two floors
-     are timed beside the kernels: `floor_us`, PyTorch's fill of one
-     element, and the Hamming matrix's `write_us`, the fill of its [K,K]
-     output; kernel 1 is also checked at win 45 (the widest window of its
+  3. kernels: the calls of every CUDA kernel at the engine paths' shapes
+     (tests/_torch_card.BenchInputs: the bench frames' octaves and
+     features; kernel 4 at B = 512 and B = 2; gn_iter at a kitti frame's
+     [1, 896]; lk_track at kitti_flow's three calls; ransac at
+     RANSAC_SHAPES), each call first held to its twin's on the same
+     operands by the kernel's card check (tests/_torch_card.check_kernel,
+     the one comparison its gpu tests also call), then timed in phase 12:
+     `ms`, the median call time over 50 calls after 5 of warm-up (CUDA
+     events around the Python wrapper, so it includes the host's work
+     before the launch is queued: library lookup, operand checks, output
+     allocation, the ctypes call);
+     `device_us`, the median of the kernel's own duration on the card
+     (torch.profiler's CUDA activity); the same call times of the twin and,
+     where one PyTorch call computes the same function, of that call; and
+     the kernel's bound, the least time the card could take for the same
+     work (vobench.roofline's peaks).  The stereo and tracking kernels'
+     bounds count the SAD only on the pairs their masks admit (their share
+     is printed, and the all-pairs bound beside it); both kernels are also
+     timed with the mask open (1e4); the Hamming matrix's library call is
+     torch.cdist(p=0) on the descriptors unpacked to 0/1 floats; two
+     floors are timed beside the kernels: `floor_us`, PyTorch's fill of
+     one element, and the Hamming matrix's `write_us`, the fill of its
+     [K,K] output; kernel 1 also at win 45 (the widest window of its
      one-tile path), 46 and 64 (its two-pass wide path, reported as
-     `corner_response_wide`) on every octave, bit for bit with the twin on
-     the card and on the CPU, each window's launch counted under its path;
-     and the port's seventh kernel, eigh6 (the GN's 6x6 eigensolver on the
-     eigh backend; rso's is XLA's eigh, no Pallas kernel), against its twin
-     at B = 1, 11 and 4096 (bit for bit expected, within 1e-6 of |w[5]|
-     and 1e-5 held) and against torch.linalg.eigh, its library call, and
-     its w[0] against float64 eigvalsh on the cases of
-     tests/test_torch_eigh6.py (cond 1e3-1e7, graded GN matrices): median
-     and max error no more than LAPACK f32's on the same matrices; and the
-     eighth, gn_iter (one GN iteration, csrc/gn_iter.cu; rso's is plain
-     XLA), against its plain version (robust_gn.gn_iteration_torch) on
-     whole solves of kitti-shaped frames (T = 896, tests/_torch_gn_cases.py)
-     in every variant: integer fields exact, the pose within 1e-5, timed at
-     [1, 896] beside the plain iteration; and the ninth, lk_track
-     (pyramidal LK, csrc/lk_track.cu; rso's is plain XLA), against its
-     plain version (optical_flow.lk_track_torch) at kitti_flow's three
-     calls and on detect_every's propagation calls
-     (tests/_torch_lk_cases.py: positions and residuals within 2e-3 where
-     both track, on detect_every's calls where the slot also converged;
-     status apart only at a gate's edge, the seed bit for bit), timed at each octave's call, the plain
-     version beside octave 0's;
+     `corner_response_wide`).  The kernels' other card cases (odd shapes,
+     degenerate inputs, graphs) are in their gpu test files
+     (tests/test_torch_cuda.py, test_torch_gn_iter.py,
+     test_torch_lk_cuda.py, test_torch_ransac_cuda.py);
  3b. batched kernels: each kernel under torch.func.vmap over N_BATCH = 11
-     lanes (lane b: bench frame b at octave 0; tracking b to b + 1; kernel
-     4: 512 matrices a lane; eigh6: one normal matrix a lane; gn_iter:
-     one frame's [896] slots and carry a lane; lk_track: octave 0's call
-     of frame b to b + 1 a lane), as the
-     batched step launches it: one launch
-     for all lanes (kernel 1 also on its wide path), each lane bit for bit
-     its twin (kernel 4: the unbatched kernel's bits, the twin's up to
-     sign); each batched launch timed beside the single one, its bound
-     summed over the lanes (`batched` in the kernels line);
+     lanes as the batched step launches it (tests/_torch_card.BenchLanes:
+     lane b bench frame b at octave 0, tracking and kernels 5-6 b to
+     b + 1, kernel 4 512 matrices a lane; gn_iter one frame's [896] slots
+     and carry a lane; lk_track octave 0's call of frame b to b + 1 a
+     lane; ransac the flat filter's call a lane), each batched launch held
+     to its lanes' references (tests/_torch_card.check_lanes: each lane
+     bit for bit; gn_iter's lanes to the plain iteration by check_kernel)
+     and timed beside the single one, its bound summed over the lanes
+     (`batched` in the kernels line);
   4. engine, default path: 30 frames of the bench scene (1241x376, 2000
      points, speed 0.8, fx 718.856, baseline 0.5371) through
      Engine(synthetic_config()) on the card, with every kernel's launch
@@ -118,13 +103,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      median step ms (CUDA events) and wall ms a frame, the flag reads a
      frame, the GN iteration distribution and the graphs; eigh_lm's eager
      step (the GN kernel, eigh6's routine inside) also against the same
-     step with the plain GN iterations on the eigh6 kernel, and that
-     against the plain iterations on cuSOLVER's eigh (pose within
+     step with the plain GN iterations on cuSOLVER's eigh (pose within
      EIGH_POSE_ATOL where the counts agree, frames that part named and held
      to LANE_GN_*), and the condition numbers its normal matrices reached;
-     on default and kitti the graph again at each GN_BLOCK of
-     GN_BLOCK_SWEEP, all captured first and then timed in turns, twice
-     (what GN_BLOCK was chosen from);
  8c. the batched step (rso_torch.parallel.BatchEngine: torch.func.vmap of
      the step over the sequences, CUDA graphs): (a) N_BATCH = 11 sequences
      of the bench scene (seeds 0-10) at 1241x376, 20 frames: 6/3/3/2
@@ -157,7 +138,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
            and on the CPU from the same inputs, held together; BA
            iterations/s as the slope of the call time between 25 and 75
            iterations at tol=0 (CUDA events, best of 3, in turns), in
-           graphs and eager; the flag reads; the LM_BLOCK sweep;
+           graphs and eager; the flag reads;
        (b) VOWithBA at its defaults (8 keyframes, 1024 landmarks, 15
            iterations) over the 30 bench frames, twice: run 1 captures
            each solve's shape, run 2 replays them (and equals run 1 frame
@@ -167,8 +148,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
            a solve (their difference: the stall per BA keyframe), each
            solve's ms and whether it captured, the flag reads a solve, and
            the host stages around the solve (keyframe_obs, build_problem,
-           apply_result); the LM_BLOCK sweep over run 2's solves; the last
-           solve again on the CPU from the card's BAProblem;
+           apply_result); the last solve again on the CPU from the card's
+           BAProblem;
        (c) marginalize=True with a 4-keyframe window: evictions, a finite,
            symmetric prior, finite costs; its solves first of shape or
            replayed (P = 4 repeats with the prior);
@@ -243,10 +224,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
            windowed_sad_search on the card (K = 512 templates of frame 0,
            +-8 px around their centers in frame 1, interior centers) equals
            the C++ tracking_SAD's best centers and SADs;
- 12. timing: phase 3's call times, then its device times in one profiler
-     session, last, since a profiler session slows the process after it;
-     each octave-shaped kernel is also timed at the other octaves' shapes
-     (`octaves`; the null vectors at the refit's B = 2 beside B = 512), and
+ 12. timing: phase 3's and 3b's call times, then their device times in one
+     profiler session, last, since a profiler session slows the process
+     after it; each octave-shaped kernel is also timed at the other
+     octaves' shapes (`octaves`; the null vectors at the refit's B = 2
+     beside B = 512), and
      `over_bound_us_per_frame` sums device time less bound over a frame's
      launches (the order of the redesigns).
 Each engine phase resets the launch counters just before it and reads them
@@ -267,9 +249,10 @@ import sys
 import time
 from pathlib import Path
 
-REPO = Path(__file__).resolve().parent
-H, W = 376, 1241
-N_FRAMES = 30
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+import _torch_card as tc  # noqa: E402
+from _torch_card import N_FRAMES, REPO, WIDE_WIN, H, W  # noqa: E402
+from vobench.roofline import PEAK_BYTES, PEAK_OPS, corner_ops  # noqa: E402
 N_CPU_FRAMES = 5
 N_DESC_CPU_FRAMES = 3
 N_DENSE_FRAMES = 10
@@ -342,22 +325,20 @@ PATH_REF = {
     "textured": (19, 0.01990080636273349),
 }
 # The textured corridor (make_textured_sequence, seed 0, at the bench size
-# and camera under textured_config()): its frames per run, and the window
-# and frames of the run that takes kernel 1's wide path (KLT_win past the
-# one-tile path's 45; detection only, so it has no reference bounds: its
-# launches and its CPU re-run are held).
+# and camera under textured_config()): its frames per run, and the frames
+# of the run that takes kernel 1's wide path at tc.WIDE_WIN (detection
+# only, so it has no reference bounds: its launches and its CPU re-run are
+# held).
 N_TEXTURED_FRAMES = 20
-WIDE_WIN = 46
 N_WIDE_FRAMES = 3
-# The compiled step: frames per path (detect_every: N_EVERY_FRAMES), and
-# the GN block sizes timed on the default and kitti paths.
+# The compiled step: frames per path (detect_every: N_EVERY_FRAMES).
 N_COMPILED_FRAMES = 20
-GN_BLOCK_SWEEP = (1, 2, 4)
-# eigh_lm's step with the eigh6 kernel against the same step with
-# cuSOLVER's eigh (torch.linalg.eigh, eager on the card): the pose within
-# EIGH_POSE_ATOL where the GN ran the same iterations (two f32 eigensolvers
-# of one H, ~1e-6 apart on the bench scene's normal matrices); frames whose
-# integer fields part are named and held to LANE_GN_*
+# eigh_lm's step (the GN kernel, eigh6's routine inside) against the same
+# step with cuSOLVER's eigh (torch.linalg.eigh, eager on the card): the
+# pose within EIGH_POSE_ATOL where the GN ran the same iterations (two f32
+# eigensolvers of one H, ~1e-6 apart on the bench scene's normal
+# matrices); frames whose integer fields part are named and held to
+# LANE_GN_*
 EIGH_POSE_ATOL = 1e-5
 # Phase 8c, the batched step: KITTI 00-10's count of sequences, frames each,
 # frames of the eager lane-after-lane form (the slowest, timed on fewer),
@@ -395,276 +376,20 @@ BA_REF = {
                 "ate_refined": 0.11402044066615265},
 }
 BA_SLACK = 2
-# A solve on the card against the same solve on the CPU, at the CPU tests'
-# bounds (tests/test_torch_ba*.py: poses 5e-5 rad/m, landmarks 3e-3 m, cost
-# 2e-5 relative, plus 1e-6 px^2 for costs that reach 0).  n_iters and
-# converged are equal, or both runs sat at the f32 noise floor of the cost
-# (within BA_FLOOR_RTOL of the converged cost) at the earlier stop: there an
-# accept compares costs that differ by less than the two devices' rounding
-# of the cost sum (tests/test_torch_ba.py).
-BA_POSE_ATOL = 5e-5
-BA_LMK_ATOL = 3e-3
-BA_COST_RTOL = 2e-5
-BA_COST_ATOL = 1e-6
-BA_FLOOR_RTOL = 2e-5
-# A window of the VOWithBA run is a real problem: its cost is flat along
-# some directions (weak parallax, landmarks seen by two keyframes), where
-# f32 rounding moves the minimizer without moving the cost.  The card's
-# solution must then reach the CPU's cost at the CPU (as above) and lie
-# within these of the CPU's: on the run's 8 windows the reference and the
-# port on the CPU part by up to 6.1e-4 rad/m and 1.1e-2 m, the card and the
-# CPU alike, with costs within 6e-6 (tests/_torch_ba_windows.py on the
-# windows the card solved, measured on one H100).
-BA_WINDOW_POSE_ATOL = 2e-3
-BA_WINDOW_LMK_ATOL = 3e-2
 BA_SYM_RTOL = 1e-12
 BA_WARM_FRAMES = 10
-# The LM block sizes timed on the bench problem and on the VOWithBA run's
-# solves (what rso_torch.ba.ba.LM_BLOCK was chosen from).
-LM_BLOCK_SWEEP = (1, 2, 5)
-# Peak rates of the H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
-# outside the tensor cores, counted for every scalar operation of the
-# kernels (integer ones included), and device memory.
-PEAK_OPS = 67e12
-PEAK_BYTES = 3.35e12
-# profiler sessions device_times may take before it gives up (one session
-# in ten once dropped one launch of 100 on an H100)
-PROFILE_ATTEMPTS = 3
-# The floors beside the kernels' times: PyTorch's fill kernel, found by its
-# functor's symbol (`at::native::FillFunctor<float>`), timed on one element
-# (`floor_us`, the least a launch takes) and on kernel 5's [K,K] output
-# (`write_us`, the least a kernel that writes that output takes).
-FILL_KERNEL = "FillFunctor"
 # what the entry-point phase holds against the earlier phases' runs: each
 # engine path's StepResults by name (drive), and the BA runs' counts
 RUNS = {}
 # scenes made by one phase and driven again by a later one
 SCENES = {}
 
-
-def _nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def _median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
-
-
-def device_times(jobs, reps: int = 50, warmup: int = 5) -> list:
-    """Median device duration, in us, of each job's kernel over `reps` calls
-    of its function.  jobs: [(kernel, fn)], where kernel may be a tuple of
-    the kernels one call launches (their durations summed per call: kernel
-    1's wide path launches two).  Every job runs in ONE
-    torch.profiler session (CUDA activity, CUPTI): on an H100, a sixth
-    session in one process once recorded no device event at all.  The
-    kernels are launched through ctypes, so they are found by their own
-    symbol, demangled (`::name(`, `::name<`) or mangled (`<len>nameE`/`I`);
-    launches on one stream run in issue order, so the n-th batch of `reps`
-    launches of a kernel belongs to the n-th job that names it.  A session
-    can also drop an event, which would shift those batches: a session whose
-    counts fall short is run again, up to PROFILE_ATTEMPTS times."""
-    import re
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _, fn in jobs:
-        for _ in range(warmup):
-            fn()
-    torch.cuda.synchronize()
-    names_of = [(k,) if isinstance(k, str) else tuple(k) for k, _ in jobs]
-    n_jobs = collections.Counter(k for names in names_of for k in names)
-    for attempt in range(PROFILE_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _, fn in jobs:
-                for _ in range(reps):
-                    fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        by_kernel, short = {}, []
-        for kernel, n in n_jobs.items():
-            pat = re.compile(rf"(?:::|\d){kernel}(?:[(<EI]|$)")
-            by_kernel[kernel] = sorted(
-                (e for e in events if pat.search(e.name)),
-                key=lambda e: e.time_range.start)
-            if len(by_kernel[kernel]) != n * reps:
-                short.append(f"{len(by_kernel[kernel])} launches of {kernel}, "
-                             f"expected {n * reps}")
-        if not short:
-            break
-        names = sorted({e.name for e in events})
-        print(f"profiler session {attempt + 1} of {PROFILE_ATTEMPTS} saw "
-              f"{'; '.join(short)}; device events: {names[:8]}", flush=True)
-    else:
-        raise AssertionError(f"no profiler session saw every launch: {short}")
-    out, taken = [], collections.Counter()
-    for names in names_of:
-        per_call = [0.0] * reps
-        for kernel in names:
-            k = taken[kernel]
-            taken[kernel] += 1
-            for i, e in enumerate(by_kernel[kernel][k * reps:(k + 1) * reps]):
-                per_call[i] += e.time_range.elapsed_us()
-        t = sorted(per_call)
-        out.append(t[len(t) // 2])
-    return out
-
-
 def _bound(ops: float, n_bytes: float):
     """(bound_ms, bound_by): the larger of operations over the f32 peak and
     bytes (each input read once, each output written once) over the memory
-    rate."""
+    rate, at vobench.roofline's peaks."""
     t_ops, t_bytes = ops / PEAK_OPS * 1e3, n_bytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def corner_ops(win: int) -> int:
-    """Kernel 1's operations a pixel, counted from the twin's arithmetic:
-    FAST's 32 compares and 32 bit packs, ~50 for the two arc tests, 4 for
-    the gradients, 3 products, 2 x 3 x 2*win box-sum adds (48 at win 4), 3
-    means and ~10 for the eigenvalue: 190 at win 4."""
-    return 142 + 12 * win
-
-
-def _bench_cam():
-    from rso_torch.geometry import StereoCamera
-
-    return StereoCamera.make(fx_l=718.856, fy_l=718.856, cx_l=W / 2.0,
-                             cy_l=H / 2.0, baseline=0.5371)
-
-
-def _bench_scene(n_frames: int, seed: int = 0):
-    from rso_torch.synthetic import make_sequence
-
-    return make_sequence(n_frames=n_frames, n_points=2000, H=H, W=W,
-                         cam=_bench_cam(), speed=0.8, seed=seed)
-
-
-def rank8_matrices(rng, B: int, dev):
-    """[B,9,9] f32 A^T A of 8x9 normal A: PSD of rank 8, as RANSAC's
-    8-point normal equations are."""
-    import torch
-
-    A = torch.tensor(rng.normal(0, 1, (B, 8, 9)), dtype=torch.float32,
-                     device=dev)
-    return (A.transpose(1, 2) @ A).contiguous()
-
-
-def _exact(name, a, b, what):
-    """Kernel and twin outputs must be equal bit for bit."""
-    import torch
-
-    for x, y in zip(a, b):
-        if not torch.equal(x, y):
-            raise AssertionError(f"{name} {what}: kernel != twin")
-    d = max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
-    print(f"kernel {name} {what}: bit-exact (max|d| {d})", flush=True)
-    return d
-
-
-class BenchInputs:
-    """The kernels' inputs on the bench scene, as the engine paths give them:
-    the 3-octave pyramid of frame 0's left image, and per octave the
-    FASTER features (left, right, stereo matches) of frames 0 and 1 and the
-    FAST_ORB descriptors of both frames' left images."""
-
-    def __init__(self, seq, dev):
-        import torch
-
-        from rso_torch.frontend.detect import detect_features, octave_k_slots
-        from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
-        from rso_torch.frontend.stereo_match import match_left_right
-        from rso_torch.synthetic import mode_config, synthetic_config
-
-        self.cfg = cfg = synthetic_config()
-        pyramid = lambda f, eye: build_pyramid(  # noqa: E731
-            to_grayscale(torch.from_numpy(seq.frames[f][eye]).to(dev)), 3)
-        self.pyr = pyramid(0, 0)
-        self.th = torch.tensor(cfg.detect.initial_FAST_threshold,
-                               dtype=torch.int32, device=dev)
-        self.Ks = octave_k_slots(cfg.detect.orb_nfeats, 3,
-                                 cfg.tpu.max_kps_per_octave)
-        self.desc_params = mode_config("fast_orb_rbr_win", upright=False).detect
-        self.frames, self.descs = [], []
-        for f in (0, 1):
-            pl_, pr_ = pyramid(f, 0), pyramid(f, 1)
-            octs, dsc = [], []
-            for o in range(3):
-                fl = detect_features(pl_[o], cfg.detect, self.Ks[o], self.th, False)
-                fr = detect_features(pr_[o], cfg.detect, self.Ks[o], self.th, False)
-                octs.append((fl, fr, match_left_right(fl, fr, cfg.lr_match,
-                                                      W >> o, 0.0)))
-                dsc.append(detect_features(pl_[o], self.desc_params, self.Ks[o],
-                                           self.th, True))
-            self.frames.append(octs)
-            self.descs.append(dsc)
-        self.track_kw = dict(win_row=float(cfg.if_match.ifm_win_w),
-                             win_col=float(cfg.if_match.ifm_win_h),
-                             sad_max=float(cfg.if_match.sad_max_distance))
-
-    def stereo_args(self, o):
-        fl, fr, _ = self.frames[0][o]
-        return (fl.patch, fr.patch, fl.xy, fr.xy, fl.valid, fr.valid)
-
-    def stereo_kw(self, o):
-        return dict(max_y_diff=self.cfg.lr_match.max_y_diff,
-                    max_disp=(W >> o) * 0.7,
-                    max_distance=float(self.cfg.lr_match.sad_max_distance))
-
-    def track_args(self, o):
-        """Tracking's operands at octave o, frame 0 -> 1 (as track.py
-        gathers them)."""
-        from rso_torch.frontend.track import _gather_right
-
-        pl, pr, pm = self.frames[0][o]
-        cl, cr, cm = self.frames[1][o]
-        pR_xy, pR_patch, _ = _gather_right(pr, pm.ridx)
-        cR_xy, cR_patch, _ = _gather_right(cr, cm.ridx)
-        return (pl.patch, cl.patch, pR_patch, cR_patch, pl.xy, cl.xy,
-                pR_xy[:, 0].contiguous(), cR_xy[:, 0].contiguous(),
-                pm.valid, cm.valid)
-
-
-def track_window_pairs(args, kw) -> int:
-    """How many (prev, cur) pairs the tracking window and validity admit:
-    the twin's mask before its SAD gates, the pairs whose SAD kernel 3
-    forms."""
-    _, _, _, _, pxy, cxy, prx, crx, okp, okc = args
-    d = lambda a, b: (a[:, None] - b[None, :]).abs()  # noqa: E731
-    ok = (okp[:, None] & okc[None, :]
-          & (d(pxy[:, 1], cxy[:, 1]) <= kw["win_row"])
-          & (d(pxy[:, 0], cxy[:, 0]) <= kw["win_col"])
-          & (d(prx, crx) <= kw["win_col"]))
-    return int(ok.sum())
-
-
-def stereo_mask_pairs(args, kw) -> int:
-    """How many (left, right) pairs the stereo mask and validity admit: the
-    twin's mask before its SAD gate, the pairs whose SAD kernel 2 forms."""
-    _, _, xyl, xyr, okl, okr = args
-    dy = (xyl[:, 1].round()[:, None] - xyr[:, 1].round()[None, :]).abs()
-    disp = xyl[:, 0][:, None] - xyr[:, 0][None, :]
-    ok = (okl[:, None] & okr[None, :] & (dy <= kw["max_y_diff"])
-          & (disp >= 1.0) & (disp <= kw["max_disp"]))
-    return int(ok.sum())
 
 
 def stereo_bound(args, kw):
@@ -674,7 +399,7 @@ def stereo_bound(args, kw):
     operand read once, three [Kl] outputs written."""
     Kl, P = args[0].shape
     Kr = args[1].shape[0]
-    n = stereo_mask_pairs(args, kw)
+    n = tc.stereo_mask_pairs(args, kw)
     return (Kl * Kr * 10 + n * (3 * P + 4),
             4 * (Kl + Kr) * (P + 2) + Kl + Kr + 12 * Kl, n)
 
@@ -686,589 +411,209 @@ def track_bound(args, kw):
     once, two [Kp] outputs written."""
     Kp, P = args[0].shape
     Kc = args[1].shape[0]
-    n = track_window_pairs(args, kw)
+    n = tc.track_window_pairs(args, kw)
     return (Kp * Kc * 10 + n * P * 6, 4 * (Kp + Kc) * (2 * P + 3) + Kp + Kc
             + 8 * Kp, n)
 
 
-def check_kernels(seq, dev):
-    """Phase 3: every kernel against its twin at the engine paths' shapes.
-    Returns ({name: dict(max_abs_err, bound_ms, bound_by, ...)}, the calls
-    to time), the times being taken by time_kernels after the engines."""
+
+def kernel_calls(seq, dev):
+    """Phase 3: every kernel's calls at the engine paths' shapes, with the
+    bound of each, each call held to its twin's on the same operands by the
+    kernel's card check (tests/_torch_card.check_kernel, the one its gpu
+    tests call).  Returns ({name: dict(bound_ms, bound_by, shape, ...)},
+    the calls to time), the times being taken by time_kernels after the
+    engines."""
     import numpy as np
     import torch
 
     from rso_torch import kernels as K
-    from rso_torch.frontend.detect import detect_features
-    from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
-    from rso_torch.kernels.stereo_fused import _best_second
 
-    sys.path.insert(0, str(REPO / "tests"))
-    import _torch_stereo_cases as SC
-    import _torch_track_cases as TC
-
-    bi = BenchInputs(seq, dev)
+    bi = tc.BenchInputs(seq, dev)
     pyr, th, Ks = bi.pyr, bi.th, bi.Ks
-    rng = np.random.default_rng(0)
     report = {}
 
     # (report entry, kernel, kernel call, twin call, library call); each
-    # call binds its operands now, since it runs after every check
+    # call binds its operands now, since it runs after the engine phases
     timed = []
 
-    def entry(err, fn, kernel, plain, library, ops, n_bytes, shape, note=None):
-        """The kernel's report; its times are taken after every check."""
+    def held(name, fn, plain, what, ctx):
+        """The kernel's call against its twin's, now: its card check."""
+        measured = tc.check_kernel(name, fn(), plain(), f"{name} {what}", **ctx)
+        print(f"kernel {name} {what}: equals its twin"
+              + (f" ({measured})" if measured else ""), flush=True)
+
+    def entry(name, fn, kernel, plain, library, ops, n_bytes, shape,
+              note=None, **ctx):
+        """Kernel `name`'s report, its call held to the twin's (`ctx`: the
+        check's operands); its times are taken after the engines."""
+        held(name, fn, plain, shape, ctx)
         bound_ms, bound_by = _bound(ops, n_bytes)
-        out = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
-                   shape=shape)
+        out = report[name] = dict(bound_ms=bound_ms, bound_by=bound_by,
+                                  shape=shape)
         if note:
             out["library_note"] = note
         timed.append((out, kernel, fn, plain, library))
         return out
 
-    def octave(out, kernel, fn, ops, n_bytes, shape):
+    def octave(name, kernel, fn, ops, n_bytes, shape, plain=None, **ctx):
         """The kernel at another octave's shape, timed beside its main one:
-        `octaves` in its report, for the device time per frame."""
+        `octaves` in its report, for the device time per frame; held to
+        `plain` where given."""
+        if plain is not None:
+            held(name, fn, plain, shape, ctx)
         bound_ms, bound_by = _bound(ops, n_bytes)
         d = dict(shape=shape, bound_ms=bound_ms, bound_by=bound_by)
-        out.setdefault("octaves", []).append(d)
+        report[name].setdefault("octaves", []).append(d)
         timed.append((d, kernel, fn, None, None))
 
-    # ---- kernel 1: all three octaves of a bench frame ------------------------
-    err = 0.0
-    for img in pyr:
-        out = K.corner_response_cuda(img, th)
-        ref = K.corner_response_torch(img, th)
-        torch.cuda.synchronize()
-        # FAST mask: bit-exact
-        if not torch.equal(torch.isneginf(out), torch.isneginf(ref)):
-            raise AssertionError(f"corner mask differs at {tuple(img.shape)}")
-        fin = torch.isfinite(ref)
-        d = (out[fin] - ref[fin]).abs().max().item() if fin.any() else 0.0
-        # response: same op order without FMA contraction, so bit-exact is
-        # expected; the check allows 1e-6 of the largest response
-        tol = 1e-6 * max(1.0, ref[fin].abs().max().item())
-        if d > tol:
-            raise AssertionError(f"corner response differs by {d} > {tol}")
-        # the twin on the CPU, as the CPU re-runs take it: bit-exact
-        if not torch.equal(out.cpu(), K.corner_response_torch(img.cpu(), th.cpu())):
-            raise AssertionError(f"corner response at {tuple(img.shape)}: "
-                                 "kernel != twin on the CPU")
-        # the work a thread-per-pixel design divides unevenly: the corners'
-        # share of pixels, and of 32-pixel row segments (warps) holding one
-        rows = torch.nn.functional.pad(fin, (0, -img.shape[1] % 32))
-        warps = rows.view(img.shape[0], -1, 32).any(-1)
-        print(f"kernel corner_response {tuple(img.shape)}: corners "
-              f"{int(fin.sum())} ({fin.float().mean().item()} of the pixels, "
-              f"in {warps.float().mean().item()} of the 32-pixel warps), "
-              f"max|d| {d}, equal to the CPU twin", flush=True)
-        err = max(err, d)
-    n_px = pyr[0].numel()
-    # one f32 image read, one written; corner_ops(win) operations a pixel
-    report["corner_response"] = entry(
-        err, lambda img=pyr[0]: K.corner_response_cuda(img, th),
-        "corner_response_kernel",
-        lambda img=pyr[0]: K.corner_response_torch(img, th), None,
-        corner_ops(4) * n_px, 8 * n_px, list(pyr[0].shape),
-        "no single PyTorch call computes FAST + Shi-Tomasi")
-    for img in pyr[1:]:
-        octave(report["corner_response"], "corner_response_kernel",
-               lambda img=img: K.corner_response_cuda(img, th),
-               corner_ops(4) * img.numel(), 8 * img.numel(), list(img.shape))
-
-    # ---- kernel 1 at wide windows: the one-tile path's widest (45), then
-    # the two-pass wide path (46, the wide-window engine run's, and 64) ------
-    def window(out, kernel, fn, win, img):
-        """The kernel at another window, timed beside its main one."""
+    def window(name, kernel, fn, plain, win, img):
+        """The kernel at another window, held to its twin and timed beside
+        its main one."""
+        held(name, fn, plain, f"win {win} {list(img.shape)}", {})
         bound_ms, bound_by = _bound(corner_ops(win) * img.numel(),
                                     8 * img.numel())
         d = dict(win=win, shape=list(img.shape), bound_ms=bound_ms,
                  bound_by=bound_by, label=f"win {win} {list(img.shape)}")
-        out.setdefault("windows", []).append(d)
+        report[name].setdefault("windows", []).append(d)
         timed.append((d, kernel, fn, None, None))
 
-    wide_kernels = ("corner_colsum_kernel", "corner_wide_kernel")
-    for win in (45, WIDE_WIN, 64):
-        for img in pyr:
-            K.LAUNCHES.clear()
-            out = K.corner_response_cuda(img, th, win=win)
-            path = "corner_response_wide" if win > 45 else "corner_response"
-            if dict(K.LAUNCHES) != {path: 1}:
-                raise AssertionError(f"corner_response at win {win}: "
-                                     f"launches {dict(K.LAUNCHES)}, expected "
-                                     f"one {path}")
-            ref = K.corner_response_torch(img, th, win=win)
-            if not torch.equal(out, ref):
-                raise AssertionError(f"corner_response at win {win} "
-                                     f"{tuple(img.shape)}: kernel != twin")
-            if not torch.equal(out.cpu(), K.corner_response_torch(
-                    img.cpu(), th.cpu(), win=win)):
-                raise AssertionError(f"corner_response at win {win} "
-                                     f"{tuple(img.shape)}: kernel != twin on "
-                                     "the CPU")
-            fin = torch.isfinite(ref)
-            print(f"kernel {path} win {win} {tuple(img.shape)}: corners "
-                  f"{int(fin.sum())}, bit-exact with the twin on the card and "
-                  "on the CPU", flush=True)
-    window(report["corner_response"], "corner_response_kernel",
-           lambda img=pyr[0]: K.corner_response_cuda(img, th, win=45), 45,
-           pyr[0])
-    report["corner_response_wide"] = entry(
-        0.0,                                  # bit-exact, checked above
-        lambda img=pyr[0]: K.corner_response_cuda(img, th, win=WIDE_WIN),
-        wide_kernels,
-        lambda img=pyr[0]: K.corner_response_torch(img, th, win=WIDE_WIN),
-        None, corner_ops(WIDE_WIN) * n_px, 8 * n_px, list(pyr[0].shape),
-        "no single PyTorch call computes FAST + Shi-Tomasi")
-    for img in pyr[1:]:
-        octave(report["corner_response_wide"], wide_kernels,
-               lambda img=img: K.corner_response_cuda(img, th, win=WIDE_WIN),
-               corner_ops(WIDE_WIN) * img.numel(), 8 * img.numel(),
-               list(img.shape))
-    window(report["corner_response_wide"], wide_kernels,
-           lambda img=pyr[0]: K.corner_response_cuda(img, th, win=64), 64,
-           pyr[0])
+    # ---- kernel 1: all three octaves of a bench frame; the one-tile path's
+    # widest window (45), then the two-pass wide path (46, the wide-window
+    # engine run's, and 64) ---------------------------------------------------
+    n_px = pyr[0].numel()
+    # one f32 image read, one written; corner_ops(win) operations a pixel
+    for name, kernels, win in (("corner_response", "corner_response_kernel", 4),
+                               ("corner_response_wide",
+                                ("corner_colsum_kernel", "corner_wide_kernel"),
+                                WIDE_WIN)):
+        cuda, twin = (lambda img, f=f, win=win: functools.partial(
+            f, img, th, win=win) for f in (K.corner_response_cuda,
+                                           K.corner_response_torch))
+        entry(name, cuda(pyr[0]), kernels, twin(pyr[0]), None,
+              corner_ops(win) * n_px, 8 * n_px, list(pyr[0].shape),
+              "no single PyTorch call computes FAST + Shi-Tomasi")
+        for img in pyr[1:]:
+            octave(name, kernels, cuda(img), corner_ops(win) * img.numel(),
+                   8 * img.numel(), list(img.shape), twin(img))
+        # the one-tile path's widest window (45); the wide path's at 64
+        w = 45 if win == 4 else 64
+        window(name, kernels,
+               functools.partial(K.corner_response_cuda, pyr[0], th, win=w),
+               functools.partial(K.corner_response_torch, pyr[0], th, win=w),
+               w, pyr[0])
 
-    # ---- kernels 2, 3: real features of bench frames 0 and 1 per octave -----
-    def odd_case(k, seed):
-        r = np.random.default_rng(seed)
-        # slot j of the second set is a noisy copy of slot perm[j] of the
-        # first, 2..40 px to the left and within a pixel in y
-        perm = r.permutation(k)
-        base = r.integers(0, 255 * 16, (k, 64)) / 16.0
-        pert = base[perm] + r.integers(-40, 40, (k, 64)) / 16.0
-        xy = r.uniform(10, 300, (k, 2))
-        xy2 = xy[perm] - np.stack([r.uniform(-2, 40, k), r.uniform(-1, 1, k)], -1)
-        t = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt, device=dev)  # noqa: E731
-        ok = lambda: t(r.random(k) > 0.1, torch.bool)  # noqa: E731
-        return t(base), t(np.clip(pert, 0, 255)), t(xy), t(xy2), ok(), ok()
-
+    # ---- kernels 2, 3: real features of bench frames 0 and 1 per octave; the
+    # bound counts the SAD of the admitted pairs only, the all-pairs count
+    # (K^2 (3P + 8) and K^2 (6P + 10) operations) kept beside it for
+    # comparison with ratios taken against it; each also with its mask open
     K0, P = Ks[0], 64
-    err = 0.0
-    for o in range(3):
-        a, kw = bi.stereo_args(o), bi.stereo_kw(o)
-        open_kw = dict(kw, max_y_diff=1e4, max_disp=1e4)
-        for what, k in (("", kw), (" open mask", open_kw)):
-            err = max(err, _exact("stereo_sad_fused", K.stereo_sad_fused_cuda(*a, **k),
-                                  K.stereo_sad_fused_torch(*a, **k),
-                                  f"K={Ks[o]}{what}"))
-        n_pairs = Ks[o] * Ks[o]
-        print(f"kernel stereo_sad_fused K={Ks[o]}: the mask admits "
-              f"{stereo_mask_pairs(a, kw)} of {n_pairs} pairs "
-              f"({stereo_mask_pairs(a, kw) / n_pairs}), the open mask "
-              f"{stereo_mask_pairs(a, open_kw) / n_pairs}", flush=True)
-    pl, pr, xl, xr, okl, okr = odd_case(257, 1)
-    kw = dict(max_y_diff=1.0, max_disp=100.0, max_distance=6000.0)
-    err = max(err, _exact("stereo_sad_fused",
-                          K.stereo_sad_fused_cuda(pl, pr, xl, xr, okl, okr, **kw),
-                          K.stereo_sad_fused_torch(pl, pr, xl, xr, okl, okr, **kw),
-                          "K=257"))
-    for case in SC.CASES:
-        args, kw, *_ = SC.stereo_case(case)
-        a = tuple(torch.from_numpy(x).to(dev) for x in args)
-        err = max(err, _exact("stereo_sad_fused", K.stereo_sad_fused_cuda(*a, **kw),
-                              K.stereo_sad_fused_torch(*a, **kw), f"case {case}"))
-    a0, kw0 = bi.stereo_args(0), bi.stereo_kw(0)
-    ops, n_bytes, n_adm = stereo_bound(a0, kw0)
-    report["stereo_sad_fused"] = entry(
-        err, lambda a=a0, kw=kw0: K.stereo_sad_fused_cuda(*a, **kw),
-        "stereo_sad_kernel",
-        lambda a=a0, kw=kw0: K.stereo_sad_fused_torch(*a, **kw),
-        None, ops, n_bytes, [K0, K0, P],
-        "no single PyTorch call computes the masked best/second")
-    # the bound counts the SAD of the admitted pairs only; the all-pairs
-    # count (K^2 (3P + 8) operations) is kept beside it for comparison with
-    # ratios taken against it
-    all_pairs_ms, _ = _bound(K0 * K0 * (3 * P + 8), n_bytes)
-    open_kw0 = dict(kw0, max_y_diff=1e4, max_disp=1e4)
-    ops_o, _, n_open = stereo_bound(a0, open_kw0)
-    open_mask = dict(label="open mask", max_y_diff=1e4, max_disp=1e4,
-                     admissible_share=n_open / (K0 * K0),
-                     bound_ms=_bound(ops_o, n_bytes)[0])
-    report["stereo_sad_fused"].update(
-        admissible_share=n_adm / (K0 * K0),
-        bound_all_pairs_ms=all_pairs_ms, open_mask=open_mask)
-    t = report["stereo_sad_fused"]
-    print(f"kernel stereo_sad_fused K={K0}: bound {t['bound_ms']} ms "
-          f"({t['bound_by']}), the SAD counted on the {n_adm} admitted pairs "
-          f"({n_adm / (K0 * K0)}); the earlier count, the SAD on all pairs: "
-          f"{t['bound_all_pairs_ms']} ms; open mask: bound "
-          f"{open_mask['bound_ms']} ms, {n_open} pairs admitted", flush=True)
-    timed.append((open_mask, "stereo_sad_kernel",
-                  lambda a=a0, kw=open_kw0: K.stereo_sad_fused_cuda(*a, **kw),
-                  None, None))
-    for o in (1, 2):
-        a, kw = bi.stereo_args(o), bi.stereo_kw(o)
-        ops_o, bytes_o, _ = stereo_bound(a, kw)
-        octave(report["stereo_sad_fused"], "stereo_sad_kernel",
-               lambda a=a, kw=kw: K.stereo_sad_fused_cuda(*a, **kw),
-               ops_o, bytes_o, [Ks[o], Ks[o], P])
+    for name, kernel, bound, pairs, all_ops, mask, opened, note in (
+            ("stereo_sad_fused", "stereo_sad_kernel", stereo_bound,
+             tc.stereo_mask_pairs, 3 * P + 8, "mask",
+             dict(max_y_diff=1e4, max_disp=1e4), "the masked best/second"),
+            ("track_sad_fused", "track_sad_kernel", track_bound,
+             tc.track_window_pairs, 6 * P + 10, "window", dict(win=1e4),
+             "the windowed argmin")):
+        cuda, twin = getattr(K, f"{name}_cuda"), getattr(K, f"{name}_torch")
+        for o in range(3):
+            a, kw = bi.operands(name, o)
+            open_kw = bi.operands(f"{name} open", o)[1]
+            n_pairs = Ks[o] * Ks[o]
+            print(f"kernel {name} K={Ks[o]}: the {mask} admits "
+                  f"{pairs(a, kw)} of {n_pairs} pairs "
+                  f"({pairs(a, kw) / n_pairs}), the open {mask} "
+                  f"{pairs(a, open_kw) / n_pairs}", flush=True)
+            ops, n_bytes, n_adm = bound(a, kw)
+            fn, plain = (functools.partial(f, *a, **kw) for f in (cuda, twin))
+            if o:
+                octave(name, kernel, fn, ops, n_bytes, [Ks[o], Ks[o], P], plain)
+                continue
+            t = entry(name, fn, kernel, plain, None, ops, n_bytes, [K0, K0, P],
+                      f"no single PyTorch call computes {note}")
+            ops_o, _, n_open = bound(a, open_kw)
+            t_open = dict(label=f"open {mask}", **opened,
+                          admissible_share=n_open / (K0 * K0),
+                          bound_ms=_bound(ops_o, n_bytes)[0])
+            t.update(admissible_share=n_adm / (K0 * K0),
+                     bound_all_pairs_ms=_bound(K0 * K0 * all_ops, n_bytes)[0],
+                     **{f"open_{mask}": t_open})
+            print(f"kernel {name} K={K0}: bound {t['bound_ms']} ms "
+                  f"({t['bound_by']}), the SAD counted on the {n_adm} admitted "
+                  f"pairs ({n_adm / (K0 * K0)}); the earlier count, the SAD on "
+                  f"all pairs: {t['bound_all_pairs_ms']} ms; open {mask}: bound "
+                  f"{t_open['bound_ms']} ms, {n_open} pairs admitted",
+                  flush=True)
+            fn, plain = (functools.partial(f, *a, **open_kw)
+                         for f in (cuda, twin))
+            held(name, fn, plain, f"open {mask}", {})
+            timed.append((t_open, kernel, fn, None, None))
 
-    track_kw = bi.track_kw
-    dense_kw = dict(track_kw, win_row=1e4, win_col=1e4)
-    err = 0.0
-    for o in range(3):
-        a = bi.track_args(o)
-        for what, kw in (("", track_kw), (" open window", dense_kw)):
-            err = max(err, _exact("track_sad_fused", K.track_sad_fused_cuda(*a, **kw),
-                                  K.track_sad_fused_torch(*a, **kw),
-                                  f"K={Ks[o]}{what}"))
-        n_pairs = Ks[o] * Ks[o]
-        print(f"kernel track_sad_fused K={Ks[o]}: the window admits "
-              f"{track_window_pairs(a, track_kw)} of {n_pairs} pairs "
-              f"({track_window_pairs(a, track_kw) / n_pairs}), the open window "
-              f"{track_window_pairs(a, dense_kw) / n_pairs}", flush=True)
-    for case in TC.CASES:
-        args, kw, *_ = TC.track_case(case)
-        a = tuple(torch.from_numpy(x).to(dev) for x in args)
-        err = max(err, _exact("track_sad_fused", K.track_sad_fused_cuda(*a, **kw),
-                              K.track_sad_fused_torch(*a, **kw), f"case {case}"))
-    p1, c1, xy1, xy2, okp, okc = odd_case(131, 2)
-    p2, c2, _, _, _, _ = odd_case(131, 3)
-    a = (p1, c1, p2, c2, xy1, xy2, xy1[:, 0] - 5.0, xy2[:, 0] - 7.0, okp, okc)
-    kw = dict(win_row=8.0, win_col=40.0, sad_max=8000.0)
-    err = max(err, _exact("track_sad_fused", K.track_sad_fused_cuda(*a, **kw),
-                          K.track_sad_fused_torch(*a, **kw), "K=131"))
-    a0 = bi.track_args(0)
-    ops, n_bytes, n_adm = track_bound(a0, track_kw)
-    report["track_sad_fused"] = entry(
-        err, lambda a=a0: K.track_sad_fused_cuda(*a, **track_kw),
-        "track_sad_kernel",
-        lambda a=a0: K.track_sad_fused_torch(*a, **track_kw), None, ops, n_bytes,
-        [K0, K0, P], "no single PyTorch call computes the windowed argmin")
-    # the bound counts the SAD of the admitted pairs only; the all-pairs
-    # count (K^2 (6P + 10) operations) is kept beside it for comparison with
-    # ratios taken against it
-    all_pairs_ms, _ = _bound(K0 * K0 * (6 * P + 10), n_bytes)
-    ops_d, _, n_dense = track_bound(a0, dense_kw)
-    open_window = dict(label="open window", win=1e4,
-                       admissible_share=n_dense / (K0 * K0),
-                       bound_ms=_bound(ops_d, n_bytes)[0])
-    report["track_sad_fused"].update(
-        admissible_share=n_adm / (K0 * K0), bound_all_pairs_ms=all_pairs_ms,
-        open_window=open_window)
-    t = report["track_sad_fused"]
-    print(f"kernel track_sad_fused K={K0}: bound {t['bound_ms']} ms "
-          f"({t['bound_by']}), the SAD counted on the {n_adm} admitted pairs "
-          f"({n_adm / (K0 * K0)}); the earlier count, the SAD on all pairs: "
-          f"{all_pairs_ms} ms; open window: bound {open_window['bound_ms']} "
-          f"ms, {n_dense} pairs admitted", flush=True)
-    timed.append((open_window, "track_sad_kernel",
-                  lambda a=a0: K.track_sad_fused_cuda(*a, **dense_kw), None, None))
-    for o in (1, 2):
-        a = bi.track_args(o)
-        ops_o, bytes_o, _ = track_bound(a, track_kw)
-        octave(report["track_sad_fused"], "track_sad_kernel",
-               lambda a=a: K.track_sad_fused_cuda(*a, **track_kw), ops_o, bytes_o,
-               [Ks[o], Ks[o], P])
-
-    # ---- kernel 4: 9x9 null vectors, B = 512 (2 eyes x 256), 2 (the refit;
-    # below 32 a thread reads its own matrix) and 1 --------------------------
-    err = 0.0
-    Ms = {B: rank8_matrices(rng, B, dev) for B in (512, 2, 1)}
-    for B, M in Ms.items():
-        out = K.nullvec9_cuda(M)
-        ref = K.nullvec9_torch(M)
-        # the twin is another algorithm (regularised Cholesky vs LDL^T):
-        # unit norm, same direction up to sign (|cos| > 1 - 1e-3), and a null
-        # residual ||M x|| / tr(M) < 1e-3 (tests/test_kernels.py criteria)
-        norm = out.norm(dim=1)
-        cos = (out * ref).sum(1).abs()
-        resid = (M @ out[:, :, None])[..., 0].norm(dim=1) / M.diagonal(
-            dim1=1, dim2=2).sum(1)
-        if not ((norm - 1).abs().max() < 1e-4 and cos.min() > 1 - 1e-3
-                and resid.max() < 1e-3):
-            raise AssertionError(f"nullvec9 B={B}: |norm-1| "
-                                 f"{(norm - 1).abs().max().item()}, min cos "
-                                 f"{cos.min().item()}, resid {resid.max().item()}")
-        sign = torch.where((out * ref).sum(1, keepdim=True) < 0, -1.0, 1.0)
-        d = (out - sign * ref).abs().max().item()
-        print(f"kernel nullvec9 B={B}: min|cos| {cos.min().item()}, max resid "
-              f"{resid.max().item()}, max|d| up to sign {d}", flush=True)
-        err = max(err, d)
+    # ---- kernel 4: 9x9 null vectors, B = 512 (2 eyes x 256) and 2 (the
+    # refit; below 32 a thread reads its own matrix) ---------------------------
     # ~900 operations a matrix: LDL^T (~490), two inverse iterations
     # (~380), the regularisation; 81 floats in, 9 out.  The plain RANSAC
     # path launches it once at B = 512 (2 eyes x 256 hypotheses) and once at
     # B = 2 (the refit of each eye's best): the second shape (the engine's
-    # RANSAC kernel runs its routine inline).  Both are timed on the
-    # matrices checked above.
+    # RANSAC kernel runs its routine inline).
+    rng = np.random.default_rng(0)
+    Ms = {B: tc.rank8_matrices(rng, B, dev) for B in (512, 2)}
     M = Ms[512]
-    report["nullvec9"] = entry(
-        err, lambda M=M: K.nullvec9_cuda(M), "nullvec9_kernel",
-        lambda M=M: K.nullvec9_torch(M), lambda M=M: torch.linalg.eigh(M),
-        512 * 900, 512 * (81 + 9) * 4, [512, 9, 9])
+    entry("nullvec9", lambda M=M: K.nullvec9_cuda(M), "nullvec9_kernel",
+          lambda M=M: K.nullvec9_torch(M), lambda M=M: torch.linalg.eigh(M),
+          512 * 900, 512 * (81 + 9) * 4, [512, 9, 9], M=M)
     M = Ms[2]
-    octave(report["nullvec9"], "nullvec9_kernel", lambda M=M: K.nullvec9_cuda(M),
-           2 * 900, 2 * (81 + 9) * 4, [2, 9, 9])
+    octave("nullvec9", "nullvec9_kernel", lambda M=M: K.nullvec9_cuda(M),
+           2 * 900, 2 * (81 + 9) * 4, [2, 9, 9],
+           lambda M=M: K.nullvec9_torch(M), M=M)
 
     # ---- kernel 5: Hamming on FAST_ORB descriptors of frames 0 and 1 --------
-    err, n_bits, n_desc = 0.0, 0, 0
-    for o in range(3):
-        a, b = bi.descs[0][o].desc, bi.descs[1][o].desc
-        err = max(err, _exact("hamming_matrix", (K.hamming_matrix_cuda(a, b),),
-                              (K.hamming_matrix_torch(a, b),), f"K={Ks[o]}"))
-        # the same descriptors on the CPU plain path: oriented bits may flip
-        # where a sample pair nearly ties (DESC_BIT_SHARE)
-        img = build_pyramid(to_grayscale(torch.from_numpy(seq.frames[0][0])), 3)[o]
-        cpu = detect_features(img, bi.desc_params, Ks[o], th.cpu(), True)
-        if not torch.equal(cpu.valid, bi.descs[0][o].valid.cpu()):
-            raise AssertionError(f"FAST_ORB keypoints differ on the CPU, octave {o}")
-        x = torch.bitwise_xor(cpu.desc, a.cpu())[cpu.valid]
-        n_bits += int(K.hamming_matrix_torch(x, torch.zeros_like(x[:1])).sum())
-        n_desc += int(cpu.valid.sum())
-    print(f"descriptors cuda vs cpu: {n_bits} differing bits in {n_desc} "
-          f"descriptors", flush=True)
-    if n_bits > DESC_BIT_SHARE * 256 * n_desc:
-        raise AssertionError(f"descriptor bits differ: {n_bits}")
-    r = np.random.default_rng(5)
-    words = lambda k: torch.tensor(  # noqa: E731
-        r.integers(0, 2**32, (k, 8), dtype=np.uint64).astype(np.uint32)
-        .view(np.int32), device=dev)
-    wa, wb = words(257), words(131)
-    wb[:50] = wa[:50]
-    wb[50:100] = wa[:50] ^ torch.tensor(-2**31, dtype=torch.int32, device=dev)
-    err = max(err, _exact("hamming_matrix", (K.hamming_matrix_cuda(wa, wb),),
-                          (K.hamming_matrix_torch(wa, wb),), "257x131 full range"))
-    # 8 tiles a warp with ragged edges: a partial last row block, float4 and
-    # scalar stores, a partial last column tile
-    for ka, kb in ((600, 600), (512, 501)):
-        wa, wb = words(ka), words(kb)
-        err = max(err, _exact("hamming_matrix", (K.hamming_matrix_cuda(wa, wb),),
-                              (K.hamming_matrix_torch(wa, wb),), f"{ka}x{kb}"))
-    # crafted ties: the dense argmin takes the first index, as jnp.argmin
-    ta = torch.zeros((2, 8), dtype=torch.int32, device=dev)
-    tb = torch.zeros((4, 8), dtype=torch.int32, device=dev)
-    tb[:, 0] = torch.tensor([3, 1, 1, 1], dtype=torch.int32, device=dev)
-    best, d_best, second = _best_second(K.hamming_matrix_cuda(ta, tb))
-    if best.tolist() != [1, 1] or d_best.tolist() != second.tolist():
-        raise AssertionError(f"tie rule: best {best.tolist()}")
     # the library call: torch.cdist with p = 0 counts the differing entries
     # of the descriptors unpacked to 256 0/1 floats (unpacked before it is
-    # timed); equal to the kernel on these descriptors
+    # timed; equal to the kernel: tests/test_torch_cuda.py)
     shifts = torch.arange(32, dtype=torch.int32, device=dev)
     unpack = lambda d: ((d[:, :, None] >> shifts) & 1).reshape(  # noqa: E731
         d.shape[0], -1).float()
     a, b = bi.descs[0][0].desc, bi.descs[1][0].desc
     bits_a, bits_b = unpack(a), unpack(b)
-    if not torch.equal(torch.cdist(bits_a, bits_b, p=0), K.hamming_matrix_cuda(a, b)):
-        raise AssertionError("torch.cdist(p=0) of the unpacked bits != kernel 5")
     # the fill of the same [K,K] output: write_us
     fills = {k: torch.empty((k, k), device=dev) for k in Ks}
-    report["hamming_matrix"] = entry(
-        err, lambda a=a, b=b: K.hamming_matrix_cuda(a, b), "hamming_kernel",
-        lambda a=a, b=b: K.hamming_matrix_torch(a, b),
-        lambda x=bits_a, y=bits_b: torch.cdist(x, y, p=0),
-        K0 * K0 * 8 * 3, (2 * K0 * 8 + K0 * K0) * 4, [K0, K0, 8])
+    entry("hamming_matrix", lambda a=a, b=b: K.hamming_matrix_cuda(a, b),
+          "hamming_kernel", lambda a=a, b=b: K.hamming_matrix_torch(a, b),
+          lambda x=bits_a, y=bits_b: torch.cdist(x, y, p=0),
+          K0 * K0 * 8 * 3, (2 * K0 * 8 + K0 * K0) * 4, [K0, K0, 8])
     for o in (1, 2):
         a, b, k = bi.descs[0][o].desc, bi.descs[1][o].desc, Ks[o]
-        octave(report["hamming_matrix"], "hamming_kernel",
+        octave("hamming_matrix", "hamming_kernel",
                lambda a=a, b=b: K.hamming_matrix_cuda(a, b),
-               k * k * 8 * 3, (2 * k * 8 + k * k) * 4, [k, k, 8])
+               k * k * 8 * 3, (2 * k * 8 + k * k) * 4, [k, k, 8],
+               lambda a=a, b=b: K.hamming_matrix_torch(a, b))
     for x, k in zip([report["hamming_matrix"]] + report["hamming_matrix"]["octaves"],
                     Ks):
         x["write"] = dict(label=f"fill {k}x{k}")
-        timed.append((x["write"], FILL_KERNEL, fills[k].zero_, None, None))
+        timed.append((x["write"], tc.FILL_KERNEL, fills[k].zero_, None, None))
     report["floor"] = dict(label="fill 1")
-    timed.append((report["floor"], FILL_KERNEL, torch.zeros(1, device=dev).zero_,
-                  None, None))
+    timed.append((report["floor"], tc.FILL_KERNEL,
+                  torch.zeros(1, device=dev).zero_, None, None))
 
-    # ---- kernel 6: SAD matrix on bench patches and 1/16-multiples ------------
-    err = 0.0
-    for o in range(3):
-        a, b = bi.frames[0][o][0].patch, bi.frames[1][o][0].patch
-        err = max(err, _exact("sad_matrix", (K.sad_matrix_cuda(a, b),),
-                              (K.sad_matrix_torch(a, b),), f"K={Ks[o]}"))
-    sa, sb = odd_case(257, 6)[0], odd_case(131, 7)[0]
-    err = max(err, _exact("sad_matrix", (K.sad_matrix_cuda(sa, sb),),
-                          (K.sad_matrix_torch(sa, sb),), "257x131"))
-    # ragged tiles, and widths that are not a multiple of 4
-    r = np.random.default_rng(8)
-    for ka, kb, w in ((1, 1, 64), (1, 257, 64), (257, 1, 64), (131, 257, 64),
-                      (131, 257, 63), (131, 257, 65), (40, 33, 128)):
-        sa, sb = (torch.tensor(r.integers(0, 255 * 16, (k, w)) / 16.0,
-                               dtype=torch.float32, device=dev) for k in (ka, kb))
-        err = max(err, _exact("sad_matrix", (K.sad_matrix_cuda(sa, sb),),
-                              (K.sad_matrix_torch(sa, sb),), f"{ka}x{kb}, P={w}"))
+    # ---- kernel 6: SAD matrix on bench patches -------------------------------
     a, b = bi.frames[0][0][0].patch, bi.frames[1][0][0].patch
-    report["sad_matrix"] = entry(
-        err, lambda a=a, b=b: K.sad_matrix_cuda(a, b), "sad_kernel",
-        lambda a=a, b=b: K.sad_matrix_torch(a, b),
-        lambda a=a, b=b: torch.cdist(a, b, p=1), K0 * K0 * P * 3,
-        (2 * K0 * P + K0 * K0) * 4, [K0, K0, P])
+    entry("sad_matrix", lambda a=a, b=b: K.sad_matrix_cuda(a, b), "sad_kernel",
+          lambda a=a, b=b: K.sad_matrix_torch(a, b),
+          lambda a=a, b=b: torch.cdist(a, b, p=1), K0 * K0 * P * 3,
+          (2 * K0 * P + K0 * K0) * 4, [K0, K0, P])
     for o in (1, 2):
         a, b, k = bi.frames[0][o][0].patch, bi.frames[1][o][0].patch, Ks[o]
-        octave(report["sad_matrix"], "sad_kernel",
+        octave("sad_matrix", "sad_kernel",
                lambda a=a, b=b: K.sad_matrix_cuda(a, b), k * k * P * 3,
-               (2 * k * P + k * k) * 4, [k, k, P])
+               (2 * k * P + k * k) * 4, [k, k, P],
+               lambda a=a, b=b: K.sad_matrix_torch(a, b))
 
-    # ---- eigh6 (the port's, no Pallas counterpart): 6x6 normal matrices ----
-    report["eigh6"] = check_eigh6(dev, entry)
-    # ---- gn_iter (the port's, no Pallas counterpart): one GN iteration ----
-    report["gn_iter"] = check_gn_iter(dev, entry)
-    # ---- lk_track (the port's, no Pallas counterpart): pyramidal LK --------
-    report["lk_track"] = check_lk_track(seq, dev, entry, octave)
-    # ---- ransac (the port's, no Pallas counterpart): a whole RANSAC call ----
-    report["ransac"] = check_ransac(dev, entry, octave)
+    # ---- the port's kernels with no Pallas counterpart -----------------------
+    gn_iter_calls(dev, entry)
+    lk_track_calls(dev, entry, octave)
+    ransac_calls(dev, entry, octave)
     return report, timed
-
-
-def gn_normal_matrices(rng, B, cond, dev):
-    """[B,6,6] f32 symmetric PSD matrices with eigenvalues log-uniform over
-    `cond` (its ends included; cond 0: rank 3), scaled by 1e2-1e8 as the
-    GN's are."""
-    import numpy as np
-    import torch
-
-    Q, _ = np.linalg.qr(rng.standard_normal((B, 6, 6)))
-    if cond == 0:
-        ev = np.concatenate([np.zeros((B, 3)), rng.uniform(1, 10, (B, 3))], 1)
-    else:
-        ev = np.exp(rng.uniform(0, np.log(cond), (B, 6)))
-        ev[:, 0], ev[:, -1] = 1.0, cond
-    ev = ev * 10.0 ** rng.uniform(2, 8, (B, 1))
-    H = (Q * ev[:, None, :]) @ Q.transpose(0, 2, 1)
-    return torch.tensor((H + H.transpose(0, 2, 1)) / 2, dtype=torch.float32,
-                        device=dev)
-
-
-def graded_gn_matrices(rng, B, dev, n_points=300):
-    """[B,6,6] f32 J^T J of the GN's kind: J the stereo reprojection
-    Jacobians (left and right eye, the bench camera) of n_points points 5-40
-    m deep with respect to a small rotation and a translation, so that
-    rows and columns are graded (rotation ~f px/rad, translation ~f/Z
-    px/m)."""
-    import numpy as np
-    import torch
-
-    f, baseline = 718.856, 0.5371
-    P = np.stack([rng.uniform(-10, 10, (B, n_points)),
-                  rng.uniform(-3, 3, (B, n_points)),
-                  rng.uniform(5, 40, (B, n_points))], -1)
-    X, Y, Z = np.moveaxis(P, -1, 0)
-    # d(point)/d(rotation vector) = -[P]x, the same for both eyes
-    zero = np.zeros_like(X)
-    neg_hat = -np.stack([np.stack([zero, -Z, Y], -1),
-                         np.stack([Z, zero, -X], -1),
-                         np.stack([-Y, X, zero], -1)], -2)
-    rows = []
-    for Xe in (X, X - baseline):
-        Jt = np.stack([np.stack([f / Z, zero, -f * Xe / Z**2], -1),
-                       np.stack([zero, f / Z, -f * Y / Z**2], -1)], -2)
-        rows.append(np.concatenate([Jt @ neg_hat, Jt], -1))
-    J = np.concatenate(rows, 1).reshape(B, -1, 6)
-    return torch.tensor(J.transpose(0, 2, 1) @ J, dtype=torch.float32,
-                        device=dev)
-
-
-def w0_rel_err_f64(H, w) -> "np.ndarray":
-    """|w[0] - w0| / |w0| a matrix, w0 the smallest eigenvalue of H in
-    float64 (np.linalg.eigvalsh of the f32 matrices)."""
-    import numpy as np
-
-    ref = np.linalg.eigvalsh(H.double().cpu().numpy())[:, 0]
-    return np.abs(w[:, 0].double().cpu().numpy() - ref) / np.abs(ref)
-
-
-# eigh6's w[0] against float64: 256 matrices a case, the cases of
-# tests/test_torch_eigh6.py (gn_normal_matrices at each cond, then
-# graded_gn_matrices, from one default_rng(EIGH6_F64_SEED)); the error's
-# median and max no more than LAPACK f32's (torch.linalg.eigh on the CPU,
-# the reference's routine there) on the same matrices
-EIGH6_F64_CASES = (1e3, 1e5, 1e6, 1e7, "graded")
-EIGH6_F64_B = 256
-EIGH6_F64_SEED = 16
-
-
-def eigh6_f64_cases(dev):
-    """case -> the [EIGH6_F64_B,6,6] f32 matrices of EIGH6_F64_CASES."""
-    import numpy as np
-
-    r = np.random.default_rng(EIGH6_F64_SEED)
-    return {c: (graded_gn_matrices(r, EIGH6_F64_B, dev) if c == "graded"
-                else gn_normal_matrices(r, EIGH6_F64_B, c, dev))
-            for c in EIGH6_F64_CASES}
-
-
-# eigh6 per matrix: SWEEPS x 15 rotations of ~77 operations (the count
-# for rotations skipped at an exact zero too), 144 bytes in, 168 out
-EIGH6_OPS_PER_ROTATION = 77
-EIGH6_BYTES = 144 + 24 + 144
-# w[0] of eigh6 and of torch.linalg.eigh, f32 both, part by up to about
-# 2.6e-7 cond relative (the twin against LAPACK's f32 eigh on the CPU, 4096
-# gn_normal_matrices at cond 1e1-1e5: 3.4e-6, 2.7e-4, 2.6e-2); the bound
-# allows 1e-6 cond + 1e-5, which a w[0] off by 10x fails up to cond 1e5
-EIGH6_W0_RTOL = 1e-6
-
-
-def check_eigh6(dev, entry) -> dict:
-    """eigh6 against its twin at B = 1 (Engine's GN), N_BATCH (a batched
-    step's lanes) and 4096, at condition numbers 1e1-1e7: bit for bit (the
-    same correctly rounded operations in the same order); and against
-    torch.linalg.eigh (cuSOLVER): w within 1e-5 of |w[5]|, and w[0], which
-    decides the GN's cond and bad_cond, within EIGH6_W0_RTOL relative where
-    cond <= 1e5.  Timed at B = 1, beside the twin and torch.linalg.eigh."""
-    import numpy as np
-    import torch
-
-    from rso_torch.kernels.eigh6 import SWEEPS, eigh6_cuda, eigh6_torch
-
-    r = np.random.default_rng(9)
-    lib_rel, w0_rel = 0.0, {}
-    for B in (1, N_BATCH, 4096):
-        for cond in (1e1, 1e3, 1e5, 1e7):
-            H = gn_normal_matrices(r, B, cond, dev)
-            w, V = eigh6_cuda(H)
-            tw, tV = eigh6_torch(H)
-            lw, _ = torch.linalg.eigh(H)
-            torch.cuda.synchronize()
-            if not (torch.equal(w, tw) and torch.equal(V, tV)):
-                raise AssertionError(
-                    f"eigh6 B={B} cond {cond}: not its twin's bits (w "
-                    f"{(w - tw).abs().max().item()}, V "
-                    f"{(V - tV).abs().max().item()} max abs)")
-            scale = w.abs().amax(-1, keepdim=True)
-            rel = ((w - lw).abs() / scale).max().item()
-            lib_rel = max(lib_rel, rel)
-            if rel > 1e-5:
-                raise AssertionError(f"eigh6 B={B} cond {cond}: w {rel} of "
-                                     f"|w[5]| from torch.linalg.eigh")
-            if cond <= 1e5:
-                r0 = ((w[..., 0] - lw[..., 0]).abs()
-                      / lw[..., 0].abs()).max().item()
-                w0_rel[cond] = max(w0_rel.get(cond, 0.0), r0)
-                if r0 > EIGH6_W0_RTOL * cond + 1e-5:
-                    raise AssertionError(
-                        f"eigh6 B={B} cond {cond}: w[0] {r0} relative from "
-                        f"torch.linalg.eigh's, over {EIGH6_W0_RTOL} cond "
-                        f"+ 1e-5")
-    print(f"kernel eigh6: bit for bit its twin at B = 1, {N_BATCH}, 4096 and "
-          f"cond 1e1-1e7; against torch.linalg.eigh w {lib_rel} of |w[5]|, "
-          f"w[0] relative {w0_rel} by cond", flush=True)
-    f64 = {}
-    for case, H in eigh6_f64_cases(dev).items():
-        errs = {"eigh6": w0_rel_err_f64(H, eigh6_cuda(H)[0]),
-                "lapack_f32": w0_rel_err_f64(H, torch.linalg.eigh(H.cpu())[0]),
-                "cusolver_f32": w0_rel_err_f64(H, torch.linalg.eigh(H)[0])}
-        f64[str(case)] = {k: [float(np.median(e)), float(e.max())]
-                          for k, e in errs.items()}
-        got, lapack = f64[str(case)]["eigh6"], f64[str(case)]["lapack_f32"]
-        if got[0] > lapack[0] or got[1] > lapack[1]:
-            raise AssertionError(f"eigh6 {case}: w[0] error against float64 "
-                                 f"(median, max) {got}, over LAPACK f32's "
-                                 f"{lapack}")
-    print(f"kernel eigh6: w[0] relative error against float64 eigvalsh "
-          f"(median, max) of {EIGH6_F64_B} matrices a case, the kernel's "
-          f"no more than LAPACK f32's: {f64}", flush=True)
-    H1 = gn_normal_matrices(r, 1, 1e5, dev)
-    out = entry(0.0, lambda: eigh6_cuda(H1), "eigh6_kernel",
-                lambda: eigh6_torch(H1), lambda: torch.linalg.eigh(H1),
-                SWEEPS * 15 * EIGH6_OPS_PER_ROTATION, EIGH6_BYTES, [1, 6, 6],
-                note="torch.linalg.eigh (cuSOLVER syevd, which reads its "
-                     "status on the host)")
-    out.update(bit_exact=True, library_w_rel_err=lib_rel,
-               library_w0_rel_err={f"{c:g}": v for c, v in w0_rel.items()},
-               w0_rel_err_f64=f64)
-    return out
 
 
 # gn_iter per slot, counted from the kernel's arithmetic (csrc/gn_iter.cu):
@@ -1280,8 +625,7 @@ GN_ITER_OPS_PER_SLOT = 545
 GN_ITER_BYTES_PER_SLOT = 37
 # the camera 36, the carry's scalars and increment 48 each way
 GN_ITER_FIXED_BYTES = 36 + 2 * 48
-# the frames (seeds) of check_gn_iter's solves, at the kitti frame's T
-N_GN_ITER_FRAMES = 4
+
 
 
 def gn_iter_bound(lanes: int, T: int):
@@ -1298,67 +642,17 @@ def _gn_timing_params(params):
                                max_incr_cost=1 << 30)
 
 
-def check_gn_iter(dev, entry) -> dict:
-    """The GN iteration kernel against its plain version
-    (robust_gn.gn_iteration_torch) on the card at a kitti frame's shape (T
-    = 896 in octaves of 512, 256 and 128, octave weights, outliers), in
-    every variant: whole two-phase solves with the integer fields exact,
-    the pose within 1e-5, the residuals within 5e-3 px^2 and the cost
-    within 5e-3 (relative above 1).  Timed at [1, 896] in the cells'
-    variant (robust kernel, IRLS, weights, chol), beside the plain
-    iteration."""
-    import torch
-
+def gn_iter_calls(dev, entry) -> None:
+    """The GN iteration kernel at a kitti frame's shape ([1, 896] in
+    octaves of 512, 256 and 128: tests/_torch_gn_cases.py) in the cells'
+    variant (robust kernel, IRLS, weights, chol), held to and timed beside
+    the plain iteration (robust_gn.gn_iteration_torch) from the same
+    carry."""
+    import _torch_gn_cases as GC
     import rso_torch.solver.robust_gn as G
     from rso_torch.kernels import gn_iter as GI
 
-    sys.path.insert(0, str(REPO / "tests"))
-    import _torch_gn_cases as GC
-
     cam = GC.camera(dev)
-    worst = {"pose": 0.0, "res": 0.0, "cost": 0.0}
-    iters = collections.Counter()
-    for variant in GC.VARIANTS:
-        p = GC.params(variant)
-        for seed in range(N_GN_ITER_FRAMES):
-            prev, cur, mask, w = GC.frame_inputs(seed, dev)
-            got = G.solve_pose(cam, prev, cur, mask, p, obs_weight=w)
-            saved = G.gn_iteration
-            G.gn_iteration = lambda *a: functools.partial(
-                G.gn_iteration_torch, *a)
-            try:
-                want = G.solve_pose(cam, prev, cur, mask, p, obs_weight=w)
-            finally:
-                G.gn_iteration = saved
-            for f in ("valid", "error_code", "num_it", "num_it_final",
-                      "inliers"):
-                if not torch.equal(getattr(got, f), getattr(want, f)):
-                    raise AssertionError(f"gn_iter {variant} frame {seed}: "
-                                         f"{f} differs from the plain solve")
-            fin = want.residuals < 1e30
-            if not torch.equal(fin, got.residuals < 1e30):
-                raise AssertionError(f"gn_iter {variant} frame {seed}: other "
-                                     "slots left out of the residuals")
-            worst["pose"] = max(worst["pose"], (got.pose - want.pose).abs()
-                                .max().item())
-            if fin.any():
-                worst["res"] = max(worst["res"], (
-                    got.residuals[fin] - want.residuals[fin]).abs()
-                    .max().item())
-            # relative above a cost of 1, absolute below (an aborted
-            # frame's second phase never runs: cost 0)
-            g, w_ = got.cost.item(), want.cost.item()
-            if not (math.isnan(g) and math.isnan(w_)):
-                worst["cost"] = max(worst["cost"],
-                                    abs(g - w_) / max(abs(w_), 1.0))
-            iters[variant] += int(got.num_it) + int(got.num_it_final)
-    if not (worst["pose"] <= 1e-5 and worst["res"] <= 5e-3
-            and worst["cost"] <= 5e-3):
-        raise AssertionError(f"gn_iter against the plain solve: {worst}")
-    print(f"kernel gn_iter: {N_GN_ITER_FRAMES} frame solves a variant "
-          f"(T = {sum(GC.FRAME_SLOTS)}) equal to the plain iterations' in "
-          f"every integer field; worst {worst}; iterations {dict(iters)}",
-          flush=True)
     prev, cur, mask, w = GC.frame_inputs(0, dev)
     T = len(mask)
     p = _gn_timing_params(GC.params("robust"))
@@ -1371,10 +665,8 @@ def check_gn_iter(dev, entry) -> dict:
                               p, 1 << 30, G.VOEC_INCR_FUNC_COST_STG1,
                               GC.clone(c))
     ops, n_bytes = gn_iter_bound(1, T)
-    out = entry(worst["pose"], lambda: step(c), "gn_iter_kernel", plain,
-                None, ops, n_bytes, [1, T])
-    out.update(worst, iterations=dict(iters))
-    return out
+    entry("gn_iter", lambda: step(c), "gn_iter_kernel", plain, None, ops,
+          n_bytes, [1, T], start=GC.clone(c))
 
 
 # kitti_flow's LK: win 10 (21x21), 10 iterations, the seed over +-12 px
@@ -1395,93 +687,31 @@ def lk_bound(levels_hw, E: int, K: int):
     return ops, E * (2 * 4 * pixels + K * (8 + 1 + 8 + 1 + 4))
 
 
-def check_lk_track(seq, dev, entry, octave) -> dict:
-    """The LK kernel against its plain version
-    (optical_flow.lk_track_torch) on the card at kitti_flow's calls (both
-    eyes of [512] slots down 3 levels, [256] down 2, [128] down 1; win 10,
-    10 iterations, seed 12), with tests/_torch_lk_cases.py's inputs and
-    tolerances: positions and residuals within 2e-3 where both track,
-    status differences only at a gate's edge (listed), the seed bit for
-    bit; then on detect_every's own calls (the engine's propagation over
-    N_EVERY_FRAMES bench frames, each eye its own valid mask), each held
-    to the plain version on the same inputs where both track and the slot
-    converged (`converged`).  Timed at each octave's
-    call, the plain version beside octave 0's."""
-    import dataclasses
-
-    import torch
-
+def lk_track_calls(dev, entry, octave) -> None:
+    """The LK kernel at kitti_flow's three calls (both eyes of [512] slots
+    down 3 levels, [256] down 2, [128] down 1; win 10, 10 iterations, seed
+    12) on tests/_torch_lk_cases.py's scene, each held to the plain version
+    (optical_flow.lk_track_torch), timed, the plain version beside octave
+    0's."""
+    import _torch_lk_cases as LC
     from rso_torch.frontend import optical_flow as OF
-    from rso_torch.kernels import LAUNCHES
-    from rso_torch.synthetic import synthetic_config
 
-    sys.path.insert(0, str(REPO / "tests"))
-    import _torch_lk_cases as C
-
-    pyr = C.scene(dev)
+    pyr = LC.scene(dev)
     kw = dict(win=LK_WIN, iters=LK_ITERS, seed_range=LK_SEED)
-    worst = {"pos": 0.0, "err": 0.0}
-    calls = []
     for o in range(3):
-        prev, cur, pts, valid = C.octave_case(pyr, o, 10 * o)
-        LAUNCHES.clear()
-        got = OF.lk_track_eyes(prev, cur, pts, valid, **kw)
-        torch.cuda.synchronize()
-        if dict(LAUNCHES) != {"lk_track": 1}:
-            raise AssertionError(f"lk_track octave {o}: launches "
-                                 f"{dict(LAUNCHES)}, expected one")
-        rows, gaps, _, _, _ = C.agree(
-            got, C.plain(prev, cur, pts, valid, **kw), W >> o, H >> o)
-        worst = {"pos": max(worst["pos"], gaps[0]),
-                 "err": max(worst["err"], gaps[1])}
-        # the seed alone (no iteration, one level) bit for bit
-        img0, img1 = pyr[0][0][o], pyr[1][0][o]
-        p0, v0 = C.points(img0, C.SLOTS[o], o, spread=0.0)
-        p0 = torch.round(p0)
-        seed = OF.lk_track([img0], [img1], p0, v0, iters=0,
-                           seed_range=LK_SEED).pos - p0
-        if not torch.equal(seed, OF._coarse_sad_seed(img0, img1, p0,
-                                                     LK_SEED)):
-            raise AssertionError(f"lk_track octave {o}: the seed differs")
-        print(f"kernel lk_track octave {o} [2, {C.SLOTS[o]}] {3 - o} levels: "
-              f"status differs at {rows}; where both track, position gap "
-              f"{gaps[0]} px, residual gap {gaps[1]}; seed bit for bit",
-              flush=True)
-        calls.append((prev, cur, pts, valid,
-                      [tuple(x.shape) for x in prev[0]]))
-    base = synthetic_config()
-    cfg = base.replace(tpu=dataclasses.replace(base.tpu, detect_every=3))
-    prop, detected = C.propagate_calls(cfg, seq, dev, N_EVERY_FRAMES)
-    flips, prop_worst = [], {"pos": 0.0, "err": 0.0, "loose": 0.0}
-    n_both = n_loose = 0
-    for frame, o, got, want, conv, w, h in prop:
-        rows, gaps, n, n_l, loose_gap = C.agree(got, want, w, h, conv,
-                                                min_tracked=0.0)
-        flips += [(frame, o) + r for r in rows]
-        n_both, n_loose = n_both + n, n_loose + n_l
-        prop_worst = {"pos": max(prop_worst["pos"], gaps[0]),
-                      "err": max(prop_worst["err"], gaps[1]),
-                      "loose": max(prop_worst["loose"], loose_gap)}
-    print(f"kernel lk_track on detect_every's {len(prop)} propagation calls "
-          f"({N_EVERY_FRAMES} bench frames, detected at {detected}): status "
-          f"differs at (frame, octave, slot, err margin, border margin) "
-          f"{flips}; {n_loose} of {n_both} slots both track not converged; "
-          f"worst gaps {prop_worst}", flush=True)
-    timings = []
-    for o, (prev, cur, pts, valid, hw) in enumerate(calls):
+        prev, cur, pts, valid = LC.octave_case(pyr, o, 10 * o)
         fn = functools.partial(OF.lk_track_eyes, prev, cur, pts, valid, **kw)
-        ops, n_bytes = lk_bound(hw, 2, C.SLOTS[o])
-        timings.append((fn, ops, n_bytes, [2, C.SLOTS[o], len(hw)]))
-    fn, ops, n_bytes, shape = timings[0]
-    prev, cur, pts, valid, _ = calls[0]
-    out = entry(worst["pos"], fn, "lk_track_kernel",
-                functools.partial(C.plain, prev, cur, pts, valid, **kw), None,
-                ops, n_bytes, shape)
-    for fn, ops, n_bytes, shape in timings[1:]:
-        octave(out, "lk_track_kernel", fn, ops, n_bytes, shape)
-    out.update(worst_pos=worst["pos"], worst_err=worst["err"],
-               propagate_flips=flips, propagate_worst=prop_worst)
-    return out
+        hw = [tuple(x.shape) for x in prev[0]]
+        ops, n_bytes = lk_bound(hw, 2, LC.SLOTS[o])
+        shape = [2, LC.SLOTS[o], len(hw)]
+        plain = functools.partial(LC.plain, prev, cur, pts, valid, **kw)
+        size = dict(width=LC.W >> o, height=LC.H >> o)
+        if o == 0:
+            entry("lk_track", fn, "lk_track_kernel", plain, None, ops,
+                  n_bytes, shape, **size)
+        else:
+            octave("lk_track", "lk_track_kernel", fn, ops, n_bytes, shape,
+                   plain, **size)
 
 
 # RANSAC's checks: (N, valid share) of the timed shapes, N = 896 (kitti's
@@ -1505,271 +735,85 @@ def ransac_bound(E: int, N: int, H: int, n_valid: int):
     return ops, E * N * (2 * 2 * 4 + 1) + N + E * (9 * 4 + 4 + 1)
 
 
-def check_ransac(dev, entry, octave) -> dict:
-    """The RANSAC kernel against the plain path
-    (ransac.ransac_fundamental_torch) on the card with
-    tests/_torch_ransac_cases.py's inputs and comparisons (draws, indices,
-    T1, T2 and null vectors bit for bit; count, F and mask within their
-    bounds) over its shapes, one launch a call; timed at RANSAC_SHAPES,
-    the plain path as its twin."""
-    import torch
-
-    from rso_torch.kernels import LAUNCHES
-    from rso_torch.kernels.ransac import ransac_probe
+def ransac_calls(dev, entry, octave) -> None:
+    """The RANSAC kernel at RANSAC_SHAPES on tests/_torch_ransac_cases.py's
+    points, each call held to and the first timed beside the plain path
+    (ransac.ransac_fundamental_torch), its twin."""
+    import _torch_ransac_cases as RC
     from rso_torch.solver import ransac as R
 
-    sys.path.insert(0, str(REPO / "tests"))
-    import _torch_ransac_cases as C
-
-    worst = 0.0
-    for E, N, Hh, kind in C.SHAPES:
-        seed = N + Hh + E
-        p1, p2, mask = C.case(seed, E, N, kind, dev)
-        key = C.frame_keys(seed, dev)
-        LAUNCHES.clear()
-        got = R.ransac_fundamental(p1, p2, mask, key, n_iters=Hh)
-        torch.cuda.synchronize()
-        if dict(LAUNCHES) != {"ransac": 1}:
-            raise AssertionError(f"ransac {E}x{N} H {Hh}: launches "
-                                 f"{dict(LAUNCHES)}, expected one")
-        _, probe = ransac_probe(p1, p2, mask, key, n_iters=Hh)
-        want = R.ransac_fundamental_torch(p1, p2, mask, key, n_iters=Hh)
-        got_vs = C.compare(got, probe, want, p1, p2, mask, key.keys(E), Hh)
-        worst = max(worst, got_vs["F_rel"])
-        print(f"kernel ransac E {E} N {N} H {Hh} {kind}: {got_vs}", flush=True)
-    timings = []
-    for N, kind in RANSAC_SHAPES:
-        p1, p2, mask = C.case(N, 2, N, kind, dev)
-        key = C.frame_keys(3, dev)
+    for i, (N, kind) in enumerate(RANSAC_SHAPES):
+        p1, p2, mask = RC.case(N, 2, N, kind, dev)
+        key = RC.frame_keys(3, dev)
         ops, n_bytes = ransac_bound(2, N, RANSAC_H, int(mask.sum()))
-        timings.append((
-            lambda p1=p1, p2=p2, mask=mask, key=key: R.ransac_fundamental(
-                p1, p2, mask, key, n_iters=RANSAC_H),
-            lambda p1=p1, p2=p2, mask=mask, key=key: R.ransac_fundamental_torch(
-                p1, p2, mask, key, n_iters=RANSAC_H),
-            ops, n_bytes, [2, N, RANSAC_H]))
-    fn, plain, ops, n_bytes, shape = timings[0]
-    out = entry(worst, fn, "ransac_kernel", plain, None, ops, n_bytes, shape)
-    for fn, _, ops, n_bytes, shape in timings[1:]:
-        octave(out, "ransac_kernel", fn, ops, n_bytes, shape)
-    return out
+        fn, plain = (functools.partial(f, p1, p2, mask, key, n_iters=RANSAC_H)
+                     for f in (R.ransac_fundamental, R.ransac_fundamental_torch))
+        ctx = dict(p1=p1, p2=p2, mask=mask, key=key, H=RANSAC_H)
+        if i == 0:
+            entry("ransac", fn, "ransac_kernel", plain, None, ops, n_bytes,
+                  [2, N, RANSAC_H], **ctx)
+        else:
+            octave("ransac", "ransac_kernel", fn, ops, n_bytes,
+                   [2, N, RANSAC_H], plain, **ctx)
 
 
-def check_batched_ransac(dev, B, one_launch, lanes) -> None:
-    """The RANSAC kernel under torch.func.vmap over B lanes of the flat
-    filter's call (N = 896, each lane its own points, mask and frame
-    index): one launch, each lane bit for bit its lone call."""
+def batched_kernel_calls(seq, dev, report, timed) -> None:
+    """Phase 3b: each kernel under torch.func.vmap over N_BATCH lanes, as
+    the batched step launches it (tests/_torch_card.BenchLanes: lane b takes
+    bench frame b at octave 0, tracking, kernels 5 and 6 and LK frame b to
+    b + 1; gn_iter one frame's [896] slots and carry a lane; RANSAC the
+    flat filter's call a lane), each batched launch timed beside the
+    kernel's single one (`report[name]["batched"]`), its bound summed over
+    the lanes' work on these inputs.  Each batched launch's output is held
+    to every lane's reference first (tests/_torch_card.check_lanes, as
+    test_cuda_batched_kernels_on_the_bench_lanes holds it; gn_iter's lanes
+    to the plain iteration's by check_kernel, RANSAC's to lone launches bit
+    for bit)."""
+    import _torch_gn_cases as GC
+    import _torch_lk_cases as LC
+    import _torch_ransac_cases as RC
     import torch
 
+    import rso_torch.solver.robust_gn as G
     from rso_torch import random as rrandom
+    from rso_torch.kernels import gn_iter as GI
     from rso_torch.solver import ransac as R
 
-    sys.path.insert(0, str(REPO / "tests"))
-    import _torch_ransac_cases as C
-
-    N = RANSAC_SHAPES[0][0]
-    cases = [C.case(100 + b, 2, N, "some", dev) for b in range(B)]
-    p1, p2, mask = (torch.stack([c[i] for c in cases]) for i in range(3))
-    frame = torch.arange(B, dtype=torch.int32, device=dev) + 30
-
-    def call(a, b, m, f):
-        return tuple(R.ransac_fundamental(a, b, m, rrandom.FrameKeys(f, 1000),
-                                          n_iters=RANSAC_H))
-
-    run = lambda: torch.func.vmap(call)(p1, p2, mask, frame)  # noqa: E731
-    out = one_launch("ransac", run)
-    for b in range(B):
-        for x, y in zip(out, call(p1[b], p2[b], mask[b], frame[b])):
-            if not torch.equal(x[b], y):
-                raise AssertionError(f"batched ransac lane {b} is not its "
-                                     "lone call")
-    ops = n_bytes = 0
-    for b in range(B):
-        o, nb = ransac_bound(2, N, RANSAC_H, int(mask[b].sum()))
-        ops, n_bytes = ops + o, n_bytes + nb
-    lanes("ransac", "ransac_kernel", run, ops, n_bytes, [B, 2, N, RANSAC_H])
-
-
-def check_batched_kernels(seq, dev, report, timed) -> None:
-    """Phase 3b: each kernel under torch.func.vmap over N_BATCH lanes, as
-    the batched step launches it: one launch for all lanes (its vmap rule),
-    each lane bit for bit its twin's (kernel 4: the unbatched kernel's bits,
-    and the twin's up to sign).  Lane b takes bench frame b (tracking: b to
-    b + 1) at octave 0.  Each batched launch is timed beside the kernel's
-    single one (`report[name]["batched"]`), its bound summed over the
-    lanes' work on these inputs."""
-    import numpy as np
-    import torch
-
-    from rso_torch import kernels as K
-    from rso_torch.frontend.detect import detect_features
-    from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
-    from rso_torch.frontend.stereo_match import match_left_right
-    from rso_torch.frontend.track import _gather_right
-    from rso_torch.synthetic import mode_config, synthetic_config
-
-    vmap = torch.func.vmap
-    cfg = synthetic_config()
     B = N_BATCH
-    th = torch.full((B,), cfg.detect.initial_FAST_threshold, dtype=torch.int32,
-                    device=dev)
-    img = lambda f, eye: build_pyramid(to_grayscale(  # noqa: E731
-        torch.from_numpy(seq.frames[f][eye]).to(dev)), 1)[0]
-    imgs = torch.stack([img(f, 0) for f in range(B)])
-    k0 = report["stereo_sad_fused"]["shape"][0]     # octave 0's slots
-    desc_params = mode_config("fast_orb_rbr_win", upright=False).detect
-    feats = []
-    for f in range(B + 1):
-        fl = detect_features(img(f, 0), cfg.detect, k0, th[0], False)
-        fr = detect_features(img(f, 1), cfg.detect, k0, th[0], False)
-        feats.append((fl, fr, match_left_right(fl, fr, cfg.lr_match, W, 0.0),
-                      detect_features(img(f, 0), desc_params, k0, th[0], True)))
-    stack = lambda xs: torch.stack(xs).contiguous()  # noqa: E731
+    L = tc.BenchLanes(seq, dev, B)
 
-    def one_launch(name, fn):
-        K.LAUNCHES.clear()
-        out = fn()
-        torch.cuda.synchronize()
-        if dict(K.LAUNCHES) != {name: 1}:
-            raise AssertionError(f"batched {name}: launches {dict(K.LAUNCHES)}"
-                                 f", expected one for {B} lanes")
-        return out
-
-    def lanes(name, kernel, fn, ops, n_bytes, shape, plain=None):
+    def lanes(name, kernel, ops, n_bytes, shape, fn=None, plain=None,
+              check=None):
+        """The batched launch, held to its lanes' references (`check` on
+        its output, else BenchLanes' lanes), then timed."""
+        if fn is None:
+            fn, lane = L.calls[name]
+            check = functools.partial(tc.check_lanes, name, lane=lane, B=B,
+                                      M=L.M)
+        check(fn())
         bound_ms, bound_by = _bound(ops, n_bytes)
         d = dict(lanes=B, shape=shape, bound_ms=bound_ms, bound_by=bound_by,
                  label=f"{B} lanes {shape}")
         report[name]["batched"] = d
         timed.append((d, kernel, fn, plain, None))
         print(f"kernel {name}: one launch for {B} lanes {shape}, each lane "
-              f"equal to its twin; bound {bound_ms} ms ({bound_by})",
-              flush=True)
+              f"its reference's; bound {bound_ms} ms ({bound_by})", flush=True)
 
-    # kernel 1: each lane its own image and threshold
-    th = th + torch.arange(B, dtype=torch.int32, device=dev) % 3
-    run = lambda: vmap(K.corner_response_cuda)(imgs, th)  # noqa: E731
-    out = one_launch("corner_response", run)
-    for b in range(B):
-        if not torch.equal(out[b], K.corner_response_torch(imgs[b], th[b])):
-            raise AssertionError(f"batched corner_response lane {b} != twin")
-    n_px = imgs.numel()
-    lanes("corner_response", "corner_response_kernel", run,
-          corner_ops(4) * n_px, 8 * n_px, list(imgs.shape))
-    # the wide path: one launch (its two kernels) for every lane
-    out = one_launch("corner_response_wide", lambda: vmap(
-        lambda i, t: K.corner_response_cuda(i, t, win=WIDE_WIN))(imgs, th))
-    for b in range(B):
-        if not torch.equal(out[b], K.corner_response_torch(imgs[b], th[b],
-                                                           win=WIDE_WIN)):
-            raise AssertionError(f"batched corner_response_wide lane {b} != "
-                                 "twin")
-    print(f"kernel corner_response_wide win {WIDE_WIN}: one launch for {B} "
-          "lanes, each lane equal to its twin", flush=True)
+    n_px = L.imgs.numel()
+    lanes("corner_response", "corner_response_kernel", corner_ops(4) * n_px,
+          8 * n_px, list(L.imgs.shape))
+    for name, kernel, bound, args, kw in (
+            ("stereo_sad_fused", "stereo_sad_kernel", stereo_bound, L.stereo,
+             L.stereo_kw),
+            ("track_sad_fused", "track_sad_kernel", track_bound, L.track,
+             L.track_kw)):
+        ops = n_bytes = 0
+        for a in args:
+            o_, b_, _ = bound(a, kw)
+            ops, n_bytes = ops + o_, n_bytes + b_
+        lanes(name, kernel, ops, n_bytes, [B] + list(args[0][0].shape))
 
-    # kernels 2, 3: stereo of frame b, tracking of frame b to b + 1
-    kw = dict(max_y_diff=cfg.lr_match.max_y_diff, max_disp=W * 0.7,
-              max_distance=float(cfg.lr_match.sad_max_distance))
-    st = [(fl.patch, fr.patch, fl.xy, fr.xy, fl.valid, fr.valid)
-          for fl, fr, _, _ in feats[:B]]
-    sargs = [stack(x) for x in zip(*st)]
-    run = lambda: vmap(lambda *a: K.stereo_sad_fused_cuda(*a, **kw))(*sargs)  # noqa: E731
-    out = one_launch("stereo_sad_fused", run)
-    ops = n_bytes = 0
-    for b in range(B):
-        _exact("stereo_sad_fused", tuple(o[b] for o in out),
-               K.stereo_sad_fused_torch(*st[b], **kw), f"lane {b}")
-        o_, b_, _ = stereo_bound(st[b], kw)
-        ops, n_bytes = ops + o_, n_bytes + b_
-    lanes("stereo_sad_fused", "stereo_sad_kernel", run, ops, n_bytes,
-          list(sargs[0].shape))
-    tkw = dict(win_row=float(cfg.if_match.ifm_win_w),
-               win_col=float(cfg.if_match.ifm_win_h),
-               sad_max=float(cfg.if_match.sad_max_distance))
-    tr = []
-    for b in range(B):
-        (pl, pr, pm, _), (cl, cr, cm, _) = feats[b], feats[b + 1]
-        pR_xy, pR_patch, _ = _gather_right(pr, pm.ridx)
-        cR_xy, cR_patch, _ = _gather_right(cr, cm.ridx)
-        tr.append((pl.patch, cl.patch, pR_patch, cR_patch, pl.xy, cl.xy,
-                   pR_xy[:, 0], cR_xy[:, 0], pm.valid, cm.valid))
-    targs = [stack(x) for x in zip(*tr)]
-    run = lambda: vmap(lambda *a: K.track_sad_fused_cuda(*a, **tkw))(*targs)  # noqa: E731
-    out = one_launch("track_sad_fused", run)
-    ops = n_bytes = 0
-    for b in range(B):
-        _exact("track_sad_fused", tuple(o[b] for o in out),
-               K.track_sad_fused_torch(*tr[b], **tkw), f"lane {b}")
-        o_, b_, _ = track_bound(tr[b], tkw)
-        ops, n_bytes = ops + o_, n_bytes + b_
-    lanes("track_sad_fused", "track_sad_kernel", run, ops, n_bytes,
-          list(targs[0].shape))
-
-    # kernel 4: each lane RANSAC's 512 hypotheses (2 eyes x 256)
-    rng = np.random.default_rng(11)
-    M = torch.stack([rank8_matrices(rng, 512, dev) for _ in range(B)])
-    run = lambda: vmap(K.nullvec9_cuda)(M)  # noqa: E731
-    out = one_launch("nullvec9", run)
-    for b in range(B):
-        if not torch.equal(out[b], K.nullvec9_cuda(M[b])):
-            raise AssertionError(f"batched nullvec9 lane {b} != the kernel")
-        cos = (out[b] * K.nullvec9_torch(M[b])).sum(1).abs()
-        if cos.min() < 1 - 1e-3:
-            raise AssertionError(f"batched nullvec9 lane {b}: min|cos| "
-                                 f"{cos.min().item()}")
-    # eigh6: one normal matrix a lane (the GN's [6,6] under vmap)
-    from rso_torch.kernels.eigh6 import SWEEPS, eigh6_cuda
-
-    Hl = gn_normal_matrices(np.random.default_rng(10), B, 1e5, dev)
-    run_e = lambda: vmap(eigh6_cuda)(Hl)  # noqa: E731
-    w, V = one_launch("eigh6", run_e)
-    for b in range(B):
-        wb, Vb = eigh6_cuda(Hl[b])
-        if not (torch.equal(w[b], wb) and torch.equal(V[b], Vb)):
-            raise AssertionError(f"batched eigh6 lane {b} != the kernel")
-    lanes("eigh6", "eigh6_kernel", run_e,
-          B * SWEEPS * 15 * EIGH6_OPS_PER_ROTATION, B * EIGH6_BYTES,
-          [B, 6, 6])
-    check_batched_gn_iter(dev, B, one_launch, lanes)
-    check_batched_lk_track(seq, dev, B, one_launch, lanes)
-    check_batched_ransac(dev, B, one_launch, lanes)
-    lanes("nullvec9", "nullvec9_kernel", run, B * 512 * 900,
-          B * 512 * (81 + 9) * 4, list(M.shape))
-
-    # kernels 5, 6: frame b's descriptors (patches) against frame b + 1's
-    da = stack([feats[b][3].desc for b in range(B)])
-    db = stack([feats[b + 1][3].desc for b in range(B)])
-    run = lambda: vmap(K.hamming_matrix_cuda)(da, db)  # noqa: E731
-    out = one_launch("hamming_matrix", run)
-    for b in range(B):
-        _exact("hamming_matrix", (out[b],),
-               (K.hamming_matrix_torch(da[b], db[b]),), f"lane {b}")
-    lanes("hamming_matrix", "hamming_kernel", run, B * k0 * k0 * 8 * 3,
-          B * (2 * k0 * 8 + k0 * k0) * 4, list(da.shape))
-    pa = stack([feats[b][0].patch for b in range(B)])
-    pb = stack([feats[b + 1][0].patch for b in range(B)])
-    run = lambda: vmap(K.sad_matrix_cuda)(pa, pb)  # noqa: E731
-    out = one_launch("sad_matrix", run)
-    for b in range(B):
-        _exact("sad_matrix", (out[b],), (K.sad_matrix_torch(pa[b], pb[b]),),
-               f"lane {b}")
-    P = pa.shape[-1]
-    lanes("sad_matrix", "sad_kernel", run, B * k0 * k0 * P * 3,
-          B * (2 * k0 * P + k0 * k0) * 4, list(pa.shape))
-
-
-def check_batched_gn_iter(dev, B, one_launch, lanes) -> None:
-    """The GN iteration kernel under torch.func.vmap over B lanes of a
-    kitti frame's shape ([B, 896], frame b's inputs a lane): one launch,
-    each lane's carry bit for bit its lone launch's (a lane is one block
-    running the same code); timed beside the plain iteration's vmap."""
-    import torch
-
-    import rso_torch.solver.robust_gn as G
-    from rso_torch.kernels import gn_iter as GI
-
-    sys.path.insert(0, str(REPO / "tests"))
-    import _torch_gn_cases as GC
-
+    # gn_iter: lane b frame b's inputs, the carry from a start of its own
     cam = GC.camera(dev)
     p = _gn_timing_params(GC.params("robust"))
     ins = [GC.frame_inputs(b, dev) for b in range(B)]
@@ -1780,13 +824,6 @@ def check_batched_gn_iter(dev, B, one_launch, lanes) -> None:
                        cost=1e9, device=dev) for b in range(B)]
     c = G.GNCarry(*(None if x[0] is None else torch.stack(x)
                     for x in zip(*starts)))
-    lone = []
-    for b in range(B):
-        cb = GC.clone(starts[b])
-        GI.gn_iteration_cuda(cam, lmks[b], cur[b], mask[b], w[b], p, 1 << 30,
-                             G.VOEC_INCR_FUNC_COST_STG1,
-                             G.VOEC_BAD_COND_NUMBER)(cb)
-        lone.append(cb)
 
     def one(lm, ob, ma, wt, *leaves):
         carry = G.GNCarry(*leaves, None)
@@ -1796,100 +833,80 @@ def check_batched_gn_iter(dev, B, one_launch, lanes) -> None:
         return carry.it
 
     def plain_one(lm, ob, ma, wt, *leaves):
-        return G.gn_iteration_torch(cam, lm, ob, ma, wt, p, 1 << 30,
-                                    G.VOEC_INCR_FUNC_COST_STG1,
-                                    G.GNCarry(*leaves, None)).it
+        return tuple(G.gn_iteration_torch(cam, lm, ob, ma, wt, p, 1 << 30,
+                                          G.VOEC_INCR_FUNC_COST_STG1,
+                                          G.GNCarry(*leaves, None))[:-1])
 
     start = [x.clone() for x in c[:-1]]
-    plain = lambda: torch.func.vmap(plain_one)(lmks, cur, mask, w,  # noqa: E731
-                                               *start)
-    run = lambda: torch.func.vmap(one)(lmks, cur, mask, w, *c[:-1])  # noqa: E731
-    one_launch("gn_iter", run)
-    for b in range(B):
-        for f, x, y in zip(G.GNCarry._fields, c, lone[b]):
-            if x is not None and not torch.equal(x[b], y):
-                raise AssertionError(f"batched gn_iter lane {b}: {f} is not "
-                                     "its lone launch's")
+    plain = lambda: torch.func.vmap(plain_one)(  # noqa: E731
+        lmks, cur, mask, w, *start)
+
+    def gn_lanes(_):
+        # the carry the launch advanced in place, lane by lane, against the
+        # plain iteration's from the same start
+        want = plain()
+        for b in range(B):
+            tc.check_kernel("gn_iter", G.GNCarry(*(x[b] for x in c[:-1]), None),
+                            G.GNCarry(*(x[b] for x in want), None),
+                            f"gn_iter lane {b}",
+                            start=G.GNCarry(*(x[b] for x in start), None))
+
     ops, n_bytes = gn_iter_bound(B, T)
-    lanes("gn_iter", "gn_iter_kernel", run, ops, n_bytes, [B, T], plain)
+    lanes("gn_iter", "gn_iter_kernel", ops, n_bytes, [B, T],
+          lambda: torch.func.vmap(one)(lmks, cur, mask, w, *c[:-1]), plain,
+          gn_lanes)
 
+    ops, n_bytes = lk_bound([tuple(x.shape) for x in L.lk[0][0][0]], 2,
+                            LC.SLOTS[0])
+    lanes("lk_track", "lk_track_kernel", B * ops, B * n_bytes,
+          [B, 2, LC.SLOTS[0]])
 
-def check_batched_lk_track(seq, dev, B, one_launch, lanes) -> None:
-    """The LK kernel under torch.func.vmap over B lanes of octave 0's call
-    (lane b: bench frame b to b + 1, both eyes, [512] slots down 3 levels):
-    one launch, each lane bit for bit its lone launch (a lane is blocks
-    running the same code)."""
-    import torch
+    # RANSAC: lane b its own points, mask and frame index
+    N = RANSAC_SHAPES[0][0]
+    cases = [RC.case(100 + b, 2, N, "some", dev) for b in range(B)]
+    p1, p2, rmask = (torch.stack([x[i] for x in cases]) for i in range(3))
+    frame = torch.arange(B, dtype=torch.int32, device=dev) + 30
 
-    from rso_torch.frontend import optical_flow as OF
-    from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
+    def call(a, b, m, f):
+        return tuple(R.ransac_fundamental(a, b, m, rrandom.FrameKeys(f, 1000),
+                                          n_iters=RANSAC_H))
 
-    sys.path.insert(0, str(REPO / "tests"))
-    import _torch_lk_cases as C
-
-    kw = dict(win=LK_WIN, iters=LK_ITERS, seed_range=LK_SEED)
-    cases = []
+    ops = n_bytes = 0
     for b in range(B):
-        pyr = [[build_pyramid(to_grayscale(torch.from_numpy(
-            seq.frames[f][e]).to(dev)), 3) for e in (0, 1)]
-            for f in (b, b + 1)]
-        cases.append(C.octave_case(pyr, 0, b))
-    lone = [OF.lk_track_eyes(*c, **kw) for c in cases]
-    pts, valid = (torch.stack([c[i] for c in cases]) for i in (2, 3))
-    prev, cur = ([[torch.stack([c[j][e][lvl] for c in cases])
-                   for lvl in range(3)] for e in (0, 1)] for j in (0, 1))
-    run = lambda: torch.func.vmap(  # noqa: E731
-        lambda p, c, x, v: OF.lk_track_eyes(p, c, x, v, **kw))(
-        prev, cur, pts, valid)
-    out = one_launch("lk_track", run)
-    for b, one in enumerate(lone):
-        for f, x, y in zip(one._fields, out, one):
-            if not torch.equal(x[b], y):
-                raise AssertionError(f"batched lk_track lane {b}: {f} is not "
-                                     "its lone launch's")
-    ops, n_bytes = lk_bound([tuple(x.shape) for x in cases[0][0][0]], 2,
-                            C.SLOTS[0])
-    lanes("lk_track", "lk_track_kernel", run, B * ops, B * n_bytes,
-          [B, 2, C.SLOTS[0]])
+        o, nb = ransac_bound(2, N, RANSAC_H, int(rmask[b].sum()))
+        ops, n_bytes = ops + o, n_bytes + nb
+    lanes("ransac", "ransac_kernel", ops, n_bytes, [B, 2, N, RANSAC_H],
+          lambda: torch.func.vmap(call)(p1, p2, rmask, frame),
+          check=lambda out: tc.check_lanes("ransac", out, lambda b: call(
+              p1[b], p2[b], rmask[b], frame[b]), B))
+    lanes("nullvec9", "nullvec9_kernel", B * 512 * 900,
+          B * 512 * (81 + 9) * 4, list(L.M.shape))
+    k0 = L.k0
+    lanes("hamming_matrix", "hamming_kernel", B * k0 * k0 * 8 * 3,
+          B * (2 * k0 * 8 + k0 * k0) * 4, list(L.desc[0].shape))
+    P = L.patch[0].shape[-1]
+    lanes("sad_matrix", "sad_kernel", B * k0 * k0 * P * 3,
+          B * (2 * k0 * P + k0 * k0) * 4, list(L.patch[0].shape))
 
 
 def time_kernels(timed) -> None:
-    """Phase 9: the call times (CUDA events) of every kernel, twin and
+    """Phase 12: the call times (CUDA events) of every kernel, twin and
     library call, then the kernels' own device times, all in one profiler
     session.  It runs last: after a torch.profiler session the same process
     steps the engine ~25% slower (measured on an H100: 52.1 and 47.7 ms a
     default step before one, 60.9 and 67.0 ms after), and call times, which
     include the host's work, would read high too."""
     for out, _, fn, plain, library in timed:
-        out["ms"] = _median_ms(fn)
+        out["ms"] = tc.median_ms(fn)
         if plain is not None:
-            out.update(plain_ms=_median_ms(plain),
-                       library_ms=_median_ms(library) if library else None)
-    us = device_times([(kernel, fn) for _, kernel, fn, _, _ in timed])
+            out.update(plain_ms=tc.median_ms(plain),
+                       library_ms=tc.median_ms(library) if library else None)
+    us = tc.device_times([(kernel, fn) for _, kernel, fn, _, _ in timed])
     for (out, kernel, *_), u in zip(timed, us):
         out["device_us"] = u
         what = out["label"] if "label" in out else out["shape"]
         print(f"time {kernel} {what}: device {u} us, call {out['ms']} ms, "
               f"bound {out.get('bound_ms')} ms", flush=True)
-
-
-def _ate(results, gt):
-    """ATE of the chained per-frame poses, coasting over invalid frames with
-    the last valid motion (the reference's constant-velocity rule)."""
-    import numpy as np
-
-    from rso_torch.geometry import pose_matrix
-    from rso_torch.metrics import ate_rmse
-
-    T = np.eye(4)
-    poses, last = [T.copy()], None
-    for r in results[1:]:
-        if bool(r.valid):
-            last = pose_matrix(r.pose.double().cpu()).numpy()
-        if last is not None:
-            T = T @ last
-        poses.append(T.copy())
-    return ate_rmse(np.stack(poses), gt[:len(results)])
 
 
 def drive(name, cfg, seq, dev, n_frames, maps=None):
@@ -1954,7 +971,7 @@ def drive(name, cfg, seq, dev, n_frames, maps=None):
     RUNS[name] = results
     times = sorted(a.elapsed_time(b) for a, b in step_ms[1:])
     med = times[len(times) // 2]
-    ate = _ate(results, seq.poses)
+    ate = tc.ate(results, seq.poses)
     n_valid = sum(bool(r.valid) for r in results)
     print(f"engine {name}: {n_frames} frames, valid {n_valid}/{n_frames}, "
           f"ATE {ate} m, median step {med} ms ({1e3 / med} frames/s), wall "
@@ -2264,11 +1281,6 @@ def run_seams(seq, dev, n_frames=4):
               for l, r in seq.frames[:n_frames]]
     full, feats_eng, match_eng = (Engine(cfg, seq.cam) for _ in range(3))
 
-    def same(a, b, what):
-        for field, x, y in zip(a._fields, a, b):
-            if not torch.equal(x, y):
-                raise AssertionError(f"seams: {what} {field} differs")
-
     reset_launches()
     for i, (l, r) in enumerate(frames[:3]):
         st = full.state if full.state is not None else init_state(cfg, (H, W))
@@ -2282,14 +1294,15 @@ def run_seams(seq, dev, n_frames=4):
                          fr._replace(valid=fr.valid & ok)))
         want = full.process_frame(l, r)
         left, right = [a for a, _ in octs], [b for _, b in octs]
-        same(feats_eng.process_precomputed(left, right, img_hw=(H, W)), want,
-             f"precomputed feats frame {i}")
+        tc.same_bits(f"seams: precomputed feats frame {i}",
+                     feats_eng.process_precomputed(left, right, img_hw=(H, W)),
+                     want)
         m = [(np.flatnonzero(o.matches.valid.cpu().numpy()),
               o.matches.ridx.cpu().numpy()[o.matches.valid.cpu().numpy()])
              for o in full.state.prev.octaves]
         got = match_eng.process_precomputed(left, right, matches=m,
                                             img_hw=(H, W))
-        same(got, want, f"precomputed matches frame {i}")
+        tc.same_bits(f"seams: precomputed matches frame {i}", got, want)
     launches = dict(settle_launches())
     print(f"seams: 3 frames of precomputed features and of precomputed "
           f"matches equal to the full step's results, launches {launches}",
@@ -2307,8 +1320,8 @@ def run_seams(seq, dev, n_frames=4):
     for a, b in zip(_leaves(full.state), _leaves(back.state)):
         if a.device != b.device or not torch.equal(a, b):
             raise AssertionError("checkpoint: a leaf differs after the round trip")
-    same(back.process_frame(*frames[3]), full.process_frame(*frames[3]),
-         "a step from the loaded checkpoint")
+    tc.same_bits("seams: a step from the loaded checkpoint",
+                 back.process_frame(*frames[3]), full.process_frame(*frames[3]))
 
     # reset_ids: current matches renumbered 0..N-1, the frame a keyframe
     full.reset_ids()
@@ -2324,8 +1337,9 @@ def run_seams(seq, dev, n_frames=4):
     chunk.process_frame(*frames[0])
     plain.process_frame(*frames[0])
     chunk.process_chunk([f[0] for f in frames[1:3]], [f[1] for f in frames[1:3]])
-    same(chunk.process_frame(*frames[3], repeat=True),
-         plain.process_frame(*frames[3]), "repeat after a chunk")
+    tc.same_bits("seams: repeat after a chunk",
+                 chunk.process_frame(*frames[3], repeat=True),
+                 plain.process_frame(*frames[3]))
     print(f"seams: checkpoint round trip exact on the card, reset_ids "
           f"renumbered {n} matches, a repeat after a chunk re-ran against "
           "the state before it", flush=True)
@@ -2387,7 +1401,7 @@ def run_textured(dev):
 
     t0 = time.perf_counter()
     tseq = make_textured_sequence(n_frames=N_TEXTURED_FRAMES, H=H, W=W,
-                                  cam=_bench_cam())
+                                  cam=tc.bench_cam())
     print(f"textured: {N_TEXTURED_FRAMES} frames of the corridor rendered at "
           f"{W}x{H} in {time.perf_counter() - t0} s", flush=True)
     SCENES["textured"] = tseq
@@ -2460,24 +1474,18 @@ def _frame_launches(run, frames):
 
 
 def _same_frames(what, got, want):
-    import torch
-
     for i, (g, w) in enumerate(zip(got, want)):
-        for field, a, b in zip(g._fields, g, w):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{what}: frame {i} {field} differs")
+        tc.same_bits(f"{what}: frame {i}", g, w)
 
 
-def compiled_path(name, cfg, seq, dev, n_frames, sweep=False) -> dict:
+def compiled_path(name, cfg, seq, dev, n_frames) -> dict:
     """The eager make_step loop and Engine's composed CUDA graph from the
     same first state on the same frames: every field of every frame equal
     and the same launches frame by frame (an untimed pass), then again over
     a timed run; in the graph, no host read and one graph launch a frame;
     each form's median step ms and wall ms a frame,
-    the flag reads a frame, the GN iteration distribution, the graphs.
-    With `sweep`, the graph again at each GN_BLOCK of GN_BLOCK_SWEEP, every
-    block size captured first and then timed in turns, twice.  The eigh
-    backend's run is also held to the same step with cuSOLVER's eigh
+    the flag reads a frame, the GN iteration distribution, the graphs.  The
+    eigh backend's run is also held to the same step with cuSOLVER's eigh
     (`eigh_against_the_library`)."""
     import torch
 
@@ -2545,26 +1553,6 @@ def compiled_path(name, cfg, seq, dev, n_frames, sweep=False) -> dict:
     if cfg.least_squares.solve_backend == "eigh":
         report["against_cusolver"] = eigh_against_the_library(
             name, cfg, eng.cam, frames, want, dev)
-    if sweep:
-        engines = {}
-        try:
-            for b in GN_BLOCK_SWEEP:
-                G.GN_BLOCK = b
-                engines[b] = Engine(cfg, seq.cam)
-                for left, right in frames[:2]:
-                    engines[b].process_frame(left, right)
-        finally:
-            G.GN_BLOCK = report["gn_block"]
-        ms = collections.defaultdict(list)
-        for order in (GN_BLOCK_SWEEP, GN_BLOCK_SWEEP[::-1]):
-            for b in order:
-                engines[b].reset()
-                res, _, reads, b_ms, b_wall = _timed_frames(
-                    engines[b].process_frame, frames)
-                _same_frames(f"compiled {name} GN_BLOCK {b}", res, want)
-                ms[b].append({"ms": b_ms, "wall_ms": b_wall,
-                              "gn_reads_per_frame": mean(reads, "gn")})
-        report["gn_block_sweep"] = dict(ms)
     print(f"compiled {name}: the graph equals the eager step on {n_frames} "
           f"frames, launches equal frame by frame; 0 host reads and 1 graph "
           f"launch a frame; "
@@ -2575,71 +1563,58 @@ def compiled_path(name, cfg, seq, dev, n_frames, sweep=False) -> dict:
 def eigh_against_the_library(name, cfg, cam, frames, want, dev) -> dict:
     """The eigh backend's eager step with the GN iteration kernel (`want`,
     eigh6's routine inside it) against the same step with the plain GN
-    iterations, once with the eigh6 kernel and once with cuSOLVER's eigh
-    (torch.linalg.eigh), on the same frames, each from its own states:
-    where the integer fields agree the pose within EIGH_POSE_ATOL; frames
-    where they part are named and held to LANE_GN_*.  Also the condition
-    number w[5] / w[0] of every normal matrix the plain eigh6 run
-    factored, against the GN's _COND_MAX (1e7; the LM solve aborts only on
-    a non-finite one)."""
+    iterations on cuSOLVER's eigh (torch.linalg.eigh), on the same frames,
+    each from its own states: where the integer fields agree the pose
+    within EIGH_POSE_ATOL; frames where they part are named and held to
+    LANE_GN_*.  Also the condition number w[5] / w[0] of every normal
+    matrix the plain run factored, against the GN's _COND_MAX (1e7; the LM
+    solve aborts only on a non-finite one)."""
     import torch
 
     import rso_torch.solver.robust_gn as G
     from rso_torch.engine import init_state, make_step
-    from rso_torch.kernels.eigh6 import eigh6_cuda
 
     conds = []
 
     def recording(H):
-        w, V = eigh6_cuda(H)
+        w, V = torch.linalg.eigh(H)
         conds.append(w[..., 5] / w[..., 0])
         return w, V
 
-    def plain(*a):
-        return functools.partial(G.gn_iteration_torch, *a)
-
     hw = tuple(frames[0][0].shape[:2])
-    runs = {}
-    for form, fn in (("eigh6", recording), ("cusolver", torch.linalg.eigh)):
-        saved = G._eigh, G.gn_iteration
-        G._eigh, G.gn_iteration = fn, plain
-        try:
-            step = make_step(cfg, cam, *hw)
-            st, out = init_state(cfg, hw, dev), []
-            for left, right in frames:
-                st, res = step(st, left, right)
-                out.append(res)
-        finally:
-            G._eigh, G.gn_iteration = saved
-        runs[form] = out
-    report = {}
-    for form, other in (("eigh6", "kernel"), ("cusolver", "eigh6")):
-        ref = want if other == "kernel" else runs[other]
-        worst, parted = {}, []
-        for i, (k, c) in enumerate(zip(ref, runs[form])):
-            _lane_vs_alone(f"{name} frame {i} ({other} vs {form})", c, k,
-                           worst, parted, pose_atol=EIGH_POSE_ATOL)
-        report[f"{other}_vs_{form}"] = {"frames_parted": parted,
-                                        "worst": worst}
+    saved = G._eigh, G.gn_iteration
+    G._eigh = recording
+    G.gn_iteration = lambda *a: functools.partial(G.gn_iteration_torch, *a)
+    try:
+        step = make_step(cfg, cam, *hw)
+        st, plain = init_state(cfg, hw, dev), []
+        for left, right in frames:
+            st, res = step(st, left, right)
+            plain.append(res)
+    finally:
+        G._eigh, G.gn_iteration = saved
+    worst, parted = {}, []
+    for i, (k, c) in enumerate(zip(want, plain)):
+        _lane_vs_alone(f"{name} frame {i} (kernel vs cusolver)", c, k,
+                       worst, parted, pose_atol=EIGH_POSE_ATOL)
     c = torch.stack([x.reshape(()) for x in conds]).cpu()
     fin = c[torch.isfinite(c)]
-    out = {**report, "eigensolves": len(conds),
+    out = {"kernel_vs_cusolver": {"frames_parted": parted, "worst": worst},
+           "eigensolves": len(conds),
            "cond_max": float(fin.max()) if fin.numel() else None,
            "cond_median": float(fin.median()) if fin.numel() else None,
            "cond_max_over_limit": (float(fin.max()) / G._COND_MAX
                                    if fin.numel() else None),
            "non_finite": int((~torch.isfinite(c)).sum())}
-    print(f"{name}: the GN kernel against the plain iterations with eigh6, "
-          f"and those against cuSOLVER's eigh, {len(frames)} frames: "
-          f"{json.dumps(out)}", flush=True)
+    print(f"{name}: the GN kernel against the plain iterations on cuSOLVER's "
+          f"eigh, {len(frames)} frames: {json.dumps(out)}", flush=True)
     return out
 
 
 def run_compiled(seq, dev) -> dict:
     """The compiled step: the graph held to the eager step on the default,
-    kitti, textured, flow, detect_every, descriptor and eigh_lm paths; the
-    GN block size swept on default and kitti.  Returns the graph runs'
-    launches."""
+    kitti, textured, flow, detect_every, descriptor and eigh_lm paths.
+    Returns the graph runs' launches."""
     import dataclasses
 
     from rso_torch.config import load_config
@@ -2648,24 +1623,23 @@ def run_compiled(seq, dev) -> dict:
     rep = dataclasses.replace
     base = synthetic_config()
     paths = [
-        ("default", base, seq, N_COMPILED_FRAMES, True),
+        ("default", base, seq, N_COMPILED_FRAMES),
         ("kitti", load_config(str(REPO / "configs" / "kitti.ini")), seq,
-         N_COMPILED_FRAMES, True),
-        ("textured", textured_config(), SCENES["textured"], N_COMPILED_FRAMES,
-         False),
+         N_COMPILED_FRAMES),
+        ("textured", textured_config(), SCENES["textured"], N_COMPILED_FRAMES),
         ("flow", base.replace(if_match=rep(base.if_match, ifm_method=3)), seq,
-         N_COMPILED_FRAMES, False),
+         N_COMPILED_FRAMES),
         ("detect_every", base.replace(tpu=rep(base.tpu, detect_every=3)), seq,
-         N_EVERY_FRAMES, False),
+         N_EVERY_FRAMES),
         ("fast_orb_rbr_win", mode_config("fast_orb_rbr_win", upright=False),
-         seq, N_COMPILED_FRAMES, False),
+         seq, N_COMPILED_FRAMES),
         ("eigh_lm", base.replace(least_squares=rep(
             base.least_squares, solve_backend="eigh", use_lm=True)), seq,
-         N_SOLVE_FRAMES, False),
+         N_SOLVE_FRAMES),
     ]
     launches = collections.Counter()
-    for name, cfg, s, n, sweep in paths:
-        launches.update(compiled_path(name, cfg, s, dev, n, sweep)["launches"])
+    for name, cfg, s, n in paths:
+        launches.update(compiled_path(name, cfg, s, dev, n)["launches"])
     return dict(launches)
 
 
@@ -2839,7 +1813,7 @@ def run_batched(seq, dev, smi) -> dict:
 
     t_phase = time.perf_counter()
     cfg = synthetic_config()
-    seqs = [seq] + [_bench_scene(N_FRAMES, seed=s) for s in range(1, N_BATCH)]
+    seqs = [seq] + [tc.bench_scene(N_FRAMES, seed=s) for s in range(1, N_BATCH)]
     (results, _, launches, reads, step_ms, fps, be,
      frames) = _batched_run("batched", cfg, seqs, dev, N_BATCH_FRAMES, warm=3)
     expect_launches("batched", launches, exact=_per_frame(N_BATCH_FRAMES))
@@ -2854,7 +1828,7 @@ def run_batched(seq, dev, smi) -> dict:
             _lane_vs_alone(f"batched lane {b} frame {i}", alone[b][i], lane[i],
                            worst, parted)
         valid.append(sum(bool(r.valid) for r in lane))
-        ates.append(_ate(lane, s.poses))
+        ates.append(tc.ate(lane, s.poses))
         if valid[-1] < N_BATCH_FRAMES - 3 or not ates[-1] < 1.0:
             raise AssertionError(f"batched lane {b}: valid {valid[-1]}, ATE "
                                  f"{ates[-1]}")
@@ -2941,7 +1915,7 @@ def run_batched(seq, dev, smi) -> dict:
                 _lane_vs_alone(f"batched {name} lane {b} frame {i}",
                                alone[b][i], _lane(res[i], b), worst, parted)
         lane0 = [_lane(r, 0) for r in res]
-        n_valid, ate = sum(bool(r.valid) for r in lane0), _ate(lane0, pseqs[0].poses)
+        n_valid, ate = sum(bool(r.valid) for r in lane0), tc.ate(lane0, pseqs[0].poses)
         within_reference(f"batched {name} lane 0", n_valid, ate, PATH_REF[name])
         sets = sorted(map(str, next(iter(be._step._variants.values())).graphs))
         if name == "detect_every" and not taken.get(str(MIXED)):
@@ -2963,151 +1937,6 @@ def run_batched(seq, dev, smi) -> dict:
     return launches_a, dict(total)
 
 
-def _same_solve(what, card, cpu, rerun_card, rerun_cpu, cost_on_cpu,
-                pose_atol=BA_POSE_ATOL, lmk_atol=BA_LMK_ATOL,
-                sides=("card", "CPU")):
-    """A BAResult of the card against the CPU's from the same inputs (the
-    bounds above): rerun_*(k) solve again with max_iters=k; cost_on_cpu(
-    poses, landmarks) is the CPU's cost at a solution, so the card's
-    solution must also be the CPU's minimum."""
-    dp = (card.poses.cpu() - cpu.poses).abs().max().item()
-    dl = (card.lmks.cpu() - cpu.lmks).abs().max().item()
-    c_card, c_cpu = float(card.cost), float(cpu.cost)
-    c_at = float(cost_on_cpu(card.poses.cpu(), card.lmks.cpu()))
-    tol = BA_COST_RTOL * abs(c_cpu) + BA_COST_ATOL
-    if (dp > pose_atol or dl > lmk_atol or abs(c_card - c_cpu) > tol
-            or abs(c_at - c_cpu) > tol):
-        raise AssertionError(f"{what}: {sides[0]} and {sides[1]} differ: "
-                             f"poses {dp}, landmarks {dl}, cost {c_card} "
-                             f"vs {c_cpu} (the {sides[0]}'s solution in the "
-                             f"{sides[1]}'s cost: {c_at})")
-    its = (int(card.n_iters), int(cpu.n_iters))
-    conv = (bool(card.converged), bool(cpu.converged))
-    floor = None
-    if its[0] != its[1] or conv[0] != conv[1]:
-        k = min(its)
-        floor = [float(rerun_card(k).cost), float(rerun_cpu(k).cost)]
-        limit = BA_FLOOR_RTOL * abs(c_cpu) + BA_COST_ATOL
-        if any(abs(c - c_cpu) > limit for c in floor):
-            raise AssertionError(f"{what}: n_iters {its}, converged {conv} "
-                                 f"part at iteration {k} with costs {floor} "
-                                 f"above the floor {c_cpu}")
-    print(f"{what}: {sides[0]} vs {sides[1]} poses {dp}, landmarks {dl}, "
-          f"cost {c_card} vs {c_cpu} (the {sides[0]}'s solution in the "
-          f"{sides[1]}'s cost: {c_at}), n_iters "
-          f"{its}, converged {conv}"
-          + ("" if floor is None else f" (parted at the noise floor: costs "
-             f"{floor} at iteration {min(its)})"), flush=True)
-
-
-def _bench_ba_problem(cam, dev):
-    """rso/cli/bench.py:144-152's problem (P = 8, L = 1024, from
-    default_rng(0)), as run_bench builds it."""
-    from rso_torch.cli.bench import bench_ba_problem
-
-    return bench_ba_problem(cam, dev)
-
-
-def _eager_ba(cam, prob, max_iters=20, kernel_param=3.0, use_robust=True,
-              fix_first=True, init_lambda=1e-4, tol=1e-5, rel_meas=None,
-              rel_w_rot=0.0, rel_w_trans=0.0, marg_prior=None):
-    """bundle_adjust's solve run eagerly (levenberg_marquardt's blocks,
-    one flag read each): what the compiled solve must equal bit for bit."""
-    import torch
-
-    from rso_torch.ba.ba import levenberg_marquardt
-
-    dev = prob.poses.device
-    if rel_meas is not None:
-        rel_meas = torch.as_tensor(rel_meas, dtype=torch.float32, device=dev)
-    return levenberg_marquardt(cam.to(dev), prob, max_iters, kernel_param,
-                               use_robust, fix_first, init_lambda, tol,
-                               rel_meas, rel_w_rot, rel_w_trans, marg_prior)
-
-
-@contextlib.contextmanager
-def eager_mesh_solves():
-    """The mesh forms' solves as they ran before they were compiled:
-    levenberg_marquardt's eager loop (one flag read a block) on the shard,
-    then the landmarks gathered over the reduce's axis; what the captured
-    mesh solve must equal bit for bit."""
-    import rso_torch.ba.distributed as D
-    import rso_torch.ba.window_sharded as WS
-    from rso_torch.ba.ba import levenberg_marquardt
-
-    def solve(cam, prob, *args, reduce, **kw):
-        out = levenberg_marquardt(cam, prob, *args, reduce=reduce, **kw)
-        return out._replace(lmks=reduce.gather(out.lmks, -2))
-
-    compiled = D.solve_lm, WS.solve_lm
-    D.solve_lm = WS.solve_lm = solve
-    try:
-        yield
-    finally:
-        D.solve_lm, WS.solve_lm = compiled
-
-
-def counted_solve(solve):
-    """solve() with the counters zeroed just before and read just after:
-    (result, {graph_launches, lm_reads: the "lm" site's, collectives,
-    launches})."""
-    import torch
-
-    from rso_torch.graphs import GRAPH_LAUNCHES, reset_launches, settle_launches
-    from rso_torch.mesh import COLLECTIVES
-    from rso_torch.solver.robust_gn import HOST_READS
-
-    if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-    reset_launches()
-    HOST_READS.clear()
-    GRAPH_LAUNCHES.clear()
-    out = solve()
-    launches = dict(settle_launches())
-    return out, dict(graph_launches=GRAPH_LAUNCHES["lm"],
-                     lm_reads=HOST_READS["lm"], collectives=dict(COLLECTIVES),
-                     launches=launches)
-
-
-def mesh_solve_forms(B) -> list:
-    """(form, node types of each segment) of every captured mesh solve
-    (the keys of rso_torch.ba.ba._SOLVES that name a group): `_Composed`,
-    one launch with WHILE nodes, or `_Blocks`, a launch a segment and a
-    block."""
-    from rso_torch.graphs import node_types
-
-    return [(type(v.composed).__name__,
-             [node_types(seg.graph.raw_cuda_graph()) for seg in segs])
-            for key, solve in B._SOLVES.items() if key[-1] is not None
-            for v in solve._variants.values() for segs in v.graphs.values()]
-
-
-def _problem_to(prob, dev):
-    return type(prob)(*(None if t is None else t.to(dev) for t in prob))
-
-
-class CallRecorder:
-    """Wraps module.attribute to keep each call's arguments and result
-    (read after the run, so the timed frames sync no more)."""
-
-    def __init__(self, module, attribute):
-        self.module, self.attribute, self.calls = module, attribute, []
-
-    def __enter__(self):
-        self.inner = getattr(self.module, self.attribute)
-        setattr(self.module, self.attribute,
-                lambda *args, **kw: self._call(args, kw))
-        return self
-
-    def _call(self, args, kw):
-        out = self.inner(*args, **kw)
-        self.calls.append((args, kw, out))
-        return out
-
-    def __exit__(self, *exc):
-        setattr(self.module, self.attribute, self.inner)
-
-
 def _trajectory_ate(poses, gt):
     import numpy as np
 
@@ -3116,7 +1945,7 @@ def _trajectory_ate(poses, gt):
     return float(ate_rmse(np.stack(poses), gt[:len(poses)]))
 
 
-class _SolveLog(CallRecorder):
+class _SolveLog(tc.CallRecorder):
     """A CallRecorder of a BA solve that also keeps each call's ms (CUDA
     events around it), whether it captured graphs (the first solve of its
     key and shape: warm-up and capture) or replayed, and its graph
@@ -3133,14 +1962,14 @@ class _SolveLog(CallRecorder):
         from rso_torch.graphs import GRAPH_LAUNCHES
         from rso_torch.solver.robust_gn import HOST_READS
 
-        n = _n_solve_graphs(B)
+        n = tc.n_solve_graphs(B)
         counts = GRAPH_LAUNCHES["lm"], HOST_READS["lm"]
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         out = super()._call(args, kw)
         b.record()
-        self.timing.append((a, b, _n_solve_graphs(B) > n,
+        self.timing.append((a, b, tc.n_solve_graphs(B) > n,
                             GRAPH_LAUNCHES["lm"] - counts[0],
                             HOST_READS["lm"] - counts[1]))
         return out
@@ -3156,11 +1985,6 @@ class _SolveLog(CallRecorder):
                  "lm_reads": reads}
                 for (args, kw, out), (a, b, captured, launches, reads)
                 in zip(self.calls, self.timing)]
-
-
-def _n_solve_graphs(B) -> int:
-    """The CUDA graphs the compiled BA solves of this process hold."""
-    return sum(s.n_graphs for s in B._SOLVES.values())
 
 
 def _median(xs):
@@ -3222,46 +2046,8 @@ def _same_as_eager(what, calls):
     """Each recorded graph solve equal to the eager solve of its inputs,
     bit for bit."""
     for i, (args, kw, out) in enumerate(calls):
-        _same_bits(f"{what} solve {i} (P={args[1].poses.shape[-2]}): "
-                   "graphs vs eager", out, _eager_ba(*args, **kw))
-
-
-def _lm_block_sweep(name, calls) -> dict:
-    """The recorded solves (arguments, eager answer) at each LM_BLOCK of
-    LM_BLOCK_SWEEP: every block size captured first, then the solves' total
-    ms (CUDA events around each) and flag reads a solve, two passes in
-    turns; every result equal to the eager answer."""
-    import torch
-
-    import rso_torch.ba.ba as B
-    from rso_torch.solver.robust_gn import HOST_READS
-
-    saved = B.LM_BLOCK
-    out = collections.defaultdict(list)
-    try:
-        # a pass that captures, then two timed passes in turns
-        passes = (LM_BLOCK_SWEEP, LM_BLOCK_SWEEP, LM_BLOCK_SWEEP[::-1])
-        for timed, order in enumerate(passes):
-            for b in order:
-                B.LM_BLOCK = b
-                HOST_READS.clear()
-                events = []
-                for args, kw, want in calls:
-                    e0 = torch.cuda.Event(enable_timing=True)
-                    e1 = torch.cuda.Event(enable_timing=True)
-                    e0.record()
-                    got = B.bundle_adjust(*args, **kw)
-                    e1.record()
-                    events.append((e0, e1))
-                    _same_bits(f"{name} LM_BLOCK {b}", got, want)
-                if timed:
-                    torch.cuda.synchronize()
-                    out[b].append({
-                        "ms": sum(a.elapsed_time(e) for a, e in events),
-                        "reads_per_solve": HOST_READS["lm"] / len(calls)})
-    finally:
-        B.LM_BLOCK = saved
-    return dict(out)
+        tc.same_bits(f"{what} solve {i} (P={args[1].poses.shape[-2]}): "
+                     "graphs vs eager", out, tc.eager_ba(*args, **kw))
 
 
 def run_ba(seq, dev):
@@ -3292,8 +2078,8 @@ def run_ba(seq, dev):
 
     # (a) the bench's BA problem: the graphs against the eager loop and
     # against the CPU
-    prob = _bench_ba_problem(cam, dev)
-    prob_cpu = _problem_to(prob, cpu)
+    prob = tc.bench_ba_problem(cam, dev)
+    prob_cpu = tc.problem_to(prob, cpu)
     cam_cpu = seq.cam.to(cpu)
     card = bundle_adjust(cam, prob, max_iters=15)      # warm-up + capture
     if card.poses.device.type != dev.type:
@@ -3307,21 +2093,21 @@ def run_ba(seq, dev):
         raise AssertionError(f"ba bench problem: a replayed solve read the "
                              f"host {report['bench_lm_reads']} times, "
                              f"{report['bench_graph_launches']} graph launches")
-    eager = _eager_ba(cam, prob, max_iters=15)
-    _same_bits("ba bench problem: the first graph solve vs eager", card, eager)
-    _same_bits("ba bench problem: a replay vs eager", replay, eager)
+    eager = tc.eager_ba(cam, prob, max_iters=15)
+    tc.same_bits("ba bench problem: the first graph solve vs eager", card, eager)
+    tc.same_bits("ba bench problem: a replay vs eager", replay, eager)
     host = bundle_adjust(cam_cpu, prob_cpu, max_iters=15)
-    _same_solve("ba bench problem P=8 L=1024, 15 iterations", card, host,
-                lambda k: bundle_adjust(cam, prob, max_iters=k),
-                lambda k: bundle_adjust(cam_cpu, prob_cpu, max_iters=k),
-                lambda p, l: bundle_adjust(cam_cpu, prob_cpu._replace(
-                    poses=p, lmks=l), max_iters=0).cost)
+    tc.same_solve("ba bench problem P=8 L=1024, 15 iterations", card, host,
+                  lambda k: bundle_adjust(cam, prob, max_iters=k),
+                  lambda k: bundle_adjust(cam_cpu, prob_cpu, max_iters=k),
+                  lambda p, l: bundle_adjust(cam_cpu, prob_cpu._replace(
+                      poses=p, lmks=l), max_iters=0).cost)
     rate = ba_slope(cam, prob)
-    eager_rate = ba_slope(cam, prob, solve=_eager_ba)
+    eager_rate = ba_slope(cam, prob, solve=tc.eager_ba)
     for n in BA_SLOPE_ITERS:
-        _same_bits(f"ba bench problem at tol=0, {n} iterations: graphs vs "
-                   "eager", bundle_adjust(cam, prob, max_iters=n, tol=0.0),
-                   _eager_ba(cam, prob, max_iters=n, tol=0.0))
+        tc.same_bits(f"ba bench problem at tol=0, {n} iterations: graphs vs "
+                     "eager", bundle_adjust(cam, prob, max_iters=n, tol=0.0),
+                     tc.eager_ba(cam, prob, max_iters=n, tol=0.0))
     if rate["iters_per_sec"] is None or eager_rate["iters_per_sec"] is None:
         raise AssertionError(f"BA slope not positive: {rate['ms']}, "
                              f"eager {eager_rate['ms']}")
@@ -3335,10 +2121,6 @@ def run_ba(seq, dev):
           f"a replayed solve of 15 iterations at LM_BLOCK {B.LM_BLOCK}: "
           f"{report['bench_lm_reads']} flag reads, "
           f"{report['bench_graph_launches']} graph launch", flush=True)
-    report["bench_sweep"] = _lm_block_sweep(
-        "ba bench problem", [((cam, prob), {"max_iters": 15}, eager)])
-    print(f"ba bench problem LM_BLOCK sweep (15 iterations at tol=1e-5): "
-          f"{json.dumps(report['bench_sweep'])}", flush=True)
 
     # (b) VOWithBA at its defaults over the bench frames, twice: run 1
     # captures each solve's shape (first of shape: warm-up and capture),
@@ -3375,10 +2157,10 @@ def run_ba(seq, dev):
         raise AssertionError("vo_with_ba outside the reference's bounds")
     RUNS["vo_with_ba"] = {"keyframes": n_kf, "solves": len(costs),
                           "poses": [o.pose_wc for o in outs]}
-    n_graphs = _n_solve_graphs(B)
+    n_graphs = tc.n_solve_graphs(B)
     second = _vo_with_ba(cfg, seq.cam, frames)
-    if _n_solve_graphs(B) != n_graphs or any(s["captured"]
-                                             for s in second.solves):
+    if tc.n_solve_graphs(B) != n_graphs or any(s["captured"]
+                                               for s in second.solves):
         raise AssertionError("vo_with_ba run 2 captured graphs: its solves "
                              "are not run 1's shapes")
     # run 2's solves replay: one graph launch each, no read; its Engine is
@@ -3412,23 +2194,18 @@ def run_ba(seq, dev):
         print(f"vo_with_ba {name} (ms a frame: host clock to a synchronize, "
               f"after frame 0; the solve's and the stages' ms: CUDA events "
               f"around each call): {json.dumps(rep)}", flush=True)
-    report["vo_with_ba_sweep"] = _lm_block_sweep("vo_with_ba solves",
-                                                  second.calls)
-    print(f"vo_with_ba solves LM_BLOCK sweep ({len(second.calls)} solves, "
-          f"ms of all of them): {json.dumps(report['vo_with_ba_sweep'])}",
-          flush=True)
 
     # one solve again on the CPU from the card's BAProblem
     (s_cam, s_prob), s_kw, s_out = first.calls[-1]
-    c_prob = _problem_to(s_prob, cpu)
+    c_prob = tc.problem_to(s_prob, cpu)
     on_cpu = bundle_adjust(cam_cpu, c_prob, **s_kw)
-    _same_solve(f"vo_with_ba last solve (P={s_prob.poses.shape[0]})", s_out,
-                on_cpu,
-                lambda k: bundle_adjust(s_cam, s_prob, **dict(s_kw, max_iters=k)),
-                lambda k: bundle_adjust(cam_cpu, c_prob, **dict(s_kw, max_iters=k)),
-                lambda p, l: bundle_adjust(cam_cpu, c_prob._replace(
-                    poses=p, lmks=l), **dict(s_kw, max_iters=0)).cost,
-                pose_atol=BA_WINDOW_POSE_ATOL, lmk_atol=BA_WINDOW_LMK_ATOL)
+    tc.same_solve(f"vo_with_ba last solve (P={s_prob.poses.shape[0]})", s_out,
+                  on_cpu,
+                  lambda k: bundle_adjust(s_cam, s_prob, **dict(s_kw, max_iters=k)),
+                  lambda k: bundle_adjust(cam_cpu, c_prob, **dict(s_kw, max_iters=k)),
+                  lambda p, l: bundle_adjust(cam_cpu, c_prob._replace(
+                      poses=p, lmks=l), **dict(s_kw, max_iters=0)).cost,
+                pose_atol=tc.BA_WINDOW_POSE_ATOL, lmk_atol=tc.BA_WINDOW_LMK_ATOL)
 
     # (c) marginalization: a 4-keyframe window evicts within the frames;
     # its solves at P = 4 repeat, with the prior, as replays
@@ -3487,7 +2264,7 @@ def run_ba(seq, dev):
         return out, (time.perf_counter() - t0) * 1e3
 
     sizes = {k: len(s._variants) for k, s in B._SOLVES.items()}
-    with CallRecorder(offline, "window_sharded_bundle_adjust") as solves:
+    with tc.CallRecorder(offline, "window_sharded_bundle_adjust") as solves:
         refined, first_ms = refine()
     new = [k for k, s in B._SOLVES.items()     # the batch's compiled solve
            if len(s._variants) > sizes.get(k, 0)]
@@ -3609,8 +2386,8 @@ def _entry(main, argv, record=False):
         stack.enter_context(contextlib.redirect_stdout(buf))
         rec = ba = None
         if record:
-            rec = stack.enter_context(CallRecorder(Engine, "process_frame"))
-            ba = stack.enter_context(CallRecorder(pipeline, "bundle_adjust"))
+            rec = stack.enter_context(tc.CallRecorder(Engine, "process_frame"))
+            ba = stack.enter_context(tc.CallRecorder(pipeline, "bundle_adjust"))
         rc = main(argv)
     torch.cuda.synchronize()
     launches = dict(settle_launches())
@@ -3863,7 +2640,7 @@ def run_entry_points(seq, dev, smi: str):
     write_kitti(str(out / "b_phase8.txt"), _chained(RUNS["kitti"]))
     equal = (out / "b.txt").read_bytes() == (out / "b_phase8.txt").read_bytes()
     n_valid = sum(bool(r.valid) for r in results)
-    ate_b = _ate(results, seq.poses)
+    ate_b = tc.ate(results, seq.poses)
     print(f"entry points (b) rso-demo --kitti at {W}x{H}: rc {rc}, calib "
           f"round trip gives the bench camera: {same_cam}, the demo's config "
           f"is phase 8's: {same_cfg}, trajectory equal to phase 8's kitti "
@@ -3988,37 +2765,6 @@ MESH_RANK_TIMEOUT = 300
 MESH_DIR = REPO / "build" / "chip_smoke" / "mesh"
 
 
-def _same_bits(what, a, b):
-    """Two NamedTuples of tensors, field by field, bit for bit."""
-    import torch
-
-    bad = [f for f, x, y in zip(a._fields, a, b) if not torch.equal(x, y)]
-    if bad:
-        raise AssertionError(f"{what}: {bad} differ")
-
-
-def _parted_at(a, b):
-    """The iteration where two BAResults stop apart, else None."""
-    if (int(a.n_iters), bool(a.converged)) == (int(b.n_iters),
-                                               bool(b.converged)):
-        return None
-    return min(int(a.n_iters), int(b.n_iters))
-
-
-def _to_cpu(result):
-    return type(result)(*(t.cpu() for t in result))
-
-
-def _lm_loop_iterations(n_iters: int, max_iters: int) -> int:
-    """The iterations the LM loop ran for a solve of n_iters (two
-    all_reduces each on a mesh): whole blocks of LM_BLOCK, up to the block
-    that stopped it."""
-    from rso_torch.ba.ba import LM_BLOCK
-
-    b = min(LM_BLOCK, max_iters)
-    return b * min(-(-n_iters // b), -(-max_iters // b))
-
-
 def _all_reduce_ms(group, n: int, dev) -> float:
     """ms per all_reduce of n float32 on the group (host clock to a
     synchronize around N_ALL_REDUCE calls, after 5)."""
@@ -4066,8 +2812,8 @@ def mesh_rank(rank: int, world: int, work: Path) -> None:
     initialize_multihost(f"file://{work}/store", world, rank, backend="gloo")
 
     # (b) the bench BA problem with its landmarks split `world` ways
-    cam = _bench_cam().to(dev)
-    prob = _bench_ba_problem(cam, dev)
+    cam = tc.bench_cam().to(dev)
+    prob = tc.bench_ba_problem(cam, dev)
     mesh = make_mesh()
     COLLECTIVES.clear()
     HOST_READS.clear()
@@ -4078,10 +2824,10 @@ def mesh_rank(rank: int, world: int, work: Path) -> None:
     out["ba_eager"] = dict(graph_launches=GRAPH_LAUNCHES["lm"],
                            lm_reads=HOST_READS["lm"])
     one = bundle_adjust(cam, prob, max_iters=15)
-    k = _parted_at(got, one)
-    out["ba"] = [_to_cpu(got), _to_cpu(one)] + ([] if k is None else [
-        _to_cpu(distributed_bundle_adjust(cam, prob, mesh, max_iters=k)),
-        _to_cpu(bundle_adjust(cam, prob, max_iters=k))])
+    k = tc.parted_at(got, one)
+    out["ba"] = [tc.to_cpu(got), tc.to_cpu(one)] + ([] if k is None else [
+        tc.to_cpu(distributed_bundle_adjust(cam, prob, mesh, max_iters=k)),
+        tc.to_cpu(bundle_adjust(cam, prob, max_iters=k))])
     out["ba_rate"] = ba_slope(cam, prob, solve=lambda c, p, **kw:
                               distributed_bundle_adjust(c, p, mesh, **kw))
     P = prob.poses.shape[0]
@@ -4102,11 +2848,11 @@ def mesh_rank(rank: int, world: int, work: Path) -> None:
     batch = window_sharded_bundle_adjust(cam, probs, **kw)
     out["win"] = []
     for w, (a, b) in enumerate(zip(wins, batch)):
-        k = _parted_at(a, b)
-        out["win"].append([_to_cpu(a), _to_cpu(b)] + ([] if k is None else [
-            _to_cpu(window_sharded_bundle_adjust(
+        k = tc.parted_at(a, b)
+        out["win"].append([tc.to_cpu(a), tc.to_cpu(b)] + ([] if k is None else [
+            tc.to_cpu(window_sharded_bundle_adjust(
                 cam, probs, wmesh, **dict(kw, max_iters=k))[w]),
-            _to_cpu(window_sharded_bundle_adjust(
+            tc.to_cpu(window_sharded_bundle_adjust(
                 cam, probs, **dict(kw, max_iters=k))[w])]))
     dist.destroy_process_group()
 
@@ -4115,7 +2861,7 @@ def mesh_rank(rank: int, world: int, work: Path) -> None:
         initialize_multihost(f"file://{work}/store_seq", N_SEQ_RANKS, rank,
                              backend="gloo")
         cfg = synthetic_config()
-        seqs = [_bench_scene(N_SEQ_FRAMES, seed=s) for s in range(N_SEQ_RANKS)]
+        seqs = [tc.bench_scene(N_SEQ_FRAMES, seed=s) for s in range(N_SEQ_RANKS)]
         lefts = np.stack([[f[0] for f in s.frames] for s in seqs])
         rights = np.stack([[f[1] for f in s.frames] for s in seqs])
         be = BatchEngine(cfg, seqs[0].cam, batch=N_SEQ_RANKS, img_h=H,
@@ -4176,14 +2922,6 @@ def _spawn_ranks(world: int, work: Path) -> list:
             for r in range(world)]
 
 
-def _hold_solve(what, got, ref, parted, cost_at, **tol):
-    """A sharded solve against the one-device one at phase 9's bounds
-    (_same_solve): `parted` holds both again at the iteration where they
-    stop apart; cost_at(poses, landmarks) is the one-device cost there."""
-    _same_solve(what, got, ref, lambda k: parted[0], lambda k: parted[1],
-                cost_at, sides=("sharded", "one-device"), **tol)
-
-
 def run_mesh(seq, dev, smi: str) -> dict:
     """Phase 11: the mesh forms and the host oracles.  Returns the launches
     of its main-path runs (rank 0's of (c), and (d)'s)."""
@@ -4213,30 +2951,30 @@ def run_mesh(seq, dev, smi: str) -> dict:
     mesh = make_mesh()
     if dist.get_backend() != "nccl":
         raise AssertionError("mesh (a): no NCCL group")
-    prob = _bench_ba_problem(cam, dev)
+    prob = tc.bench_ba_problem(cam, dev)
     one = bundle_adjust(cam, prob, max_iters=15)
-    with eager_mesh_solves():
+    with tc.eager_mesh_solves():
         eager = distributed_bundle_adjust(cam, prob, mesh, max_iters=15)
-    _same_bits("mesh (a) the eager mesh loop on one NCCL rank vs "
-               "bundle_adjust", eager, one)
-    n_graphs = _n_solve_graphs(B)
+    tc.same_bits("mesh (a) the eager mesh loop on one NCCL rank vs "
+                 "bundle_adjust", eager, one)
+    n_graphs = tc.n_solve_graphs(B)
     first = distributed_bundle_adjust(cam, prob, mesh, max_iters=15)
-    _same_bits("mesh (a) the compiled mesh solve's warm-up vs the eager mesh "
-               "loop", first, eager)
-    captured = _n_solve_graphs(B) - n_graphs
-    forms = mesh_solve_forms(B)
-    got, replay = counted_solve(
+    tc.same_bits("mesh (a) the compiled mesh solve's warm-up vs the eager mesh "
+                 "loop", first, eager)
+    captured = tc.n_solve_graphs(B) - n_graphs
+    forms = tc.mesh_solve_forms(B)
+    got, replay = tc.counted_solve(
         lambda: distributed_bundle_adjust(cam, prob, mesh, max_iters=15))
-    _same_bits("mesh (a) the compiled mesh solve's replay vs the eager mesh "
-               "loop", got, eager)
-    n = _lm_loop_iterations(int(got.n_iters), 15)
+    tc.same_bits("mesh (a) the compiled mesh solve's replay vs the eager mesh "
+                 "loop", got, eager)
+    n = tc.lm_loop_iterations(int(got.n_iters), 15)
     expect = {"solve lmk": 1 + 2 * n, "gather lmk": 1}
     if (replay["graph_launches"], replay["lm_reads"],
             replay["collectives"]) != (1, 0, expect):
         raise AssertionError(f"mesh (a): a replayed solve made {replay}, "
                              f"expected 1 graph launch, 0 LM host reads and "
                              f"collectives {expect}")
-    with eager_mesh_solves():
+    with tc.eager_mesh_solves():
         eager_rate = ba_slope(cam, prob, solve=lambda c, p, **kw:
                               distributed_bundle_adjust(c, p, mesh, **kw))
     rate = ba_slope(cam, prob, solve=lambda c, p, **kw:
@@ -4277,11 +3015,11 @@ def run_mesh(seq, dev, smi: str) -> dict:
     wkw = {k: kw[k] for k in ("rel_w_rot", "rel_w_trans")}
     for r, o in enumerate(ranks):
         ours, ref, *parted = o["ba"]
-        _hold_solve(f"mesh (b) rank {r}: the bench BA problem on "
-                    f"{N_MESH_RANKS} ranks vs one", ours, ref, parted,
-                    cost_at)
-        _same_bits(f"mesh (b) rank {r} vs rank 0", ours, ranks[0]["ba"][0])
-        n = _lm_loop_iterations(int(ours.n_iters), 15)
+        tc.hold_solve(f"mesh (b) rank {r}: the bench BA problem on "
+                      f"{N_MESH_RANKS} ranks vs one", ours, ref, parted,
+                      cost_at)
+        tc.same_bits(f"mesh (b) rank {r} vs rank 0", ours, ranks[0]["ba"][0])
+        n = tc.lm_loop_iterations(int(ours.n_iters), 15)
         expect = {"solve lmk": 1 + 2 * n, "gather lmk": 1}
         if o["ba_collectives"] != expect:
             raise AssertionError(f"mesh (b) rank {r}: collectives "
@@ -4290,13 +3028,13 @@ def run_mesh(seq, dev, smi: str) -> dict:
             raise AssertionError(f"mesh (b) rank {r}: a gloo solve ran "
                                  f"{o['ba_eager']}, not eagerly")
         for w, (ours, ref, *parted) in enumerate(o["win"]):
-            _hold_solve(f"mesh (b) rank {r}: offline window {w} on the (2,"
-                        f"{N_MESH_RANKS // 2}) mesh vs the batch", ours, ref,
-                        parted, lambda p, l, w=w: cost_at(
-                            p, l, probs[w], rel_meas=kw["rel_meas"][w],
-                            **wkw),
-                        pose_atol=BA_WINDOW_POSE_ATOL,
-                        lmk_atol=BA_WINDOW_LMK_ATOL)
+            tc.hold_solve(f"mesh (b) rank {r}: offline window {w} on the (2,"
+                          f"{N_MESH_RANKS // 2}) mesh vs the batch", ours, ref,
+                          parted, lambda p, l, w=w: cost_at(
+                              p, l, probs[w], rel_meas=kw["rel_meas"][w],
+                              **wkw),
+                        pose_atol=tc.BA_WINDOW_POSE_ATOL,
+                        lmk_atol=tc.BA_WINDOW_LMK_ATOL)
         c = o["win_collectives"]
         if any(key.startswith("solve win") for key in c) or c.get(
                 "gather win") != 1 or c.get("gather lmk") != 1:
@@ -4447,7 +3185,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    smi = _nvidia_smi()
+    smi = tc.nvidia_smi()
     print(f"device: {torch.cuda.get_device_name(0)} | {smi}", flush=True)
 
     from rso_torch.kernels import _lib
@@ -4458,9 +3196,9 @@ def main() -> int:
           flush=True)
 
     dev = torch.device("cuda")
-    seq = _bench_scene(N_FRAMES)
-    report, timed = check_kernels(seq, dev)
-    check_batched_kernels(seq, dev, report, timed)
+    seq = tc.bench_scene(N_FRAMES)
+    report, timed = kernel_calls(seq, dev)
+    batched_kernel_calls(seq, dev, report, timed)
     by_phase = run_engines(seq, dev)
     by_phase.update(run_new_paths(seq, dev))
     by_phase["compiled"] = run_compiled(seq, dev)
@@ -4480,9 +3218,6 @@ def main() -> int:
         "nullvec9": ("smallchol.cu", "rso/kernels/smallchol.py:136", "default"),
         "hamming_matrix": ("distance.cu", "rso/kernels/distance.py:157", "fast_orb_rbr_win"),
         "sad_matrix": ("distance.cu", "rso/kernels/distance.py:123", "sad_dense"),
-        # no Pallas kernel: rso's eigh backend calls XLA's jnp.linalg.eigh;
-        # no path launches it since its routine runs inside gn_iter (0)
-        "eigh6": ("eigh6.cu", "rso/solver/robust_gn.py:133", "eigh_lm"),
         # no Pallas kernel: rso's GN iteration is plain XLA
         "gn_iter": ("gn_iter.cu", "rso/solver/robust_gn.py:89 (_eval_rgn) "
                     "and the GN loop's body", "default"),
@@ -4495,7 +3230,7 @@ def main() -> int:
     }
     frames = {"default": N_FRAMES, "fast_orb_rbr_win": N_FRAMES,
               "sad_dense": N_DENSE_FRAMES, "wide_window": N_WIDE_FRAMES,
-              "eigh_lm": N_SOLVE_FRAMES, "flow": N_PATH_FRAMES}
+              "flow": N_PATH_FRAMES}
     floor_us = report["floor"]["device_us"]
     for x in [report["hamming_matrix"]] + report["hamming_matrix"]["octaves"]:
         x["write_us"] = x.pop("write")["device_us"]
@@ -4530,3 +3265,4 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(main())
+

@@ -45,8 +45,8 @@ from rso_torch.graphs import CompiledStep
 from rso_torch.solver.robust_gn import eager_blocks
 
 # masked LM iterations a block: one run of a WHILE node's body in the
-# graph, one flag read in the eager form.  On an H100 (chip_smoke.py's
-# LM_BLOCK_SWEEP in the one-launch graph, two calls): 5 wins on the bench
+# graph, one flag read in the eager form.  Block sizes 1, 2 and 5 timed on
+# an H100 in the one-launch graph (two calls): 5 wins on the bench
 # problem's 15 iterations (15.22-15.41 ms a solve against 15.54-15.86 at 1
 # and 16.37-17.05 at 2) and 1 on the 8 VOWithBA solves, which stop
 # mid-block (148.2-168.7 ms against 170.9-176.7 at 5, its two passes in

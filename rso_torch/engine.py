@@ -24,11 +24,11 @@ CUDA graph launch with no host read: the pose solver's GN loops are
 conditional WHILE nodes and, with detect_every > 1, the choice between
 detecting and propagating is a pair of IF nodes (`engine_branches`), as
 the reference's lax.while_loop and lax.cond run on its device.  Every
-solve backend runs so, eigh included (its eigensolver is the eigh6 kernel
-on the GPU).  On the CPU the same object runs the eager step, which reads
-the branch and the loops' flags on the host.  The entry points run on the
-GPU unless the caller passes device="cpu", and raise where CUDA is
-absent.
+solve backend runs so, eigh included (on the GPU the GN iteration kernel
+runs its eigensolver, csrc/eigh6.cuh).  On the CPU the same object runs
+the eager step, which reads the branch and the loops' flags on the host.
+The entry points run on the GPU unless the caller passes device="cpu",
+and raise where CUDA is absent.
 
 The step marks its stages for the stage clock
 (rso_torch.metrics.profiler.STAGE_CLOCK; nothing while its marks are off):

@@ -2,8 +2,9 @@
 
 Each module holds `<name>_torch` (the twin, used for CPU tensors),
 `<name>_cuda` (the kernel wrapper) and `<name>_auto` (the dispatcher);
-`eigh6`, the pose solver's 6x6 eigensolver on the GPU, has no dispatcher:
-on the CPU the solver keeps LAPACK's eigh (rso_torch.solver.robust_gn).
+`eigh6` has the twin alone: the pose solver's 6x6 eigensolver, whose
+routine the `gn_iter` kernel runs (csrc/eigh6.cuh); the plain GN iteration
+takes it on the GPU and LAPACK's eigh on the CPU (rso_torch.solver.robust_gn).
 `gn_iter`, one iteration of the pose solver's GN loop, has neither twin
 nor dispatcher here: its plain version and the dispatch are the solver's
 (`robust_gn.gn_iteration_torch`, `robust_gn.gn_iteration`).  Nor has
@@ -28,7 +29,7 @@ from rso_torch.kernels.distance import (
     sad_matrix_cuda,
     sad_matrix_torch,
 )
-from rso_torch.kernels.eigh6 import eigh6_cuda, eigh6_torch
+from rso_torch.kernels.eigh6 import eigh6_torch
 from rso_torch.kernels.fast_detect import (
     corner_response_auto,
     corner_response_cuda,
@@ -50,7 +51,6 @@ __all__ = [
     "corner_response_auto",
     "corner_response_cuda",
     "corner_response_torch",
-    "eigh6_cuda",
     "eigh6_torch",
     "hamming_matrix_auto",
     "hamming_matrix_cuda",

@@ -117,7 +117,6 @@ _SIGNATURES = {
     "rso_nullvec9": [_P, _P, _I, _P],
     "rso_hamming_matrix": [_P, _P, _I, _I, _I, _I, _P, _P],
     "rso_sad_matrix": [_P, _P, _I, _I, _I, _I, _P, _P],
-    "rso_eigh6": [_P, _P, _P, _I, _P],
     "rso_gn_iter": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _L,
                     _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _F, _F, _I, _I, _I, _I, _P],

@@ -1,22 +1,21 @@
 """The pose solver's 6x6 symmetric eigensolver: batched cyclic Jacobi.
 
 No TPU kernel of the reference: rso's eigh solve backend calls XLA's
-`jnp.linalg.eigh` (rso/solver/robust_gn.py:133).  The port's GN takes
-`torch.linalg.eigh` on the CPU (LAPACK, the routine XLA runs there) and this
-kernel on the GPU, where cuSOLVER's eigh checks its status on the host and
-so cannot run inside a CUDA graph (see the header of csrc/eigh6.cu for the
-design and its bound on the H100).
+`jnp.linalg.eigh` (rso/solver/robust_gn.py:133).  On the GPU the GN
+iteration kernel runs this routine itself (csrc/eigh6.cuh inside
+csrc/gn_iter.cu), since cuSOLVER's eigh checks its status on the host and
+so cannot run inside a CUDA graph.  The plain GN iteration
+(robust_gn.gn_iteration_torch) takes `torch.linalg.eigh` on the CPU
+(LAPACK, the routine XLA runs there) and `eigh6_torch` on the GPU.
 
-The twin `eigh6_torch` runs the kernel's arithmetic: the same rotations in
-the same order, each a sequence of correctly rounded f32 operations with no
-fused multiply-add, so the two agree bit for bit wherever the compilers
-keep that order (the check on the card states its tolerance).
+`eigh6_torch` runs the routine's arithmetic: the same rotations in the
+same order, each a sequence of correctly rounded f32 operations with no
+fused multiply-add, so it and csrc/eigh6.cuh agree bit for bit wherever
+the compilers keep that order.
 """
 from __future__ import annotations
 
 import torch
-
-from rso_torch.kernels import _lib
 
 _N = 6
 # cyclic sweeps over the 15 (p, q) pairs, every matrix the same count; a
@@ -31,7 +30,7 @@ SORT_NETWORK = ((0, 5), (1, 3), (2, 4), (1, 2), (3, 4), (0, 3), (2, 5),
 def eigh6_torch(H: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[..., 6, 6] symmetric (the lower triangle is read, as eigh reads it)
     -> (w [..., 6] ascending, V [..., 6, 6] with the eigenvectors as
-    columns): SWEEPS cyclic Jacobi sweeps, the kernel's arithmetic."""
+    columns): SWEEPS cyclic Jacobi sweeps, csrc/eigh6.cuh's arithmetic."""
     one = torch.ones_like(H[..., 0, 0])
     zero = torch.zeros_like(one)
     a = [[H[..., max(i, j), min(i, j)] for j in range(_N)] for i in range(_N)]
@@ -84,40 +83,3 @@ def _rotate(a, v, p: int, q: int, one) -> None:
         vrp, vrq = v[r][p], v[r][q]
         v[r][p] = keep(c * vrp - s * vrq, vrp)
         v[r][q] = keep(s * vrp + c * vrq, vrq)
-
-
-def _launch(H: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    batch = H.shape[:-2]
-    Hb = H.reshape(-1, _N, _N).contiguous()
-    B = Hb.shape[0]
-    if B == 0:
-        raise ValueError("eigh6_cuda: empty batch")
-    h = _lib.check(Hb, "H", torch.float32, (B, _N, _N), H.device)
-    w = torch.empty(B, _N, dtype=torch.float32, device=H.device)
-    V = torch.empty(B, _N, _N, dtype=torch.float32, device=H.device)
-    _lib.launch("eigh6", h, w.data_ptr(), V.data_ptr(), B)
-    return w.reshape(*batch, _N), V.reshape(*batch, _N, _N)
-
-
-@torch.library.custom_op("rso_torch::eigh6", mutates_args=(),
-                         device_types="cuda",
-                         schema="(Tensor H) -> (Tensor, Tensor)")
-def _eigh6_op(H):
-    return _launch(H)
-
-
-@torch.library.register_vmap("rso_torch::eigh6")
-def _eigh6_lanes(info, in_dims, H):
-    """vmap: every lane's matrices in one launch."""
-    (H,) = _lib.lanes(info.batch_size, in_dims, (H,))
-    return _launch(H), (0, 0)
-
-
-def eigh6_cuda(H: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA kernel: one thread a matrix, the matrix and its rotations in
-    registers (the custom op `rso_torch::eigh6`; under torch.func.vmap one
-    launch takes every lane's matrices)."""
-    _lib.load()
-    if not H.is_cuda:
-        raise ValueError(f"eigh6_cuda: H on {H.device}")
-    return _eigh6_op(H)

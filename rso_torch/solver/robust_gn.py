@@ -51,7 +51,7 @@ from rso_torch.geometry.stereo_camera import (
     project_stereo_with_jacobian,
     triangulate,
 )
-from rso_torch.kernels.eigh6 import eigh6_cuda
+from rso_torch.kernels.eigh6 import eigh6_torch
 from rso_torch.kernels.gn_iter import gn_iteration_cuda
 from rso_torch.metrics.profiler import STAGE_CLOCK
 
@@ -68,12 +68,13 @@ _COND_MAX = 1e7
 _F32_MAX = torch.finfo(torch.float32).max
 
 # masked GN iterations a block: one run of a WHILE node's body in the
-# graph, one flag read in the eager form.  On an H100 (chip_smoke.py's
-# GN_BLOCK_SWEEP, default and kitti paths, in the one-launch graph with no
-# read to save): blocks of 1 and 2 tie (7.21 / 7.24 ms a default step,
-# 9.63 / 9.65 kitti) and 4 loses (8.12, 11.27), its masked iterations
-# costing more than the fewer WHILE iterations save; 1 also wins on wall
-# time (7.53 against 7.94 ms) and runs no masked iteration
+# graph, one flag read in the eager form.  Block sizes 1, 2 and 4 timed on
+# an H100 on the default and kitti paths, in the one-launch graph with no
+# read to save: with PyTorch's GN ops 1 and 2 tied (7.21 / 7.24 ms a
+# default step, 9.63 / 9.65 kitti) and 4 lost (8.12, 11.27), its masked
+# iterations costing more than the fewer WHILE iterations save, 1 also
+# winning on wall time (7.53 against 7.94 ms) with no masked iteration;
+# with the gn_iter kernel the three came within 0.3%
 GN_BLOCK = 1
 
 # host reads of device flags, by site: "gn" (the pose solver's stop flag,
@@ -167,13 +168,14 @@ def _eval_rgn(cam: StereoCamera, lmks, obs, mask, delta_pose,
 
 def _eigh(H: torch.Tensor):
     """(w ascending, V) of a symmetric 6x6 H: LAPACK's eigh on the CPU, the
-    routine the reference's jnp.linalg.eigh runs there; on the GPU the
-    eigh6 kernel (cyclic Jacobi), since cuSOLVER's eigh reads its status on
-    the host and so cannot run inside the step's CUDA graph (the plain
-    iteration's; the gn_iter kernel runs eigh6's routine itself)."""
+    routine the reference's jnp.linalg.eigh runs there; elsewhere eigh6's
+    cyclic Jacobi in plain PyTorch (`eigh6_torch`), since cuSOLVER's eigh
+    reads its status on the host and so cannot run inside the step's CUDA
+    graph (the plain iteration's; the gn_iter kernel runs eigh6's routine
+    itself)."""
     if H.device.type == "cpu":
         return torch.linalg.eigh(H)
-    return eigh6_cuda(H)
+    return eigh6_torch(H)
 
 
 def cho_inverse(L: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import chip_smoke as CS  # noqa: E402
+import _torch_card as card  # noqa: E402
 from rso_torch.ba import bundle_adjust  # noqa: E402
 
 
@@ -33,8 +33,8 @@ class CountOps(TorchDispatchMode):
 
 
 def ops_per_iteration(**kw) -> collections.Counter:
-    seq_cam = CS._bench_scene(1).cam
-    prob = CS._bench_ba_problem(seq_cam, torch.device("cpu"))
+    seq_cam = card.bench_scene(1).cam
+    prob = card.bench_ba_problem(seq_cam, torch.device("cpu"))
     counts = []
     for n in (1, 2):
         with CountOps() as c:

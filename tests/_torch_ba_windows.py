@@ -31,15 +31,15 @@ def dump(path="chiprun_out/ba_windows.npz"):
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
         __file__))))
-    import chip_smoke as CS
+    import _torch_card as card
     import rso_torch.ba.pipeline as pipeline
     from rso_torch.ba import VOWithBA
     from rso_torch.synthetic import synthetic_config
 
-    seq = CS._bench_scene(CS.N_FRAMES)
+    seq = card.bench_scene(card.N_FRAMES)
     dev = torch.device("cuda")
     vo = VOWithBA(synthetic_config(), seq.cam)
-    with CS.CallRecorder(pipeline, "bundle_adjust") as rec:
+    with card.CallRecorder(pipeline, "bundle_adjust") as rec:
         for left, right in seq.frames:
             vo.process_frame(torch.from_numpy(left).to(dev),
                              torch.from_numpy(right).to(dev))

@@ -8,8 +8,8 @@ PyTorch can keep a captured graph's cudaGraph_t
 (`CUDAGraph(keep_graph=True)`, `raw_cuda_graph`) and capture into an IF
 node (`begin_capture_to_if_node`), then builds rso_torch's library
 (csrc/*.cu, the conditional-node helper csrc/graph_cond.cu among them) and
-prints ptxas's registers and spills of csrc/eigh6.cu, csrc/gn_iter.cu
-and csrc/graph_cond.cu.  Conditional WHILE nodes need CUDA 12.4 or later in
+prints ptxas's registers and spills of csrc/gn_iter.cu and
+csrc/graph_cond.cu.  Conditional WHILE nodes need CUDA 12.4 or later in
 the toolkit and in libcuda.  Then, for the segments a compiled
 step captures (a bundle_adjust solve at the bench problem's shape, an
 Engine step at 376x1241 with each solve backend, and a one-kernel graph),
@@ -77,7 +77,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s ({path})", flush=True)
     out = REPO / "build" / "probe"
     out.mkdir(parents=True, exist_ok=True)
-    for src in ("eigh6.cu", "gn_iter.cu", "graph_cond.cu"):
+    for src in ("gn_iter.cu", "graph_cond.cu"):
         log = _run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c",
                     "-o", str(out / (src + ".o")),
                     str(REPO / "rso_torch" / "csrc" / src)])
@@ -248,11 +248,11 @@ def _segments() -> None:
             _describe(f"{site} predicate", [pred])
     # the bench BA problem as tests/test_torch_cuda.py solves it: the eager
     # loop first, then the compiled solve
-    import chip_smoke as CS
+    import _torch_card as card
 
     seen.clear()
-    bench = CS._bench_ba_problem(cam, dev)
-    CS._eager_ba(cam, bench, max_iters=25, tol=0.0)
+    bench = card.bench_ba_problem(cam, dev)
+    card.eager_ba(cam, bench, max_iters=25, tol=0.0)
     try:
         bundle_adjust(cam, bench, max_iters=25, tol=0.0)
     except _Stop:

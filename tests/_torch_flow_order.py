@@ -42,7 +42,7 @@ def sums() -> dict:
 def flow_run(n_frames: int, seed: int, sum_points) -> dict:
     """The flow path over the first n_frames bench frames of `seed` on the
     CPU with ransac._sum_points replaced by `sum_points`."""
-    import chip_smoke as CS
+    import _torch_card as card
     import rso_torch.solver.ransac as ransac
     from rso_torch.engine import Engine
     from rso_torch.synthetic import synthetic_config
@@ -50,7 +50,7 @@ def flow_run(n_frames: int, seed: int, sum_points) -> dict:
     base = synthetic_config()
     cfg = base.replace(if_match=dataclasses.replace(base.if_match,
                                                     ifm_method=3))
-    seq = CS._bench_scene(max(n_frames, CS.N_FRAMES), seed=seed)
+    seq = card.bench_scene(max(n_frames, card.N_FRAMES), seed=seed)
     keep, ransac._sum_points = ransac._sum_points, sum_points
     try:
         eng = Engine(cfg, seq.cam, device="cpu")
@@ -59,7 +59,7 @@ def flow_run(n_frames: int, seed: int, sum_points) -> dict:
     finally:
         ransac._sum_points = keep
     return {"valid": sum(bool(r.valid) for r in results),
-            "ate": float(CS._ate(results, seq.poses))}
+            "ate": float(card.ate(results, seq.poses))}
 
 
 def main(argv=None) -> int:

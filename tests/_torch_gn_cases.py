@@ -1,7 +1,8 @@
 """Pose-solve problems for the GN iteration kernel's checks
 (tests/test_torch_gn_iter.py, chip_smoke.py), made with the port alone, no
 jax: tests/test_solver.py's cases as tests/test_torch_solver.py makes them,
-the degenerate ones, and a frame's [T] slots at the engine's shapes.
+the degenerate ones, a frame's [T] slots at the engine's shapes, and the
+comparison of the kernel's carry with the plain iteration's (`same_carry`).
 """
 from __future__ import annotations
 
@@ -43,6 +44,49 @@ VARIANTS = {
 
 # a frame's slots: octaves of 512, 256 and 128 (kitti, T = 896)
 FRAME_SLOTS = (512, 256, 128)
+
+
+# The kernel's carry against the plain iteration's: integer fields and LM's
+# lambda exact, the increment within POSE_ATOL plus STEP_RTOL of the step,
+# residuals and cost within RES_* and COST_RTOL (the GN kernel's card check:
+# tests/test_torch_gn_iter.py and chip_smoke.py, through
+# tests/_torch_card.check_kernel)
+INTS = ("it", "active", "times_inc", "abort", "ec")
+POSE_ATOL = 1e-5
+RES_ATOL = 5e-3
+RES_RTOL = 1e-5
+COST_RTOL = 5e-3
+STEP_RTOL = 1e-4
+
+
+def same_carry(got, want, what, start):
+    """Hold the kernel's carry `got` to the plain iteration's `want`, both
+    one iteration from `start` (the tolerances above)."""
+    for name in INTS:
+        assert torch.equal(getattr(got, name), getattr(want, name)), (
+            f"{what}: {name} {getattr(got, name)} != {getattr(want, name)}")
+    step = (want.dp - start.dp).abs().max().item()
+    torch.testing.assert_close(got.dp, want.dp, rtol=0,
+                               atol=POSE_ATOL + STEP_RTOL * step,
+                               msg=msg(what, "dp"))
+    close_res(got.res, want.res, what)
+    close_cost(got.cost, want.cost, what)
+    if want.lam is not None:
+        assert torch.equal(got.lam, want.lam), f"{what}: lam"
+
+
+def msg(what, field):
+    return lambda m: f"{what}: {field}: {m}"
+
+
+def close_res(got, want, what):
+    torch.testing.assert_close(got, want, rtol=RES_RTOL, atol=RES_ATOL,
+                               equal_nan=True, msg=msg(what, "residuals"))
+
+
+def close_cost(got, want, what):
+    torch.testing.assert_close(got, want, rtol=COST_RTOL, atol=RES_ATOL,
+                               equal_nan=True, msg=msg(what, "cost"))
 
 
 def camera(device="cpu") -> StereoCamera:

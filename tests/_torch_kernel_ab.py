@@ -30,7 +30,7 @@ earlier design (its twin is another algorithm), also at B = 1, 31, 32, 33
 and 129, on rank-4 and all-zero matrices and on matrices scaled by 1e-30 to
 1e30 (quotients outside the division's fast range); then times it: the
 median of the kernel's own duration over 50 launches (torch.profiler's CUDA
-activity, all in one session: chip_smoke.device_times) and the median call
+activity, all in one session: _torch_card.device_times) and the median call
 time (CUDA events around the wrapper).  The designs run in turns, earlier,
 new, new, earlier in each of ROUNDS rounds.  Both designs go through the same Python
 wrappers: the wrappers' library handle is swapped for the earlier library.
@@ -135,11 +135,11 @@ def main() -> int:
         print("kernel_ab: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    import chip_smoke as CS
+    import _torch_card as card
     from rso_torch import kernels as K
     from rso_torch.kernels import _lib
 
-    smi = CS._nvidia_smi()
+    smi = card.nvidia_smi()
     print(f"device: {torch.cuda.get_device_name(0)} | {smi}", flush=True)
     srcs = earlier_sources(None if args.parent_src else args.parent,
                            args.parent_src)
@@ -147,7 +147,7 @@ def main() -> int:
                "new": _lib.load()}
 
     dev = torch.device("cuda")
-    bi = CS.BenchInputs(CS._bench_scene(CS.N_FRAMES), dev)
+    bi = card.BenchInputs(card.bench_scene(card.N_FRAMES), dev)
     dense_kw = dict(bi.track_kw, win_row=1e4, win_col=1e4)
     cases = []   # (kernel, label, call, twin: None to hold new to earlier)
     for o in range(3):
@@ -179,23 +179,23 @@ def main() -> int:
                       lambda a=a, b=b: K.hamming_matrix_torch(a, b)))
     rng = np.random.default_rng(0)
     for B in (512, 2):
-        M = CS.rank8_matrices(rng, B, dev)
+        M = card.rank8_matrices(rng, B, dev)
         cases.append(("nullvec9_kernel", f"B={B}",
                       lambda M=M: K.nullvec9_cuda(M), None))
     # the floors: design-free, timed in the same turns
     one = torch.zeros(1, device=dev)
-    cases.append((CS.FILL_KERNEL, "fill 1", one.zero_, None))
+    cases.append((card.FILL_KERNEL, "fill 1", one.zero_, None))
     for k in bi.Ks:
         out = torch.empty((k, k), device=dev)
-        cases.append((CS.FILL_KERNEL, f"fill {k}x{k}", out.zero_, None))
+        cases.append((card.FILL_KERNEL, f"fill {k}x{k}", out.zero_, None))
     # kernel 4 bit for bit against the earlier design, untimed
-    checked = [CS.rank8_matrices(rng, B, dev) for B in (1, 31, 32, 33, 129)]
+    checked = [card.rank8_matrices(rng, B, dev) for B in (1, 31, 32, 33, 129)]
     A = torch.tensor(rng.normal(0, 1, (16, 4, 9)), dtype=torch.float32,
                      device=dev)
     checked += [(A.transpose(1, 2) @ A).contiguous(),
                 torch.zeros((4, 9, 9), device=dev)]
     # quotients outside the division's fast range, and at its edges
-    checked += [CS.rank8_matrices(rng, 64, dev) * s
+    checked += [card.rank8_matrices(rng, 64, dev) * s
                 for s in (1e-30, 1e-20, 1e-12, 1e12, 1e20, 1e30)]
     for M in checked:
         new = K.nullvec9_cuda(M)
@@ -213,23 +213,20 @@ def main() -> int:
         return run
 
     # every check first, then the call times, then every device time in one
-    # profiler session (chip_smoke.device_times), all in the same turns; the
+    # profiler session (_torch_card.device_times), all in the same turns; the
     # profiler goes last, as the process runs slower after it
     runs = []   # (case index, design, kernel, fn)
     for c, (kernel, label, call, twin) in enumerate(cases):
         ref = twin() if twin else through(designs["earlier"], call)()
         for name in DESIGNS:
-            out = through(designs[name], call)()
-            for x, y in zip(out if isinstance(out, tuple) else (out,),
-                            ref if isinstance(ref, tuple) else (ref,)):
-                if not torch.equal(x, y):
-                    raise AssertionError(f"{name} {kernel} {label}: != "
-                                         f"{'twin' if twin else 'earlier'}")
+            card.same_bits(f"{name} {kernel} {label} against the "
+                           f"{'twin' if twin else 'earlier'}",
+                           through(designs[name], call)(), ref)
         # in turns: earlier, new, new, earlier
         runs += [(c, name, kernel, through(designs[name], call))
                  for _ in range(ROUNDS) for name in DESIGNS + DESIGNS[::-1]]
-    ms = [CS._median_ms(fn) for _, _, _, fn in runs]
-    us = CS.device_times([(kernel, fn) for _, _, kernel, fn in runs])
+    ms = [card.median_ms(fn) for _, _, _, fn in runs]
+    us = card.device_times([(kernel, fn) for _, _, kernel, fn in runs])
 
     results = []
     for c, (kernel, label, _, _) in enumerate(cases):

@@ -37,7 +37,6 @@ from rso_torch.config import DetectParams
 from rso_torch.frontend import optical_flow as OF
 from rso_torch.frontend.detect import detect_features
 from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
-from rso_torch.geometry import StereoCamera
 from rso_torch.synthetic import make_sequence
 
 H, W = 376, 1241
@@ -149,14 +148,6 @@ def agree(got, want, width, height, conv=None, min_tracked=0.5):
                              f"{gaps[1]}")
     return rows, gaps, int(both.sum()), n_loose, (
         float(pos_gap[loose].max()) if n_loose else 0.0)
-
-
-def bench_scene(n_frames, seed=0):
-    """chip_smoke's bench scene: 1241x376 at the KITTI camera, speed 0.8."""
-    cam = StereoCamera.make(fx_l=718.856, fy_l=718.856, cx_l=W / 2.0,
-                            cy_l=H / 2.0, baseline=0.5371)
-    return make_sequence(n_frames=n_frames, n_points=2000, H=H, W=W, cam=cam,
-                         speed=0.8, seed=seed)
 
 
 def propagate_calls(cfg, seq, dev, n_frames):

@@ -9,7 +9,7 @@ Starts RANKS processes of this script (a FileStore in
 build/chip_smoke/mesh_nccl), rank r on card r, each:
   (a) distributed_bundle_adjust on chip_smoke's bench BA problem (P 8,
       L 1024, 15 iterations) over a RANKS-rank 'lmk' mesh: the eager mesh
-      loop (chip_smoke.eager_mesh_solves), the compiled solve's first call
+      loop (_torch_card.eager_mesh_solves), the compiled solve's first call
       (warm-up and capture) and a replay, both equal to the eager loop bit
       for bit; a replay one graph launch with no LM host read and 1 + 2 n
       solve all_reduces (n the iterations the loop ran) and one gather;
@@ -62,35 +62,35 @@ def _compiled_vs_eager(what, solve, cpu, step, rows=None):
     loop, then the compiled solve's first call and a replay, both held to
     the eager answer bit for bit; `rows` the windows of this rank's row,
     step(text) logs progress."""
-    import chip_smoke as CS
+    import _torch_card as card
     import rso_torch.ba.ba as B
     from rso_torch.solver.robust_gn import HOST_READS
 
     HOST_READS.clear()
-    with CS.eager_mesh_solves():
+    with card.eager_mesh_solves():
         eager = solve()
     eager_reads = HOST_READS["lm"]
     step(f"{what} eager loop done")
-    n_graphs = CS._n_solve_graphs(B)
+    n_graphs = card.n_solve_graphs(B)
     first = solve()
-    captured = CS._n_solve_graphs(B) - n_graphs
+    captured = card.n_solve_graphs(B) - n_graphs
     step(f"{what} first compiled call done ({captured} graphs captured)")
-    got, counts = CS.counted_solve(solve)
+    got, counts = card.counted_solve(solve)
     many = isinstance(eager, list)
     for call, out in (("first call", first), ("replay", got)):
         for w, (a, b) in enumerate(zip(out if many else [out],
                                        eager if many else [eager])):
-            CS._same_bits(f"{what} {call} window {w} vs the eager loop", a, b)
+            card.same_bits(f"{what} {call} window {w} vs the eager loop", a, b)
     n_iters = (max(int(got[w].n_iters) for w in rows) if many
                else int(got.n_iters))
-    n = CS._lm_loop_iterations(n_iters, MAX_ITERS)
+    n = card.lm_loop_iterations(n_iters, MAX_ITERS)
     want = {"solve lmk": 1 + 2 * n, "gather lmk": 1}
     if many:
         want["gather win"] = 1
     if counts["collectives"] != want:
         raise AssertionError(f"{what}: collectives {counts['collectives']}, "
                              f"expected {want}")
-    forms = {f for f, _ in CS.mesh_solve_forms(B)}
+    forms = {f for f, _ in card.mesh_solve_forms(B)}
     if cpu:
         pass
     elif forms == {"_Composed"}:
@@ -126,7 +126,7 @@ def rank_main(rank: int, world: int, cpu: bool, block_form: bool) -> None:
     if block_form:
         graphs._BODY_TYPES = frozenset()
 
-    import chip_smoke as CS
+    import _torch_card as card
     import rso_torch.ba.ba as B
     from rso_torch.ba import (bundle_adjust, distributed_bundle_adjust,
                               make_mesh, make_win_mesh,
@@ -157,8 +157,8 @@ def rank_main(rank: int, world: int, cpu: bool, block_form: bool) -> None:
            "nccl": None if cpu else list(torch.cuda.nccl.version())}
 
     # (a) the bench problem's landmarks split `world` ways
-    cam = CS._bench_cam().to(dev)
-    prob = CS._bench_ba_problem(cam, dev)
+    cam = card.bench_cam().to(dev)
+    prob = card.bench_ba_problem(cam, dev)
     mesh = make_mesh(device=dev.type)
 
     def solve(**kw):
@@ -168,25 +168,25 @@ def rank_main(rank: int, world: int, cpu: bool, block_form: bool) -> None:
     eager, out["ba_replay"], out["ba_graphs"] = _compiled_vs_eager(
         f"rank {rank} (a)", solve, cpu, lambda w: _step(rank, w))
     _step(rank, f"(a) compiled solve replayed: {out['ba_replay']}; forms "
-                f"and node types {CS.mesh_solve_forms(B) if not cpu else []}")
-    one = CS._to_cpu(bundle_adjust(cam, prob, max_iters=MAX_ITERS))
-    k = CS._parted_at(eager, one)
-    CS._hold_solve(f"rank {rank} (a) vs one device", eager, one,
-                   None if k is None else [solve(max_iters=k),
-                                           bundle_adjust(cam, prob,
-                                                         max_iters=k)],
-                   lambda p, l: bundle_adjust(cam, prob._replace(
-                       poses=p.to(dev), lmks=l.to(dev)), max_iters=0).cost)
-    out["ba"] = CS._to_cpu(eager)
+                f"and node types {card.mesh_solve_forms(B) if not cpu else []}")
+    one = card.to_cpu(bundle_adjust(cam, prob, max_iters=MAX_ITERS))
+    k = card.parted_at(eager, one)
+    card.hold_solve(f"rank {rank} (a) vs one device", eager, one,
+                    None if k is None else [solve(max_iters=k),
+                                            bundle_adjust(cam, prob,
+                                                          max_iters=k)],
+                    lambda p, l: bundle_adjust(cam, prob._replace(
+                        poses=p.to(dev), lmks=l.to(dev)), max_iters=0).cost)
+    out["ba"] = card.to_cpu(eager)
     rate = ba_slope(cam, prob, solve=lambda c, p, **kw: solve(**kw))
-    with CS.eager_mesh_solves():
+    with card.eager_mesh_solves():
         eager_rate = ba_slope(cam, prob, solve=lambda c, p, **kw: solve(**kw))
     out["iters_per_sec"] = {"compiled": rate["iters_per_sec"],
                             "eager": eager_rate["iters_per_sec"]}
     _step(rank, f"(a) iterations/s {out['iters_per_sec']}")
 
     # (b) three windows on a (2, world/2) ('win','lmk') mesh
-    probs = [CS._problem_to(_ba_problem(s, noise=n), dev)
+    probs = [card.problem_to(_ba_problem(s, noise=n), dev)
              for s, n in ((21, 0.2), (22, 0.2), (23, 0.0))]
     wcam = BA_CAM.to(dev)
     wmesh = make_win_mesh(2, world // 2, device=dev.type)
@@ -200,11 +200,11 @@ def rank_main(rank: int, world: int, cpu: bool, block_form: bool) -> None:
     weager, out["win_replay"], out["win_graphs"] = _compiled_vs_eager(
         f"rank {rank} (b)", wsolve, cpu, lambda w: _step(rank, w), rows)
     _step(rank, f"(b) compiled solve replayed: {out['win_replay']}")
-    batch = [CS._to_cpu(r) for r in window_sharded_bundle_adjust(
+    batch = [card.to_cpu(r) for r in window_sharded_bundle_adjust(
         wcam, probs, **WIN_KW)]
     for w in range(3):
-        k = CS._parted_at(weager[w], batch[w])
-        CS._hold_solve(
+        k = card.parted_at(weager[w], batch[w])
+        card.hold_solve(
             f"rank {rank} (b) window {w} vs the batch", weager[w], batch[w],
             None if k is None else [
                 wsolve(max_iters=k)[w],
@@ -212,10 +212,10 @@ def rank_main(rank: int, world: int, cpu: bool, block_form: bool) -> None:
                     WIN_KW, max_iters=k))[w]],
             lambda p, l, w=w: bundle_adjust(wcam, probs[w]._replace(
                 poses=p.to(dev), lmks=l.to(dev)), max_iters=0).cost,
-            pose_atol=CS.BA_WINDOW_POSE_ATOL, lmk_atol=CS.BA_WINDOW_LMK_ATOL)
-    out["win"] = [CS._to_cpu(r) for r in weager]
+            pose_atol=card.BA_WINDOW_POSE_ATOL, lmk_atol=card.BA_WINDOW_LMK_ATOL)
+    out["win"] = [card.to_cpu(r) for r in weager]
     out["win_row"] = row
-    out["forms"] = [] if cpu else CS.mesh_solve_forms(B)
+    out["forms"] = [] if cpu else card.mesh_solve_forms(B)
     dist.destroy_process_group()
     torch.save(out, WORK / f"rank{rank}.pt")
 
@@ -286,22 +286,22 @@ def main(argv=None) -> int:
         print(f"ranks {failed} failed", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    import chip_smoke as CS
+    import _torch_card as card
 
     ranks = [torch.load(WORK / f"rank{r}.pt", weights_only=False)
              for r in range(args.ranks)]
     for o in ranks:
-        CS._same_bits(f"(a) rank {o['rank']} vs rank 0", o["ba"],
-                      ranks[0]["ba"])
+        card.same_bits(f"(a) rank {o['rank']} vs rank 0", o["ba"],
+                       ranks[0]["ba"])
         peer = next(p for p in ranks if p["win_row"] == o["win_row"])
         for w, (a, b) in enumerate(zip(o["win"], peer["win"])):
-            CS._same_bits(f"(b) rank {o['rank']} window {w} vs rank "
-                          f"{peer['rank']}", a, b)
+            card.same_bits(f"(b) rank {o['rank']} window {w} vs rank "
+                           f"{peer['rank']}", a, b)
     for o in ranks:
         print(json.dumps({k: v for k, v in o.items()
                           if k not in ("ba", "win")}), flush=True)
     print(f"every rank's (a) equal to rank 0's, every row's (b) to its "
-          f"first rank's, bit for bit; {CS._nvidia_smi() if not args.cpu else 'CPU'}",
+          f"first rank's, bit for bit; {card.nvidia_smi() if not args.cpu else 'CPU'}",
           flush=True)
     return 0
 

@@ -15,7 +15,7 @@ FileStore the ranks meet through.  Each rank, one torch thread:
     collectives;
   * for both, the mesh solve as it ran before it was a compiled solve
     (levenberg_marquardt's eager loop, then the landmark gather:
-    chip_smoke.eager_mesh_solves)
+    _torch_card.eager_mesh_solves)
     and the stop flags the loop read with LM_BLOCK = 1, one an iteration;
   * BatchEngine on a 'seq' mesh of ranks 0 and 1: two sequences (seeds 0
     and 1) of SEQ_FRAMES frames at SEQ_H x SEQ_W, frame 0 through
@@ -40,7 +40,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-import chip_smoke as CS
+import _torch_card as card
 
 REPO = Path(__file__).resolve().parents[1]
 SEQ_FRAMES, SEQ_H, SEQ_W = 3, 160, 240
@@ -130,7 +130,7 @@ def _ba(cam, spec, world):
         trace = [numpy_tree(distributed_bundle_adjust(
             cam, prob, mesh, **dict(kw, max_iters=k)))
             for k in range(int(res.n_iters) + 1)]
-        with CS.eager_mesh_solves():
+        with card.eager_mesh_solves():
             eager = numpy_tree(distributed_bundle_adjust(cam, prob, mesh,
                                                          **kw))
         flags = []
@@ -154,7 +154,7 @@ def _windows(cam, spec, world):
         trace = [[numpy_tree(r) for r in window_sharded_bundle_adjust(
             cam, probs, mesh, **dict(kw, max_iters=k))]
             for k in range(kw["max_iters"] + 1)]
-        with CS.eager_mesh_solves():
+        with card.eager_mesh_solves():
             eager = [numpy_tree(r) for r in window_sharded_bundle_adjust(
                 cam, probs, mesh, **kw)]
         flags = []

@@ -313,9 +313,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    import chip_smoke
+    import _torch_card as card
 
-    seq = chip_smoke._bench_scene(chip_smoke.N_FRAMES)   # its frames
+    seq = card.bench_scene(card.N_FRAMES)   # its frames
     from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
 
     img = build_pyramid(to_grayscale(torch.from_numpy(seq.frames[0][0])), 1)[0]

@@ -28,9 +28,9 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_card as card
 import _torch_stereo_cases as SC
 import _torch_track_cases as TC
-import chip_smoke as CS
 from rso_torch import kernels as K
 from rso_torch.engine import Engine
 from rso_torch.frontend.pyramid import build_pyramid, to_grayscale
@@ -44,6 +44,26 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU host)")
     return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def bench_seq():
+    """The bench scene's frames (chip_smoke.py's), made once a module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU host)")
+    return card.bench_scene()
+
+
+@pytest.fixture(scope="module")
+def bench(bench_seq):
+    """The kernels' operands on the bench frames, as chip_smoke times them."""
+    return card.BenchInputs(bench_seq, torch.device("cuda"))
+
+
+@pytest.fixture(scope="module")
+def bench_lanes(bench_seq):
+    """The kernels' batched operands, as chip_smoke times them."""
+    return card.BenchLanes(bench_seq, torch.device("cuda"))
 
 
 def _stereo_case(k, seed, dev):
@@ -102,31 +122,45 @@ def test_cuda_corner_response_noise(cuda, hw, win, arc):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("win", [45, 46, 64])
-def test_cuda_corner_response_at_any_window(cuda, win):
-    """Kernel 1 at the widest one-tile window and past it, on every octave
-    of a bench frame: mask and response equal to the twin bit for bit; 45
-    launches the one-tile path, 46 and 64 the wide path."""
-    seq = make_sequence(n_frames=1, n_points=2000, H=376, W=1241)
-    img = to_grayscale(torch.from_numpy(seq.frames[0][0]).to(cuda))
-    reset_launches()
-    for octave in build_pyramid(img, 3):
-        out = K.corner_response_cuda(octave, 20, win=win)
+@pytest.mark.parametrize("scene,win", [
+    *[pytest.param("plain", w, id=str(w)) for w in (45, 46, 64)],
+    *[pytest.param("bench", w, id=f"bench-{w}") for w in (4, 45, 46, 64)]])
+def test_cuda_corner_response_at_any_window(cuda, request, scene, win):
+    """Kernel 1 at the default window, the widest one-tile window and past
+    it, on every octave of a frame (the plain scene's at threshold 20; the
+    bench scene's at the configured threshold, as chip_smoke.py times it):
+    mask and response equal to the twin bit for bit, on the card and on the
+    CPU; each call one launch, up to 45 on the one-tile path, 46 and 64 on
+    the wide path."""
+    if scene == "bench":
+        bench = request.getfixturevalue("bench")
+        pyr, th = bench.pyr, bench.th
+    else:
+        seq = make_sequence(n_frames=1, n_points=2000, H=376, W=1241)
+        pyr = build_pyramid(to_grayscale(torch.from_numpy(seq.frames[0][0])
+                                         .to(cuda)), 3)
+        th = torch.tensor(20, dtype=torch.int32, device=cuda)
+    path = "corner_response_wide" if win > 45 else "corner_response"
+    for octave in pyr:
+        reset_launches()
+        out = K.corner_response_cuda(octave, th, win=win)
+        assert dict(settle_launches()) == {path: 1}
         assert torch.isfinite(out).any()
-        assert torch.equal(out, K.corner_response_torch(octave, 20, win=win))
-    wide = win > 45
-    assert K.LAUNCHES["corner_response_wide"] == (3 if wide else 0)
-    assert K.LAUNCHES["corner_response"] == (0 if wide else 3)
+        card.check_kernel(path, out, K.corner_response_torch(
+            octave, th, win=win))
+        card.check_kernel(path, out.cpu(), K.corner_response_torch(
+            octave.cpu(), th.cpu(), win=win), f"{path}: the CPU twin")
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [512, 257, 128, 1])
-def test_cuda_stereo_sad_fused(cuda, k):
-    args = _stereo_case(k, k, cuda)
-    kw = dict(max_y_diff=1.0, max_disp=100.0, max_distance=1200.0)
-    for o, r in zip(K.stereo_sad_fused_cuda(*args, **kw),
-                    K.stereo_sad_fused_torch(*args, **kw)):
-        assert torch.equal(o, r)
+@pytest.mark.parametrize("k,seed,max_distance", [
+    *[pytest.param(k, k, 1200.0, id=str(k)) for k in (512, 257, 128, 1)],
+    pytest.param(257, 1, 6000.0, id="257-seed1-6000")])
+def test_cuda_stereo_sad_fused(cuda, k, seed, max_distance):
+    args = _stereo_case(k, seed, cuda)
+    kw = dict(max_y_diff=1.0, max_disp=100.0, max_distance=max_distance)
+    card.check_kernel("stereo_sad_fused", K.stereo_sad_fused_cuda(*args, **kw),
+                      K.stereo_sad_fused_torch(*args, **kw))
 
 
 @pytest.mark.gpu
@@ -140,22 +174,21 @@ def test_cuda_stereo_sad_fused_cases(cuda, case):
     twin."""
     args, kw, *_ = SC.stereo_case(case)
     a = tuple(torch.from_numpy(x).to(cuda) for x in args)
-    out = K.stereo_sad_fused_cuda(*a, **kw)
-    ref = K.stereo_sad_fused_torch(*a, **kw)
-    for o, r in zip(out, ref):
-        assert torch.equal(o, r)
+    card.check_kernel("stereo_sad_fused", K.stereo_sad_fused_cuda(*a, **kw),
+                      K.stereo_sad_fused_torch(*a, **kw), case)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [512, 131, 128])
-def test_cuda_track_sad_fused(cuda, k):
-    p1, c1, xy1, xy2, okp, okc = _stereo_case(k, k, cuda)
-    p2, c2, _, _, _, _ = _stereo_case(k, k + 1, cuda)
+@pytest.mark.parametrize("k,seed,sad_max", [
+    *[pytest.param(k, k, 1200.0, id=str(k)) for k in (512, 131, 128)],
+    pytest.param(131, 2, 8000.0, id="131-seed2-8000")])
+def test_cuda_track_sad_fused(cuda, k, seed, sad_max):
+    p1, c1, xy1, xy2, okp, okc = _stereo_case(k, seed, cuda)
+    p2, c2, _, _, _, _ = _stereo_case(k, seed + 1, cuda)
     args = (p1, c1, p2, c2, xy1, xy2, xy1[:, 0] - 5.0, xy2[:, 0] - 7.0, okp, okc)
-    kw = dict(win_row=8.0, win_col=40.0, sad_max=1200.0)
-    for o, r in zip(K.track_sad_fused_cuda(*args, **kw),
-                    K.track_sad_fused_torch(*args, **kw)):
-        assert torch.equal(o, r)
+    kw = dict(win_row=8.0, win_col=40.0, sad_max=sad_max)
+    card.check_kernel("track_sad_fused", K.track_sad_fused_cuda(*args, **kw),
+                      K.track_sad_fused_torch(*args, **kw))
 
 
 @pytest.mark.gpu
@@ -167,25 +200,18 @@ def test_cuda_track_sad_fused_cases(cuda, case):
     the open window.  Bit-exact with the twin."""
     args, kw, rows, cols = TC.track_case(case)
     a = tuple(torch.from_numpy(x).to(cuda) for x in args)
-    out = K.track_sad_fused_cuda(*a, **kw)
-    ref = K.track_sad_fused_torch(*a, **kw)
-    for o, r in zip(out, ref):
-        assert torch.equal(o, r)
+    card.check_kernel("track_sad_fused", K.track_sad_fused_cuda(*a, **kw),
+                      K.track_sad_fused_torch(*a, **kw), case)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B", [512, 2, 1, 31, 32, 33, 129])
 def test_cuda_nullvec9(cuda, B):
     """Full and partial blocks of 32 hypotheses: the twin's direction up to
-    sign, unit norm."""
-    A = torch.tensor(np.random.default_rng(B).normal(0, 1, (B, 8, 9)),
-                     dtype=torch.float32, device=cuda)
-    M = (A.transpose(1, 2) @ A).contiguous()
-    out = K.nullvec9_cuda(M)
-    ref = K.nullvec9_torch(M)
-    assert (out * ref).sum(1).abs().min().item() > 1.0 - 1e-3
-    torch.testing.assert_close(out.norm(dim=1), torch.ones(B, device=cuda),
-                               rtol=0, atol=1e-4)
+    sign, unit norm, and a null residual ||M x|| / tr(M) < 1e-3
+    (tests/test_kernels.py's criteria)."""
+    M = card.rank8_matrices(np.random.default_rng(B), B, cuda)
+    card.check_kernel("nullvec9", K.nullvec9_cuda(M), K.nullvec9_torch(M), M=M)
 
 
 @pytest.mark.gpu
@@ -227,14 +253,22 @@ def _words(r, shape, dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("ka,kb", [(512, 512), (257, 131), (1, 33),
-                                   # 8 tiles a warp with ragged edges
-                                   (600, 600), (512, 501), (499, 1030)])
-def test_cuda_hamming_matrix(cuda, ka, kb):
+@pytest.mark.parametrize("ka,kb,sign", [
+    *[pytest.param(ka, kb, False, id=f"{ka}-{kb}") for ka, kb in (
+        (512, 512), (257, 131), (1, 33),
+        # 8 tiles a warp with ragged edges
+        (600, 600), (512, 501), (499, 1030))],
+    pytest.param(257, 131, True, id="257-131-sign_bit")])
+def test_cuda_hamming_matrix(cuda, ka, kb, sign):
+    """Full-range words; half the rows equal (zero distances) and, with
+    `sign`, the next as many apart in the sign bit alone."""
     r = np.random.default_rng(ka + kb)
     a, b = _words(r, (ka, 8), cuda), _words(r, (kb, 8), cuda)
     n = max(1, min(ka, kb) // 2)
     b[:n] = a[:n]                                        # zero distances
+    if sign:
+        b[n:2 * n] = a[:n] ^ torch.tensor(-2**31, dtype=torch.int32,
+                                          device=cuda)
     out = K.hamming_matrix_cuda(a, b)
     assert torch.equal(out, K.hamming_matrix_torch(a, b))
     assert out.min().item() == 0.0 and out.max().item() > 100
@@ -266,6 +300,53 @@ def test_cuda_hamming_matrix_unaligned(cuda):
 
 
 @pytest.mark.gpu
+def test_cuda_dense_ties_take_the_first_index(cuda):
+    """Kernel 5's matrix through the dense best/second on the card: equal
+    distances take the first index, as jnp.argmin."""
+    from rso_torch.kernels.stereo_fused import _best_second
+
+    ta = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    tb = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    tb[:, 0] = torch.tensor([3, 1, 1, 1], dtype=torch.int32, device=cuda)
+    best, d_best, second = _best_second(K.hamming_matrix_cuda(ta, tb))
+    assert best.tolist() == [1, 1] and d_best.tolist() == second.tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("octave", [0, 1, 2])
+@pytest.mark.parametrize("name", ["stereo_sad_fused", "stereo_sad_fused open",
+                                  "track_sad_fused", "track_sad_fused open",
+                                  "hamming_matrix", "sad_matrix"])
+def test_cuda_kernels_on_the_bench_frames(cuda, bench, name, octave):
+    """Kernels 2, 3, 5 and 6 on the bench frames' operands at each octave
+    as the engine paths give them and chip_smoke.py times them
+    (_torch_card.BenchInputs; kernels 2 and 3 also with the mask open): bit
+    for bit the twin's.  The FAST_ORB descriptors also against the CPU's
+    (a share of DESC_BIT_SHARE of their bits may flip), and kernel 5
+    against torch.cdist(p=0) of the unpacked bits, its library call."""
+    kernel = name.split()[0]
+    args, kw = bench.operands(name, octave)
+    out = getattr(K, f"{kernel}_cuda")(*args, **kw)
+    card.check_kernel(kernel, out, getattr(K, f"{kernel}_torch")(*args, **kw),
+                      name)
+    if kernel == "hamming_matrix":
+        from rso_torch.frontend.detect import detect_features
+
+        img = build_pyramid(to_grayscale(torch.from_numpy(
+            bench.seq.frames[0][0])), 3)[octave]
+        cpu = detect_features(img, bench.desc_params, bench.Ks[octave],
+                              bench.th.cpu(), True)
+        assert torch.equal(cpu.valid, bench.descs[0][octave].valid.cpu())
+        x = torch.bitwise_xor(cpu.desc, args[0].cpu())[cpu.valid]
+        n_bits = int(K.hamming_matrix_torch(x, torch.zeros_like(x[:1])).sum())
+        assert n_bits <= card.DESC_BIT_SHARE * 256 * int(cpu.valid.sum())
+        shifts = torch.arange(32, dtype=torch.int32, device=cuda)
+        bits = [((d[:, :, None] >> shifts) & 1).reshape(d.shape[0], -1).float()
+                for d in args]
+        assert torch.equal(torch.cdist(*bits, p=0), out)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("ka,kb", [(512, 512), (257, 131), (1, 33)])
 def test_cuda_sad_matrix(cuda, ka, kb):
     r = np.random.default_rng(ka * kb)
@@ -278,7 +359,7 @@ def test_cuda_sad_matrix(cuda, ka, kb):
 @pytest.mark.gpu
 @pytest.mark.parametrize("ka,kb,p", [(1, 1, 64), (1, 257, 64), (257, 1, 64),
                                      (131, 257, 64), (131, 257, 63),
-                                     (131, 257, 65)])
+                                     (131, 257, 65), (40, 33, 128)])
 def test_cuda_sad_matrix_ragged(cuda, ka, kb, p):
     """Partial 32x32 tiles on every edge, and widths that are not a multiple
     of the kernel's float4 steps: bit-exact with the twin."""
@@ -458,17 +539,17 @@ def test_cuda_bundle_adjust_matches_the_cpu(cuda, case):
     from rso_torch.ba import bundle_adjust
 
     prob = _ba_problem(11)
-    gprob = CS._problem_to(prob, cuda)
+    gprob = card.problem_to(prob, cuda)
     gcam = BA_CAM.to(cuda)
     kw = dict(BA_CASES[case], max_iters=20)
     g = bundle_adjust(gcam, gprob, **kw)
     assert g.poses.device.type == "cuda"
     c = bundle_adjust(BA_CAM, prob, **kw)
-    CS._same_solve(case, g, c,
-                   lambda k: bundle_adjust(gcam, gprob, **dict(kw, max_iters=k)),
-                   lambda k: bundle_adjust(BA_CAM, prob, **dict(kw, max_iters=k)),
-                   lambda p, l: bundle_adjust(BA_CAM, prob._replace(
-                       poses=p, lmks=l), **dict(kw, max_iters=0)).cost)
+    card.same_solve(case, g, c,
+                    lambda k: bundle_adjust(gcam, gprob, **dict(kw, max_iters=k)),
+                    lambda k: bundle_adjust(BA_CAM, prob, **dict(kw, max_iters=k)),
+                    lambda p, l: bundle_adjust(BA_CAM, prob._replace(
+                        poses=p, lmks=l), **dict(kw, max_iters=0)).cost)
 
 
 @pytest.mark.gpu
@@ -476,18 +557,17 @@ def test_cuda_bench_ba_problem(cuda):
     """The bench's P = 8, L = 1024 problem (chip_smoke.py phase 9a)."""
     from rso_torch.ba import bundle_adjust
 
-    seq_cam = StereoCamera.make(fx_l=718.856, fy_l=718.856, cx_l=620.5,
-                                cy_l=188.0, baseline=0.5371)
+    seq_cam = card.bench_cam()
     gcam = seq_cam.to(cuda)
-    gprob = CS._bench_ba_problem(gcam, cuda)
-    prob = CS._problem_to(gprob, torch.device("cpu"))
+    gprob = card.bench_ba_problem(gcam, cuda)
+    prob = card.problem_to(gprob, torch.device("cpu"))
     g = bundle_adjust(gcam, gprob, max_iters=15)
     c = bundle_adjust(seq_cam, prob, max_iters=15)
-    CS._same_solve("bench", g, c,
-                   lambda k: bundle_adjust(gcam, gprob, max_iters=k),
-                   lambda k: bundle_adjust(seq_cam, prob, max_iters=k),
-                   lambda p, l: bundle_adjust(seq_cam, prob._replace(
-                       poses=p, lmks=l), max_iters=0).cost)
+    card.same_solve("bench", g, c,
+                    lambda k: bundle_adjust(gcam, gprob, max_iters=k),
+                    lambda k: bundle_adjust(seq_cam, prob, max_iters=k),
+                    lambda p, l: bundle_adjust(seq_cam, prob._replace(
+                        poses=p, lmks=l), max_iters=0).cost)
     assert torch.isfinite(g.poses).all() and float(g.cost) < 1e-3
 
 
@@ -499,7 +579,7 @@ def test_cuda_window_solve_matches_the_cpu(cuda):
     from rso_torch.ba import window_sharded_bundle_adjust
 
     probs = [_ba_problem(21), _ba_problem(22), _ba_problem(23, noise=0.0)]
-    gprobs = [CS._problem_to(p, cuda) for p in probs]
+    gprobs = [card.problem_to(p, cuda) for p in probs]
     gcam = BA_CAM.to(cuda)
 
     def solve(cam, ps, k=15):
@@ -508,11 +588,11 @@ def test_cuda_window_solve_matches_the_cpu(cuda):
     g, c = solve(gcam, gprobs), solve(BA_CAM, probs)
     for w in range(3):
         assert g[w].poses.device.type == "cuda"
-        CS._same_solve(f"window {w}", g[w], c[w],
-                       lambda k: solve(gcam, gprobs, k)[w],
-                       lambda k: solve(BA_CAM, probs, k)[w],
-                       lambda p, l: solve(BA_CAM, [probs[w]._replace(
-                           poses=p, lmks=l)], 0)[0].cost)
+        card.same_solve(f"window {w}", g[w], c[w],
+                        lambda k: solve(gcam, gprobs, k)[w],
+                        lambda k: solve(BA_CAM, probs, k)[w],
+                        lambda p, l: solve(BA_CAM, [probs[w]._replace(
+                            poses=p, lmks=l)], 0)[0].cost)
 
 
 # ---- the compiled BA solve: CUDA graphs against the eager LM loop -----------
@@ -532,10 +612,9 @@ def _graph_cases(dev):
     """name -> (camera, BAProblem on dev, bundle_adjust keyword arguments):
     the bench problem at tol 0 and 1e-5, and a VOWithBA-shaped window (P =
     5, 1024 landmark slots, 2-view weights) with both priors."""
-    bench_cam = StereoCamera.make(fx_l=718.856, fy_l=718.856, cx_l=620.5,
-                                  cy_l=188.0, baseline=0.5371).to(dev)
-    bench = CS._bench_ba_problem(bench_cam, dev)
-    win = CS._problem_to(_ba_problem(31, P=5, L=1024), dev)
+    bench_cam = card.bench_cam().to(dev)
+    bench = card.bench_ba_problem(bench_cam, dev)
+    win = card.problem_to(_ba_problem(31, P=5, L=1024), dev)
     win = win._replace(lmk_weight=torch.where(
         torch.arange(1024, device=dev) % 3 == 0, 0.2, 1.0))
     rel = np.random.default_rng(32).normal(0, 1e-3, (4, 6)).astype(np.float32)
@@ -562,21 +641,21 @@ def test_cuda_graph_ba_equals_the_eager_loop(cuda, monkeypatch):
     want = {}
     for name, (cam, prob, kw) in cases.items():
         HOST_READS.clear()
-        want[name] = CS._eager_ba(cam, prob, **kw)
+        want[name] = card.eager_ba(cam, prob, **kw)
         reads = HOST_READS["lm"]
         for call in ("warm-up", "replay"):
             HOST_READS.clear()
             GRAPH_LAUNCHES.clear()
-            _same_result(bundle_adjust(cam, prob, **kw), want[name],
-                         f"{name} {call}")
+            card.same_bits(f"{name} {call}", bundle_adjust(cam, prob, **kw),
+                           want[name])
             # the warm-up is the eager loop; a replay is one graph launch
             # whose LM loop reads nothing back
             assert HOST_READS["lm"] == (reads if call == "warm-up" else 0), (
                 name, call)
             assert GRAPH_LAUNCHES["lm"] == (call == "replay"), (name, call)
     for name, (cam, prob, kw) in cases.items():
-        _same_result(bundle_adjust(cam, prob, **kw), want[name],
-                     f"{name} after the other cases")
+        card.same_bits(f"{name} after the other cases",
+                       bundle_adjust(cam, prob, **kw), want[name])
 
 
 @pytest.mark.gpu
@@ -590,22 +669,22 @@ def test_cuda_graph_window_batch_equals_the_eager_loop(cuda, prior):
     from rso_torch.ba import window_sharded_bundle_adjust
     from rso_torch.ba.window_sharded import stack_problems
 
-    probs = [CS._problem_to(_ba_problem(s, noise=n), cuda)
+    probs = [card.problem_to(_ba_problem(s, noise=n), cuda)
              for s, n in ((21, 0.2), (22, 0.2), (23, 0.0))]
     rel = [np.random.default_rng(s).normal(0, 1e-3, (7, 6)).astype(np.float32)
            for s in range(3)]
     kw = (dict(max_iters=15, rel_w_rot=4e2, rel_w_trans=25.0) if prior
           else dict(max_iters=15, tol=1e-4))
-    want = CS._eager_ba(BA_CAM, stack_problems(probs),
-                        rel_meas=np.stack(rel), **kw)
+    want = card.eager_ba(BA_CAM, stack_problems(probs),
+                         rel_meas=np.stack(rel), **kw)
     if not prior:
         assert len(set(want.n_iters.tolist())) > 1, want.n_iters
     for call in ("warm-up", "replay"):
         got = window_sharded_bundle_adjust(BA_CAM.to(cuda), probs,
                                            rel_meas=rel, **kw)
         for w in range(3):
-            _same_result(got[w], type(want)(*(t[w] for t in want)),
-                         f"window {w} {call}")
+            card.same_bits(f"window {w} {call}", got[w],
+                           type(want)(*(t[w] for t in want)))
 
 
 @pytest.mark.gpu
@@ -617,15 +696,15 @@ def test_cuda_graph_ba_a_changed_scalar_gets_its_own_graphs(cuda, changed):
     from rso_torch.ba import bundle_adjust
 
     cam = BA_CAM.to(cuda)
-    prob = CS._problem_to(_ba_problem(41), cuda)
+    prob = card.problem_to(_ba_problem(41), cuda)
     other = {"tol": {"tol": 1e-2}, "kernel_param": {"kernel_param": 1.0},
              "max_iters": {"max_iters": 2}}[changed]
     kws = [{"max_iters": 15}, dict({"max_iters": 15}, **other)]
-    want = [CS._eager_ba(cam, prob, **kw) for kw in kws]
+    want = [card.eager_ba(cam, prob, **kw) for kw in kws]
     assert not torch.equal(want[0].poses, want[1].poses)
     for turn in range(3):
         for kw, w in zip(kws, want):
-            _same_result(bundle_adjust(cam, prob, **kw), w, f"{kw} {turn}")
+            card.same_bits(f"{kw} {turn}", bundle_adjust(cam, prob, **kw), w)
 
 
 # ---- the mesh forms' solve on one NCCL rank: graphs holding the all_reduces -
@@ -663,16 +742,15 @@ def test_cuda_graph_mesh_ba_equals_the_eager_mesh_loop(nccl, monkeypatch):
     mesh = make_mesh()
     for name, (cam, prob, kw) in _graph_cases(nccl).items():
         kw = {k: v for k, v in kw.items() if k != "marg_prior"}
-        with CS.eager_mesh_solves():
+        with card.eager_mesh_solves():
             want = distributed_bundle_adjust(cam, prob, mesh, **kw)
-        _same_result(bundle_adjust(cam, prob, **kw), want,
-                     f"{name} bundle_adjust")
+        card.same_bits(f"{name} bundle_adjust", bundle_adjust(cam, prob, **kw), want)
         for call in ("warm-up", "replay"):
-            got, counts = CS.counted_solve(
+            got, counts = card.counted_solve(
                 lambda: distributed_bundle_adjust(cam, prob, mesh, **kw))
-            _same_result(got, want, f"{name} {call}")
+            card.same_bits(f"{name} {call}", got, want)
             if call == "replay":
-                n = CS._lm_loop_iterations(int(got.n_iters), kw["max_iters"])
+                n = card.lm_loop_iterations(int(got.n_iters), kw["max_iters"])
                 assert (counts["graph_launches"], counts["lm_reads"]) == (
                     1, 0), name
                 assert counts["collectives"] == {
@@ -699,10 +777,10 @@ def test_cuda_graph_ba_block_form_equals_the_eager_loop(nccl, monkeypatch):
     cam, prob, kw = _graph_cases(nccl)["bench_tol1e-5"]
 
     def eager_mesh():
-        with CS.eager_mesh_solves():
+        with card.eager_mesh_solves():
             return distributed_bundle_adjust(cam, prob, mesh, **kw)
 
-    solves = {"bundle_adjust": (lambda: CS._eager_ba(cam, prob, **kw),
+    solves = {"bundle_adjust": (lambda: card.eager_ba(cam, prob, **kw),
                                 lambda: bundle_adjust(cam, prob, **kw)),
               "mesh": (eager_mesh,
                        lambda: distributed_bundle_adjust(cam, prob, mesh,
@@ -712,9 +790,9 @@ def test_cuda_graph_ba_block_form_equals_the_eager_loop(nccl, monkeypatch):
         want = eager()
         reads = HOST_READS["lm"]
         for call in ("warm-up", "replay"):
-            got, counts = CS.counted_solve(compiled)
-            _same_result(got, want, f"{name} {call}")
-        n = CS._lm_loop_iterations(int(got.n_iters), kw["max_iters"])
+            got, counts = card.counted_solve(compiled)
+            card.same_bits(f"{name} {call}", got, want)
+        n = card.lm_loop_iterations(int(got.n_iters), kw["max_iters"])
         assert (counts["graph_launches"], counts["lm_reads"]) == (
             2 + n // B.LM_BLOCK, reads), (name, counts)
         if name == "mesh":
@@ -732,19 +810,19 @@ def test_cuda_graph_one_rank_win_mesh_equals_the_batch(nccl):
     'win' gather follows the graph."""
     from rso_torch.ba import make_win_mesh, window_sharded_bundle_adjust
 
-    probs = [CS._problem_to(_ba_problem(s, noise=n), nccl)
+    probs = [card.problem_to(_ba_problem(s, noise=n), nccl)
              for s, n in ((21, 0.2), (22, 0.2), (23, 0.0))]
     cam = BA_CAM.to(nccl)
     kw = dict(max_iters=15, tol=1e-4)
     want = window_sharded_bundle_adjust(cam, probs, **kw)
     mesh = make_win_mesh(1, 1)
     for call in ("warm-up", "replay"):
-        got, counts = CS.counted_solve(
+        got, counts = card.counted_solve(
             lambda: window_sharded_bundle_adjust(cam, probs, mesh, **kw))
         for w in range(3):
-            _same_result(got[w], want[w], f"window {w} {call}")
+            card.same_bits(f"window {w} {call}", got[w], want[w])
         if call == "replay":
-            n = CS._lm_loop_iterations(max(int(g.n_iters) for g in got), 15)
+            n = card.lm_loop_iterations(max(int(g.n_iters) for g in got), 15)
             assert (counts["graph_launches"], counts["lm_reads"]) == (1, 0)
             assert counts["collectives"] == {
                 "solve lmk": 1 + 2 * n, "gather lmk": 1, "gather win": 1}, (
@@ -768,11 +846,6 @@ def _eager_run(cfg, cam, frames, hw, dev):
     return out
 
 
-def _same_result(a, b, what):
-    for field, x, y in zip(a._fields, a, b):
-        assert torch.equal(x, y), f"{what}: {field} differs"
-
-
 def _path_config(path):
     import dataclasses
 
@@ -782,7 +855,7 @@ def _path_config(path):
     rep = dataclasses.replace
     cfg = synthetic_config()
     if path == "kitti":
-        return load_config(str(CS.REPO / "configs" / "kitti.ini"))
+        return load_config(str(card.REPO / "configs" / "kitti.ini"))
     if path == "descriptor":
         return mode_config("fast_orb_rbr_win", upright=False)
     return cfg.replace(**{
@@ -821,14 +894,14 @@ def test_cuda_graphs_equal_the_eager_step(cuda, every):
         HOST_READS.clear()
         GRAPH_LAUNCHES.clear()
         got = eng.process_frame(left, right)
-        _same_result(got, eager[i][0], f"frame {i}")
+        card.same_bits(f"frame {i}", got, eager[i][0])
         assert dict(settle_launches()) == eager[i][1], f"frame {i} launches"
         assert sum(HOST_READS.values()) == 0, dict(HOST_READS)
         assert dict(GRAPH_LAUNCHES) == {"step": 1}
     eng.reset()
     chunk = eng.process_chunk([f[0] for f in frames], [f[1] for f in frames])
     for i, (want, _) in enumerate(eager):
-        _same_result(StepResultAt(chunk, i), want, f"chunk frame {i}")
+        card.same_bits(f"chunk frame {i}", StepResultAt(chunk, i), want)
     assert eng._get_step(376, 1241).n_graphs == n_graphs
 
 
@@ -880,7 +953,7 @@ def test_cuda_eigh_backend_runs_the_eager_step(cuda):
         reset_launches()
         HOST_READS.clear()
         GRAPH_LAUNCHES.clear()
-        _same_result(eng.process_frame(left, right), eager[i][0], f"frame {i}")
+        card.same_bits(f"frame {i}", eng.process_frame(left, right), eager[i][0])
         if i > 0:
             assert dict(settle_launches()) == eager[i][1], f"frame {i} launches"
             assert sum(HOST_READS.values()) == 0 and dict(GRAPH_LAUNCHES) == {
@@ -893,29 +966,25 @@ def test_cuda_eigh_backend_runs_the_eager_step(cuda):
 @pytest.mark.parametrize("B", [1, 11, 4096])
 @pytest.mark.parametrize("cond", [10.0, 1e3, 1e7, 0])
 def test_cuda_eigh6(cuda, B, cond):
-    """eigh6 against its twin on the card: bit for bit (the same correctly
-    rounded operations in the same order); against torch.linalg.eigh
-    (cuSOLVER): eigenvalues within 1e-5 of |w[5]|, w[0] within
-    chip_smoke.EIGH6_W0_RTOL cond + 1e-5 relative where cond <= 1e5, and
-    the GN step V diag(1/w) V^T g of both within 1e-6 cond + 1e-5 relative
-    where cond <= 1e3 (an f32 solve's perturbation grows with the condition
-    number; 4096 matrices at cond 1e3 reached 3e-4; beyond 1e3 both solve
-    an ill-posed system)."""
-    from rso_torch.kernels.eigh6 import eigh6_cuda, eigh6_torch
+    """eigh6's routine (the twin, the plain GN iteration's eigensolver on
+    the card; the gn_iter kernel runs the same routine) against
+    torch.linalg.eigh (cuSOLVER) on the card: eigenvalues within 1e-5 of
+    |w[5]|, w[0] within _torch_card.EIGH6_W0_RTOL cond + 1e-5 relative
+    where cond <= 1e5, and the GN step V diag(1/w) V^T g of both within
+    1e-6 cond + 1e-5 relative where cond <= 1e3 (an f32 solve's
+    perturbation grows with the condition number; 4096 matrices at cond
+    1e3 reached 3e-4; beyond 1e3 both solve an ill-posed system)."""
+    from rso_torch.kernels.eigh6 import eigh6_torch
 
     rng = np.random.default_rng(B + int(cond))
-    H = CS.gn_normal_matrices(rng, B, cond, cuda)
-    reset_launches()
-    w, V = eigh6_cuda(H)
-    assert dict(settle_launches()) == {"eigh6": 1}
-    tw, tV = eigh6_torch(H)
-    assert torch.equal(w, tw) and torch.equal(V, tV)
+    H = card.gn_normal_matrices(rng, B, cond, cuda)
+    w, V = eigh6_torch(H)
     scale = w.abs().amax(-1, keepdim=True)
     lw, lV = torch.linalg.eigh(H)
     assert ((w - lw).abs() <= 1e-5 * scale).all()
     if 0 < cond <= 1e5:
         rel0 = (w[..., 0] - lw[..., 0]).abs() / lw[..., 0].abs()
-        assert rel0.max() <= CS.EIGH6_W0_RTOL * cond + 1e-5, rel0.max()
+        assert rel0.max() <= card.EIGH6_W0_RTOL * cond + 1e-5, rel0.max()
     if 0 < cond <= 1e3:
         g = torch.tensor(rng.standard_normal((B, 6)), dtype=torch.float32,
                          device=cuda)
@@ -926,19 +995,6 @@ def test_cuda_eigh6(cuda, B, cond):
         got = step(w, V)
         rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
         assert rel.max() <= 1e-6 * cond + 1e-5, rel.max()
-
-
-@pytest.mark.gpu
-def test_cuda_batched_eigh6(cuda):
-    """eigh6 under torch.func.vmap: one launch for every lane, each lane
-    bit for bit the unbatched kernel's."""
-    from rso_torch.kernels.eigh6 import eigh6_cuda
-
-    H = CS.gn_normal_matrices(np.random.default_rng(5), 11, 1e4, cuda)
-    w, V = _one_launch("eigh6", lambda: torch.func.vmap(eigh6_cuda)(H))
-    for b in range(11):
-        wb, Vb = eigh6_cuda(H[b])
-        assert torch.equal(w[b], wb) and torch.equal(V[b], Vb)
 
 
 def _gn_inputs(seed, dev, n=300):
@@ -992,7 +1048,7 @@ def test_cuda_composed_gn_loops_equal_the_eager_loops(cuda, gn_block,
         G.HOST_READS.clear()
         GRAPH_LAUNCHES.clear()
         got = cs(None, *args)[1]
-        _same_result(got, want, f"seed {seed}")
+        card.same_bits(f"seed {seed}", got, want)
         assert dict(settle_launches()) == want_launches, seed
         if seed > 0:
             assert sum(G.HOST_READS.values()) == 0
@@ -1006,14 +1062,12 @@ def test_cuda_composed_branches_follow_the_device_predicate(cuda):
     the predicate computes on the device from the state, equal to the
     eager step, the branches' launches counted where they ran."""
     from rso_torch.graphs import Branches, CompiledStep
-    from rso_torch.kernels.eigh6 import eigh6_cuda
 
-    H = CS.gn_normal_matrices(np.random.default_rng(9), 2, 1e2, cuda)
+    M = card.rank8_matrices(np.random.default_rng(9), 2, cuda)
 
     def fn(state, x, *, loop, do_detect):
         if do_detect:
-            w, _ = eigh6_cuda(H)
-            return state + 1, x + w.sum()
+            return state + 1, x + K.nullvec9_cuda(M).sum()
         return state + 2, x * 2.0
 
     def flags(state):
@@ -1036,7 +1090,7 @@ def test_cuda_composed_branches_follow_the_device_predicate(cuda):
         launches.update(settle_launches())
         pstate, want = plain(pstate, x)
         assert torch.equal(state, pstate) and torch.equal(out, want)
-    assert dict(launches) == {"eigh6": detects} and detects == 3
+    assert dict(launches) == {"nullvec9": detects} and detects == 3
     reset_launches()
     for _ in range(3):                    # states 10, 12, 13
         state, _ = cs(state, x)
@@ -1066,9 +1120,8 @@ def test_cuda_batched_corner_response(cuda, win):
     name = "corner_response" if win <= 45 else "corner_response_wide"
     out = _one_launch(name, lambda: torch.func.vmap(
         lambda i, t: K.corner_response_cuda(i, t, win=win))(imgs, th))
-    for b in range(3):
-        assert torch.equal(out[b], K.corner_response_torch(imgs[b], th[b],
-                                                           win=win))
+    card.check_lanes(name, out, lambda b: K.corner_response_torch(
+        imgs[b], th[b], win=win), 3)
 
 
 @pytest.mark.gpu
@@ -1080,30 +1133,26 @@ def test_cuda_batched_stereo_and_track_sad_fused(cuda):
     kw = dict(max_y_diff=2.0, max_disp=60.0, max_distance=1e4)
     out = _one_launch("stereo_sad_fused", lambda: torch.func.vmap(
         lambda *a: K.stereo_sad_fused_cuda(*a, **kw))(*stacked))
-    for b, case in enumerate(lanes):
-        want = K.stereo_sad_fused_torch(*case, **kw)
-        assert all(torch.equal(o[b], w) for o, w in zip(out, want))
+    card.check_lanes("stereo_sad_fused", out,
+                     lambda b: K.stereo_sad_fused_torch(*lanes[b], **kw), 3)
     pl, pr, xl, xr, okl, okr = stacked
     tr = (pl, pr, pr, pl, xl, xr, xl[..., 0], xr[..., 0], okl, okr)
     kw = dict(win_row=20.0, win_col=30.0, sad_max=1e4)
     out = _one_launch("track_sad_fused", lambda: torch.func.vmap(
         lambda *a: K.track_sad_fused_cuda(*a, **kw))(*tr))
-    for b in range(3):
-        want = K.track_sad_fused_torch(*(t[b] for t in tr), **kw)
-        assert all(torch.equal(o[b], w) for o, w in zip(out, want))
+    card.check_lanes("track_sad_fused", out, lambda b: K.track_sad_fused_torch(
+        *(t[b] for t in tr), **kw), 3)
 
 
 @pytest.mark.gpu
 def test_cuda_batched_nullvec9(cuda):
     """Kernel 4's vmap rule folds the lanes into its batch: one launch,
-    each lane the unbatched kernel's bits and the twin's up to sign."""
+    each lane the unbatched kernel's bits and held to the twin by its card
+    check."""
     rng = np.random.default_rng(5)
-    M = torch.stack([CS.rank8_matrices(rng, 256, cuda) for _ in range(3)])
+    M = torch.stack([card.rank8_matrices(rng, 256, cuda) for _ in range(3)])
     out = _one_launch("nullvec9", lambda: torch.func.vmap(K.nullvec9_cuda)(M))
-    for b in range(3):
-        assert torch.equal(out[b], K.nullvec9_cuda(M[b]))
-        cos = (out[b] * K.nullvec9_torch(M[b])).sum(-1).abs()
-        assert bool((cos > 1 - 1e-3).all())
+    card.check_lanes("nullvec9", out, lambda b: K.nullvec9_cuda(M[b]), 3, M)
 
 
 @pytest.mark.gpu
@@ -1115,14 +1164,27 @@ def test_cuda_batched_hamming_and_sad_matrices(cuda):
                       dtype=torch.int64).to(torch.int32).to(cuda)
     out = _one_launch("hamming_matrix", lambda: torch.func.vmap(
         K.hamming_matrix_cuda)(d, d.flip(1)))
-    for b in range(3):
-        assert torch.equal(out[b], K.hamming_matrix_torch(d[b], d[b].flip(0)))
+    card.check_lanes("hamming_matrix", out, lambda b: K.hamming_matrix_torch(
+        d[b], d[b].flip(0)), 3)
     p = (torch.randint(0, 256 * 16, (3, 257, 64), generator=g) / 16.0).to(cuda)
     q = p.roll(1, dims=1)
     out = _one_launch("sad_matrix", lambda: torch.func.vmap(
         K.sad_matrix_cuda)(p, q))
-    for b in range(3):
-        assert torch.equal(out[b], K.sad_matrix_torch(p[b], q[b]))
+    card.check_lanes("sad_matrix", out,
+                     lambda b: K.sad_matrix_torch(p[b], q[b]), 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", card.BenchLanes.NAMES)
+def test_cuda_batched_kernels_on_the_bench_lanes(bench_lanes, name):
+    """Each kernel under vmap over 11 lanes of the bench scene, as the
+    batched step launches it and chip_smoke.py times it
+    (_torch_card.BenchLanes): one launch for every lane, each lane bit for
+    bit the twin's (kernel 4 and LK: the unbatched kernel's, kernel 4 also
+    held to the twin by its card check)."""
+    run, lane = bench_lanes.calls[name]
+    card.check_lanes(name, _one_launch(name, run), lane, bench_lanes.B,
+                     bench_lanes.M)
 
 
 @pytest.mark.gpu
@@ -1174,7 +1236,7 @@ def test_cuda_batch_engine_lanes_equal_lone_engines(cuda):
     chunk = BatchEngine(cfg, seqs[0].cam, batch=3, img_h=376, img_w=1241,
                         device=cuda).process_chunk(lefts, rights)
     for n in range(5):
-        _same_result(StepResultAt(chunk, n), frames[n], f"chunk frame {n}")
+        card.same_bits(f"chunk frame {n}", StepResultAt(chunk, n), frames[n])
 
 
 # ---- the stage clock (rso_torch.metrics.profiler.STAGE_CLOCK) -------------
@@ -1235,7 +1297,7 @@ def test_cuda_marked_graph_equals_the_unmarked(cuda, stage_clock, entry):
             runs.append(_lanes_run(cfg, seqs, seqs[0].cam, n, cuda))
     stage_clock.on = False
     for i, ((a, la), (b, lb)) in enumerate(zip(*runs)):
-        _same_result(b, a, f"frame {i}")
+        card.same_bits(f"frame {i}", b, a)
         assert la == lb, f"frame {i} launches"
     ns, marks = stage_clock.settle()
     assert set(marks) == set(STAGES) - {"propagate", "lk"}

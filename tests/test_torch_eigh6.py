@@ -15,7 +15,7 @@ determined and two solvers may pick any basis of their span; cond = w[5] /
 w[0] within 1e-3 relative where cond <= 1e3; the GN step dx within 1e-4
 relative and bad_cond exact on rso's own solver cases; the whole solve as
 tests/test_torch_solver.py holds it (counts, codes and inliers exact, the
-pose within 1e-5).  w[0] against float64 (chip_smoke.EIGH6_F64_CASES: cond
+pose within 1e-5).  w[0] against float64 (_torch_card.EIGH6_F64_CASES: cond
 1e3-1e7 and graded GN matrices): the twin's error, median and max, no more
 than LAPACK f32's on the same matrices.
 """
@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke as CS
+import _torch_card as card
 from rso.config import LeastSquaresParams as JLS
 from rso.solver import solve_pose as j_solve
 from rso.solver.robust_gn import _eval_rgn as j_eval
@@ -45,9 +45,9 @@ def _one_torch_thread():
 
 
 def _matrices(seed, B, cond):
-    """chip_smoke's GN-like matrices (cond 0: rank 3), as numpy."""
-    return CS.gn_normal_matrices(np.random.default_rng(seed), B, cond,
-                                 "cpu").numpy()
+    """_torch_card's GN-like matrices (cond 0: rank 3), as numpy."""
+    return card.gn_normal_matrices(np.random.default_rng(seed), B, cond,
+                                   "cpu").numpy()
 
 
 @pytest.mark.parametrize("cond", [1.0, 10.0, 1e3, 1e5, 1e7, 0])
@@ -70,7 +70,7 @@ def test_twin_against_jnp_eigh(cond):
         np.testing.assert_allclose(w[:, 5] / w[:, 0], c_ref, rtol=1e-3)
 
 
-@pytest.mark.parametrize("case", CS.EIGH6_F64_CASES)
+@pytest.mark.parametrize("case", card.EIGH6_F64_CASES)
 def test_twin_w0_against_float64(case):
     """w[0], which sets the GN's cond, against np.linalg.eigvalsh of the
     same f32 matrices in float64: the twin's relative error, median and
@@ -78,9 +78,9 @@ def test_twin_w0_against_float64(case):
     on the CPU, the reference's routine there).  At cond 1e6-1e7 both lose
     most digits of w[0] (the f32 input's own conditioning); on graded GN
     matrices the Jacobi twin keeps more than LAPACK."""
-    H = CS.eigh6_f64_cases("cpu")[case]
-    twin = CS.w0_rel_err_f64(H, eigh6_torch(H)[0])
-    lapack = CS.w0_rel_err_f64(H, torch.linalg.eigh(H)[0])
+    H = card.eigh6_f64_cases("cpu")[case]
+    twin = card.w0_rel_err_f64(H, eigh6_torch(H)[0])
+    lapack = card.w0_rel_err_f64(H, torch.linalg.eigh(H)[0])
     assert np.median(twin) <= np.median(lapack), (np.median(twin),
                                                   np.median(lapack))
     assert twin.max() <= lapack.max(), (twin.max(), lapack.max())

@@ -182,14 +182,16 @@ def test_triangulate_and_project(rng):
 
 
 def test_port_never_imports_jax():
-    """Importing the whole port (engine, kernels, synthetic data) and the
-    chip smoke script leaves jax out of sys.modules."""
+    """Importing the whole port (engine, kernels, synthetic data), the
+    chip smoke script and the card's test helpers leaves jax out of
+    sys.modules."""
     code = ("import sys; import rso_torch.engine, rso_torch.kernels, "
-            "rso_torch.synthetic, rso_torch.metrics, chip_smoke; "
+            "rso_torch.synthetic, rso_torch.metrics, chip_smoke, _torch_card; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'rso' or m.startswith('rso.')]; "
             "assert not bad, bad")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests")]))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -38,23 +38,20 @@ GN loops give, and the pose from it within 1e-5 (pose_inverse under vmap
 is PyTorch's batched arithmetic).
 """
 import functools
+import math
 
 import pytest
 import torch
 
+import _torch_card as card
 import _torch_gn_cases as C
+from _torch_gn_cases import COST_RTOL, POSE_ATOL, RES_ATOL
 from rso_torch.graphs import in_place_blocks, reset_launches, settle_launches
 from rso_torch.kernels import _lib
 from rso_torch.kernels import gn_iter as GI
 from rso_torch.solver import robust_gn as G
 
-INTS = ("it", "active", "times_inc", "abort", "ec")
 SOLVE_INTS = ("valid", "error_code", "num_it", "num_it_final", "inliers")
-POSE_ATOL = 1e-5
-RES_ATOL = 5e-3
-RES_RTOL = 1e-5
-COST_RTOL = 5e-3
-STEP_RTOL = 1e-4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -80,44 +77,16 @@ def _plain_gn(monkeypatch):
         G.gn_iteration_torch, *a))
 
 
-def _same_carry(got, want, what, start):
-    for name in INTS:
-        assert torch.equal(getattr(got, name), getattr(want, name)), (
-            f"{what}: {name} {getattr(got, name)} != {getattr(want, name)}")
-    step = (want.dp - start.dp).abs().max().item()
-    torch.testing.assert_close(got.dp, want.dp, rtol=0,
-                               atol=POSE_ATOL + STEP_RTOL * step,
-                               msg=_msg(what, "dp"))
-    _close_res(got.res, want.res, what)
-    _close_cost(got.cost, want.cost, what)
-    if want.lam is not None:
-        assert torch.equal(got.lam, want.lam), f"{what}: lam"
-
-
-def _msg(what, field):
-    return lambda m: f"{what}: {field}: {m}"
-
-
-def _close_res(got, want, what):
-    torch.testing.assert_close(got, want, rtol=RES_RTOL, atol=RES_ATOL,
-                               equal_nan=True, msg=_msg(what, "residuals"))
-
-
-def _close_cost(got, want, what):
-    torch.testing.assert_close(got, want, rtol=COST_RTOL, atol=RES_ATOL,
-                               equal_nan=True, msg=_msg(what, "cost"))
-
-
 def _same_solve(got, want, what):
     for name in SOLVE_INTS:
         assert torch.equal(getattr(got, name), getattr(want, name)), (
             f"{what}: {name}")
     torch.testing.assert_close(got.delta_pose, want.delta_pose, rtol=0,
-                               atol=POSE_ATOL, msg=_msg(what, "delta_pose"))
+                               atol=POSE_ATOL, msg=C.msg(what, "delta_pose"))
     torch.testing.assert_close(got.pose, want.pose, rtol=0, atol=POSE_ATOL,
-                               msg=_msg(what, "pose"))
-    _close_res(got.residuals, want.residuals, what)
-    _close_cost(got.cost, want.cost, what)
+                               msg=C.msg(what, "pose"))
+    C.close_res(got.residuals, want.residuals, what)
+    C.close_cost(got.cost, want.cost, what)
 
 
 # ---- the CPU: dispatch, variants, the plain iteration's outcomes ---------
@@ -171,8 +140,7 @@ def test_cpu_tensors_run_the_plain_iteration(monkeypatch, case, weighted):
     got = G.solve_pose(C.camera(), prev, cur, mask, p, obs_weight=w)
     _plain_gn(monkeypatch)
     want = G.solve_pose(C.camera(), prev, cur, mask, p, obs_weight=w)
-    for field, a, b in zip(got._fields, got, want):
-        assert torch.equal(a, b), field
+    card.same_bits("the plain solve", got, want)
 
 
 @pytest.mark.parametrize("variant", sorted(C.VARIANTS))
@@ -261,8 +229,7 @@ def test_in_place_carry_under_vmap_equals_the_lanes(monkeypatch, variant,
     _in_place_stand_in(monkeypatch)
     got = torch.func.vmap(solve)(*stacked)
     assert len(set((want.num_it + want.num_it_final).tolist())) > 1
-    for field, x, y in zip(want._fields, got, want):
-        assert torch.equal(x, y), field
+    card.same_bits("the in-place carry", got, want)
 
 
 def test_operands_of_one_launch():
@@ -318,8 +285,9 @@ def test_cuda_gn_iter_matches_the_plain_iteration(cuda, case, variant):
             kernel, plain = _iterate(cam, lmks, cur, mask, w, p, c)
             torch.cuda.synchronize()
             assert _lib.LAUNCHES["gn_iter"] == 1
-            _same_carry(kernel, plain, f"{case} {variant} w={weighted} "
-                                       f"it={start.get('it', 0)}", c)
+            card.check_kernel("gn_iter", kernel, plain,
+                              f"{case} {variant} w={weighted} "
+                              f"it={start.get('it', 0)}", start=c)
 
 
 @pytest.mark.gpu
@@ -328,7 +296,7 @@ def test_cuda_gn_iter_degenerate_cases(cuda, name, variant):
     cam = C.camera(cuda)
     lmks, obs, mask, c, p = C.degenerate(name, variant, cuda)
     kernel, plain = _iterate(cam, lmks, obs, mask, None, p, c)
-    _same_carry(kernel, plain, f"{name} {variant}", c)
+    card.check_kernel("gn_iter", kernel, plain, f"{name} {variant}", start=c)
     ec, abort, active = DEGENERATE_OUTCOMES[name]
     assert (int(kernel.ec), bool(kernel.abort), bool(kernel.active)) == (
         ec, abort, active)
@@ -407,16 +375,25 @@ def test_cuda_gn_iter_lanes_equal_lone_launches(cuda, variant):
 @pytest.mark.parametrize("variant", sorted(C.VARIANTS))
 def test_cuda_frame_solve_matches_the_plain_solve(cuda, monkeypatch, variant):
     """A frame's T = 896 slots, octave weights and outliers: the kernel's
-    solve against the plain iterations'."""
+    solve against the plain iterations'; on a frame the residuals also
+    within RES_ATOL alone, the slots left out the same, and the cost within
+    COST_RTOL relative above 1 and absolute below."""
     cam = C.camera(cuda)
     p = C.params(variant)
-    for seed in range(3):
+    for seed in range(4):
         prev, cur, mask, w = C.frame_inputs(seed, cuda)
         got = G.solve_pose(cam, prev, cur, mask, p, obs_weight=w)
         with monkeypatch.context() as m:
             _plain_gn(m)
             want = G.solve_pose(cam, prev, cur, mask, p, obs_weight=w)
         _same_solve(got, want, f"frame {seed} {variant}")
+        fin = want.residuals < 1e30
+        assert torch.equal(fin, got.residuals < 1e30)
+        gap = (got.residuals[fin] - want.residuals[fin]).abs()
+        assert not fin.any() or gap.max() <= RES_ATOL, gap.max()
+        g, w_ = got.cost.item(), want.cost.item()
+        assert abs(g - w_) <= COST_RTOL * max(abs(w_), 1.0) or (
+            math.isnan(g) and math.isnan(w_)), (g, w_)
 
 
 @pytest.mark.gpu

@@ -22,7 +22,7 @@ import torch
 
 import _torch_stereo_cases as SC
 import _torch_track_cases as TC
-import chip_smoke as CS
+import _torch_card as card
 
 from rso.kernels.cost_volume import windowed_sad_search as j_windowed_sad_search
 from rso.kernels.distance import (
@@ -187,8 +187,8 @@ def test_track_twin_vs_pallas_cases(case):
     for r, o in zip(ref, out):
         np.testing.assert_array_equal(o.numpy(), r)
     best_c, best_d = ref
-    share = CS.track_window_pairs(tuple(torch.from_numpy(a) for a in args),
-                                  kw) / (len(args[0]) * len(args[1]))
+    share = card.track_window_pairs(tuple(torch.from_numpy(a) for a in args),
+                                    kw) / (len(args[0]) * len(args[1]))
     assert share < 0.02 if case == "sparse" else True
     assert share > 0.9 if case == "dense" else True
     if case in ("no_admissible_rows", "ok_p_false", "one_eye_over_sad_max"):
@@ -221,8 +221,8 @@ def test_stereo_twin_vs_pallas_cases(case):
     for r, o in zip(ref, out):
         np.testing.assert_array_equal(o.numpy(), r)
     best_r, best_d, second = ref
-    share = CS.stereo_mask_pairs(tuple(torch.from_numpy(a) for a in args),
-                                 kw) / (len(args[0]) * len(args[1]))
+    share = card.stereo_mask_pairs(tuple(torch.from_numpy(a) for a in args),
+                                   kw) / (len(args[0]) * len(args[1]))
     assert share < 0.02 if case == "sparse" else True
     assert share > 0.4 if case == "open" else True
     assert (best_r[rows[wins]] == cols[wins]).all()
@@ -480,5 +480,4 @@ def test_library_key_covers_every_source():
     assert path.parent.parent.name == "rso_torch"
     assert {p.name for p in _lib._CSRC.glob("*.cu")} == {
         "fast_detect.cu", "stereo_fused.cu", "smallchol.cu", "distance.cu",
-        "eigh6.cu", "graph_cond.cu", "gn_iter.cu", "lk_track.cu",
-        "ransac.cu"}
+        "graph_cond.cu", "gn_iter.cu", "lk_track.cu", "ransac.cu"}

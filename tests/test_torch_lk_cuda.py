@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_card as card
 import _torch_lk_cases as C
 from rso_torch.frontend import optical_flow as OF
 from rso_torch.graphs import reset_launches, settle_launches
@@ -45,9 +46,9 @@ def test_cuda_lk_kernel_matches_the_plain_version(cuda, octave):
     reset_launches()
     got = OF.lk_track_eyes(prev, cur, pts, valid)
     torch.cuda.synchronize()
-    assert _lib.LAUNCHES["lk_track"] == 1
-    want = C.plain(prev, cur, pts, valid)
-    print(C.agree(got, want, W >> octave, H >> octave))
+    assert dict(_lib.LAUNCHES) == {"lk_track": 1}
+    print(card.check_kernel("lk_track", got, C.plain(prev, cur, pts, valid),
+                            width=W >> octave, height=H >> octave))
 
 
 @pytest.mark.gpu
@@ -64,12 +65,15 @@ def test_cuda_lk_kernel_other_windows(cuda, win, iters):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("seed_range", [4, 12])
-def test_cuda_lk_seed_bit_for_bit(cuda, seed_range):
+@pytest.mark.parametrize("seed_range,scene", [
+    pytest.param(4, 2, id="4"), pytest.param(12, 2, id="12"),
+    pytest.param(12, 0, id="12-scene0")])
+def test_cuda_lk_seed_bit_for_bit(cuda, seed_range, scene):
     """With no iteration on one level the kernel returns the keypoint plus
     its coarse SAD seed: the plain seed bit for bit (FASTER keypoints sit on
-    whole pixels, so the sum is exact)."""
-    pyr = C.scene(cuda, seed=2)
+    whole pixels, so the sum is exact); scene 0 is the one chip_smoke.py
+    times LK on."""
+    pyr = C.scene(cuda, seed=scene)
     for octave in range(3):
         img0, img1 = pyr[0][0][octave], pyr[1][0][octave]
         pts, valid = C.points(img0, SLOTS[octave], octave, spread=0.0)
@@ -96,9 +100,7 @@ def test_cuda_lk_lanes_are_lone_calls(cuda):
     batched = torch.func.vmap(OF.lk_track_eyes)(prev, cur, *stacked)
     torch.cuda.synchronize()
     assert _lib.LAUNCHES["lk_track"] == 1
-    for b, one in enumerate(lone):
-        for field, x, y in zip(one._fields, batched, one):
-            assert torch.equal(x[b], y), (b, field)
+    card.check_lanes("lk_track", batched, lone.__getitem__, len(lone))
 
 
 @pytest.mark.gpu
@@ -139,8 +141,7 @@ def test_cuda_flow_marked_graph_equals_the_unmarked(cuda, entry):
                 runs[-1].append((res, dict(settle_launches())))
         STAGE_CLOCK.on = False
         for i, ((a, la), (b, lb)) in enumerate(zip(*runs)):
-            for field, x, y in zip(a._fields, a, b):
-                assert torch.equal(x, y), f"frame {i}: {field}"
+            card.same_bits(f"frame {i}", a, b)
             assert la == lb, f"frame {i} launches"
             assert la.get("lk_track") == cfg.n_octaves, la
             assert not la.get("track_sad_fused"), la
@@ -169,7 +170,7 @@ def test_cuda_lk_propagate_calls_match_the_plain_version(cuda):
     inputs: the positions where both track and the slot converged."""
     base = synthetic_config()
     cfg = base.replace(tpu=dataclasses.replace(base.tpu, detect_every=3))
-    calls, detected = C.propagate_calls(cfg, C.bench_scene(30), cuda, 21)
+    calls, detected = C.propagate_calls(cfg, card.bench_scene(), cuda, 21)
     assert calls and len(detected) < 21, detected
     for frame, octave, got, want, conv, w, h in calls:
         rows, gaps, n, n_loose, loose_gap = C.agree(got, want, w, h, conv,

@@ -14,6 +14,7 @@ for bit (a lane is blocks running the same code).
 import pytest
 import torch
 
+import _torch_card as card
 import _torch_ransac_cases as C
 from rso_torch import random as rrandom
 from rso_torch.graphs import reset_launches, settle_launches
@@ -38,8 +39,7 @@ def _run(p1, p2, mask, key, H, draws=None):
     assert dict(settle_launches()) == {"ransac": 1}
     _, probe = ransac_probe(p1, p2, mask, key, n_iters=H,
                             threshold=C.THRESHOLD, draws=draws)
-    assert all(torch.equal(x, y) for x, y in zip(got, _)), \
-        "the probe's launch gives the kernel's result"
+    card.same_bits("the probe's launch against the kernel's", _, got)
     return got, probe
 
 
@@ -51,11 +51,11 @@ def test_cuda_ransac_matches_the_plain_path(cuda, E, N, H, kind):
     seed = N + H + E
     p1, p2, mask = C.case(seed, E, N, kind, cuda)
     key = C.frame_keys(seed, cuda)
-    got, probe = _run(p1, p2, mask, key, H)
+    got, _ = _run(p1, p2, mask, key, H)
     want = R.ransac_fundamental_torch(p1, p2, mask, key, n_iters=H,
                                       threshold=C.THRESHOLD)
-    print(E, N, H, kind, C.compare(got, probe, want, p1, p2, mask,
-                                   key.keys(E), H))
+    print(E, N, H, kind, card.check_kernel("ransac", got, want, p1=p1, p2=p2,
+                                           mask=mask, key=key, H=H))
 
 
 @pytest.mark.gpu
@@ -89,8 +89,7 @@ def test_cuda_ransac_explicit_keys_and_draws(cuda):
     other = rrandom.split(rrandom.PRNGKey(99, cuda))
     injected, probe = _run(p1, p2, mask, other, 128, draws=draws)
     assert torch.equal(probe["draws"], draws)
-    for x, y in zip(injected, got):
-        assert torch.equal(x, y)
+    card.same_bits("injected draws", injected, got)
 
 
 @pytest.mark.gpu
@@ -114,10 +113,8 @@ def test_cuda_ransac_lanes_are_lone_calls(cuda):
             p1, p2, m, frame)
         torch.cuda.synchronize()
         assert dict(settle_launches()) == {"ransac": 1}
-        for b in range(B):
-            one = call(p1[b], p2[b], m if shared else mask[b], frame[b])
-            for x, y in zip(out, one):
-                assert torch.equal(x[b], y), (shared, b)
+        card.check_lanes("ransac", out, lambda b: call(
+            p1[b], p2[b], m if shared else mask[b], frame[b]), B)
 
 
 @pytest.mark.gpu
@@ -141,8 +138,7 @@ def test_cuda_ransac_in_a_graph(cuda):
     torch.cuda.synchronize()
     want = R.ransac_fundamental(q1, q2, qm, rrandom.FrameKeys(
         torch.tensor(5, dtype=torch.int32, device=cuda), 1000), n_iters=256)
-    for x, y in zip(out, want):
-        assert torch.equal(x, y)
+    card.same_bits("a replay", out, want)
 
 
 @pytest.mark.gpu
@@ -156,8 +152,7 @@ def test_cuda_ransac_points_in_global_scratch(cuda, monkeypatch):
     shared = R.ransac_fundamental(p1, p2, mask, key, n_iters=256)
     monkeypatch.setattr(KR, "_fits", lambda device, N, H: False)
     scratch = R.ransac_fundamental(p1, p2, mask, key, n_iters=256)
-    for x, y in zip(shared, scratch):
-        assert torch.equal(x, y)
+    card.same_bits("global scratch", scratch, shared)
     assert _lib.load().rso_ransac_fits(1024, 256) == 1
 
 
